@@ -1,0 +1,54 @@
+"""The port stands alone: importing every repro_torch module (and
+chip_smoke.py) loads neither JAX nor anything of the JAX package."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_modules() -> list[str]:
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        parts = path.relative_to(PORT.parent).with_suffix("").parts
+        mods.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return mods
+
+
+def test_port_has_the_slice_modules():
+    mods = set(_port_modules())
+    assert {"repro_torch.kernels.build", "repro_torch.kernels.ops",
+            "repro_torch.kernels.matmul", "repro_torch.kernels.preproc",
+            "repro_torch.kernels.resize", "repro_torch.core.events",
+            "repro_torch.core.batching", "repro_torch.core.metrics",
+            "repro_torch.core.facerec", "repro_torch.core.pipeline",
+            "repro_torch.data.video", "repro_torch.preprocess.host",
+            "repro_torch.preprocess.device",
+            "repro_torch.preprocess.stage"} <= mods
+
+
+def test_importing_the_port_loads_no_jax_and_no_repro():
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "importlib.import_module('chip_smoke')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_port_sources_never_name_jax_or_repro_imports():
+    pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)\b)",
+                         re.M)
+    for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
+        assert not pattern.search(path.read_text()), path
