@@ -10,14 +10,27 @@ Phases, each fatal on failure:
   1. print the card's name and power limit; build every CUDA kernel from
      ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a), in parallel;
   2. hold each kernel against its plain PyTorch version on the card, at
-     the face path's shapes and at ragged ones (YUV decode exactly);
+     the paths' shapes and at ragged ones (YUV decode and IoU exactly);
   3. run the face-recognition StreamingPipeline on the card at the paper's
      1080p source, fused and unfused identify, with every launch counter
      set to 0 just before each run and read just after, and check its
      detections and identities against the same pipeline on the CPU
      (plain versions);
-  4. time each kernel, its plain version and the matching PyTorch library
-     call with CUDA events, beside the least time the card could take.
+  4. run device NMS on candidate batteries (counters zeroed just before)
+     and check its keep lists against the host NMS;
+  5. serve the llama3-8b smoke config (float32) on the card and on the CPU
+     with the same numpy-made weights: greedy token streams must agree
+     between the two and between the continuous and slot schedulers;
+  6. serve llama3-8b at full width in bf16 on the card (weights drawn on
+     the card from a seed): one prefill and one decode step through the
+     attention kernels against the same step with the plain attention
+     functions, then 16 requests through the continuous-batching engine
+     (counters zeroed just before the run), with its throughput, TTFT,
+     tax split and transfer ledger;
+  7. time each kernel, its plain version and the matching PyTorch library
+     call with CUDA events, beside the least time the card could take,
+     and profile the device's busy share of a pipeline run and of a
+     serve run.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -26,6 +39,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -36,14 +50,29 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks at a 700 W power limit (NVIDIA data sheet): HBM3 bytes/s
-# and fp32 FLOP/s outside the tensor cores.
+# H100 SXM peaks at a 700 W power limit (NVIDIA data sheet): HBM3 bytes/s,
+# fp32 FLOP/s outside the tensor cores, dense bf16 tensor-core FLOP/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
+PEAK_BF16_FLOP_S = 989e12
 
 MATMUL_ATOL, MATMUL_RTOL = 1e-4, 1e-5
 LETTERBOX_ATOL = 1e-3
 RESIZE_ATOL = 1e-4
+# attention kernels vs plain: fp32 differs only in summation order; bf16
+# outputs are rounded to bf16 by both (one bf16 ulp is 2^-8 relative)
+ATTN_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# full-width llama3-8b logits (bf16, 32 layers) through the kernels vs the
+# plain attention functions, relative to the largest logit
+LOGITS_RTOL = 5e-2
+
+# serve phase at full width: llama3-8b, bf16, on the card
+SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_MAX_TOKENS = 8, 2048, 16, 32
+# NMS batteries (candidates per call) and the attention shapes of the path
+NMS_SIZES = (32, 256, 1000, 4096)
+FLASH_SEQS = (16, 37, 512, 1024)
+DECODE_LENS = (768, 2048)
+LLAMA_H, LLAMA_KV, LLAMA_D = 32, 8, 128
 
 # 1080p source, as the paper's (repro/data/video.py), resized 2:1 for detection
 SRC_H, SRC_W = 1080, 1920
@@ -72,8 +101,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOP_S
+def bound_ms(nbytes: float, flops: float,
+             peak_flop_s: float = PEAK_FP32_FLOP_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak_flop_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -172,6 +202,47 @@ def resize_inputs(N, H, W, device, seed=0):
     return (torch.rand((N, H, W, 3), generator=_gen(seed)) * 255).to(device)
 
 
+def box_battery(n: int, seed: int):
+    """n candidate boxes and scores with ties: corners on a coarse grid (so
+    boxes repeat exactly and IoUs tie), every 7th box of zero height, and
+    scores on 16 levels."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    y0 = rng.integers(0, 24, n) * 4.0
+    x0 = rng.integers(0, 24, n) * 4.0
+    h = rng.choice([4.0, 8.0, 12.0], n)
+    w = rng.choice([4.0, 8.0, 12.0], n)
+    boxes = np.stack([y0, x0, y0 + h, x0 + w], axis=1).astype(np.float32)
+    boxes[::7, 2] = boxes[::7, 0]
+    scores = (rng.integers(0, 16, n) / 16.0).astype(np.float32)
+    return boxes, scores
+
+
+def attn_inputs(Sq, Skv, dtype, device, seed=0):
+    """q (1, Sq, 32, 128), k and v (1, Skv, 8, 128): llama3-8b's heads."""
+    import torch
+    g = _gen(seed)
+    q = torch.randn((1, Sq, LLAMA_H, LLAMA_D), generator=g)
+    k = torch.randn((1, Skv, LLAMA_KV, LLAMA_D), generator=g)
+    v = torch.randn((1, Skv, LLAMA_KV, LLAMA_D), generator=g)
+    return tuple(t.to(device, dtype) for t in (q, k, v))
+
+
+def decode_inputs(L, dtype, device, seed=0, B=SERVE_SLOTS):
+    """q (B, 1, 32, 128), caches (B, L, 8, 128) and kv_len (B,) int32 drawn
+    from 0..L, its first three rows 0, 1 and L."""
+    import numpy as np
+    import torch
+    g = _gen(seed)
+    q = torch.randn((B, 1, LLAMA_H, LLAMA_D), generator=g)
+    k = torch.randn((B, L, LLAMA_KV, LLAMA_D), generator=g)
+    v = torch.randn((B, L, LLAMA_KV, LLAMA_D), generator=g)
+    lens = np.random.default_rng(seed).integers(0, L + 1, B).astype(np.int32)
+    lens[:3] = (0, 1, L)
+    return (*(t.to(device, dtype) for t in (q, k, v)),
+            torch.from_numpy(lens).to(device))
+
+
 # --------------------------------------------------------------------------
 # Phase 2: each kernel against its plain version on the card
 # --------------------------------------------------------------------------
@@ -241,6 +312,65 @@ def check_kernels(device) -> dict[str, float]:
         require(e <= RESIZE_ATOL, f"resize ({N},{H},{W})->({oh},{ow}): {e}")
         worst = max(worst, e)
     err["resize_bilinear"] = worst
+    torch.cuda.synchronize()
+    return err
+
+
+def check_serve_kernels(device) -> dict[str, float]:
+    """The IoU, flash and decode kernels against their plain versions."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import preproc
+    err = {}
+
+    for n in NMS_SIZES:
+        boxes, _ = box_battery(n, seed=n)
+        bt = torch.from_numpy(boxes.T.copy()).to(device)
+        got, want = preproc.iou_matrix(bt), preproc.iou_matrix_plain(bt)
+        n_bad = int((got != want).sum().item())
+        print(f"check iou_matrix N={n} (ties, zero-area boxes): {n_bad} of "
+              f"{n * n} values differ (tolerance: exact)")
+        require(n_bad == 0, f"iou_matrix N={n} differs on {n_bad} values")
+    err["iou_matrix"] = 0.0
+
+    worst = 0.0
+    cases = [(S, S, {}) for S in FLASH_SEQS]
+    cases += [(1024, 1024, {"window": 256}),          # sliding window
+              (128, 640, {"q_offset": 512})]          # a chunk after a prefix
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for Sq, Skv, kw in cases:
+            q, k, v = attn_inputs(Sq, Skv, dtype, device)
+            got = fa.flash_attention(q, k, v, causal=True, **kw)
+            want = fa.flash_attention_plain(q, k, v, causal=True, **kw)
+            e = (got.float() - want.float()).abs().max().item()
+            print(f"check flash_attention {name} q(1,{Sq},32,128) "
+                  f"kv(1,{Skv},8,128) causal {kw}: max_abs_err={e:.3e} "
+                  f"(tolerance {ATTN_ATOL[name]})")
+            require(e <= ATTN_ATOL[name], f"flash {name} {Sq}x{Skv} {kw}: {e}")
+            worst = max(worst, e)
+    err["flash_attention"] = worst
+
+    worst = 0.0
+    cases = [(L, None) for L in DECODE_LENS] + [(2048, 512)]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for L, window in cases:
+            q, k, v, lens = decode_inputs(L, dtype, device)
+            got = da.decode_attention(q, k, v, kv_len=lens, window=window)
+            want = da.decode_attention_plain(q, k, v, kv_len=lens,
+                                             window=window)
+            e = (got.float() - want.float()).abs().max().item()
+            zeros = bool((got[lens == 0] == 0).all().item())
+            print(f"check decode_attention {name} q(8,1,32,128) "
+                  f"kv(8,{L},8,128) kv_len={lens.tolist()} window={window}: "
+                  f"max_abs_err={e:.3e} (tolerance {ATTN_ATOL[name]}); "
+                  f"kv_len=0 rows exactly zero: {zeros}")
+            require(e <= ATTN_ATOL[name], f"decode {name} L={L}: {e}")
+            require(zeros, f"decode {name} L={L}: kv_len=0 rows not zero")
+            worst = max(worst, e)
+    err["decode_attention"] = worst
     torch.cuda.synchronize()
     return err
 
@@ -325,18 +455,287 @@ def check_pipeline(device, kernels, *, n_frames: int, src_hw) -> dict:
 
 
 # --------------------------------------------------------------------------
-# Phase 4: times
+# Phase 4: device NMS against the host NMS
 # --------------------------------------------------------------------------
 
+def run_nms_path(device) -> int:
+    """Device NMS over the batteries, IoU launch counter set to 0 just
+    before and read just after; every keep list must equal the host's."""
+    from repro_torch.kernels import preproc
+    from repro_torch.preprocess import device as dev_pp
+    from repro_torch.preprocess import host
+    settings = ((0.5, 0.0, None), (0.3, 0.25, 16))
+    preproc.iou_matrix.launches = 0
+    for n in NMS_SIZES:
+        boxes, scores = box_battery(n, seed=n + 1)
+        for iou_t, score_t, max_out in settings:
+            kw = dict(iou_thresh=iou_t, score_thresh=score_t, max_out=max_out)
+            got = dev_pp.nms(boxes, scores, device=device, **kw)
+            want = host.nms(boxes, scores, **kw)
+            print(f"nms N={n} {kw}: kept {len(got)}; equal to host.nms: "
+                  f"{got == want}")
+            require(got == want, f"device nms N={n} {kw} differs from host")
+    launches = preproc.iou_matrix.launches
+    require(launches > 0, "iou_matrix was not launched by device nms")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# Phases 5 and 6: the serving engine
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_attention():
+    """The models' attention ops switched to the plain versions, on any
+    device, for the kernel-vs-plain comparison of a whole model step."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    saved = ops.attention, ops.decode_attention
+    ops.attention = fa.flash_attention_plain
+    ops.decode_attention = da.decode_attention_plain
+    try:
+        yield
+    finally:
+        ops.attention, ops.decode_attention = saved
+
+
+def numpy_lm_tree(cfg, seed: int) -> dict:
+    """Random weights in the JAX package's ``Model.init`` layout (blocks
+    stacked over n_repeats, one pattern position), made with numpy at the
+    reference's init scales."""
+    import numpy as np
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import map_tree
+    meta = tf.lm_meta(cfg)
+    rng = np.random.default_rng(seed)
+
+    def draw(p, lead=()):
+        shape = (*lead, *p.shape)
+        if p.init in ("zeros", "ones"):
+            return (np.zeros if p.init == "zeros" else np.ones)(shape, np.float32)
+        fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
+        scale = p.scale if p.scale is not None else fan_in ** -0.5
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    return {"embed": map_tree(draw, meta["embed"]),
+            "blocks": {"l0": map_tree(lambda p: draw(p, (cfg.n_repeats,)),
+                                      meta["blocks"][0])},
+            "ln_f": map_tree(draw, meta["ln_f"])}
+
+
+def check_serve_smoke(device, wrappers) -> dict:
+    """The float32 smoke config on the card and on the CPU, same weights:
+    greedy streams equal across devices and schedulers. Returns, for each
+    card run, its launches per wrapper (counts zeroed just before the run
+    and read just after)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, params_from_jax
+    from repro_torch.serve.engine import Request, ServingEngine
+    cfg = get_config("llama3-8b", smoke=True).replace(dtype="float32")
+    tree = numpy_lm_tree(cfg, seed=0)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n)
+               for n in rng.integers(4, 40, 10)]
+    launches = {}
+    streams = {}
+    for dev in (device, "cpu"):
+        model = Model(cfg, device=dev)
+        params = params_from_jax(cfg, tree, device=dev)
+        for sched in ("continuous", "slot"):
+            eng = ServingEngine(model, params, batch_slots=4, cache_len=96,
+                                scheduler=sched)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(i, p, max_tokens=12))
+            for w in wrappers:
+                w.launches = 0
+            done = eng.run()
+            if dev != "cpu":
+                launches[sched] = {w: w.launches for w in wrappers}
+            require(len(done) == len(prompts), f"smoke {dev} {sched}: "
+                    f"{len(done)} of {len(prompts)} requests done")
+            require(eng.log.transfer_bytes()["d2h"] == eng.d2h_bytes,
+                    f"smoke {dev} {sched}: ledger != counters")
+            streams[(str(dev), sched)] = {r.rid: r.tokens for r in done}
+    ref = streams[("cpu", "continuous")]
+    for key, got in streams.items():
+        print(f"serve smoke {key}: {sum(map(len, got.values()))} tokens, "
+              f"streams equal to the cpu continuous run: {got == ref}")
+        require(got == ref, f"serve smoke {key}: token streams differ")
+    return launches
+
+
+def check_full_width_step(model, params) -> dict[str, float]:
+    """One full-width prefill and one decode step through the kernels
+    against the same steps with the plain attention functions, on the
+    card: relative max error of the bf16 logits."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (1, 512))
+                              .astype(np.int32)).to(model.device)
+    out = {}
+    with torch.inference_mode():
+        lk, ck = model.prefill(params, {"tokens": prompt},
+                               cache_len=SERVE_CACHE_LEN)
+        with plain_attention():
+            lp, cp = model.prefill(params, {"tokens": prompt},
+                                   cache_len=SERVE_CACHE_LEN)
+        tok = torch.argmax(lp, dim=-1).to(torch.int32)[:, None]
+        dk, _ = model.decode_step(params, ck, tok)
+        with plain_attention():
+            dp, _ = model.decode_step(params, cp, tok)
+    for name, a, b in (("prefill", lk, lp), ("decode", dk, dp)):
+        a, b = a.float(), b.float()
+        require(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+                f"full-width {name} logits are not finite")
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        print(f"check llama3-8b {name} logits (bf16, 512-token prompt) "
+              f"kernels vs plain attention: max|diff|/max|plain|={rel:.3e} "
+              f"(tolerance {LOGITS_RTOL}); argmax equal: "
+              f"{bool((a.argmax(-1) == b.argmax(-1)).all())}")
+        require(rel <= LOGITS_RTOL, f"full-width {name} logits: {rel}")
+        out[name] = rel
+    return out
+
+
+def serve_requests(cfg, n: int, seed: int):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, m)
+            for m in rng.integers(16, 1025, n)]
+
+
+def run_serve(model, params, prompts, max_tokens: int, wrappers=()):
+    """One continuous-batching engine run at the full-width settings;
+    returns (engine, finished, seconds, launches per wrapper), the counts
+    set to 0 just before ``run()`` and read just after."""
+    import torch
+    from repro_torch.serve.engine import Request, ServingEngine
+    eng = ServingEngine(model, params, batch_slots=SERVE_SLOTS,
+                        cache_len=SERVE_CACHE_LEN, scheduler="continuous",
+                        fast_path=True)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p, max_tokens=max_tokens))
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return eng, done, secs, {w: w.launches for w in wrappers}
+
+
+def serve_full_width(device, wrappers) -> dict:
+    """llama3-8b in bf16 on the card: the kernel-vs-plain step check, then
+    the engine over SERVE_REQUESTS requests."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import events
+    from repro_torch.core.metrics import percentile
+    from repro_torch.models.model import Model
+    cfg = get_config("llama3-8b")
+    model = Model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    print(f"serve llama3-8b: {model.n_params():,} parameters ({cfg.dtype}) "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated(device) / 1e9:.2f} GB allocated")
+    step_err = check_full_width_step(model, params)
+    # warm-up outside the counts: cuBLAS handles and the kernel libraries
+    run_serve(model, params, serve_requests(cfg, 2, seed=2), 2)
+    prompts = serve_requests(cfg, SERVE_REQUESTS, seed=0)
+    torch.cuda.reset_peak_memory_stats(device)
+    eng, done, secs, launches = run_serve(model, params, prompts,
+                                          SERVE_MAX_TOKENS, wrappers)
+    peak = torch.cuda.max_memory_allocated(device)
+    n_tok = sum(len(r.tokens) for r in done)
+    decode_s = sum(ev.duration for ev in eng.log.events
+                   if ev.stage == "decode")
+    prefill_s = sum(ev.duration for ev in eng.log.events
+                    if ev.stage == "prefill")
+    ttft = eng.ttft_samples()
+    rep = eng.log.ai_tax({"prefill", "decode"}, category_of=events.categorize)
+    booked = eng.log.transfer_bytes()
+    print(f"serve llama3-8b bf16: {len(done)} of {len(prompts)} requests, "
+          f"{n_tok} tokens in {secs:.3f} s; prompt lengths "
+          f"{sorted(len(p) for p in prompts)}")
+    print(f"serve llama3-8b: decode {n_tok - len(done)} tokens in "
+          f"{decode_s:.3f} s of decode ticks = "
+          f"{(n_tok - len(done)) / decode_s:.1f} tokens/s; prefill "
+          f"{prefill_s:.3f} s for {sum(len(p) for p in prompts)} prompt "
+          f"tokens; TTFT p50 {percentile(ttft, 0.5) * 1e3:.1f} ms p99 "
+          f"{percentile(ttft, 0.99) * 1e3:.1f} ms")
+    print("serve llama3-8b five-way=" + json.dumps(
+        {k: round(v, 4) for k, v in rep["fractions"].items()})
+          + f"; d2h_syncs={eng.d2h_syncs} d2h_bytes={eng.d2h_bytes} "
+          f"ledger={booked}; peak memory {peak / 1e9:.2f} GB")
+    require(len(done) == len(prompts) and all(
+        r.done and len(r.tokens) == SERVE_MAX_TOKENS for r in done),
+        "full-width serve: not every request completed")
+    require(booked["d2h"] == eng.d2h_bytes,
+            f"ledger books {booked['d2h']} d2h bytes, engine fetched "
+            f"{eng.d2h_bytes}")
+    require(all(0 <= t < cfg.vocab_size for r in done for t in r.tokens),
+            "full-width serve: token out of the vocabulary")
+    return {"model": model, "params": params, "launches": launches,
+            "step_err": step_err, "cfg": cfg}
+
+
+def profile_serve(model, params, cfg) -> None:
+    """Where a (shorter) full-width serve run's time goes: device busy
+    share of the wall time, kernel time by name (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    prompts = serve_requests(cfg, SERVE_SLOTS, seed=3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng, done, secs, _ = run_serve(model, params, prompts, 16)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    decode_s = sum(ev.duration for ev in eng.log.events
+                   if ev.stage == "decode")
+    print(f"profile serve llama3-8b ({len(prompts)} requests x 16 tokens): "
+          f"wall {secs:.3f} s (decode ticks {decode_s:.3f} s); device busy "
+          f"{busy_us / 1e3:.3f} ms = {busy_us / 1e6 / secs:.5f} of the wall")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"profile serve device time {e.self_device_time_total / 1e3:.3f}"
+              f" ms x{e.count}: {e.key[:90]}")
+
+
+# --------------------------------------------------------------------------
+# Phase 7: times
+# --------------------------------------------------------------------------
+
+def sdpa_call(q, k, v, *, causal: bool, mask=None):
+    """PyTorch's fused attention on the kernels' inputs (B, S, heads, D),
+    as a timing yardstick only: the port never calls it. Where this PyTorch
+    has no ``enable_gqa``, K and V are expanded to all heads beforehand,
+    outside the timed call."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal, enable_gqa=True)
+    G = q.shape[2] // k.shape[2]
+    kt, vt = (t.repeat_interleave(G, dim=1) for t in (kt, vt))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  is_causal=causal)
+
+
 def _timed(name: str, shape: str, kernel, plain, library, nbytes: float,
-           flops: float, iters: int) -> dict:
+           flops: float, iters: int,
+           peak_flop_s: float = PEAK_FP32_FLOP_S) -> dict:
     """Device times of kernel, plain version and library call (ms), the
     kernel's eager per-call time, and the bound for this work."""
     t = {"ms": cuda_time_ms(kernel, iters=iters),
          "plain_ms": cuda_time_ms(plain, iters=iters),
          "library_ms": (None if library is None
                         else cuda_time_ms(library, iters=iters))}
-    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops)
+    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, peak_flop_s)
     t["eager_ms"] = eager_time_ms(kernel, iters=10 * iters)
     print(f"time {name} {shape}: " + json.dumps(t))
     return t
@@ -347,6 +746,8 @@ def time_kernels(device) -> dict[str, dict]:
     one reported in the kernels line."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import preproc, resize
     out = {}
@@ -393,6 +794,46 @@ def time_kernels(device) -> dict[str, dict]:
                               mode="bilinear", align_corners=False),
         4 * (img.numel() + ry.numel() + rx.numel() + 8 * 32 * 32 * 3),
         8 * 3 * (2 * 32 * 48 * 48 + 2 * 32 * 48 * 32), iters=50)
+
+    # the serve path's shapes: bf16 inputs, so the bound takes the dense
+    # bf16 tensor-core peak; the library yardstick is PyTorch's SDPA
+    for n in (4096, 1024, 32):
+        boxes, _ = box_battery(n, seed=n)
+        bt = torch.from_numpy(boxes.T.copy()).to(device)
+        # 13 operations an element: 2 min, 4 max, 3 sub, 2 mul, 1 add, 1 div
+        t = _timed("iou_matrix", f"(4,{n})->({n},{n})",
+                   lambda: preproc.iou_matrix(bt),
+                   lambda: preproc.iou_matrix_plain(bt), None,
+                   4 * (4 * n + n * n), 13 * n * n, iters=20)
+        out.setdefault("iou_matrix", t)
+
+    for S in (1024, 512, 37):
+        q, k, v = attn_inputs(S, S, torch.bfloat16, device)
+        pairs = LLAMA_H * S * (S + 1) // 2            # causal (q, k) pairs
+        t = _timed("flash_attention", f"bf16 q(1,{S},32,128) kv(1,{S},8,128) "
+                   "causal",
+                   lambda: fa.flash_attention(q, k, v, causal=True),
+                   lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                   sdpa_call(q, k, v, causal=True),
+                   2 * (2 * q.numel() + k.numel() + v.numel()),
+                   4 * LLAMA_D * pairs, iters=10, peak_flop_s=PEAK_BF16_FLOP_S)
+        out.setdefault("flash_attention", t)
+
+    for L in (2048, 768):
+        q, k, v, lens = decode_inputs(L, torch.bfloat16, device)
+        valid = int(lens.sum().item())                 # cache entries read
+        mask = (torch.arange(L, device=device)[None, :]
+                < lens[:, None])[:, None, None, :]
+        t = _timed("decode_attention", f"bf16 q(8,1,32,128) kv(8,{L},8,128) "
+                   f"kv_len={lens.tolist()}",
+                   lambda: da.decode_attention(q, k, v, kv_len=lens),
+                   lambda: da.decode_attention_plain(q, k, v, kv_len=lens),
+                   sdpa_call(q, k, v, causal=False, mask=mask),
+                   2 * (2 * valid * LLAMA_KV * LLAMA_D + 2 * q.numel())
+                   + 4 * lens.numel(),
+                   4 * LLAMA_D * LLAMA_H * valid, iters=20,
+                   peak_flop_s=PEAK_BF16_FLOP_S)
+        out.setdefault("decode_attention", t)
     return out
 
 
@@ -427,21 +868,36 @@ def profile_pipeline(device, *, n_frames: int, src_hw) -> None:
 
 
 def kernel_table():
+    """Every ported kernel: its wrapper, source, the TPU kernel it
+    replaces, and the path whose run counts its launches."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import preproc, resize
     csrc = "src/repro_torch/kernels/csrc/"
     return [
         {"name": "matmul", "wrapper": mm.matmul, "source": csrc + "matmul.cu",
-         "replaces": "src/repro/kernels/matmul.py:106"},
+         "replaces": "src/repro/kernels/matmul.py:106", "path": "pipeline"},
         {"name": "yuv_to_rgb", "wrapper": preproc.yuv_to_rgb,
          "source": csrc + "preproc.cu",
-         "replaces": "src/repro/kernels/preproc.py:56"},
+         "replaces": "src/repro/kernels/preproc.py:56", "path": "pipeline"},
         {"name": "letterbox_normalize", "wrapper": preproc.letterbox_normalize,
          "source": csrc + "preproc.cu",
-         "replaces": "src/repro/kernels/preproc.py:111"},
+         "replaces": "src/repro/kernels/preproc.py:111", "path": "pipeline"},
         {"name": "resize_bilinear", "wrapper": resize.resize_bilinear,
          "source": csrc + "resize.cu",
-         "replaces": "src/repro/kernels/resize.py:65"},
+         "replaces": "src/repro/kernels/resize.py:65", "path": "pipeline"},
+        {"name": "iou_matrix", "wrapper": preproc.iou_matrix,
+         "source": csrc + "iou.cu",
+         "replaces": "src/repro/kernels/preproc.py:156", "path": "nms"},
+        {"name": "decode_attention", "wrapper": da.decode_attention,
+         "source": csrc + "decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:116",
+         "path": "serve"},
+        {"name": "flash_attention", "wrapper": fa.flash_attention,
+         "source": csrc + "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:115",
+         "path": "serve"},
     ]
 
 
@@ -469,16 +925,34 @@ def main() -> int:
 
     kernels = kernel_table()
     errors = check_kernels(device)
-    path = check_pipeline(device, kernels, n_frames=16, src_hw=(SRC_H, SRC_W))
+    errors.update(check_serve_kernels(device))
+    launches = {}
+    path = check_pipeline(device, [k for k in kernels if k["path"] == "pipeline"],
+                          n_frames=16, src_hw=(SRC_H, SRC_W))
+    launches.update(path["launches"])
+    launches["iou_matrix"] = run_nms_path(device)
+    serve = [k for k in kernels if k["path"] == "serve"]
+    smoke = check_serve_smoke(device, [k["wrapper"] for k in serve])
+    full = serve_full_width(device, [k["wrapper"] for k in serve])
+    for k in serve:
+        n_full = full["launches"][k["wrapper"]]
+        by_sched = {s: n[k["wrapper"]] for s, n in smoke.items()}
+        print(f"serve launches {k['name']}: llama3-8b full width {n_full}; "
+              f"smoke config on the card, each run alone: {by_sched}")
+        require(n_full > 0, f"{k['name']} was not launched on the serve path")
+        require(all(n > 0 for n in by_sched.values()),
+                f"{k['name']} was not launched by a smoke serve run")
+        launches[k["name"]] = n_full
     times = time_kernels(device)
     profile_pipeline(device, n_frames=16, src_hw=(SRC_H, SRC_W))
+    profile_serve(full["model"], full["params"], full["cfg"])
 
     rows = []
     for k in kernels:
         t = times[k["name"]]
         rows.append({"name": k["name"], "route": "cuda", "source": k["source"],
                      "replaces": k["replaces"],
-                     "launches": path["launches"][k["name"]],
+                     "launches": launches[k["name"]],
                      "max_abs_err": errors[k["name"]], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

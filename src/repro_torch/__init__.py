@@ -8,8 +8,10 @@ written for the H100 (``sm_90a``), each with a plain PyTorch version
 that runs only for CPU tensors.
 
 Ported so far: the face-recognition frame path of
-:class:`repro_torch.core.pipeline.StreamingPipeline`. Its entry points
-run on the card (``device="cuda"``) unless the caller passes
+:class:`repro_torch.core.pipeline.StreamingPipeline` with device NMS, and
+the continuous-batching LM engine of
+:class:`repro_torch.serve.engine.ServingEngine` on llama3-8b. Entry
+points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``.
 """
 from __future__ import annotations

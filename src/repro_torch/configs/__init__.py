@@ -1,0 +1,48 @@
+"""Config registry of the port (counterpart of ``repro.configs``).
+
+``get_config(name)`` returns the full published config and
+``get_config(name, smoke=True)`` the reduced config of the CPU tests, for
+the architectures the port runs so far. The others are listed in
+:data:`ARCHS` as the reference lists them, and ``get_config`` raises a
+``KeyError`` for them that says they are not ported yet.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (  # noqa: F401  (re-exported)
+    LayerSpec, MLAConfig, ModelConfig, MoEConfig,
+)
+
+ARCHS = [
+    "llama3-8b",
+    "qwen2.5-14b",
+    "gemma3-12b",
+    "qwen1.5-110b",
+    "chameleon-34b",
+    "whisper-large-v3",
+    "jamba-v0.1-52b",
+    "rwkv6-3b",
+    "granite-moe-3b-a800m",
+    "deepseek-v2-236b",
+]
+
+# architecture -> module; only the ported ones
+_MODULES = {
+    "llama3-8b": "llama3_8b",
+}
+
+
+def list_configs() -> list[str]:
+    """The architectures the port can build."""
+    return list(_MODULES)
+
+
+def get_config(name: str, smoke: bool = False) -> ModelConfig:
+    if name not in _MODULES:
+        if name in ARCHS:
+            raise KeyError(f"arch {name!r} is not ported yet; ported: "
+                           f"{list_configs()}")
+        raise KeyError(f"unknown arch {name!r}; available: {ARCHS}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.smoke_config() if smoke else mod.config()

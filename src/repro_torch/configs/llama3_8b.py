@@ -1,0 +1,19 @@
+"""llama3-8b [dense]: 32L d_model=4096 32H (GQA kv=8) d_ff=14336 vocab=128256.
+GQA + 128k vocab [arXiv:2407.21783]. A copy of ``repro.configs.llama3_8b``."""
+from repro_torch.configs.base import LayerSpec, ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="llama3-8b", family="dense",
+        n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+        d_ff=14336, vocab_size=128256, head_dim=128,
+        act="silu", norm="rmsnorm", rope_theta=500_000.0,
+        block_pattern=(LayerSpec(),),
+    )
+
+
+def smoke_config() -> ModelConfig:
+    return config().replace(
+        name="llama3-8b-smoke", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256)

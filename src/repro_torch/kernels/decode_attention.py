@@ -1,0 +1,133 @@
+"""Decode attention (one token against a KV cache): CUDA kernel and plain
+version.
+
+Counterpart of ``repro.kernels.decode_attention`` (the Pallas TPU kernel).
+The kernel is ``csrc/decode_attention.cu``; its source note says what
+bounds it on an H100 and how it splits the cache across blocks. The cache
+length L need not be a multiple of any tile. A row with ``kv_len = 0``
+gives exact zeros, the Pallas kernel's contract (the reference's XLA path
+gives the mean of V there). :func:`decode_attention` launches the kernel
+for a CUDA tensor and takes :func:`decode_attention_plain` only for a CPU
+tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+# query heads per kv head -> widest D, Dv the kernel is built for (the
+# ported configs: llama3-8b G = 4, D = 128; its smoke config G = 2, D = 16)
+WIDTHS = {2: 32, 4: 128}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {"decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _I, _I, _F, _I, _I, _P]}
+
+
+def _check_shapes(q, k, v, kv_len) -> tuple[int, ...]:
+    if q.ndim != 4 or q.shape[1] != 1 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("want q (B, 1, H, D), k (B, L, KV, D), v (B, L, KV, Dv)")
+    B, _, H, D = q.shape
+    _, L, KV, Dv = v.shape
+    if tuple(k.shape) != (B, L, KV, D) or v.shape[0] != B or KV == 0 or H % KV:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not fit")
+    if tuple(kv_len.shape) != (B,):
+        raise ValueError(f"kv_len must be ({B},), got {tuple(kv_len.shape)}")
+    return B, H, D, L, KV, Dv
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, kv_len: torch.Tensor, window: int | None = None,
+                           scale: float | None = None) -> torch.Tensor:
+    """The same function in plain PyTorch: fp32 scores of ``q * scale``
+    against each kv head's cache, entries outside
+    ``[kv_len - window, kv_len)`` masked, then the softmax written as the
+    kernel's ``exp(s - m) / max(l, 1e-30)`` with masked entries exactly 0,
+    so that a row with ``kv_len = 0`` gives zeros."""
+    B, H, D, L, KV, Dv = _check_shapes(q, k, v, kv_len)
+    G = H // KV
+    scale = (1.0 / D**0.5) if scale is None else scale
+    qf = (q[:, 0].float() * scale).reshape(B, KV, G, D)
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k.float())
+    pos = torch.arange(L, device=q.device)[None, :]
+    n = kv_len.to(q.device, torch.int64)[:, None]
+    valid = pos < n
+    if window is not None:
+        valid &= pos > n - 1 - window
+    valid = valid[:, None, None]
+    s = s.masked_fill(~valid, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * valid
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float()) / torch.clamp_min(l, 1e-30)
+    return o.reshape(B, 1, H, Dv).to(q.dtype)
+
+
+def split_l(B: int, KV: int, L: int, n_sm: int) -> int:
+    """Blocks along L for each (row, kv head): enough for about two blocks
+    an SM, and at least 128 cache entries a block."""
+    return max(1, min(-(-2 * n_sm // (B * KV)), -(-L // 128)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     kv_len: torch.Tensor, window: int | None = None,
+                     scale: float | None = None) -> torch.Tensor:
+    """One query token per row against a (B, L, KV, ·) cache: q (B, 1, H, D),
+    ``kv_len`` (B,) valid entries per row, optional ``window`` over the last
+    entries -> (B, 1, H, Dv) in q's dtype.
+
+    A CPU tensor goes to :func:`decode_attention_plain`; a CUDA tensor to
+    the kernel, which takes contiguous bfloat16 or float32 q, k, v of one
+    dtype, H // KV and D, Dv as in :data:`WIDTHS`, and raises on anything
+    else.
+    """
+    B, H, D, L, KV, Dv = _check_shapes(q, k, v, kv_len)
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, kv_len=kv_len, window=window,
+                                      scale=scale)
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"decode kernel takes bfloat16 or float32, got {q.dtype}")
+    for t in (q, k, v):
+        if t.device != q.device or t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError("decode kernel takes contiguous q, k, v of one "
+                             "dtype on one device")
+    if kv_len.device != q.device:
+        raise ValueError("kv_len must be on q's device")
+    if max(D, Dv) > WIDTHS.get(H // KV, 0):
+        raise ValueError(f"decode kernel takes H/KV -> widest D, Dv in "
+                         f"{WIDTHS}; got H={H}, KV={KV}, D={D}, Dv={Dv}")
+    out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return out
+    lens = kv_len.to(torch.int32).contiguous()
+    n_split = split_l(B, KV, L, _sm_count(q.device))
+    part = (torch.empty(B * KV * n_split * (H // KV) * (2 + Dv),
+                        dtype=torch.float32, device=q.device)
+            if n_split > 1 else None)
+    scale = (1.0 / D**0.5) if scale is None else scale
+    lib = build.library("decode_attention", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        rc = lib.decode_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), part.data_ptr() if part is not None else None,
+            _DTYPES[q.dtype], B, L, H, KV, D, Dv, float(scale),
+            0 if window is None else int(window), n_split,
+            build.stream_ptr(q.device))
+    build.check(lib, rc, "decode_attention")
+    build.count_launch(decode_attention)
+    return out
+
+
+decode_attention.launches = 0

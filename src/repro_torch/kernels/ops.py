@@ -1,5 +1,5 @@
 """Public kernel entry points of the port (counterpart of
-``repro.kernels.ops`` for the face path).
+``repro.kernels.ops`` for the face path and the LM serving path).
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor runs
 the plain PyTorch version, a CUDA tensor runs the hand-written CUDA
@@ -11,8 +11,29 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import resize as _rs
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              q_offset: int = 0, scale: float | None = None) -> torch.Tensor:
+    """Prefill attention: q (B, Sq, H, D), k (B, Skv, KV, D),
+    v (B, Skv, KV, Dv) -> (B, Sq, H, Dv), GQA by ``h // (H // KV)``,
+    causal and/or sliding-window masks, query i at ``i + q_offset``."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, scale=scale)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     kv_len: torch.Tensor, window: int | None = None,
+                     scale: float | None = None) -> torch.Tensor:
+    """One new token per row against a KV cache: q (B, 1, H, D), k/v
+    (B, L, KV, ·), ``kv_len`` (B,) valid entries -> (B, 1, H, Dv)."""
+    return _da.decode_attention(q, k, v, kv_len=kv_len, window=window,
+                                scale=scale)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *,

@@ -1,11 +1,12 @@
-"""Frame pre-processing kernels: planar YUV decode and fused letterbox.
+"""Frame pre/post-processing kernels: planar YUV decode, fused letterbox
+and the pairwise IoU of NMS.
 
-Counterparts of ``repro.kernels.preproc.yuv_to_rgb`` and
-``letterbox_normalize`` (Pallas TPU kernels). The CUDA source is
-``csrc/preproc.cu``; its notes say what bounds each kernel on an H100 and
-what the design does about it. Each wrapper launches its kernel for a
-CUDA tensor and takes the plain PyTorch version beside it only for a CPU
-tensor. (``repro.kernels.preproc.iou_matrix`` is not ported yet.)
+Counterparts of ``repro.kernels.preproc.yuv_to_rgb``,
+``letterbox_normalize`` and ``iou_matrix`` (Pallas TPU kernels). The CUDA
+sources are ``csrc/preproc.cu`` and ``csrc/iou.cu``; their notes say what
+bounds each kernel on an H100 and what the design does about it. Each
+wrapper launches its kernel for a CUDA tensor and takes the plain PyTorch
+version beside it only for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ _SIGNATURES = {
     "letterbox_normalize_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _F, _P],
 }
+_IOU_SIGNATURES = {"iou_f32": [_P, _P, _I, _P]}
 
 # BT.601 full-range decode constants, as float32 values held exactly in
 # float64 (the plain version's fma emulation).
@@ -154,3 +156,51 @@ def letterbox_normalize(planes: torch.Tensor, ly: torch.Tensor,
 
 
 letterbox_normalize.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Pairwise IoU (the dense half of NMS)
+# --------------------------------------------------------------------------
+
+def iou_matrix_plain(boxes_t: torch.Tensor) -> torch.Tensor:
+    """(4, ..., N) float32 [y0, x0, y1, x1] -> (..., N, N) IoU in the
+    host's float32 order (``repro.preprocess.host.iou_matrix``): every step
+    is one IEEE operation, ``union = (area_i + area_j) - inter``, clamped
+    at 1e-12. Leading dimensions after the first are a batch."""
+    y0, x0, y1, x1 = boxes_t.float()
+    area = (y1 - y0) * (x1 - x0)
+    ih = torch.clamp_min(torch.minimum(y1[..., :, None], y1[..., None, :])
+                         - torch.maximum(y0[..., :, None], y0[..., None, :]),
+                         0.0)
+    iw = torch.clamp_min(torch.minimum(x1[..., :, None], x1[..., None, :])
+                         - torch.maximum(x0[..., :, None], x0[..., None, :]),
+                         0.0)
+    inter = ih * iw
+    union = area[..., :, None] + area[..., None, :] - inter
+    return inter / torch.clamp_min(union, 1e-12)
+
+
+def iou_matrix(boxes_t: torch.Tensor) -> torch.Tensor:
+    """(4, N) component-major float32 boxes -> (N, N) pairwise IoU, equal
+    bit for bit to :func:`iou_matrix_plain` (``csrc/iou.cu``)."""
+    if boxes_t.ndim != 2 or boxes_t.shape[0] != 4:
+        raise ValueError(f"want (4, N) boxes, got {tuple(boxes_t.shape)}")
+    if boxes_t.device.type == "cpu":
+        return iou_matrix_plain(boxes_t)
+    if boxes_t.dtype != torch.float32:
+        raise ValueError(f"iou kernel takes float32 boxes, got {boxes_t.dtype}")
+    boxes_t = boxes_t.contiguous()
+    n = boxes_t.shape[1]
+    out = torch.empty((n, n), dtype=torch.float32, device=boxes_t.device)
+    if n == 0:
+        return out
+    lib = build.library("iou", _IOU_SIGNATURES)
+    with torch.cuda.device(boxes_t.device):
+        rc = lib.iou_f32(boxes_t.data_ptr(), out.data_ptr(), n,
+                         build.stream_ptr(boxes_t.device))
+    build.check(lib, rc, "iou_matrix")
+    build.count_launch(iou_matrix)
+    return out
+
+
+iou_matrix.launches = 0

@@ -1,0 +1,113 @@
+"""Model interface: build once, then init, prefill and decode (counterpart of
+``repro.models.model``).
+
+:class:`Model` holds a config and a device; parameters are a separate tree
+(as in the reference) passed to every call. :meth:`Model.init` draws them
+on the model's device from a seeded ``torch.Generator``;
+:func:`params_from_jax` carries the reference's ``Model.init`` tree across
+(as numpy arrays), which is how the tests hold the two packages to the
+same weights. Either way, matrices are held in the config's compute dtype
+and 1-D scales in float32.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import (
+    cast_params, init_params, map_tree, tree_leaves,
+)
+
+
+class Model:
+    """A decoder-only LM of ``cfg`` on ``device`` (the card unless the
+    caller passes ``device="cpu"``)."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        tf.check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = tf.DTYPES[cfg.dtype]
+
+    # ---- parameters ----
+    def param_meta(self):
+        return tf.lm_meta(self.cfg)
+
+    def init(self, seed: int = 0):
+        """Random weights with the reference's init scales, drawn tensor by
+        tensor on the model's device from a ``torch.Generator`` seeded with
+        ``seed``."""
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        return init_params(self.param_meta(), generator, self.dtype)
+
+    def n_params(self) -> int:
+        return sum(math.prod(p.shape) for p in tree_leaves(self.param_meta()))
+
+    # ---- caches ----
+    def init_cache(self, batch: int, cache_len: int) -> dict:
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+        blocks = {n: torch.zeros(shape, dtype=self.dtype, device=self.device)
+                  for n in ("k", "v")}
+        return {"blocks": blocks, "cur_len": 0}
+
+    # ---- entry points ----
+    def prefill(self, params, batch: dict, *, cache_len: int | None = None):
+        """batch {"tokens": (B, S) integer tensor on the model's device} ->
+        (last-position logits (B, V), cache of length ``cache_len``)."""
+        return tf.lm_prefill(self.cfg, params, batch["tokens"],
+                             cache_len=cache_len)
+
+    def decode_step(self, params, cache: dict, tokens: torch.Tensor):
+        """tokens (B, 1) -> (logits (B, V), cache one longer); the cache
+        tensors are updated in place."""
+        return tf.lm_decode_step(self.cfg, params, cache, tokens)
+
+    def decode_step_ragged(self, params, blocks: dict, tokens: torch.Tensor,
+                           kv_len: torch.Tensor):
+        """Continuous-batching decode over a batched block cache: ``kv_len``
+        (B,) per-slot tokens-so-far on the model's device; the cache rows
+        are updated in place."""
+        return tf.lm_decode_step_ragged(self.cfg, params, blocks, tokens,
+                                        kv_len)
+
+    def insert_prefill(self, blocks: dict, one_blocks: dict,
+                       slot: int) -> dict:
+        """Copy a batch-1 prefill cache (leaves (n_layers, 1, L, ...)) into
+        row ``slot`` of a batched block cache, in place; the other rows
+        are untouched."""
+        for name, big in blocks.items():
+            big[:, slot].copy_(one_blocks[name][:, 0])
+        return blocks
+
+
+def params_from_jax(cfg: ModelConfig, tree, device="cuda"):
+    """The reference's ``Model.init`` tree (nested dicts; leaves numpy
+    arrays, or any array numpy can read) -> the port's parameter tree on
+    ``device``.
+
+    The reference stacks each block-pattern position ``l{j}`` over
+    ``n_repeats``; layer ``r * len(block_pattern) + j`` of the port is
+    slice ``r`` of ``l{j}``. Matrices are cast to the config's compute
+    dtype, as :meth:`Model.init` leaves them.
+    """
+    tf.check_supported(cfg)
+    dev = resolve_device(device)
+
+    def to_torch(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    n_pat = len(cfg.block_pattern)
+    blocks = []
+    for r in range(cfg.n_repeats):
+        for j in range(n_pat):
+            blocks.append(map_tree(lambda a, r=r: to_torch(np.asarray(a)[r]),
+                                   tree["blocks"][f"l{j}"]))
+    params = {"embed": map_tree(to_torch, tree["embed"]), "blocks": blocks,
+              "ln_f": map_tree(to_torch, tree["ln_f"])}
+    return cast_params(params, tf.DTYPES[cfg.dtype])

@@ -1,14 +1,16 @@
 """Device-side pre/post-processing (counterpart of ``repro.preprocess.device``).
 
-Decode and letterbox go through the hand-written kernels of
-:mod:`repro_torch.kernels.preproc`, in the layout of the reference's
-Pallas branch (channel-major planes, per-plane [scale, offset]); for CPU
-tensors the kernels' wrappers take their plain versions. Detection
-post-processing is plain PyTorch on the heatmaps' device: a stable
-descending argsort picks the top-k candidate cells, and the greedy IoU
-scan is a Python loop over the k candidates, vectorised over the batch.
-The IoU keeps the reference's float32 expression order, so keep
-decisions equal the host NMS bit for bit.
+Decode, letterbox and the IoU of :func:`nms` go through the hand-written
+kernels of :mod:`repro_torch.kernels.preproc`, in the layout of the
+reference's Pallas branch (channel-major planes, per-plane [scale,
+offset], component-major boxes); for CPU tensors the kernels' wrappers
+take their plain versions. Batched heatmap post-processing keeps its
+plain IoU, as the reference does (``repro.preprocess.device`` calls
+``_iou_matrix_jnp`` there): a stable descending argsort picks the top-k
+candidate cells, and the greedy IoU scan is a Python loop over the
+candidates, vectorised over the batch. Every IoU keeps the reference's
+float32 expression order, so keep decisions equal the host NMS bit for
+bit.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import preproc
 from repro_torch.preprocess import host as _host
 
@@ -54,19 +57,62 @@ def letterbox_normalize(img: torch.Tensor, out_h: int, out_w: int, *,
     return out.reshape(B, C, out_h, out_w).permute(0, 2, 3, 1)
 
 
-def _iou_matrix(boxes: torch.Tensor) -> torch.Tensor:
-    """(..., N, 4) -> (..., N, N) pairwise IoU, the reference's order."""
-    y0, x0, y1, x1 = boxes.unbind(-1)
-    area = (y1 - y0) * (x1 - x0)
-    ih = torch.clamp_min(torch.minimum(y1[..., :, None], y1[..., None, :])
-                         - torch.maximum(y0[..., :, None], y0[..., None, :]),
-                         0.0)
-    iw = torch.clamp_min(torch.minimum(x1[..., :, None], x1[..., None, :])
-                         - torch.maximum(x0[..., :, None], x0[..., None, :]),
-                         0.0)
-    inter = ih * iw
-    union = area[..., :, None] + area[..., None, :] - inter
-    return inter / torch.clamp_min(union, 1e-12)
+def iou_matrix(boxes: torch.Tensor) -> torch.Tensor:
+    """(N, 4) float32 [y0, x0, y1, x1] -> (N, N) pairwise IoU, through the
+    IoU kernel for a CUDA tensor (its plain version for a CPU one)."""
+    return preproc.iou_matrix(boxes.float().T)
+
+
+def _greedy_keep(iou: torch.Tensor, alive: torch.Tensor, thr: float,
+                 max_out: int) -> torch.Tensor:
+    """Greedy NMS over candidates already in visit order: (B, n, n) IoU and
+    (B, n) ``alive`` -> (B, n) keep mask. Visiting a dead row is a no-op,
+    so the scan is one loop over n, vectorised over the batch, with no
+    host round trip."""
+    B, n = alive.shape
+    alive = alive.clone()
+    keep = torch.zeros_like(alive)
+    count = torch.zeros(B, dtype=torch.int64, device=alive.device)
+    later = torch.arange(n, device=alive.device)
+    for i in range(n):
+        sel = alive[:, i] & (count < max_out)
+        keep[:, i] = sel
+        count += sel
+        alive &= ~(sel[:, None] & (later > i)[None, :] & (iou[:, i] > thr))
+    return keep
+
+
+def nms(boxes: np.ndarray, scores: np.ndarray, *, iou_thresh: float = 0.5,
+        score_thresh: float = 0.0, max_out: int | None = None,
+        device="cuda") -> list[int]:
+    """Device greedy NMS; same contract as :func:`repro_torch.preprocess.
+    host.nms` (kept indices into the input, best-first, ties by index).
+
+    The candidates are padded to their pow2 bucket with ``-inf`` scores,
+    which sort last and are masked out of ``alive``; sorting, the IoU
+    kernel and the scan run on ``device``, and only the keep mask and the
+    visit order come back.
+    """
+    boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
+    scores = np.asarray(scores, np.float32).reshape(-1)
+    N = len(scores)
+    if N == 0:
+        return []
+    dev = resolve_device(device)
+    Np = 1 << (N - 1).bit_length()
+    cap = Np if max_out is None else max_out
+    boxes_p = np.zeros((Np, 4), np.float32)
+    boxes_p[:N] = boxes
+    scores_p = np.full((Np,), -np.inf, np.float32)
+    scores_p[:N] = scores
+    sc = torch.from_numpy(scores_p).to(dev)
+    order = torch.argsort(-sc, stable=True)
+    alive = (sc[order] >= float(np.float32(score_thresh))) & (order < N)
+    iou = iou_matrix(torch.from_numpy(boxes_p).to(dev)[order])
+    keep = _greedy_keep(iou[None], alive[None], float(np.float32(iou_thresh)),
+                        cap)[0].cpu().numpy()
+    order = order.cpu().numpy()
+    return [int(order[i]) for i in range(Np) if keep[i]]
 
 
 def _postprocess(hms: torch.Tensor, k: int, box_cells: float,
@@ -79,19 +125,9 @@ def _postprocess(hms: torch.Tensor, k: int, box_cells: float,
     cx = (order % Wc).float() + 0.5
     h = float(np.float32(box_cells / 2.0))
     boxes = torch.stack([cy - h, cx - h, cy + h, cx + h], dim=-1)
-    iou = _iou_matrix(boxes)
-    n = order.shape[1]
     alive = scores >= float(np.float32(score_thresh))
-    keep = torch.zeros_like(alive)
-    count = torch.zeros(B, dtype=torch.int64, device=hms.device)
-    later = torch.arange(n, device=hms.device)
-    thr = float(np.float32(iou_thresh))
-    for i in range(n):
-        sel = alive[:, i] & (count < max_out)
-        keep[:, i] = sel
-        count += sel
-        suppress = sel[:, None] & (later > i)[None, :] & (iou[:, i] > thr)
-        alive &= ~suppress
+    iou = preproc.iou_matrix_plain(boxes.movedim(-1, 0))
+    keep = _greedy_keep(iou, alive, float(np.float32(iou_thresh)), max_out)
     return boxes, scores, keep
 
 

@@ -13,8 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import preproc, resize
+from repro_torch.preprocess import device as pp_device
 from repro_torch.preprocess import host
 
 pytestmark = pytest.mark.gpu
@@ -97,3 +100,92 @@ def test_resize_kernel_vs_plain(cuda, shape, oh, ow):
     torch.testing.assert_close(resize.resize_bilinear(img, oh, ow),
                                resize.resize_bilinear_plain(img, oh, ow),
                                atol=1e-4, rtol=0)
+
+
+def _boxes(n, seed):
+    """Boxes on a coarse grid (exact repeats, tied IoUs), every 7th of zero
+    height, scores on 16 levels."""
+    rng = np.random.default_rng(seed)
+    y0, x0 = rng.integers(0, 24, n) * 4.0, rng.integers(0, 24, n) * 4.0
+    h, w = rng.choice([4.0, 8.0], n), rng.choice([4.0, 12.0], n)
+    boxes = np.stack([y0, x0, y0 + h, x0 + w], axis=1).astype(np.float32)
+    boxes[::7, 2] = boxes[::7, 0]
+    return boxes, (rng.integers(0, 16, n) / 16.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [1, 31, 256, 1000, 4096])
+def test_iou_kernel_bit_exact(cuda, n):
+    boxes, _ = _boxes(n, seed=n)
+    bt = torch.from_numpy(boxes.T.copy()).to(cuda)
+    count = preproc.iou_matrix.launches
+    got = preproc.iou_matrix(bt)
+    assert preproc.iou_matrix.launches == count + 1
+    assert torch.equal(got, preproc.iou_matrix_plain(bt))
+    np.testing.assert_array_equal(got.cpu().numpy(), host.iou_matrix(boxes))
+
+
+@pytest.mark.parametrize("n,max_out", [(33, None), (1000, None), (1000, 7)])
+def test_device_nms_on_the_card_equals_host(cuda, n, max_out):
+    boxes, scores = _boxes(n, seed=n + 1)
+    assert pp_device.nms(boxes, scores, max_out=max_out, device=cuda) == \
+        host.nms(boxes, scores, max_out=max_out)
+
+
+FLASH_CASES = [(16, 16, {}), (37, 37, {}), (200, 200, {"window": 64}),
+               (64, 300, {"q_offset": 236}), (130, 130, {"causal": False})]
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("Sq,Skv,kw", FLASH_CASES)
+def test_flash_kernel_vs_plain(cuda, dtype, atol, Sq, Skv, kw):
+    g = _gen(7)
+    q = torch.randn((2, Sq, 8, 64), generator=g).to(cuda, dtype)
+    k = torch.randn((2, Skv, 2, 64), generator=g).to(cuda, dtype)
+    v = torch.randn((2, Skv, 2, 64), generator=g).to(cuda, dtype)
+    kw = {"causal": True, **kw}
+    count = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.flash_attention.launches == count + 1
+    torch.testing.assert_close(got.float(),
+                               fa.flash_attention_plain(q, k, v, **kw).float(),
+                               atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("L,window,G,D", [(768, None, 4, 128),
+                                         (2048, 300, 4, 128),
+                                         (96, None, 2, 16), (50, 7, 2, 16)])
+def test_decode_kernel_vs_plain(cuda, dtype, atol, L, window, G, D):
+    g = _gen(8)
+    B, KV = 6, 2
+    q = torch.randn((B, 1, KV * G, D), generator=g).to(cuda, dtype)
+    k = torch.randn((B, L, KV, D), generator=g).to(cuda, dtype)
+    v = torch.randn((B, L, KV, D), generator=g).to(cuda, dtype)
+    lens = torch.tensor([0, 1, L, L // 2, L - 1, 3], dtype=torch.int32,
+                        device=cuda)
+    count = da.decode_attention.launches
+    got = da.decode_attention(q, k, v, kv_len=lens, window=window)
+    assert da.decode_attention.launches == count + 1
+    torch.testing.assert_close(
+        got.float(),
+        da.decode_attention_plain(q, k, v, kv_len=lens, window=window).float(),
+        atol=atol, rtol=0)
+    assert (got[0] == 0).all()                       # kv_len = 0: zeros
+
+
+def test_attention_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros((1, 4, 4, 320), device=cuda)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q[:, :, :2], q[:, :, :2])         # D > 256
+    q = torch.zeros((1, 1, 6, 16), device=cuda)
+    kv = torch.zeros((1, 8, 2, 16), device=cuda)
+    with pytest.raises(ValueError):                               # G = 3
+        da.decode_attention(q, kv, kv, kv_len=torch.ones(1, device=cuda))
+    q = torch.zeros((1, 1, 16, 16), device=cuda)
+    with pytest.raises(ValueError):                     # G = 8: not built
+        da.decode_attention(q, kv, kv, kv_len=torch.ones(1, device=cuda))
+    q, kv = torch.zeros((1, 1, 4, 64), device=cuda), kv.new_zeros((1, 8, 2, 64))
+    with pytest.raises(ValueError):                     # G = 2, D = 64
+        da.decode_attention(q, kv, kv, kv_len=torch.ones(1, device=cuda))

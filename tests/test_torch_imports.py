@@ -30,6 +30,17 @@ def test_port_has_the_slice_modules():
             "repro_torch.preprocess.stage"} <= mods
 
 
+def test_port_has_the_serving_slice_modules():
+    mods = set(_port_modules())
+    assert {"repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.decode_attention",
+            "repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.llama3_8b", "repro_torch.models.layers",
+            "repro_torch.models.attention", "repro_torch.models.transformer",
+            "repro_torch.models.model", "repro_torch.serve.engine",
+            "repro_torch.launch.serve"} <= mods
+
+
 def test_importing_the_port_loads_no_jax_and_no_repro():
     code = (
         "import importlib, sys\n"

@@ -17,11 +17,13 @@ from repro.kernels import ops as jax_ops
 from repro.kernels import preproc as jax_preproc
 from repro.kernels import ref as jax_ref
 from repro.kernels import resize as jax_resize
+from repro.preprocess import device as jax_device
 from repro.preprocess import host as jax_host
 
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import preproc, resize
+from repro_torch.preprocess import device as port_device
 from repro_torch.preprocess import host as port_host
 
 
@@ -209,6 +211,55 @@ def test_resize_interp_matrix_equals_reference():
                                       jax_resize._interp_matrix(out_n, in_n))
 
 
+# ---- iou_matrix and device NMS --------------------------------------------
+
+def _box_battery(n, seed):
+    """Boxes with ties (corners on a coarse grid, so boxes repeat exactly),
+    zero-area boxes (every 5th), and scores on 8 levels."""
+    rng = np.random.default_rng(seed)
+    y0 = rng.integers(0, 12, n) * 2.0
+    x0 = rng.integers(0, 12, n) * 2.0
+    h = rng.choice([2.0, 4.0, 6.0], n)
+    w = rng.choice([2.0, 4.0, 6.0], n)
+    boxes = np.stack([y0, x0, y0 + h, x0 + w], axis=1).astype(np.float32)
+    boxes[::5, 3] = boxes[::5, 1]
+    scores = (rng.integers(0, 8, n) / 8.0).astype(np.float32)
+    return boxes, scores
+
+
+@pytest.mark.parametrize("n", [1, 7, 64, 200])
+def test_iou_plain_bit_exact_vs_host_and_pallas_interpret(n):
+    boxes, _ = _box_battery(n, seed=n)
+    got = preproc.iou_matrix(torch.from_numpy(boxes.T.copy())).numpy()
+    host = jax_host.iou_matrix(boxes)
+    pallas = np.asarray(jax_preproc.iou_matrix(jnp.asarray(boxes.T),
+                                               interpret=True))
+    np.testing.assert_array_equal(got, host)
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(port_device.iou_matrix(
+        torch.from_numpy(boxes)).numpy(), host)
+
+
+NMS_CASES = [(0, 0.5, 0.0, None), (1, 0.5, 0.0, None), (33, 0.5, 0.0, None),
+             (64, 0.3, 0.0, None), (100, 0.5, 0.4, None), (100, 0.5, 0.0, 5),
+             (257, 0.1, 0.25, 12)]
+
+
+@pytest.mark.parametrize("n,iou_t,score_t,max_out", NMS_CASES)
+def test_device_nms_equals_host_and_reference(n, iou_t, score_t, max_out):
+    boxes, scores = _box_battery(n, seed=100 + n)
+    kw = dict(iou_thresh=iou_t, score_thresh=score_t, max_out=max_out)
+    got = port_device.nms(boxes, scores, device="cpu", **kw)
+    assert got == jax_host.nms(boxes, scores, **kw)
+    assert got == port_host.nms(boxes, scores, **kw)
+    assert got == jax_device.nms(boxes, scores, **kw)
+
+
+def test_iou_rejects_wrong_layout():
+    with pytest.raises(ValueError):
+        preproc.iou_matrix(torch.zeros((5, 4)))
+
+
 # ---- dispatch and build -----------------------------------------------------
 
 def test_cpu_tensors_take_plain_versions_and_count_no_launch():
@@ -227,4 +278,5 @@ def test_nvcc_command_targets_sm90a():
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert {"-O3", "-shared", "-fPIC"} <= set(cmd)
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == \
-        ["matmul.cu", "preproc.cu", "resize.cu"]
+        ["decode_attention.cu", "flash_attention.cu", "iou.cu", "matmul.cu",
+         "preproc.cu", "resize.cu"]
