@@ -18,19 +18,22 @@ Phases, each fatal on failure:
      (plain versions);
   4. run device NMS on candidate batteries (counters zeroed just before)
      and check its keep lists against the host NMS;
-  5. serve the llama3-8b smoke config (float32) on the card and on the CPU
-     with the same numpy-made weights: greedy token streams must agree
-     between the two and between the continuous and slot schedulers;
-  6. serve llama3-8b at full width in bf16 on the card (weights drawn on
-     the card from a seed): one prefill and one decode step through the
-     attention kernels against the same step with the plain attention
-     functions, then 16 requests through the continuous-batching engine
-     (counters zeroed just before the run), with its throughput, TTFT,
-     tax split and transfer ledger;
+  5. for each served arch, llama3-8b (attention kernels) and rwkv6-3b (the
+     RWKV6 scan kernel), serve its smoke config (float32) on the card and
+     on the CPU with the same numpy-made weights (every leaf drawn at
+     random): greedy token streams must agree between the two and between
+     the continuous and slot schedulers;
+  6. for each served arch, serve it at full width and depth in bf16 on the
+     card (weights drawn on the card from a seed): one prefill and one
+     decode step through the kernels against the same steps with the plain
+     versions swapped in, then 16 requests through the continuous-batching
+     engine (counters zeroed just before the run), with its throughput,
+     TTFT, tax split, transfer ledger and the weight-streaming floor of a
+     decode tick;
   7. time each kernel, its plain version and the matching PyTorch library
      call with CUDA events, beside the least time the card could take,
-     and profile the device's busy share of a pipeline run and of a
-     serve run.
+     and profile the device's busy share of a pipeline run and of each
+     arch's serve run.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -62,17 +65,25 @@ RESIZE_ATOL = 1e-4
 # attention kernels vs plain: fp32 differs only in summation order; bf16
 # outputs are rounded to bf16 by both (one bf16 ulp is 2^-8 relative)
 ATTN_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
-# full-width llama3-8b logits (bf16, 32 layers) through the kernels vs the
-# plain attention functions, relative to the largest logit
+# RWKV6 scan vs plain, relative to the largest output: fp32 differs only in
+# summation order; in bf16 both sides round o to bf16 (one ulp is 2^-8)
+SCAN_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# full-width logits through the kernels vs the plain versions, relative to
+# the largest logit: llama3-8b's in bf16, and rwkv6-3b's with its weights
+# widened to float32, where only fp32 summation order differs
 LOGITS_RTOL = 5e-2
+LOGITS_RTOL_F32 = 1e-3
 
-# serve phase at full width: llama3-8b, bf16, on the card
+# serve phase at full width, bf16, on the card, for each served arch
+SERVE_ARCHS = ("llama3-8b", "rwkv6-3b")
 SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_MAX_TOKENS = 8, 2048, 16, 32
 # NMS batteries (candidates per call) and the attention shapes of the path
 NMS_SIZES = (32, 256, 1000, 4096)
 FLASH_SEQS = (16, 37, 512, 1024)
 DECODE_LENS = (768, 2048)
 LLAMA_H, LLAMA_KV, LLAMA_D = 32, 8, 128
+RWKV_H, RWKV_K = 40, 64                  # rwkv6-3b's heads and head width
+RWKV_PREFILL, RWKV_DECODE_B = 1024, SERVE_SLOTS
 
 # 1080p source, as the paper's (repro/data/video.py), resized 2:1 for detection
 SRC_H, SRC_W = 1080, 1920
@@ -243,6 +254,22 @@ def decode_inputs(L, dtype, device, seed=0, B=SERVE_SLOTS):
             torch.from_numpy(lens).to(device))
 
 
+def scan_inputs(B, S, dtype, device, seed=0, H=RWKV_H, K=RWKV_K):
+    """r, w, k, v (B, S, H, K), u (H, K), h0 (B, H, K, K): decays
+    exp(-exp(N(0, 1))) spanning (0, 1), a non-zero bonus u; w and h0 in
+    float32, the rest in ``dtype``, as the model feeds the scan."""
+    import torch
+    g = _gen(seed)
+    r = torch.randn((B, S, H, K), generator=g)
+    w = torch.exp(-torch.exp(torch.randn((B, S, H, K), generator=g)))
+    k = torch.randn((B, S, H, K), generator=g) * 0.3
+    v = torch.randn((B, S, H, K), generator=g)
+    u = torch.randn((H, K), generator=g) * 0.5
+    h0 = torch.randn((B, H, K, K), generator=g) * 0.1
+    return (r.to(device, dtype), w.to(device), k.to(device, dtype),
+            v.to(device, dtype), u.to(device, dtype), h0.to(device))
+
+
 # --------------------------------------------------------------------------
 # Phase 2: each kernel against its plain version on the card
 # --------------------------------------------------------------------------
@@ -375,6 +402,45 @@ def check_serve_kernels(device) -> dict[str, float]:
     return err
 
 
+def check_scan_kernel(device) -> dict[str, float]:
+    """The RWKV6 scan against its plain version at rwkv6-3b's heads: the
+    prefill length, a ragged one, and the S = 1 decode step with a random
+    state, in place equal to out of place."""
+    import torch
+    from repro_torch.kernels import linear_scan as ls
+    worst = 0.0
+    cases = ((1, RWKV_PREFILL, False), (1, 37, True), (RWKV_DECODE_B, 1, True))
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for B, S, with_h0 in cases:
+            r, w, k, v, u, h0 = scan_inputs(B, S, dtype, device, seed=S)
+            h0 = h0 if with_h0 else None
+            o, h = ls.rwkv_scan(r, w, k, v, u, h0)
+            po, ph = ls.rwkv_scan_plain(r, w, k, v, u, h0)
+            e = (o.float() - po.float()).abs().max().item()
+            rel = e / po.float().abs().max().item()
+            rel_h = ((h - ph).abs().max() / ph.abs().max()).item()
+            line = (f"check rwkv_scan {name} r(B={B},S={S},{RWKV_H},{RWKV_K}) "
+                    f"h0={'random' if with_h0 else 'none'}: max_abs_err o "
+                    f"{e:.3e}, relative o {rel:.3e} state {rel_h:.3e} "
+                    f"(tolerance {SCAN_RTOL[name]} of the largest o, 1e-5 of "
+                    "the largest state)")
+            require(rel <= SCAN_RTOL[name] and rel_h <= 1e-5,
+                    f"rwkv_scan {name} B={B} S={S}: {rel}, {rel_h}")
+            if S == 1:
+                state = h0.clone()
+                o1, _ = ls.rwkv_decode_step(r[:, 0], w[:, 0], k[:, 0],
+                                            v[:, 0], u, state)
+                same = bool(torch.equal(o1, o[:, 0])
+                             and torch.equal(state, h))
+                line += f"; in place (state_out = h0) equal: {same}"
+                require(same, f"rwkv decode step {name}: in place differs")
+            print(line)
+            worst = max(worst, e)
+    torch.cuda.synchronize()
+    return {"rwkv_scan": worst}
+
+
 # --------------------------------------------------------------------------
 # Phase 3: the pipeline on the card, against the same pipeline on the CPU
 # --------------------------------------------------------------------------
@@ -485,25 +551,75 @@ def run_nms_path(device) -> int:
 # --------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def plain_attention():
-    """The models' attention ops switched to the plain versions, on any
-    device, for the kernel-vs-plain comparison of a whole model step."""
+def plain_ops():
+    """The models' kernel ops (attention, decode attention, the RWKV6 scan
+    and its decode step) switched to the plain versions, on any device,
+    for the kernel-vs-plain comparison of a whole model step."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import ops
-    saved = ops.attention, ops.decode_attention
+    names = ("attention", "decode_attention", "rwkv_scan", "rwkv_decode_step")
+    saved = {n: getattr(ops, n) for n in names}
     ops.attention = fa.flash_attention_plain
     ops.decode_attention = da.decode_attention_plain
+    ops.rwkv_scan = ls.rwkv_scan_plain
+    ops.rwkv_decode_step = ls.rwkv_decode_step_plain
     try:
         yield
     finally:
-        ops.attention, ops.decode_attention = saved
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+@contextlib.contextmanager
+def checked_scan_ops(errs: dict):
+    """The models' RWKV6 scan and decode step, each call also run through
+    its plain version on the same inputs: o within SCAN_RTOL of the largest
+    plain o and the state within 1e-5 of the largest plain state, layer by
+    layer. The model goes on with the kernel's results. ``errs`` collects,
+    per op, the layers checked and the largest relative errors."""
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.kernels import ops
+    scan, step = ops.rwkv_scan, ops.rwkv_decode_step
+
+    def compare(op, o, h, po, ph):
+        rel = ((o.float() - po.float()).abs().max()
+               / po.float().abs().max()).item()
+        rel_h = ((h - ph).abs().max() / ph.abs().max()).item()
+        tol = SCAN_RTOL[str(o.dtype).split(".")[1]]
+        n, worst, worst_h = errs.get(op, (0, 0.0, 0.0))
+        require(rel <= tol and rel_h <= 1e-5, f"{op} layer {n} on the model's "
+                f"activations: relative o {rel:.3e} (tolerance {tol}), state "
+                f"{rel_h:.3e} (tolerance 1e-5)")
+        errs[op] = (n + 1, max(worst, rel), max(worst_h, rel_h))
+
+    def checked_scan(r, w, k, v, u, h0=None):
+        o, h = scan(r, w, k, v, u, h0)
+        compare("rwkv_scan", o, h, *ls.rwkv_scan_plain(r, w, k, v, u, h0))
+        return o, h
+
+    def checked_step(r, w, k, v, u, h):
+        ph = h.clone()
+        po, _ = ls.rwkv_decode_step_plain(r, w, k, v, u, ph)
+        o, h = step(r, w, k, v, u, h)
+        compare("rwkv_decode_step", o, h, po, ph)
+        return o, h
+
+    ops.rwkv_scan, ops.rwkv_decode_step = checked_scan, checked_step
+    try:
+        yield
+    finally:
+        ops.rwkv_scan, ops.rwkv_decode_step = scan, step
 
 
 def numpy_lm_tree(cfg, seed: int) -> dict:
     """Random weights in the JAX package's ``Model.init`` layout (blocks
     stacked over n_repeats, one pattern position), made with numpy at the
-    reference's init scales."""
+    reference's init scales. Every leaf is drawn: the zeros- and
+    ones-initialised ones (norm scales, RWKV's token-shift mixes, bonus u,
+    decay bias w0, groupnorm) as their constant plus N(0, 0.2), so that the
+    token shift and the bonus are exercised."""
     import numpy as np
     from repro_torch.models import transformer as tf
     from repro_torch.models.layers import map_tree
@@ -513,7 +629,8 @@ def numpy_lm_tree(cfg, seed: int) -> dict:
     def draw(p, lead=()):
         shape = (*lead, *p.shape)
         if p.init in ("zeros", "ones"):
-            return (np.zeros if p.init == "zeros" else np.ones)(shape, np.float32)
+            const = 0.0 if p.init == "zeros" else 1.0
+            return (const + 0.2 * rng.standard_normal(shape)).astype(np.float32)
         fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
         scale = p.scale if p.scale is not None else fan_in ** -0.5
         return (rng.standard_normal(shape) * scale).astype(np.float32)
@@ -524,16 +641,16 @@ def numpy_lm_tree(cfg, seed: int) -> dict:
             "ln_f": map_tree(draw, meta["ln_f"])}
 
 
-def check_serve_smoke(device, wrappers) -> dict:
-    """The float32 smoke config on the card and on the CPU, same weights:
-    greedy streams equal across devices and schedulers. Returns, for each
-    card run, its launches per wrapper (counts zeroed just before the run
-    and read just after)."""
+def check_serve_smoke(device, arch: str, wrappers) -> dict:
+    """``arch``'s float32 smoke config on the card and on the CPU, same
+    weights: greedy streams equal across devices and schedulers. Returns,
+    for each card run, its launches per wrapper (counts zeroed just before
+    the run and read just after)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model, params_from_jax
     from repro_torch.serve.engine import Request, ServingEngine
-    cfg = get_config("llama3-8b", smoke=True).replace(dtype="float32")
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
     tree = numpy_lm_tree(cfg, seed=0)
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, cfg.vocab_size, n)
@@ -560,44 +677,75 @@ def check_serve_smoke(device, wrappers) -> dict:
             streams[(str(dev), sched)] = {r.rid: r.tokens for r in done}
     ref = streams[("cpu", "continuous")]
     for key, got in streams.items():
-        print(f"serve smoke {key}: {sum(map(len, got.values()))} tokens, "
+        print(f"serve smoke {arch} {key}: {sum(map(len, got.values()))} tokens, "
               f"streams equal to the cpu continuous run: {got == ref}")
-        require(got == ref, f"serve smoke {key}: token streams differ")
+        require(got == ref, f"serve smoke {arch} {key}: token streams differ")
     return launches
 
 
-def check_full_width_step(model, params) -> dict[str, float]:
-    """One full-width prefill and one decode step through the kernels
-    against the same steps with the plain attention functions, on the
-    card: relative max error of the bf16 logits."""
+def _step_logits(model, params, prompt, ops_ctx, tok=None):
+    """Logits of one prefill of ``prompt`` and of one decode step feeding
+    ``tok`` back (the prefill's argmax when None), under ``ops_ctx``."""
+    import torch
+    with torch.inference_mode(), ops_ctx():
+        lp, cache = model.prefill(params, {"tokens": prompt},
+                                  cache_len=SERVE_CACHE_LEN)
+        if tok is None:
+            tok = torch.argmax(lp, dim=-1).to(torch.int32)[:, None]
+        ld, _ = model.decode_step(params, cache, tok)
+    return {"prefill": lp.float(), "decode": ld.float()}, tok
+
+
+def _prompt_512(model):
     import numpy as np
     import torch
     rng = np.random.default_rng(1)
-    prompt = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (1, 512))
-                              .astype(np.int32)).to(model.device)
-    out = {}
-    with torch.inference_mode():
-        lk, ck = model.prefill(params, {"tokens": prompt},
-                               cache_len=SERVE_CACHE_LEN)
-        with plain_attention():
-            lp, cp = model.prefill(params, {"tokens": prompt},
-                                   cache_len=SERVE_CACHE_LEN)
-        tok = torch.argmax(lp, dim=-1).to(torch.int32)[:, None]
-        dk, _ = model.decode_step(params, ck, tok)
-        with plain_attention():
-            dp, _ = model.decode_step(params, cp, tok)
-    for name, a, b in (("prefill", lk, lp), ("decode", dk, dp)):
-        a, b = a.float(), b.float()
+    return torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (1, 512))
+                            .astype(np.int32)).to(model.device)
+
+
+def check_full_width_step(model, params, rtol: float) -> None:
+    """One full-width 512-token prefill and one decode step through the
+    kernels against the same steps with the plain versions
+    (:func:`plain_ops`), on the card: relative max error of the logits
+    within ``rtol``, argmax equal."""
+    import torch
+    prompt = _prompt_512(model)
+    plain, tok = _step_logits(model, params, prompt, plain_ops)
+    kern, _ = _step_logits(model, params, prompt, contextlib.nullcontext, tok)
+    for name, b in plain.items():
+        a = kern[name]
         require(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
                 f"full-width {name} logits are not finite")
         rel = ((a - b).abs().max() / b.abs().max()).item()
-        print(f"check llama3-8b {name} logits (bf16, 512-token prompt) "
-              f"kernels vs plain attention: max|diff|/max|plain|={rel:.3e} "
-              f"(tolerance {LOGITS_RTOL}); argmax equal: "
-              f"{bool((a.argmax(-1) == b.argmax(-1)).all())}")
-        require(rel <= LOGITS_RTOL, f"full-width {name} logits: {rel}")
-        out[name] = rel
-    return out
+        same = bool((a.argmax(-1) == b.argmax(-1)).all())
+        print(f"check {model.cfg.name} {name} logits ({model.cfg.dtype}, "
+              f"512-token prompt) kernels vs plain versions: "
+              f"max|diff|/max|plain|={rel:.3e} (tolerance {rtol}); "
+              f"argmax equal: {same}")
+        require(rel <= rtol, f"full-width {name} logits: {rel}")
+        require(same, f"full-width {model.cfg.name} {name}: argmax differs")
+
+
+def check_scan_layers(model, params) -> None:
+    """One full-width 512-token prefill and one decode step through the
+    scan kernel, every layer's scan held against the plain scan on that
+    layer's own inputs (:func:`checked_scan_ops`); the logits finite."""
+    import torch
+    errs = {}
+    logits, _ = _step_logits(model, params, _prompt_512(model),
+                             lambda: checked_scan_ops(errs))
+    for op, (n, rel, rel_h) in errs.items():
+        print(f"check {model.cfg.name} {op} ({model.cfg.dtype}, 512-token "
+              f"prompt) on each layer's own inputs vs plain: {n} layers, "
+              f"largest relative o {rel:.3e} state {rel_h:.3e}")
+    for op in ("rwkv_scan", "rwkv_decode_step"):
+        require(errs.get(op, (0,))[0] == model.cfg.n_layers,
+                f"{op}: {errs.get(op, (0,))[0]} of {model.cfg.n_layers} "
+                "layers checked")
+    for name, a in logits.items():
+        require(bool(torch.isfinite(a).all()),
+                f"full-width {name} logits are not finite")
 
 
 def serve_requests(cfg, n: int, seed: int):
@@ -627,23 +775,39 @@ def run_serve(model, params, prompts, max_tokens: int, wrappers=()):
     return eng, done, secs, {w: w.launches for w in wrappers}
 
 
-def serve_full_width(device, wrappers) -> dict:
-    """llama3-8b in bf16 on the card: the kernel-vs-plain step check, then
-    the engine over SERVE_REQUESTS requests."""
+def serve_full_width(device, arch: str, wrappers) -> dict:
+    """``arch`` at full width and depth in bf16 on the card: the
+    kernel-vs-plain step check, then the engine over SERVE_REQUESTS
+    requests."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import events
     from repro_torch.core.metrics import percentile
+    from repro_torch.models.layers import map_tree, tree_leaves
     from repro_torch.models.model import Model
-    cfg = get_config("llama3-8b")
+    cfg = get_config(arch)
     model = Model(cfg, device=device)
     t0 = time.perf_counter()
     params = model.init(seed=0)
     torch.cuda.synchronize()
-    print(f"serve llama3-8b: {model.n_params():,} parameters ({cfg.dtype}) "
-          f"drawn on the card in {time.perf_counter() - t0:.1f} s; "
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    print(f"serve {arch}: {model.n_params():,} parameters ({cfg.dtype}, "
+          f"{weight_bytes / 1e9:.3f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; "
           f"{torch.cuda.memory_allocated(device) / 1e9:.2f} GB allocated")
-    step_err = check_full_width_step(model, params)
+    if cfg.block_pattern[0].kind == "rwkv":
+        # over 32 bf16 layers of random weights a one-ulp flip of a scan
+        # output moves the logits by ~0.1 of the largest (a change of the
+        # plain scan's summation order alone does), so in bf16 the scan is
+        # held layer by layer, and the whole step with float32 weights
+        check_scan_layers(model, params)
+        wide = Model(cfg.replace(dtype="float32"), device=device)
+        check_full_width_step(
+            wide, map_tree(lambda t: t.float(), params), rtol=LOGITS_RTOL_F32)
+        del wide
+    else:
+        check_full_width_step(model, params, rtol=LOGITS_RTOL)
     # warm-up outside the counts: cuBLAS handles and the kernel libraries
     run_serve(model, params, serve_requests(cfg, 2, seed=2), 2)
     prompts = serve_requests(cfg, SERVE_REQUESTS, seed=0)
@@ -652,6 +816,7 @@ def serve_full_width(device, wrappers) -> dict:
                                           SERVE_MAX_TOKENS, wrappers)
     peak = torch.cuda.max_memory_allocated(device)
     n_tok = sum(len(r.tokens) for r in done)
+    ticks = eng.d2h_syncs - len(prompts)     # one fetch a prefill, one a tick
     decode_s = sum(ev.duration for ev in eng.log.events
                    if ev.stage == "decode")
     prefill_s = sum(ev.duration for ev in eng.log.events
@@ -659,29 +824,32 @@ def serve_full_width(device, wrappers) -> dict:
     ttft = eng.ttft_samples()
     rep = eng.log.ai_tax({"prefill", "decode"}, category_of=events.categorize)
     booked = eng.log.transfer_bytes()
-    print(f"serve llama3-8b bf16: {len(done)} of {len(prompts)} requests, "
+    print(f"serve {arch} bf16: {len(done)} of {len(prompts)} requests, "
           f"{n_tok} tokens in {secs:.3f} s; prompt lengths "
           f"{sorted(len(p) for p in prompts)}")
-    print(f"serve llama3-8b: decode {n_tok - len(done)} tokens in "
-          f"{decode_s:.3f} s of decode ticks = "
-          f"{(n_tok - len(done)) / decode_s:.1f} tokens/s; prefill "
+    print(f"serve {arch}: decode {n_tok - len(done)} tokens in "
+          f"{decode_s:.3f} s of {ticks} decode ticks = "
+          f"{(n_tok - len(done)) / decode_s:.1f} tokens/s, "
+          f"{decode_s / ticks * 1e3:.2f} ms a tick against a weight-streaming "
+          f"floor of {weight_bytes / PEAK_BYTES_S * 1e3:.2f} ms; prefill "
           f"{prefill_s:.3f} s for {sum(len(p) for p in prompts)} prompt "
           f"tokens; TTFT p50 {percentile(ttft, 0.5) * 1e3:.1f} ms p99 "
           f"{percentile(ttft, 0.99) * 1e3:.1f} ms")
-    print("serve llama3-8b five-way=" + json.dumps(
+    print(f"serve {arch} five-way=" + json.dumps(
         {k: round(v, 4) for k, v in rep["fractions"].items()})
           + f"; d2h_syncs={eng.d2h_syncs} d2h_bytes={eng.d2h_bytes} "
           f"ledger={booked}; peak memory {peak / 1e9:.2f} GB")
     require(len(done) == len(prompts) and all(
         r.done and len(r.tokens) == SERVE_MAX_TOKENS for r in done),
-        "full-width serve: not every request completed")
+        f"full-width {arch} serve: not every request completed")
     require(booked["d2h"] == eng.d2h_bytes,
             f"ledger books {booked['d2h']} d2h bytes, engine fetched "
             f"{eng.d2h_bytes}")
     require(all(0 <= t < cfg.vocab_size for r in done for t in r.tokens),
-            "full-width serve: token out of the vocabulary")
+            f"full-width {arch} serve: token out of the vocabulary")
     return {"model": model, "params": params, "launches": launches,
-            "step_err": step_err, "cfg": cfg}
+            "cfg": cfg, "prefills": len(prompts),
+            "ticks": ticks}
 
 
 def profile_serve(model, params, cfg) -> None:
@@ -698,12 +866,13 @@ def profile_serve(model, params, cfg) -> None:
     busy_us = sum(e.self_device_time_total for e in kernels)
     decode_s = sum(ev.duration for ev in eng.log.events
                    if ev.stage == "decode")
-    print(f"profile serve llama3-8b ({len(prompts)} requests x 16 tokens): "
+    print(f"profile serve {cfg.name} ({len(prompts)} requests x 16 tokens): "
           f"wall {secs:.3f} s (decode ticks {decode_s:.3f} s); device busy "
           f"{busy_us / 1e3:.3f} ms = {busy_us / 1e6 / secs:.5f} of the wall")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"profile serve device time {e.self_device_time_total / 1e3:.3f}"
-              f" ms x{e.count}: {e.key[:90]}")
+        print(f"profile serve {cfg.name} device time "
+              f"{e.self_device_time_total / 1e3:.3f} ms x{e.count}: "
+              f"{e.key[:90]}")
 
 
 # --------------------------------------------------------------------------
@@ -748,6 +917,7 @@ def time_kernels(device) -> dict[str, dict]:
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import preproc, resize
     out = {}
@@ -834,6 +1004,30 @@ def time_kernels(device) -> dict[str, dict]:
                    4 * LLAMA_D * LLAMA_H * valid, iters=20,
                    peak_flop_s=PEAK_BF16_FLOP_S)
         out.setdefault("decode_attention", t)
+
+    # the RWKV6 scan at the serve path's shapes: a 1024-token prefill from a
+    # zero state, then one decode step of 8 slots on their state, in place.
+    # 5 FLOP an (i, j) state element a step: r_i h_ij (2) and
+    # w_i h_ij + k_i v_j (3); the bonus needs only (sum_i r_i u_i k_i) v_j,
+    # 3 K + 2 V a head-step. No library call computes the scan.
+    for B, S in ((1, RWKV_PREFILL), (RWKV_DECODE_B, 1)):
+        r, w, k, v, u, h0 = scan_inputs(B, S, torch.bfloat16, device)
+        n = B * S * RWKV_H * RWKV_K
+        state = B * RWKV_H * RWKV_K * RWKV_K * 4
+        if S == 1:
+            args = (r[:, 0], w[:, 0], k[:, 0], v[:, 0], u, h0)
+            kernel = lambda: ls.rwkv_decode_step(*args)
+            plain = lambda: ls.rwkv_decode_step_plain(*args)
+            nbytes = 4 * n * 2 + 4 * n + 2 * u.numel() + 2 * state
+        else:
+            kernel = lambda: ls.rwkv_scan(r, w, k, v, u)
+            plain = lambda: ls.rwkv_scan_plain(r, w, k, v, u)
+            nbytes = 4 * n * 2 + 4 * n + 2 * u.numel() + state
+        t = _timed("rwkv_scan", f"bf16 r(B={B},S={S},{RWKV_H},{RWKV_K}) "
+                   f"{'state in place' if S == 1 else 'zero state'}",
+                   kernel, plain, None, nbytes, 5 * n * RWKV_K + 5 * n,
+                   iters=5 if S > 1 else 20)
+        out.setdefault("rwkv_scan", t)
     return out
 
 
@@ -869,9 +1063,11 @@ def profile_pipeline(device, *, n_frames: int, src_hw) -> None:
 
 def kernel_table():
     """Every ported kernel: its wrapper, source, the TPU kernel it
-    replaces, and the path whose run counts its launches."""
+    replaces, and the path (for serve, the arch) whose run counts its
+    launches."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import preproc, resize
     csrc = "src/repro_torch/kernels/csrc/"
@@ -893,11 +1089,15 @@ def kernel_table():
         {"name": "decode_attention", "wrapper": da.decode_attention,
          "source": csrc + "decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:116",
-         "path": "serve"},
+         "path": "serve", "arch": "llama3-8b"},
         {"name": "flash_attention", "wrapper": fa.flash_attention,
          "source": csrc + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:115",
-         "path": "serve"},
+         "path": "serve", "arch": "llama3-8b"},
+        {"name": "rwkv_scan", "wrapper": ls.rwkv_scan,
+         "source": csrc + "linear_scan.cu",
+         "replaces": "src/repro/kernels/linear_scan.py:147",
+         "path": "serve", "arch": "rwkv6-3b"},
     ]
 
 
@@ -926,26 +1126,42 @@ def main() -> int:
     kernels = kernel_table()
     errors = check_kernels(device)
     errors.update(check_serve_kernels(device))
+    errors.update(check_scan_kernel(device))
     launches = {}
     path = check_pipeline(device, [k for k in kernels if k["path"] == "pipeline"],
                           n_frames=16, src_hw=(SRC_H, SRC_W))
     launches.update(path["launches"])
     launches["iou_matrix"] = run_nms_path(device)
-    serve = [k for k in kernels if k["path"] == "serve"]
-    smoke = check_serve_smoke(device, [k["wrapper"] for k in serve])
-    full = serve_full_width(device, [k["wrapper"] for k in serve])
-    for k in serve:
-        n_full = full["launches"][k["wrapper"]]
-        by_sched = {s: n[k["wrapper"]] for s, n in smoke.items()}
-        print(f"serve launches {k['name']}: llama3-8b full width {n_full}; "
-              f"smoke config on the card, each run alone: {by_sched}")
-        require(n_full > 0, f"{k['name']} was not launched on the serve path")
-        require(all(n > 0 for n in by_sched.values()),
-                f"{k['name']} was not launched by a smoke serve run")
-        launches[k["name"]] = n_full
+    for arch in SERVE_ARCHS:
+        serve = [k for k in kernels if k.get("arch") == arch]
+        wrappers = [k["wrapper"] for k in serve]
+        smoke = check_serve_smoke(device, arch, wrappers)
+        full = serve_full_width(device, arch, wrappers)
+        for k in serve:
+            n_full = full["launches"][k["wrapper"]]
+            by_sched = {s: n[k["wrapper"]] for s, n in smoke.items()}
+            print(f"serve launches {k['name']}: {arch} full width {n_full}; "
+                  f"smoke config on the card, each run alone: {by_sched}")
+            require(n_full > 0,
+                    f"{k['name']} was not launched on the serve path")
+            require(all(n > 0 for n in by_sched.values()),
+                    f"{k['name']} was not launched by a smoke serve run")
+            launches[k["name"]] = n_full
+        if arch == "rwkv6-3b":
+            # one scan launch a layer for every prefill and every decode tick
+            want = full["cfg"].n_layers * (full["prefills"] + full["ticks"])
+            print(f"serve launches rwkv_scan: {launches['rwkv_scan']} = "
+                  f"{full['cfg'].n_layers} layers x ({full['prefills']} "
+                  f"prefills + {full['ticks']} ticks) = {want}: "
+                  f"{launches['rwkv_scan'] == want}")
+            require(launches["rwkv_scan"] == want,
+                    f"rwkv_scan launched {launches['rwkv_scan']} times, "
+                    f"want {want}")
+        profile_serve(full["model"], full["params"], full["cfg"])
+        del full                     # free the weights before the next arch
+        torch.cuda.empty_cache()
     times = time_kernels(device)
     profile_pipeline(device, n_frames=16, src_hw=(SRC_H, SRC_W))
-    profile_serve(full["model"], full["params"], full["cfg"])
 
     rows = []
     for k in kernels:

@@ -10,7 +10,8 @@ that runs only for CPU tensors.
 Ported so far: the face-recognition frame path of
 :class:`repro_torch.core.pipeline.StreamingPipeline` with device NMS, and
 the continuous-batching LM engine of
-:class:`repro_torch.serve.engine.ServingEngine` on llama3-8b. Entry
+:class:`repro_torch.serve.engine.ServingEngine` on llama3-8b and
+rwkv6-3b. Entry
 points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``.
 """

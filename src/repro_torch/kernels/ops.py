@@ -1,5 +1,6 @@
 """Public kernel entry points of the port (counterpart of
-``repro.kernels.ops`` for the face path and the LM serving path).
+``repro.kernels.ops`` for the face path and the LM serving path: dense
+attention models and RWKV6).
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor runs
 the plain PyTorch version, a CUDA tensor runs the hand-written CUDA
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import linear_scan as _ls
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import resize as _rs
 
@@ -48,3 +50,19 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Bilinear resize, align_corners=False: (..., H, W, C) ->
     (..., out_h, out_w, C)."""
     return _rs.resize_bilinear(img, out_h, out_w)
+
+
+def rwkv_scan(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, u: torch.Tensor,
+              h0: torch.Tensor | None = None):
+    """RWKV6 scan: r, w, k (B, S, H, K), v (B, S, H, V), bonus u (H, K),
+    optional state h0 (B, H, K, V) -> (o (B, S, H, V) in v's dtype, final
+    state (B, H, K, V) float32)."""
+    return _ls.rwkv_scan(r, w, k, v, u, h0)
+
+
+def rwkv_decode_step(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, u: torch.Tensor, h: torch.Tensor):
+    """One RWKV6 token per row: r, w, k (B, H, K), v (B, H, V), state h
+    (B, H, K, V) float32, updated in place -> (o (B, H, V), h)."""
+    return _ls.rwkv_decode_step(r, w, k, v, u, h)

@@ -1,14 +1,15 @@
 """Serving CLI: requests through the ServingEngine with an AI-tax
 report (counterpart of ``repro.launch.serve``).
 
-On the card, at full width in the config's dtype (bf16 for llama3-8b),
-with random weights drawn on the card from seed 0:
+On the card, at full width in the config's dtype (bf16 for llama3-8b
+and rwkv6-3b), with random weights drawn on the card from seed 0:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
 
 On the CPU, the float32 smoke config, as the reference's ``--smoke``:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
         --smoke --device cpu --requests 8 --max-tokens 8
 """
 from __future__ import annotations

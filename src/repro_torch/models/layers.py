@@ -1,15 +1,14 @@
 """Parameter metadata and primitive layers (counterpart of ``repro.models.layers``
-for the layers llama3-8b uses: RMSNorm, half-split RoPE, the SiLU GLU MLP,
-untied embeddings).
+for the layers the ported configs use: RMSNorm and LayerNorm, the RWKV
+per-head GroupNorm, half-split RoPE, the SiLU GLU MLP, untied embeddings).
 
 Parameters are declared as trees (nested dicts and lists) of :class:`P`:
 a shape and an init kind. :func:`init_params` draws every tensor from one
 explicit ``torch.Generator`` on the target device, in the tree's order,
-and casts once: matrices to the model's compute dtype, 1-D tensors kept
-in float32, which is what the reference's per-call ``cast_params`` gives.
-Weights carried over from the JAX package take the same cast
-(:func:`cast_params`), so a model holds its compute-dtype weights for its
-lifetime.
+and casts each one once, as the reference's per-call ``cast_params``
+casts it (:func:`cast_leaf`). Weights carried over from the JAX package
+take the same cast (:func:`cast_params`), so a model holds its
+compute-dtype weights for its lifetime.
 """
 from __future__ import annotations
 
@@ -25,7 +24,6 @@ class P:
     shape: tuple[int, ...]
     init: str = "normal"          # normal | zeros | ones
     scale: float | None = None    # stddev; default fan_in**-0.5
-    dtype: str | None = None      # "float32" pins a tensor (norm scales)
 
 
 def map_tree(fn, tree):
@@ -43,16 +41,30 @@ def tree_leaves(tree) -> list:
     return out
 
 
-def cast_params(params, dtype: torch.dtype):
-    """Compute-dtype cast: float32 matrices -> ``dtype``, 1-D stays put."""
-    return map_tree(lambda a: a.to(dtype)
-                    if a.ndim > 1 and a.dtype == torch.float32 else a, params)
+def cast_leaf(t: torch.Tensor, dtype: torch.dtype,
+              stacked: bool) -> torch.Tensor:
+    """The reference's compute-dtype cast of one leaf (``cast_params``):
+    a float32 leaf with ``ndim > 1`` goes to ``dtype``, whatever dtype the
+    reference's metadata pins it to. ``stacked`` marks a leaf of one layer
+    under ``params["blocks"]``: the reference stacks those over
+    ``n_repeats`` before it casts, so every block leaf has ``ndim > 1``
+    there and every float32 one (norm scales, RWKV's ``u`` and ``w0``
+    included) is cast."""
+    if t.dtype == torch.float32 and (stacked or t.ndim > 1):
+        return t.to(dtype)
+    return t
 
 
-def init_params(tree, generator: torch.Generator, dtype: torch.dtype):
+def cast_params(params, dtype: torch.dtype, *, stacked: bool = False):
+    """:func:`cast_leaf` over a tree."""
+    return map_tree(lambda a: cast_leaf(a, dtype, stacked), params)
+
+
+def init_params(tree, generator: torch.Generator, dtype: torch.dtype, *,
+                stacked: bool = False):
     """Materialize a metadata tree on ``generator``'s device: normal draws
-    scaled by ``scale`` (default fan_in**-0.5), zeros, ones; then the
-    compute-dtype cast of :func:`cast_params`."""
+    scaled by ``scale`` (default fan_in**-0.5), zeros, ones, each drawn in
+    float32 and then cast by :func:`cast_leaf`."""
     device = generator.device
 
     def make(p: P) -> torch.Tensor:
@@ -65,9 +77,7 @@ def init_params(tree, generator: torch.Generator, dtype: torch.dtype):
             scale = p.scale if p.scale is not None else fan_in ** -0.5
             t = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                             device=device).mul_(scale)
-        if p.dtype is None and t.ndim > 1:
-            t = t.to(dtype)
-        return t
+        return cast_leaf(t, dtype, stacked)
 
     return map_tree(make, tree)
 
@@ -82,8 +92,32 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return (n * w.float()).to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    n = (xf - mu) * torch.rsqrt(var + eps)
+    return (n * w.float() + b.float()).to(x.dtype)
+
+
+def groupnorm_heads(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    eps: float = 64e-5) -> torch.Tensor:
+    """Per-head groupnorm (RWKV output norm). x: (..., H, V)."""
+    return layernorm(x, w, b, eps)
+
+
 def norm_meta(cfg, d: int | None = None) -> dict:
-    return {"w": P((d or cfg.d_model,), "ones", dtype="float32")}
+    d = d or cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"w": P((d,), "ones"), "b": P((d,), "zeros")}
+    return {"w": P((d,), "ones")}
+
+
+def apply_norm(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["w"], p["b"])
+    return rmsnorm(x, p["w"])
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,

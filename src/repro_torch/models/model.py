@@ -6,8 +6,10 @@
 on the model's device from a seeded ``torch.Generator``;
 :func:`params_from_jax` carries the reference's ``Model.init`` tree across
 (as numpy arrays), which is how the tests hold the two packages to the
-same weights. Either way, matrices are held in the config's compute dtype
-and 1-D scales in float32.
+same weights. Either way every leaf is held as the reference's per-call
+``cast_params`` gives it (:func:`repro_torch.models.layers.cast_leaf`):
+each float32 leaf of the blocks, and each float32 matrix outside them, in
+the config's compute dtype; the final norm's vectors in float32.
 """
 from __future__ import annotations
 
@@ -22,6 +24,12 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (
     cast_params, init_params, map_tree, tree_leaves,
 )
+
+
+def _by_part(fn, tree: dict) -> dict:
+    """``fn(subtree, stacked)`` over the parts of an LM tree: ``stacked``
+    for the blocks, whose leaves the reference stacks over ``n_repeats``."""
+    return {name: fn(sub, name == "blocks") for name, sub in tree.items()}
 
 
 class Model:
@@ -43,18 +51,20 @@ class Model:
         tensor on the model's device from a ``torch.Generator`` seeded with
         ``seed``."""
         generator = torch.Generator(device=self.device).manual_seed(seed)
-        return init_params(self.param_meta(), generator, self.dtype)
+        return _by_part(lambda meta, stacked: init_params(
+            meta, generator, self.dtype, stacked=stacked), self.param_meta())
 
     def n_params(self) -> int:
         return sum(math.prod(p.shape) for p in tree_leaves(self.param_meta()))
 
     # ---- caches ----
     def init_cache(self, batch: int, cache_len: int) -> dict:
-        cfg = self.cfg
-        shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-        blocks = {n: torch.zeros(shape, dtype=self.dtype, device=self.device)
-                  for n in ("k", "v")}
-        return {"blocks": blocks, "cur_len": 0}
+        """Zeroed decode cache for ``batch`` rows, each layer kind with its
+        own leaves (:func:`transformer.init_cache_blocks`); ``cache_len``
+        sizes the attention leaves only."""
+        return {"blocks": tf.init_cache_blocks(self.cfg, batch, cache_len,
+                                               self.dtype, self.device),
+                "cur_len": 0}
 
     # ---- entry points ----
     def prefill(self, params, batch: dict, *, cache_len: int | None = None):
@@ -78,9 +88,9 @@ class Model:
 
     def insert_prefill(self, blocks: dict, one_blocks: dict,
                        slot: int) -> dict:
-        """Copy a batch-1 prefill cache (leaves (n_layers, 1, L, ...)) into
-        row ``slot`` of a batched block cache, in place; the other rows
-        are untouched."""
+        """Copy a batch-1 prefill cache (leaves (n, 1, ...)) into row
+        ``slot`` of a batched block cache, every leaf, in place; the other
+        rows are untouched."""
         for name, big in blocks.items():
             big[:, slot].copy_(one_blocks[name][:, 0])
         return blocks
@@ -93,8 +103,8 @@ def params_from_jax(cfg: ModelConfig, tree, device="cuda"):
 
     The reference stacks each block-pattern position ``l{j}`` over
     ``n_repeats``; layer ``r * len(block_pattern) + j`` of the port is
-    slice ``r`` of ``l{j}``. Matrices are cast to the config's compute
-    dtype, as :meth:`Model.init` leaves them.
+    slice ``r`` of ``l{j}``. Leaves are cast as :meth:`Model.init` casts
+    them (the reference's ``cast_params`` of the stacked tree).
     """
     tf.check_supported(cfg)
     dev = resolve_device(device)
@@ -110,4 +120,6 @@ def params_from_jax(cfg: ModelConfig, tree, device="cuda"):
                                    tree["blocks"][f"l{j}"]))
     params = {"embed": map_tree(to_torch, tree["embed"]), "blocks": blocks,
               "ln_f": map_tree(to_torch, tree["ln_f"])}
-    return cast_params(params, tf.DTYPES[cfg.dtype])
+    dtype = tf.DTYPES[cfg.dtype]
+    return _by_part(lambda sub, stacked: cast_params(sub, dtype,
+                                                     stacked=stacked), params)

@@ -1,30 +1,44 @@
-"""Decoder-only LM: prefill and decode over a stack of dense blocks
-(counterpart of ``repro.models.transformer``).
+"""Decoder-only LM: prefill and decode over a stack of blocks (counterpart
+of ``repro.models.transformer``).
 
 The reference stacks each block-pattern position's parameters over
 ``n_repeats`` and runs one ``lax.scan``; here ``params["blocks"]`` is a
 list with one dict per layer (layer ``i`` has the pattern's spec
 ``i % len(block_pattern)``) and the scan is a Python loop. The reference
 casts the parameters on every call (``cast_params``); here they were cast
-once when loaded (:func:`repro_torch.models.layers.cast_params`), which
-gives the same numbers. The decode cache is ``{"k", "v"}`` tensors of
-shape (n_layers, B, L, KV, D); layer ``i`` works on the contiguous view
-``[i]``. Dense GQA blocks of the llama family only (RMSNorm, SiLU GLU
-MLP, untied embeddings): other layers and variants raise
+once when loaded (:func:`repro_torch.models.layers.cast_leaf`), which
+gives the same numbers.
+
+Two families are ported: dense GQA attention blocks of the llama family
+(RMSNorm, SiLU GLU MLP) and RWKV6 blocks (LayerNorm, time-mix, channel-mix);
+embeddings are untied and unscaled. Other layers and variants raise
 ``NotImplementedError``.
+
+The decode cache is a flat dict of tensors, one per leaf name, whose
+leading axis runs over the layers of the kind that owns the leaf:
+attention's ``k``/``v`` (n_attn, B, L, KV, D) in the compute dtype,
+RWKV's ``x_tm``/``x_cm`` (n_rwkv, B, d) in the compute dtype and ``h``
+(n_rwkv, B, H, K, K) in float32. Layer ``i`` works in place on the
+contiguous slice ``[j]`` of its kind's leaves, ``j`` its index among the
+layers of that kind (:func:`cache_slots`); a hybrid family adds its
+kind's leaves beside these.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (
-    embed_meta, embed_tokens, mlp_apply, mlp_meta, norm_meta, rmsnorm,
+    apply_norm, embed_meta, embed_tokens, mlp_apply, mlp_meta, norm_meta,
     unembed,
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
+
+# cache leaves of each ported layer kind
+CACHE_LEAVES = {"attn": ("k", "v"), "rwkv": ("x_tm", "x_cm", "h")}
 
 
 def check_supported(cfg) -> None:
@@ -32,17 +46,27 @@ def check_supported(cfg) -> None:
     if cfg.encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
                                   "not ported yet")
-    if (cfg.norm, cfg.mlp_kind, cfg.act) != ("rmsnorm", "glu", "silu") \
-            or cfg.tie_embeddings or cfg.embed_scale:
+    if cfg.tie_embeddings or cfg.embed_scale:
         raise NotImplementedError(
-            f"{cfg.name}: only RMSNorm, the SiLU GLU MLP and untied, unscaled "
-            "embeddings are ported yet")
+            f"{cfg.name}: tied or scaled embeddings are not ported yet")
     for spec in cfg.block_pattern:
-        if spec.kind != "attn" or spec.moe:
-            raise NotImplementedError(
-                f"{cfg.name}: {spec.kind}{' + MoE' if spec.moe else ''} "
-                "blocks are not ported yet")
-        attn.check_supported(cfg, spec)
+        if spec.moe:
+            raise NotImplementedError(f"{cfg.name}: MoE blocks are not "
+                                      "ported yet")
+        if spec.kind == "attn":
+            if (cfg.norm, cfg.mlp_kind, cfg.act) != ("rmsnorm", "glu", "silu"):
+                raise NotImplementedError(
+                    f"{cfg.name}: attention blocks are ported with RMSNorm "
+                    "and the SiLU GLU MLP only")
+            attn.check_supported(cfg, spec)
+        elif spec.kind == "rwkv":
+            if (cfg.norm, cfg.mlp_kind) != ("layernorm", "rwkv"):
+                raise NotImplementedError(
+                    f"{cfg.name}: RWKV blocks are ported with LayerNorm and "
+                    "the RWKV channel-mix only")
+        else:
+            raise NotImplementedError(f"{cfg.name}: {spec.kind} blocks are "
+                                      "not ported yet")
 
 
 def layer_specs(cfg) -> list:
@@ -50,28 +74,91 @@ def layer_specs(cfg) -> list:
             for i in range(cfg.n_layers)]
 
 
+def cache_slots(cfg) -> list[int]:
+    """For each layer, its index among the layers of its kind: the slice
+    of its kind's cache leaves that it owns."""
+    seen: dict[str, int] = {}
+    out = []
+    for spec in layer_specs(cfg):
+        out.append(seen.get(spec.kind, 0))
+        seen[spec.kind] = out[-1] + 1
+    return out
+
+
+def _block_meta(cfg, spec) -> dict:
+    mix = attn.attn_meta(cfg) if spec.kind == "attn" else ssm.rwkv_meta(cfg)
+    mlp = ssm.rwkv_cm_meta(cfg) if cfg.mlp_kind == "rwkv" else mlp_meta(cfg)
+    return {"ln1": norm_meta(cfg), "mix": mix, "ln2": norm_meta(cfg),
+            "mlp": mlp}
+
+
 def lm_meta(cfg) -> dict:
     check_supported(cfg)
-    block = {"ln1": norm_meta(cfg), "mix": attn.attn_meta(cfg),
-             "ln2": norm_meta(cfg), "mlp": mlp_meta(cfg)}
     return {"embed": embed_meta(cfg),
-            "blocks": [block for _ in range(cfg.n_layers)],
+            "blocks": [_block_meta(cfg, spec) for spec in layer_specs(cfg)],
             "ln_f": norm_meta(cfg)}
 
 
+def _layer_cache_meta(cfg, spec, batch: int, cache_len: int) -> dict:
+    """One layer's cache leaves, name -> (shape, dtype; None for the
+    compute dtype)."""
+    if spec.kind == "attn":
+        shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": (shape, None), "v": (shape, None)}
+    return ssm.rwkv_cache_meta(cfg, batch)
+
+
+def init_cache_blocks(cfg, batch: int, cache_len: int, dtype: torch.dtype,
+                      device) -> dict:
+    """Zeroed decode-cache leaves for ``batch`` rows (see the module
+    docstring for the layout)."""
+    blocks = {}
+    specs = layer_specs(cfg)
+    for spec in specs:
+        n = sum(s.kind == spec.kind for s in specs)
+        for name, (shape, dt) in _layer_cache_meta(cfg, spec, batch,
+                                                   cache_len).items():
+            if name not in blocks:
+                blocks[name] = torch.zeros((n, *shape), dtype=dt or dtype,
+                                           device=device)
+    return blocks
+
+
+def _mlp_prefill(cfg, lp, h, cache):
+    if cfg.mlp_kind == "rwkv":
+        cache["x_cm"] = h[:, -1]
+        return ssm.rwkv_cm_apply(cfg, lp["mlp"], h)
+    return mlp_apply(lp["mlp"], h)
+
+
 def _apply_layer_prefill(cfg, spec, lp, x, positions, cache_len):
-    h = rmsnorm(x, lp["ln1"]["w"])
-    mix, cache = attn.attn_prefill(cfg, spec, lp["mix"], h, positions,
-                                   cache_len)
+    h = apply_norm(cfg, lp["ln1"], x)
+    if spec.kind == "attn":
+        mix, cache = attn.attn_prefill(cfg, spec, lp["mix"], h, positions,
+                                       cache_len)
+    else:
+        mix, cache = ssm.rwkv_apply(cfg, lp["mix"], h, return_cache=True)
     x = x + mix
-    return x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]["w"])), cache
+    return x + _mlp_prefill(cfg, lp, apply_norm(cfg, lp["ln2"], x), cache), \
+        cache
 
 
 def _apply_layer_decode(cfg, spec, lp, x, cache, cur_len):
-    h = rmsnorm(x, lp["ln1"]["w"])
-    mix, _ = attn.attn_decode(cfg, spec, lp["mix"], h, cache, cur_len)
+    """One token through one layer; ``cache`` (this layer's slices) is
+    updated in place."""
+    h = apply_norm(cfg, lp["ln1"], x)
+    if spec.kind == "attn":
+        mix, _ = attn.attn_decode(cfg, spec, lp["mix"], h, cache, cur_len)
+    else:
+        mix, _ = ssm.rwkv_decode(cfg, lp["mix"], h, cache)
     x = x + mix
-    return x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]["w"]))
+    h = apply_norm(cfg, lp["ln2"], x)
+    if cfg.mlp_kind == "rwkv":
+        out = ssm.rwkv_cm_decode(cfg, lp["mlp"], h, cache["x_cm"])
+        cache["x_cm"].copy_(h[:, 0])
+    else:
+        out = mlp_apply(lp["mlp"], h)
+    return x + out
 
 
 def lm_prefill(cfg, params, tokens: torch.Tensor, *,
@@ -82,27 +169,29 @@ def lm_prefill(cfg, params, tokens: torch.Tensor, *,
     cache_len = cache_len or S
     x = embed_tokens(params["embed"], tokens, dtype)
     positions = torch.arange(S, device=tokens.device)
-    ks, vs = [], []
+    leaves: dict[str, list] = {}
     for spec, lp in zip(layer_specs(cfg), params["blocks"]):
         x, c = _apply_layer_prefill(cfg, spec, lp, x, positions, cache_len)
-        ks.append(c["k"])
-        vs.append(c["v"])
-    x = rmsnorm(x, params["ln_f"]["w"])
+        for name in CACHE_LEAVES[spec.kind]:
+            leaves.setdefault(name, []).append(c[name])
+    x = apply_norm(cfg, params["ln_f"], x)
     logits = unembed(params["embed"], x[:, -1:])[:, 0]
-    return logits, {"blocks": {"k": torch.stack(ks), "v": torch.stack(vs)},
+    return logits, {"blocks": {n: torch.stack(ts) for n, ts in leaves.items()},
                     "cur_len": S}
 
 
 def _lm_decode_blocks(cfg, params, blocks, tokens, cur_len):
     """Shared decode body: one token per row against the block caches,
     written in place. ``cur_len`` is an int (lock-step) or a (B,) tensor
-    (ragged slots), as in :func:`attention.attn_decode`."""
+    (ragged slots), as in :func:`attention.attn_decode`; RWKV layers do
+    not read it."""
     dtype = DTYPES[cfg.dtype]
     x = embed_tokens(params["embed"], tokens, dtype)
-    for i, (spec, lp) in enumerate(zip(layer_specs(cfg), params["blocks"])):
-        cache = {"k": blocks["k"][i], "v": blocks["v"][i]}
+    for spec, j, lp in zip(layer_specs(cfg), cache_slots(cfg),
+                           params["blocks"]):
+        cache = {n: blocks[n][j] for n in CACHE_LEAVES[spec.kind]}
         x = _apply_layer_decode(cfg, spec, lp, x, cache, cur_len)
-    x = rmsnorm(x, params["ln_f"]["w"])
+    x = apply_norm(cfg, params["ln_f"], x)
     logits = unembed(params["embed"], x[:, -1:])[:, 0]
     return logits, blocks
 

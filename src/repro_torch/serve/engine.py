@@ -1,15 +1,18 @@
-"""Batched serving engine: continuous-batching decode over a KV cache
-(counterpart of ``repro.serve.engine``).
+"""Batched serving engine: continuous-batching decode over a batched
+decode cache (counterpart of ``repro.serve.engine``).
 
 The reference's production concerns, with its schedulers and ledger:
   * request queue with admission to fixed batch slots (the pipeline's
     :class:`~repro_torch.core.batching.Batcher`), ``max_queue`` admission
     control and the duck-typed ``degrade`` ladder;
   * continuous batching (``scheduler="continuous"``, the default): ONE
-    batched KV cache of shape (n_layers, slots, cache_len, ...) plus a
-    host-side per-slot occupancy vector, ONE ragged decode step per tick
-    over all slots (through the decode-attention kernel on the card), and
-    prefill-on-admit into freed slots while the others keep decoding;
+    batched decode cache with one row per slot (attention's KV cache of
+    ``cache_len`` entries, or RWKV's fixed-size state, which ignores the
+    per-slot lengths) plus a host-side per-slot occupancy vector, ONE
+    ragged decode step per tick over all slots (through the decode-attention
+    or the scan kernel on the card), and prefill-on-admit into freed slots
+    while the others keep decoding. An idle slot's rows hold whatever its
+    last decode left until an admission overwrites every leaf of the row;
   * the pre-batching baseline (``scheduler="slot"``): one decode call per
     slot per token;
   * per-request AI-tax events (queue wait, prefill, decode; batched decode
@@ -119,7 +122,7 @@ class ServingEngine:
         # the token each slot feeds back next tick
         self._kv_len = np.zeros(batch_slots, np.int32)
         self._last_tok = np.zeros(batch_slots, np.int32)
-        self._blocks = None          # batched (n_layers, slots, cache_len, ...)
+        self._blocks = None          # batched decode cache, one row per slot
         # fast_path: greedy selection on the device, one int32 per slot
         # crosses per step; otherwise the full logit rows come back and
         # the host takes the argmax

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import linear_scan as ls
 from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import preproc, resize
 from repro_torch.preprocess import device as pp_device
@@ -189,3 +190,71 @@ def test_attention_kernels_reject_what_they_do_not_take(cuda):
     q, kv = torch.zeros((1, 1, 4, 64), device=cuda), kv.new_zeros((1, 8, 2, 64))
     with pytest.raises(ValueError):                     # G = 2, D = 64
         da.decode_attention(q, kv, kv, kv_len=torch.ones(1, device=cuda))
+
+
+def _scan_inputs(B, S, H, K, dtype, device, seed=9):
+    """r, w, k, v, u, h0 with decays exp(-exp(N(0, 1))) spanning (0, 1)
+    and a non-zero bonus u; w and h0 in float32."""
+    g = _gen(seed)
+    r = torch.randn((B, S, H, K), generator=g)
+    w = torch.exp(-torch.exp(torch.randn((B, S, H, K), generator=g)))
+    k = torch.randn((B, S, H, K), generator=g) * 0.3
+    v = torch.randn((B, S, H, K), generator=g)
+    u = torch.randn((H, K), generator=g) * 0.5
+    h0 = torch.randn((B, H, K, K), generator=g) * 0.1
+    return (r.to(device, dtype), w.to(device), k.to(device, dtype),
+            v.to(device, dtype), u.to(device, dtype), h0.to(device))
+
+
+# tolerances relative to the largest output: float32 differs from the plain
+# version only in summation order; in bfloat16 both sides round o to bf16
+SCAN_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,with_h0", [(1, 1024, 40, 64, False),
+                                             (1, 37, 40, 64, True),
+                                             (8, 1, 40, 64, True),
+                                             (2, 45, 4, 16, True)])
+def test_rwkv_scan_kernel_vs_plain(cuda, dtype, B, S, H, K, with_h0):
+    r, w, k, v, u, h0 = _scan_inputs(B, S, H, K, dtype, cuda)
+    h0 = h0 if with_h0 else None
+    count = ls.rwkv_scan.launches
+    o, h = ls.rwkv_scan(r, w, k, v, u, h0)
+    assert ls.rwkv_scan.launches == count + 1
+    po, ph = ls.rwkv_scan_plain(r, w, k, v, u, h0)
+    assert o.dtype == dtype and h.dtype == torch.float32
+    tol = SCAN_RTOL[dtype] * po.float().abs().max().item()
+    torch.testing.assert_close(o.float(), po.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(h, ph, atol=1e-5 * ph.abs().max().item(),
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv_decode_step_in_place_equals_out_of_place(cuda, dtype):
+    r, w, k, v, u, h0 = _scan_inputs(8, 1, 40, 64, dtype, cuda)
+    o, h = ls.rwkv_scan(r, w, k, v, u, h0)
+    state = h0.clone()
+    count = ls.rwkv_scan.launches
+    o1, out = ls.rwkv_decode_step(r[:, 0], w[:, 0], k[:, 0], v[:, 0], u,
+                                  state)
+    assert ls.rwkv_scan.launches == count + 1 and out is state
+    assert torch.equal(o1, o[:, 0]) and torch.equal(state, h)
+    po, _ = ls.rwkv_decode_step_plain(r[:, 0], w[:, 0], k[:, 0], v[:, 0], u,
+                                      h0.clone())
+    tol = SCAN_RTOL[dtype] * po.float().abs().max().item()
+    torch.testing.assert_close(o1.float(), po.float(), atol=tol, rtol=0)
+
+
+def test_rwkv_scan_kernel_rejects_what_it_does_not_take(cuda):
+    r, w, k, v, u, h0 = _scan_inputs(1, 4, 2, 32, torch.float32, cuda)
+    with pytest.raises(ValueError):                       # K = 32: not built
+        ls.rwkv_scan(r, w, k, v, u, h0)
+    r, w, k, v, u, h0 = _scan_inputs(1, 4, 2, 16, torch.float32, cuda)
+    with pytest.raises(ValueError):                       # bf16 w
+        ls.rwkv_scan(r, w.bfloat16(), k, v, u, h0)
+    with pytest.raises(ValueError):                       # mixed r, k
+        ls.rwkv_scan(r, w, k.bfloat16(), v, u, h0)
+    with pytest.raises(ValueError):                       # not contiguous
+        ls.rwkv_scan(r.transpose(1, 2).contiguous().transpose(1, 2), w, k,
+                     v, u, h0)

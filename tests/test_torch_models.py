@@ -53,18 +53,19 @@ def _prompts(cfg, lens, seed):
 
 # ---- configs ------------------------------------------------------------
 
+@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-3b"])
 @pytest.mark.parametrize("smoke", [False, True])
-def test_config_copy_equals_reference(smoke):
-    ref = jax_get_config("llama3-8b", smoke=smoke)
-    port = configs.get_config("llama3-8b", smoke=smoke)
+def test_config_copy_equals_reference(smoke, arch):
+    ref = jax_get_config(arch, smoke=smoke)
+    port = configs.get_config(arch, smoke=smoke)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     assert port.param_counts() == ref.param_counts()
     assert port.n_repeats == ref.n_repeats
 
 
 def test_unported_archs_raise_not_ported_yet():
-    assert configs.list_configs() == ["llama3-8b"]
-    for name in configs.ARCHS[1:]:
+    assert configs.list_configs() == ["llama3-8b", "rwkv6-3b"]
+    for name in set(configs.ARCHS) - set(configs.list_configs()):
         with pytest.raises(KeyError, match="not ported yet"):
             configs.get_config(name)
     with pytest.raises(KeyError, match="unknown"):
@@ -102,7 +103,8 @@ def test_init_draws_on_the_device_with_reference_scales_and_dtypes():
     model = Model(cfg, device="cpu")
     p = model.init(seed=3)
     assert p["embed"]["tok"].dtype == torch.bfloat16
-    assert p["blocks"][0]["ln1"]["w"].dtype == torch.float32
+    # the reference casts the stacked block leaves, norm scales included
+    assert p["blocks"][0]["ln1"]["w"].dtype == torch.bfloat16
     assert torch.equal(p["ln_f"]["w"], torch.ones(cfg.d_model))
     tok = p["embed"]["tok"].float()
     wq = p["blocks"][1]["mix"]["wq"].float()

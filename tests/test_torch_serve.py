@@ -1,9 +1,12 @@
 """The port's ServingEngine (repro_torch.serve.engine) against the JAX
 engine, mirroring tests/test_serve.py.
 
-Both engines serve the llama3-8b smoke config in float32 on the CPU with
-the same weights (the reference's ``Model.init`` tree carried across with
-``params_from_jax``); greedy token streams must be identical, request by
+Both engines serve the smoke config of ``arch`` (llama3-8b here;
+``test_torch_serve_rwkv.py`` collects the same cases for rwkv6-3b) in
+float32 on the CPU with the same weights: the reference's ``Model.init``
+tree with numpy noise from a seed on every leaf (so that zeros/ones-
+initialised leaves are exercised too), carried across with
+``params_from_jax``. Greedy token streams must be identical, request by
 request, for both schedulers and both ``fast_path`` settings, and the
 port's transfer ledger must equal its own counters and the reference's
 device->host bytes.
@@ -23,13 +26,21 @@ from repro_torch.serve.engine import Request, ServingEngine
 
 
 @pytest.fixture(scope="module")
-def models():
-    cfg = jax_get_config("llama3-8b", smoke=True).replace(dtype="float32")
+def arch():
+    return "llama3-8b"
+
+
+@pytest.fixture(scope="module")
+def models(arch):
+    cfg = jax_get_config(arch, smoke=True).replace(dtype="float32")
     jm = jax_build_model(cfg)
-    jp = jm.init(jax.random.PRNGKey(0))
-    pcfg = configs.get_config("llama3-8b", smoke=True).replace(dtype="float32")
+    rng = np.random.default_rng(0)
+    jp = jax.tree.map(
+        lambda a: (np.asarray(a) + 0.2 * rng.standard_normal(a.shape))
+        .astype(np.float32), jm.init(jax.random.PRNGKey(0)))
+    pcfg = configs.get_config(arch, smoke=True).replace(dtype="float32")
     pm = Model(pcfg, device="cpu")
-    pp = params_from_jax(pcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    pp = params_from_jax(pcfg, jp, device="cpu")
     return jm, jp, pm, pp, pcfg
 
 
