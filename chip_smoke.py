@@ -18,18 +18,22 @@ Phases, each fatal on failure:
      (plain versions);
   4. run device NMS on candidate batteries (counters zeroed just before)
      and check its keep lists against the host NMS;
-  5. for each served arch, llama3-8b (attention kernels) and rwkv6-3b (the
-     RWKV6 scan kernel), serve its smoke config (float32) on the card and
-     on the CPU with the same numpy-made weights (every leaf drawn at
-     random): greedy token streams must agree between the two and between
-     the continuous and slot schedulers;
-  6. for each served arch, serve it at full width and depth in bf16 on the
-     card (weights drawn on the card from a seed): one prefill and one
-     decode step through the kernels against the same steps with the plain
-     versions swapped in, then 16 requests through the continuous-batching
-     engine (counters zeroed just before the run), with its throughput,
-     TTFT, tax split, transfer ledger and the weight-streaming floor of a
-     decode tick;
+  5. for each served arch, llama3-8b (attention kernels), rwkv6-3b (the
+     RWKV6 scan kernel) and jamba-v0.1-52b (the Mamba scan kernel beside
+     the attention kernels, MoE MLPs), serve its smoke config (float32) on
+     the card and on the CPU with the same numpy-made weights (every leaf
+     drawn at random): greedy token streams must agree between the two and
+     between the continuous and slot schedulers;
+  6. for each served arch, serve it at full width in bf16 on the card
+     (weights drawn on the card from a seed), at full depth but for
+     jamba-v0.1-52b, whose depth is cut to what one card is measured to
+     hold (printed as a listed reduction): one prefill and one decode step
+     through the kernels against the same steps with the plain versions
+     swapped in (for the scan archs, every layer's scan on its own bf16
+     inputs, and the whole step with float32 weights), then 16 requests
+     through the continuous-batching engine (counters zeroed just before
+     the run), with its throughput, TTFT, tax split, transfer ledger and
+     the weight-streaming floor of a decode tick;
   7. time each kernel, its plain version and the matching PyTorch library
      call with CUDA events, beside the least time the card could take,
      and profile the device's busy share of a pipeline run and of each
@@ -54,10 +58,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks at a 700 W power limit (NVIDIA data sheet): HBM3 bytes/s,
-# fp32 FLOP/s outside the tensor cores, dense bf16 tensor-core FLOP/s.
+# fp32 FLOP/s outside the tensor cores, dense bf16 tensor-core FLOP/s; and
+# the SFU's exponentials: 16 a clock an SM for compute capability 9.0 (CUDA
+# programming guide, arithmetic instruction throughput) at 132 SMs and the
+# 1.98 GHz boost clock.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
 PEAK_BF16_FLOP_S = 989e12
+PEAK_SFU_S = 16 * 132 * 1.98e9
 
 MATMUL_ATOL, MATMUL_RTOL = 1e-4, 1e-5
 LETTERBOX_ATOL = 1e-3
@@ -65,17 +73,19 @@ RESIZE_ATOL = 1e-4
 # attention kernels vs plain: fp32 differs only in summation order; bf16
 # outputs are rounded to bf16 by both (one bf16 ulp is 2^-8 relative)
 ATTN_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
-# RWKV6 scan vs plain, relative to the largest output: fp32 differs only in
-# summation order; in bf16 both sides round o to bf16 (one ulp is 2^-8)
+# RWKV6 and Mamba scans vs plain, relative to the largest output: fp32
+# differs only in summation order; in bf16 both sides round the output to
+# bf16 (one ulp is 2^-8); the float32 state within 1e-5 of the largest
 SCAN_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+STATE_RTOL = 1e-5
 # full-width logits through the kernels vs the plain versions, relative to
-# the largest logit: llama3-8b's in bf16, and rwkv6-3b's with its weights
-# widened to float32, where only fp32 summation order differs
+# the largest logit: llama3-8b's in bf16, and rwkv6-3b's and jamba's with
+# float32 weights, where only fp32 summation order differs
 LOGITS_RTOL = 5e-2
 LOGITS_RTOL_F32 = 1e-3
 
 # serve phase at full width, bf16, on the card, for each served arch
-SERVE_ARCHS = ("llama3-8b", "rwkv6-3b")
+SERVE_ARCHS = ("llama3-8b", "rwkv6-3b", "jamba-v0.1-52b")
 SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_MAX_TOKENS = 8, 2048, 16, 32
 # NMS batteries (candidates per call) and the attention shapes of the path
 NMS_SIZES = (32, 256, 1000, 4096)
@@ -84,6 +94,9 @@ DECODE_LENS = (768, 2048)
 LLAMA_H, LLAMA_KV, LLAMA_D = 32, 8, 128
 RWKV_H, RWKV_K = 40, 64                  # rwkv6-3b's heads and head width
 RWKV_PREFILL, RWKV_DECODE_B = 1024, SERVE_SLOTS
+# jamba-v0.1-52b's Mamba layers: d_inner 8192, state 16 (smoke: 128, 4)
+MAMBA_DI, MAMBA_N = 8192, 16
+MAMBA_PREFILL, MAMBA_DECODE_B = 1024, SERVE_SLOTS
 
 # 1080p source, as the paper's (repro/data/video.py), resized 2:1 for detection
 SRC_H, SRC_W = 1080, 1920
@@ -113,8 +126,13 @@ def card_line() -> str:
 
 
 def bound_ms(nbytes: float, flops: float,
-             peak_flop_s: float = PEAK_FP32_FLOP_S) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak_flop_s
+             peak_flop_s: float = PEAK_FP32_FLOP_S,
+             exps: float = 0.0) -> tuple[float, str]:
+    """The least time for the work: the larger of the bytes over the memory
+    rate and the operations over their peak, the operations' time the
+    larger of the FLOP's and of the SFU's exponentials (other units)."""
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = max(flops / peak_flop_s, exps / PEAK_SFU_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -268,6 +286,22 @@ def scan_inputs(B, S, dtype, device, seed=0, H=RWKV_H, K=RWKV_K):
     h0 = torch.randn((B, H, K, K), generator=g) * 0.1
     return (r.to(device, dtype), w.to(device), k.to(device, dtype),
             v.to(device, dtype), u.to(device, dtype), h0.to(device))
+
+
+def mamba_inputs(B, S, dtype, device, seed=0, Di=MAMBA_DI, N=MAMBA_N):
+    """delta (B, S, Di) = softplus(N(0, 1)), A (Di, N) = -exp(N(0, 0.5)),
+    Bt, Ct (B, S, N), x (B, S, Di), h0 (B, Di, N): A and h0 in float32, the
+    rest in ``dtype``, as the model feeds the scan."""
+    import torch
+    g = _gen(seed)
+    delta = torch.nn.functional.softplus(torch.randn((B, S, Di), generator=g))
+    A = -torch.exp(0.5 * torch.randn((Di, N), generator=g))
+    Bt = torch.randn((B, S, N), generator=g)
+    Ct = torch.randn((B, S, N), generator=g)
+    x = torch.randn((B, S, Di), generator=g)
+    h0 = 0.5 * torch.randn((B, Di, N), generator=g)
+    return (delta.to(device, dtype), A.to(device), Bt.to(device, dtype),
+            Ct.to(device, dtype), x.to(device, dtype), h0.to(device))
 
 
 # --------------------------------------------------------------------------
@@ -441,6 +475,52 @@ def check_scan_kernel(device) -> dict[str, float]:
     return {"rwkv_scan": worst}
 
 
+def check_mamba_kernel(device) -> dict[str, float]:
+    """The Mamba scan against its plain version, fp32 and bf16, at
+    jamba-v0.1-52b's width (Di 8192, N 16): the prefill length, a ragged
+    one and B > 1 with a random state, and the S = 1 decode step of 8 slots
+    in place equal to out of place; and at the smoke config's (Di 128,
+    N 4). y within SCAN_RTOL of the largest plain y, the state within
+    STATE_RTOL of the largest plain state."""
+    import torch
+    from repro_torch.kernels import linear_scan as ls
+    worst = 0.0
+    cases = ((1, MAMBA_PREFILL, MAMBA_DI, MAMBA_N, False),
+             (1, 37, MAMBA_DI, MAMBA_N, True), (3, 50, MAMBA_DI, MAMBA_N, True),
+             (MAMBA_DECODE_B, 1, MAMBA_DI, MAMBA_N, True),
+             (2, 45, 128, 4, True), (MAMBA_DECODE_B, 1, 128, 4, True))
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for B, S, Di, N, with_h0 in cases:
+            delta, A, Bt, Ct, x, h0 = mamba_inputs(B, S, dtype, device,
+                                                   seed=S, Di=Di, N=N)
+            h0 = h0 if with_h0 else None
+            y, h = ls.mamba_scan(delta, A, Bt, Ct, x, h0)
+            py, ph = ls.mamba_scan_plain(delta, A, Bt, Ct, x, h0)
+            e = (y.float() - py.float()).abs().max().item()
+            rel = e / py.float().abs().max().item()
+            rel_h = ((h - ph).abs().max() / ph.abs().max()).item()
+            line = (f"check mamba_scan {name} delta(B={B},S={S},{Di}) N={N} "
+                    f"h0={'random' if with_h0 else 'none'}: max_abs_err y "
+                    f"{e:.3e}, relative y {rel:.3e} state {rel_h:.3e} "
+                    f"(tolerance {SCAN_RTOL[name]} of the largest y, "
+                    f"{STATE_RTOL} of the largest state)")
+            require(rel <= SCAN_RTOL[name] and rel_h <= STATE_RTOL,
+                    f"mamba_scan {name} B={B} S={S} N={N}: {rel}, {rel_h}")
+            if S == 1:
+                state = h0.clone()
+                y1, _ = ls.mamba_decode_step(delta[:, 0], A, Bt[:, 0],
+                                             Ct[:, 0], x[:, 0], state)
+                same = bool(torch.equal(y1, y[:, 0])
+                            and torch.equal(state, h))
+                line += f"; in place (state_out = h0) equal: {same}"
+                require(same, f"mamba decode step {name}: in place differs")
+            print(line)
+            worst = max(worst, e)
+    torch.cuda.synchronize()
+    return {"mamba_scan": worst}
+
+
 # --------------------------------------------------------------------------
 # Phase 3: the pipeline on the card, against the same pipeline on the CPU
 # --------------------------------------------------------------------------
@@ -550,21 +630,23 @@ def run_nms_path(device) -> int:
 # Phases 5 and 6: the serving engine
 # --------------------------------------------------------------------------
 
+# the models' scan ops (in repro_torch.kernels.ops) and their plain versions
+# (in repro_torch.kernels.linear_scan); a ``*_decode_step`` writes its last
+# argument, the state, in place
+SCAN_OPS = {"rwkv_scan": "rwkv_scan_plain",
+            "rwkv_decode_step": "rwkv_decode_step_plain",
+            "mamba_scan": "mamba_scan_plain",
+            "mamba_decode_step": "mamba_decode_step_plain"}
+
+
 @contextlib.contextmanager
-def plain_ops():
-    """The models' kernel ops (attention, decode attention, the RWKV6 scan
-    and its decode step) switched to the plain versions, on any device,
-    for the kernel-vs-plain comparison of a whole model step."""
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import linear_scan as ls
+def swapped_ops(fns: dict):
+    """``repro_torch.kernels.ops`` with the given name -> function swapped
+    in, restored on exit."""
     from repro_torch.kernels import ops
-    names = ("attention", "decode_attention", "rwkv_scan", "rwkv_decode_step")
-    saved = {n: getattr(ops, n) for n in names}
-    ops.attention = fa.flash_attention_plain
-    ops.decode_attention = da.decode_attention_plain
-    ops.rwkv_scan = ls.rwkv_scan_plain
-    ops.rwkv_decode_step = ls.rwkv_decode_step_plain
+    saved = {n: getattr(ops, n) for n in fns}
+    for n, fn in fns.items():
+        setattr(ops, n, fn)
     try:
         yield
     finally:
@@ -572,16 +654,28 @@ def plain_ops():
             setattr(ops, n, fn)
 
 
-@contextlib.contextmanager
+def plain_ops():
+    """The models' kernel ops (attention, decode attention, the RWKV6 and
+    Mamba scans and their decode steps) switched to the plain versions, on
+    any device, for the kernel-vs-plain comparison of a whole model step."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
+    return swapped_ops({
+        "attention": fa.flash_attention_plain,
+        "decode_attention": da.decode_attention_plain,
+        **{op: getattr(ls, plain) for op, plain in SCAN_OPS.items()}})
+
+
 def checked_scan_ops(errs: dict):
-    """The models' RWKV6 scan and decode step, each call also run through
-    its plain version on the same inputs: o within SCAN_RTOL of the largest
-    plain o and the state within 1e-5 of the largest plain state, layer by
-    layer. The model goes on with the kernel's results. ``errs`` collects,
-    per op, the layers checked and the largest relative errors."""
+    """The models' scan ops (RWKV6 and Mamba, scan and decode step), each
+    call also run through its plain version on the same inputs: the output
+    within SCAN_RTOL of the largest plain output and the state within
+    STATE_RTOL of the largest plain state, layer by layer. The model goes
+    on with the kernel's results. ``errs`` collects, per op, the layers
+    checked and the largest relative errors."""
     from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import ops
-    scan, step = ops.rwkv_scan, ops.rwkv_decode_step
 
     def compare(op, o, h, po, ph):
         rel = ((o.float() - po.float()).abs().max()
@@ -589,41 +683,62 @@ def checked_scan_ops(errs: dict):
         rel_h = ((h - ph).abs().max() / ph.abs().max()).item()
         tol = SCAN_RTOL[str(o.dtype).split(".")[1]]
         n, worst, worst_h = errs.get(op, (0, 0.0, 0.0))
-        require(rel <= tol and rel_h <= 1e-5, f"{op} layer {n} on the model's "
-                f"activations: relative o {rel:.3e} (tolerance {tol}), state "
-                f"{rel_h:.3e} (tolerance 1e-5)")
+        require(rel <= tol and rel_h <= STATE_RTOL, f"{op} layer {n} on the "
+                f"model's activations: relative output {rel:.3e} (tolerance "
+                f"{tol}), state {rel_h:.3e} (tolerance {STATE_RTOL})")
         errs[op] = (n + 1, max(worst, rel), max(worst_h, rel_h))
 
-    def checked_scan(r, w, k, v, u, h0=None):
-        o, h = scan(r, w, k, v, u, h0)
-        compare("rwkv_scan", o, h, *ls.rwkv_scan_plain(r, w, k, v, u, h0))
-        return o, h
+    def checked(op):
+        kernel, plain = getattr(ops, op), getattr(ls, SCAN_OPS[op])
 
-    def checked_step(r, w, k, v, u, h):
-        ph = h.clone()
-        po, _ = ls.rwkv_decode_step_plain(r, w, k, v, u, ph)
-        o, h = step(r, w, k, v, u, h)
-        compare("rwkv_decode_step", o, h, po, ph)
-        return o, h
+        def scan(*args):
+            o, h = kernel(*args)
+            compare(op, o, h, *plain(*args))
+            return o, h
 
-    ops.rwkv_scan, ops.rwkv_decode_step = checked_scan, checked_step
+        def step(*args):
+            ph = args[-1].clone()
+            po, _ = plain(*args[:-1], ph)
+            o, h = kernel(*args)
+            compare(op, o, h, po, ph)
+            return o, h
+        return step if op.endswith("_decode_step") else scan
+
+    return swapped_ops({op: checked(op) for op in SCAN_OPS})
+
+
+@contextlib.contextmanager
+def recorded_routes(routes: list):
+    """Every MoE call of the models also records its router's (probs, top-k
+    expert ids) on ``routes``, in call order."""
+    from repro_torch.models import moe
+    apply = moe.moe_apply
+
+    def recording(cfg, p, x):
+        probs, _, idx = moe.route(cfg, p, x)
+        routes.append((probs, idx))
+        return apply(cfg, p, x)
+
+    moe.moe_apply = recording
     try:
         yield
     finally:
-        ops.rwkv_scan, ops.rwkv_decode_step = scan, step
+        moe.moe_apply = apply
 
 
 def numpy_lm_tree(cfg, seed: int) -> dict:
-    """Random weights in the JAX package's ``Model.init`` layout (blocks
-    stacked over n_repeats, one pattern position), made with numpy at the
-    reference's init scales. Every leaf is drawn: the zeros- and
+    """Random weights in the JAX package's ``Model.init`` layout (each
+    pattern position's blocks stacked over n_repeats), made with numpy at
+    the reference's init scales. Every leaf is drawn: the zeros- and
     ones-initialised ones (norm scales, RWKV's token-shift mixes, bonus u,
-    decay bias w0, groupnorm) as their constant plus N(0, 0.2), so that the
-    token shift and the bonus are exercised."""
+    decay bias w0, groupnorm; Mamba's conv bias, dt_bias, A_log, D) as
+    their constant plus N(0, 0.2), so that the token shift, the bonus and
+    the Mamba state's decay rates are exercised."""
     import numpy as np
     from repro_torch.models import transformer as tf
     from repro_torch.models.layers import map_tree
     meta = tf.lm_meta(cfg)
+    n_pat = len(cfg.block_pattern)
     rng = np.random.default_rng(seed)
 
     def draw(p, lead=()):
@@ -636,8 +751,9 @@ def numpy_lm_tree(cfg, seed: int) -> dict:
         return (rng.standard_normal(shape) * scale).astype(np.float32)
 
     return {"embed": map_tree(draw, meta["embed"]),
-            "blocks": {"l0": map_tree(lambda p: draw(p, (cfg.n_repeats,)),
-                                      meta["blocks"][0])},
+            "blocks": {f"l{j}": map_tree(lambda p: draw(p, (cfg.n_repeats,)),
+                                         meta["blocks"][j])
+                       for j in range(n_pat)},
             "ln_f": map_tree(draw, meta["ln_f"])}
 
 
@@ -696,53 +812,98 @@ def _step_logits(model, params, prompt, ops_ctx, tok=None):
     return {"prefill": lp.float(), "decode": ld.float()}, tok
 
 
-def _prompt_512(model):
+def _prompt(model, n: int = 512):
     import numpy as np
     import torch
     rng = np.random.default_rng(1)
-    return torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (1, 512))
+    return torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (1, n))
                             .astype(np.int32)).to(model.device)
+
+
+def check_routes(cfg, plain: list, kern: list) -> None:
+    """The MoE routes of a plain and a kernel run of one prefill and one
+    decode step, call by call: a router near-tie that the two runs' float32
+    rounding resolves differently is named (layer, token, experts, the
+    plain run's gap at the k-th choice) before anything else fails."""
+    import torch
+    from repro_torch.models import transformer as tf
+    layers = [i for i, spec in enumerate(tf.layer_specs(cfg)) if spec.moe]
+    require(len(plain) == len(kern) == 2 * len(layers),
+            f"{len(plain)} and {len(kern)} MoE calls, want 2 x {len(layers)}")
+    K = cfg.moe.top_k
+    flips = []
+    for call, ((pp, pi), (_, ki)) in enumerate(zip(plain, kern)):
+        phase = "prefill" if call < len(layers) else "decode"
+        for b, t in (pi != ki).any(-1).nonzero().tolist():
+            top = torch.sort(pp[b, t], descending=True).values
+            flips.append(f"{phase} layer {layers[call % len(layers)]} token "
+                         f"{t}: plain experts {pi[b, t].tolist()}, kernels "
+                         f"{ki[b, t].tolist()}, plain gap at choice {K} "
+                         f"{(top[K - 1] - top[K]).item():.3e}")
+    print(f"check {cfg.name} MoE routes, plain vs kernels: {len(plain)} calls,"
+          f" {len(flips)} tokens routed differently")
+    for line in flips:
+        print(f"check {cfg.name} router near-tie: {line}")
+    require(not flips, f"{cfg.name}: a router near-tie flipped an expert "
+            f"({flips[0] if flips else ''}); the logits are not comparable")
 
 
 def check_full_width_step(model, params, rtol: float) -> None:
     """One full-width 512-token prefill and one decode step through the
     kernels against the same steps with the plain versions
     (:func:`plain_ops`), on the card: relative max error of the logits
-    within ``rtol``, argmax equal."""
+    within ``rtol``, argmax equal. With MoE layers the routes of the two
+    runs are compared first (:func:`check_routes`)."""
     import torch
-    prompt = _prompt_512(model)
-    plain, tok = _step_logits(model, params, prompt, plain_ops)
-    kern, _ = _step_logits(model, params, prompt, contextlib.nullcontext, tok)
+    prompt = _prompt(model)
+    routes = {"plain": [], "kernels": []}
+
+    def ctx(key, ops_ctx):
+        def enter():
+            stack = contextlib.ExitStack()
+            stack.enter_context(ops_ctx())
+            stack.enter_context(recorded_routes(routes[key]))
+            return stack
+        return enter
+
+    plain, tok = _step_logits(model, params, prompt, ctx("plain", plain_ops))
+    kern, _ = _step_logits(model, params, prompt,
+                           ctx("kernels", contextlib.nullcontext), tok)
+    if model.cfg.moe is not None:
+        check_routes(model.cfg, routes["plain"], routes["kernels"])
     for name, b in plain.items():
         a = kern[name]
         require(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
                 f"full-width {name} logits are not finite")
         rel = ((a - b).abs().max() / b.abs().max()).item()
         same = bool((a.argmax(-1) == b.argmax(-1)).all())
-        print(f"check {model.cfg.name} {name} logits ({model.cfg.dtype}, "
-              f"512-token prompt) kernels vs plain versions: "
-              f"max|diff|/max|plain|={rel:.3e} (tolerance {rtol}); "
+        print(f"check {model.cfg.name} ({model.cfg.n_layers} layers) {name} "
+              f"logits ({model.cfg.dtype}, 512-token prompt) kernels vs plain "
+              f"versions: max|diff|/max|plain|={rel:.3e} (tolerance {rtol}); "
               f"argmax equal: {same}")
         require(rel <= rtol, f"full-width {name} logits: {rel}")
         require(same, f"full-width {model.cfg.name} {name}: argmax differs")
 
 
-def check_scan_layers(model, params) -> None:
+def check_scan_layers(model, params, ops: tuple) -> None:
     """One full-width 512-token prefill and one decode step through the
-    scan kernel, every layer's scan held against the plain scan on that
-    layer's own inputs (:func:`checked_scan_ops`); the logits finite."""
+    scan kernel, every scan layer's ``ops`` (the scan and its decode step)
+    held against the plain versions on that layer's own inputs
+    (:func:`checked_scan_ops`); the logits finite."""
     import torch
+    from repro_torch.models import transformer as tf
+    kind = ops[0].split("_")[0]
+    n_layers = sum(s.kind == kind for s in tf.layer_specs(model.cfg))
     errs = {}
-    logits, _ = _step_logits(model, params, _prompt_512(model),
+    logits, _ = _step_logits(model, params, _prompt(model),
                              lambda: checked_scan_ops(errs))
     for op, (n, rel, rel_h) in errs.items():
         print(f"check {model.cfg.name} {op} ({model.cfg.dtype}, 512-token "
               f"prompt) on each layer's own inputs vs plain: {n} layers, "
-              f"largest relative o {rel:.3e} state {rel_h:.3e}")
-    for op in ("rwkv_scan", "rwkv_decode_step"):
-        require(errs.get(op, (0,))[0] == model.cfg.n_layers,
-                f"{op}: {errs.get(op, (0,))[0]} of {model.cfg.n_layers} "
-                "layers checked")
+              f"largest relative output {rel:.3e} state {rel_h:.3e}")
+    for op in ops:
+        require(errs.get(op, (0,))[0] == n_layers,
+                f"{op}: {errs.get(op, (0,))[0]} of {n_layers} layers checked")
     for name, a in logits.items():
         require(bool(torch.isfinite(a).all()),
                 f"full-width {name} logits are not finite")
@@ -775,37 +936,124 @@ def run_serve(model, params, prompts, max_tokens: int, wrappers=()):
     return eng, done, secs, {w: w.launches for w in wrappers}
 
 
+def fit_depth(device, cfg):
+    """The most repeats of ``cfg``'s block pattern that one card holds at
+    full width, measured: from the largest count whose weights and decode
+    cache fit in the free memory, down, draw the weights on the card from
+    seed 0, allocate the SERVE_SLOTS x SERVE_CACHE_LEN decode cache and run
+    one MAMBA_PREFILL-token prefill; a count that runs out of memory is
+    freed and the next one tried. Returns (cfg at that depth, model,
+    params), and prints the memory and the reduction."""
+    import torch
+    from repro_torch.models.model import Model
+    n_pat = len(cfg.block_pattern)
+    free, total = torch.cuda.mem_get_info(device)
+    reps = cfg.n_repeats
+    while reps > 0:
+        model = Model(cfg.replace(n_layers=reps * n_pat), device=device)
+        need = (model.weight_bytes()
+                + model.cache_bytes(SERVE_SLOTS, SERVE_CACHE_LEN))
+        print(f"depth {cfg.name}: {reps * n_pat} layers need "
+              f"{need / 1e9:.3f} GB of weights and decode cache; "
+              f"{free / 1e9:.3f} GB free of {total / 1e9:.3f} GB")
+        if need <= free:
+            break
+        reps -= 1
+    while reps > 0:
+        model = Model(cfg.replace(n_layers=reps * n_pat), device=device)
+        torch.cuda.reset_peak_memory_stats(device)
+        try:
+            params = model.init(seed=0)
+            cache = model.init_cache(SERVE_SLOTS, SERVE_CACHE_LEN)
+            with torch.inference_mode():
+                logits, one = model.prefill(
+                    params, {"tokens": _prompt(model, MAMBA_PREFILL)},
+                    cache_len=SERVE_CACHE_LEN)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as err:
+            print(f"depth {cfg.name}: {reps * n_pat} layers ran out of "
+                  f"memory ({str(err).splitlines()[0]})")
+            params = cache = logits = one = None
+            torch.cuda.empty_cache()
+            reps -= 1
+            continue
+        peak = torch.cuda.max_memory_allocated(device)
+        require(bool(torch.isfinite(logits).all()),
+                f"{cfg.name} depth probe: logits are not finite")
+        del cache, one, logits
+        torch.cuda.empty_cache()
+        free_after, _ = torch.cuda.mem_get_info(device)
+        print(f"depth {cfg.name}: {model.cfg.n_layers} layers hold "
+              f"{model.weight_bytes() / 1e9:.3f} GB of weights; with the "
+              f"{SERVE_SLOTS} x {SERVE_CACHE_LEN} decode cache and one "
+              f"{MAMBA_PREFILL}-token prefill the peak allocated is "
+              f"{peak / 1e9:.3f} GB; mem_get_info before {free / 1e9:.3f} GB "
+              f"free, after (cache freed) {free_after / 1e9:.3f} GB free of "
+              f"{total / 1e9:.3f} GB")
+        print(f"reduced: n_layers {cfg.n_layers} \u2192 {model.cfg.n_layers} "
+              f"(one card holds {peak / 1e9:.2f} GB of {total / 1e9:.2f})")
+        return model.cfg, model, params
+    raise SmokeFailure(f"{cfg.name}: not one repeat of the pattern fits")
+
+
+def check_f32_repeat(device, arch: str) -> None:
+    """One repeat of ``arch``'s block pattern at full width with float32
+    weights drawn on the card from seed 0 (no other weights resident): its
+    logits through the kernels against the plain versions, where only the
+    fp32 summation order differs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=len(cfg.block_pattern), dtype="float32")
+    model = Model(cfg, device=device)
+    params = model.init(seed=0)
+    print(f"serve {arch}: one repeat, {cfg.n_layers} layers, "
+          f"{model.weight_bytes() / 1e9:.3f} GB of float32 weights drawn on "
+          f"the card; {torch.cuda.memory_allocated(device) / 1e9:.2f} GB "
+          "allocated")
+    check_full_width_step(model, params, rtol=LOGITS_RTOL_F32)
+
+
 def serve_full_width(device, arch: str, wrappers) -> dict:
-    """``arch`` at full width and depth in bf16 on the card: the
-    kernel-vs-plain step check, then the engine over SERVE_REQUESTS
-    requests."""
+    """``arch`` at full width in bf16 on the card, at full depth or, where
+    the weights do not fit one card, at the depth :func:`fit_depth`
+    measures: the kernel-vs-plain checks, then the engine over
+    SERVE_REQUESTS requests."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import events
     from repro_torch.core.metrics import percentile
-    from repro_torch.models.layers import map_tree, tree_leaves
+    from repro_torch.models.layers import map_tree
     from repro_torch.models.model import Model
     cfg = get_config(arch)
-    model = Model(cfg, device=device)
     t0 = time.perf_counter()
-    params = model.init(seed=0)
+    model = Model(cfg, device=device)
+    if model.weight_bytes() > torch.cuda.mem_get_info(device)[0]:
+        cfg, model, params = fit_depth(device, cfg)
+    else:
+        params = model.init(seed=0)
     torch.cuda.synchronize()
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in tree_leaves(params))
-    print(f"serve {arch}: {model.n_params():,} parameters ({cfg.dtype}, "
-          f"{weight_bytes / 1e9:.3f} GB) drawn on the card in "
-          f"{time.perf_counter() - t0:.1f} s; "
+    weight_bytes = model.weight_bytes()
+    print(f"serve {arch}: {model.n_params():,} parameters in {cfg.n_layers} "
+          f"layers ({cfg.dtype}, {weight_bytes / 1e9:.3f} GB) drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s; "
           f"{torch.cuda.memory_allocated(device) / 1e9:.2f} GB allocated")
-    if cfg.block_pattern[0].kind == "rwkv":
+    kinds = {spec.kind for spec in cfg.block_pattern}
+    if "rwkv" in kinds:
         # over 32 bf16 layers of random weights a one-ulp flip of a scan
         # output moves the logits by ~0.1 of the largest (a change of the
         # plain scan's summation order alone does), so in bf16 the scan is
         # held layer by layer, and the whole step with float32 weights
-        check_scan_layers(model, params)
+        check_scan_layers(model, params, ("rwkv_scan", "rwkv_decode_step"))
         wide = Model(cfg.replace(dtype="float32"), device=device)
         check_full_width_step(
             wide, map_tree(lambda t: t.float(), params), rtol=LOGITS_RTOL_F32)
         del wide
+    elif "mamba" in kinds:
+        # the same for the Mamba scan; the float32 step (one repeat, as 24
+        # layers in float32 do not fit) runs once these weights are freed
+        check_scan_layers(model, params, ("mamba_scan", "mamba_decode_step"))
     else:
         check_full_width_step(model, params, rtol=LOGITS_RTOL)
     # warm-up outside the counts: cuBLAS handles and the kernel libraries
@@ -897,14 +1145,14 @@ def sdpa_call(q, k, v, *, causal: bool, mask=None):
 
 def _timed(name: str, shape: str, kernel, plain, library, nbytes: float,
            flops: float, iters: int,
-           peak_flop_s: float = PEAK_FP32_FLOP_S) -> dict:
+           peak_flop_s: float = PEAK_FP32_FLOP_S, exps: float = 0.0) -> dict:
     """Device times of kernel, plain version and library call (ms), the
     kernel's eager per-call time, and the bound for this work."""
     t = {"ms": cuda_time_ms(kernel, iters=iters),
          "plain_ms": cuda_time_ms(plain, iters=iters),
          "library_ms": (None if library is None
                         else cuda_time_ms(library, iters=iters))}
-    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, peak_flop_s)
+    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, peak_flop_s, exps)
     t["eager_ms"] = eager_time_ms(kernel, iters=10 * iters)
     print(f"time {name} {shape}: " + json.dumps(t))
     return t
@@ -1028,6 +1276,32 @@ def time_kernels(device) -> dict[str, dict]:
                    kernel, plain, None, nbytes, 5 * n * RWKV_K + 5 * n,
                    iters=5 if S > 1 else 20)
         out.setdefault("rwkv_scan", t)
+
+    # the Mamba scan at jamba's serve shapes: a 1024-token prefill from a
+    # zero state, then one decode step of 8 slots on their state, in place.
+    # 6 FLOP a state element a step (delta A, exp(.) h, (delta x) B, the
+    # add, h C, the add) and 1 a channel-step (delta x), and one
+    # exponential a state element a step on the SFU, which binds. No
+    # library call computes the scan.
+    for B, S in ((1, MAMBA_PREFILL), (MAMBA_DECODE_B, 1)):
+        delta, A, Bt, Ct, x, h0 = mamba_inputs(B, S, torch.bfloat16, device)
+        n = B * S * MAMBA_DI
+        state = B * MAMBA_DI * MAMBA_N * 4
+        nbytes = 3 * 2 * n + 2 * 2 * B * S * MAMBA_N + 4 * A.numel() + state
+        if S == 1:
+            args = (delta[:, 0], A, Bt[:, 0], Ct[:, 0], x[:, 0], h0)
+            kernel = lambda: ls.mamba_decode_step(*args)
+            plain = lambda: ls.mamba_decode_step_plain(*args)
+            nbytes += state
+        else:
+            kernel = lambda: ls.mamba_scan(delta, A, Bt, Ct, x)
+            plain = lambda: ls.mamba_scan_plain(delta, A, Bt, Ct, x)
+        t = _timed("mamba_scan", f"bf16 delta,x (B={B},S={S},{MAMBA_DI}) "
+                   f"N={MAMBA_N} "
+                   f"{'state in place' if S == 1 else 'zero state'}",
+                   kernel, plain, None, nbytes, (6 * MAMBA_N + 1) * n,
+                   iters=5 if S > 1 else 20, exps=n * MAMBA_N)
+        out.setdefault("mamba_scan", t)
     return out
 
 
@@ -1064,7 +1338,8 @@ def profile_pipeline(device, *, n_frames: int, src_hw) -> None:
 def kernel_table():
     """Every ported kernel: its wrapper, source, the TPU kernel it
     replaces, and the path (for serve, the arch) whose run counts its
-    launches."""
+    launches in the kernels line; ``archs``, where given, every served
+    arch whose runs must launch it."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import linear_scan as ls
@@ -1089,15 +1364,21 @@ def kernel_table():
         {"name": "decode_attention", "wrapper": da.decode_attention,
          "source": csrc + "decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:116",
-         "path": "serve", "arch": "llama3-8b"},
+         "path": "serve", "arch": "llama3-8b",
+         "archs": ("llama3-8b", "jamba-v0.1-52b")},
         {"name": "flash_attention", "wrapper": fa.flash_attention,
          "source": csrc + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:115",
-         "path": "serve", "arch": "llama3-8b"},
+         "path": "serve", "arch": "llama3-8b",
+         "archs": ("llama3-8b", "jamba-v0.1-52b")},
         {"name": "rwkv_scan", "wrapper": ls.rwkv_scan,
          "source": csrc + "linear_scan.cu",
          "replaces": "src/repro/kernels/linear_scan.py:147",
          "path": "serve", "arch": "rwkv6-3b"},
+        {"name": "mamba_scan", "wrapper": ls.mamba_scan,
+         "source": csrc + "linear_scan.cu",
+         "replaces": "src/repro/kernels/linear_scan.py:74",
+         "path": "serve", "arch": "jamba-v0.1-52b"},
     ]
 
 
@@ -1127,13 +1408,15 @@ def main() -> int:
     errors = check_kernels(device)
     errors.update(check_serve_kernels(device))
     errors.update(check_scan_kernel(device))
+    errors.update(check_mamba_kernel(device))
     launches = {}
     path = check_pipeline(device, [k for k in kernels if k["path"] == "pipeline"],
                           n_frames=16, src_hw=(SRC_H, SRC_W))
     launches.update(path["launches"])
     launches["iou_matrix"] = run_nms_path(device)
     for arch in SERVE_ARCHS:
-        serve = [k for k in kernels if k.get("arch") == arch]
+        serve = [k for k in kernels
+                 if arch in k.get("archs", (k.get("arch"),))]
         wrappers = [k["wrapper"] for k in serve]
         smoke = check_serve_smoke(device, arch, wrappers)
         full = serve_full_width(device, arch, wrappers)
@@ -1143,23 +1426,30 @@ def main() -> int:
             print(f"serve launches {k['name']}: {arch} full width {n_full}; "
                   f"smoke config on the card, each run alone: {by_sched}")
             require(n_full > 0,
-                    f"{k['name']} was not launched on the serve path")
+                    f"{k['name']} was not launched on the {arch} serve path")
             require(all(n > 0 for n in by_sched.values()),
-                    f"{k['name']} was not launched by a smoke serve run")
-            launches[k["name"]] = n_full
-        if arch == "rwkv6-3b":
-            # one scan launch a layer for every prefill and every decode tick
-            want = full["cfg"].n_layers * (full["prefills"] + full["ticks"])
-            print(f"serve launches rwkv_scan: {launches['rwkv_scan']} = "
-                  f"{full['cfg'].n_layers} layers x ({full['prefills']} "
-                  f"prefills + {full['ticks']} ticks) = {want}: "
-                  f"{launches['rwkv_scan'] == want}")
-            require(launches["rwkv_scan"] == want,
-                    f"rwkv_scan launched {launches['rwkv_scan']} times, "
-                    f"want {want}")
+                    f"{k['name']} was not launched by a {arch} smoke run")
+            if k["arch"] == arch:
+                launches[k["name"]] = n_full
+        for name, kind in (("rwkv_scan", "rwkv"), ("mamba_scan", "mamba")):
+            if any(k["name"] == name for k in serve):
+                # one scan launch a layer of the kind for every prefill and
+                # every decode tick
+                n_kind = sum(s.kind == kind for s in
+                             full["cfg"].block_pattern) * full["cfg"].n_repeats
+                want = n_kind * (full["prefills"] + full["ticks"])
+                print(f"serve launches {name}: {launches[name]} = {n_kind} "
+                      f"{kind} layers x ({full['prefills']} prefills + "
+                      f"{full['ticks']} ticks) = {want}: "
+                      f"{launches[name] == want}")
+                require(launches[name] == want,
+                        f"{name} launched {launches[name]} times, want {want}")
         profile_serve(full["model"], full["params"], full["cfg"])
         del full                     # free the weights before the next arch
         torch.cuda.empty_cache()
+        if arch == "jamba-v0.1-52b":
+            check_f32_repeat(device, arch)
+            torch.cuda.empty_cache()
     times = time_kernels(device)
     profile_pipeline(device, n_frames=16, src_hw=(SRC_H, SRC_W))
 

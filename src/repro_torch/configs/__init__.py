@@ -30,6 +30,7 @@ ARCHS = [
 # architecture -> module; only the ported ones
 _MODULES = {
     "llama3-8b": "llama3_8b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
     "rwkv6-3b": "rwkv6_3b",
 }
 

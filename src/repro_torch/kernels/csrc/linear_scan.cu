@@ -1,5 +1,57 @@
-// RWKV6 scan for sm_90a: matrix-state linear attention with a data-dependent
-// decay and a bonus for the current token.
+// First-order recurrence scans for sm_90a: the Mamba selective scan and the
+// RWKV6 scan. Each kernel's note says what it replaces, what bounds it on an
+// H100 and what its design does about that.
+//
+// ---------------------------------------------------------------------------
+// Mamba selective scan.
+//
+// Replaces src/repro/kernels/linear_scan.py `_mamba_kernel` / `mamba_scan` (the
+// pallas_call at :74); the contract is src/repro/kernels/ref.py `mamba_scan`.
+// For each (b, channel c), with the N-wide state starting at h0 (zeros when
+// null):
+//   h = exp(delta_t[c] A[c, :]) * h + (delta_t[c] x_t[c]) B_t;  y_t[c] = sum_n h C_t
+// Inputs: delta, x (B, S, Di) and Bt, Ct (B, S, N) in bf16 or fp32; A (Di, N)
+// fp32; h0 (B, Di, N) fp32 or null; all contiguous. Outputs: y (B, S, Di) in x's
+// type and the final state hout (B, Di, N) fp32. hout may alias h0 (the decode
+// step updates a cache slice in place): each thread reads and writes only its
+// own channel's state. delta x is rounded to x's type before it is widened,
+// as the reference and the Pallas kernel round it (__float2bfloat16_rn in
+// bf16; the product of two bf16 values is exact in fp32, so this is the
+// rounding of a bf16 multiply). expf, not __expf, keeps fp32 within 1e-5.
+//
+// Bound at the prefill shape (1, 1024, 8192), N = 16, bf16: bytes 51.4 MB
+// (delta, x, y 50.3 MB; Bt, Ct, A and the state 1.1 MB) over 3.35 TB/s,
+// 0.0154 ms; 6 FLOP a state element a step (delta A, exp(.) h, (delta x) B,
+// the add, h C, the add), 0.805 GFLOP over the 67 TFLOP/s fp32 peak,
+// 0.0120 ms; and B S Di N = 134M exponentials through the SFU, 16 a clock an
+// SM for compute capability 9.0 (CUDA programming guide, arithmetic
+// instructions), 4.18e12 a second at 132 SMs and 1.98 GHz, 0.0321 ms: the
+// exponentials bind. At the decode shape (8, 1, 8192) the state read and
+// written, 8.4 MB, ~0.0025 ms.
+//
+// Design. Channel c's N state values depend only on delta_t[c], x_t[c], A[c, :]
+// and the shared B_t, C_t. So one thread owns one channel, with its N fp32
+// state values and its row of A in registers, and y_t[c] is its own N-term dot
+// product (four partial sums): nothing is reduced across threads. A block of
+// MCOLS threads owns MCOLS channels of one b; the grid is (ceil(Di / MCOLS),
+// B). The TPU walked time as the innermost sequential grid axis with the state
+// in VMEM; here the time loop runs inside the block over tiles of MTILE steps:
+// B_t and C_t (MTILE x N, shared by every channel of the block) and the
+// block's delta and delta x (read coalesced across channels) are staged in
+// shared memory as fp32, so the serial loop touches no global memory but its
+// y stores. The (B, S, Di) layout is read in place (the Pallas kernel
+// transposed A and h0) and any S >= 1 is taken: the ragged last tile is
+// masked. MCOLS = 32: at B = 1 the 8192 channels make 256 one-warp blocks, so
+// every one of the 132 SMs gets one or two (64 channels a block would leave 4
+// SMs idle with the same 256 warps). With two warps an SM the serial chain of
+// each step (exp, FMA into h, FMA into y) is exposed: the (channel, n) split
+// across lanes with a shuffle reduction, or a chunked scan, is later work.
+//
+// ---------------------------------------------------------------------------
+// RWKV6 scan.
+//
+// Matrix-state linear attention with a data-dependent decay and a bonus for
+// the current token.
 //
 // Replaces src/repro/kernels/linear_scan.py `_rwkv_kernel` / `rwkv_scan` (the
 // pallas_call at :147); the contract is src/repro/kernels/ref.py `rwkv_scan`.
@@ -44,6 +96,100 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// ---- Mamba --------------------------------------------------------------------
+
+constexpr int MCOLS = 32;  // channels (threads) a block
+constexpr int MTILE = 64;  // time steps staged at a time
+
+// x rounded to the type that the tag pointer points to
+__device__ __forceinline__ float round_to(float x, const float*) { return x; }
+__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(MCOLS)
+mamba_kernel(const T* __restrict__ delta, const T* __restrict__ x,
+             const float* __restrict__ A, const T* __restrict__ Bt,
+             const T* __restrict__ Ct, const float* h0, T* __restrict__ y,
+             float* hout, int S, int Di) {
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x, c = blockIdx.x * MCOLS + tid;
+  const bool active = c < Di;
+  __shared__ __align__(16) float bs[MTILE * N];
+  __shared__ __align__(16) float cs[MTILE * N];
+  __shared__ float ds[MTILE][MCOLS];
+  __shared__ float dxs[MTILE][MCOLS];
+
+  const long long sbase = ((long long)b * Di + c) * N;
+  float a[N], h[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    a[n] = active ? A[(long long)c * N + n] : 0.f;
+    h[n] = (active && h0 != nullptr) ? h0[sbase + n] : 0.f;
+  }
+  const long long xbase = (long long)b * S * Di + c;   // + t * Di
+  const long long nbase = (long long)b * S * N;        // + t * N + n
+
+  for (int t0 = 0; t0 < S; t0 += MTILE) {
+    const int steps = min(MTILE, S - t0);
+    __syncthreads();               // the previous tile is consumed
+    for (int idx = tid; idx < steps * N; idx += MCOLS) {
+      bs[idx] = to_f(Bt[nbase + (long long)t0 * N + idx]);
+      cs[idx] = to_f(Ct[nbase + (long long)t0 * N + idx]);
+    }
+    for (int j = 0; j < steps; ++j) {
+      float d = 0.f, dx = 0.f;
+      if (active) {
+        const long long off = xbase + (long long)(t0 + j) * Di;
+        d = to_f(delta[off]);
+        dx = round_to(d * to_f(x[off]), x);
+      }
+      ds[j][tid] = d;
+      dxs[j][tid] = dx;
+    }
+    __syncthreads();
+    if (!active) continue;
+    for (int j = 0; j < steps; ++j) {
+      const float d = ds[j][tid], dx = dxs[j][tid];
+      const float* bj = bs + j * N;
+      const float* cj = cs + j * N;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        h[n] = fmaf(expf(d * a[n]), h[n], dx * bj[n]);
+        acc[n % 4] = fmaf(h[n], cj[n], acc[n % 4]);
+      }
+      store(y + xbase + (long long)(t0 + j) * Di, (acc[0] + acc[1]) + (acc[2] + acc[3]));
+    }
+  }
+  if (active) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) hout[sbase + n] = h[n];
+  }
+}
+
+template <typename T>
+int launch_mamba(int N, const void* delta, const void* x, const float* A,
+                 const void* Bt, const void* Ct, const float* h0, void* y,
+                 float* hout, int B, int S, int Di, cudaStream_t stream) {
+  const dim3 grid((Di + MCOLS - 1) / MCOLS, B);
+  const T* dt = static_cast<const T*>(delta);
+  const T* xt = static_cast<const T*>(x);
+  const T* bt = static_cast<const T*>(Bt);
+  const T* ct = static_cast<const T*>(Ct);
+  T* yt = static_cast<T*>(y);
+  if (N == 16)
+    mamba_kernel<T, 16><<<grid, MCOLS, 0, stream>>>(dt, xt, A, bt, ct, h0, yt, hout, S, Di);
+  else if (N == 4)
+    mamba_kernel<T, 4><<<grid, MCOLS, 0, stream>>>(dt, xt, A, bt, ct, h0, yt, hout, S, Di);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_status();
+}
+
+// ---- RWKV6 --------------------------------------------------------------------
 
 // one (row i, column) element of one step
 __device__ __forceinline__ void step(float r, float w, float k, float u, float vv,
@@ -155,4 +301,23 @@ extern "C" int rwkv_scan(const void* r, const void* w, const void* k, const void
   if (dtype == 1)
     return launch<__nv_bfloat16>(K, r, wf, k, v, uf, h0f, o, hf, B, S, H, V, s);
   return launch<float>(K, r, wf, k, v, uf, h0f, o, hf, B, S, H, V, s);
+}
+
+// dtype 0: fp32, 1: bf16 (delta, x, Bt, Ct and y). N (the state size of A's
+// rows and of the state) is 4 or 16, the ported configs' sizes (jamba-v0.1-52b's
+// smoke config and jamba-v0.1-52b); B, S, Di > 0; h0 may be null (a zero state)
+// and may equal hout. Returns a cudaError_t.
+extern "C" int mamba_scan(const void* delta, const void* x, const void* A,
+                          const void* Bt, const void* Ct, const void* h0, void* y,
+                          void* hout, int dtype, int B, int S, int Di, int N,
+                          void* stream) {
+  if (B <= 0 || S <= 0 || Di <= 0 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* af = static_cast<const float*>(A);
+  const float* h0f = static_cast<const float*>(h0);
+  float* hf = static_cast<float*>(hout);
+  if (dtype == 1)
+    return launch_mamba<__nv_bfloat16>(N, delta, x, af, Bt, Ct, h0f, y, hf, B, S, Di, s);
+  return launch_mamba<float>(N, delta, x, af, Bt, Ct, h0f, y, hf, B, S, Di, s);
 }

@@ -1,17 +1,18 @@
-"""RWKV6 scan (matrix-state linear attention with data-dependent decay):
-CUDA kernel and plain versions.
+"""First-order recurrence scans: the Mamba selective scan and the RWKV6
+scan (matrix-state linear attention with data-dependent decay), each a
+CUDA kernel beside its plain versions.
 
-Counterpart of ``repro.kernels.linear_scan.rwkv_scan`` (the Pallas TPU
-kernel; its contract is ``repro.kernels.ref.rwkv_scan``). The kernel is
-``csrc/linear_scan.cu``; its source note says what bounds it on an H100
-and why one thread owns one column of the state. It reads the
-projections in their (B, S, H, .) layout and takes any S >= 1: the
-engine prefills at the raw prompt length and decodes at S = 1, where
-:func:`rwkv_decode_step` writes the new state into the cache in place.
-:func:`rwkv_scan` and :func:`rwkv_decode_step` launch the kernel for CUDA
-tensors and take the plain versions only for CPU tensors. The Mamba scan
-(``mamba_scan``, the same module in the reference) comes with the jamba
-slice.
+Counterparts of ``repro.kernels.linear_scan.mamba_scan`` and
+``rwkv_scan`` (the Pallas TPU kernels; their contracts are
+``repro.kernels.ref.mamba_scan`` and ``rwkv_scan``). Both kernels are in
+``csrc/linear_scan.cu``, whose source notes say what bounds each on an
+H100 and why one thread owns one channel (Mamba) or one column of a
+head's state (RWKV6). They read the projections in their (B, S, ...)
+layout and take any S >= 1: the engine prefills at the raw prompt length
+and decodes at S = 1, where :func:`mamba_decode_step` and
+:func:`rwkv_decode_step` write the new state into the cache in place.
+The wrappers launch the kernels for CUDA tensors and take the plain
+versions only for CPU tensors.
 """
 from __future__ import annotations
 
@@ -21,11 +22,154 @@ import torch
 
 from repro_torch.kernels import build
 
-# head widths (K = V) the kernel is built for: rwkv6-3b 64, its smoke config 16
+# head widths (K = V) the RWKV6 kernel is built for: rwkv6-3b 64, its smoke
+# config 16
 WIDTHS = (16, 64)
+# state sizes N the Mamba kernel is built for: jamba-v0.1-52b 16, its smoke
+# config 4
+MAMBA_WIDTHS = (4, 16)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"rwkv_scan": [_P] * 8 + [_I] * 6 + [_P]}
+_SIGNATURES = {"rwkv_scan": [_P] * 8 + [_I] * 6 + [_P],
+               "mamba_scan": [_P] * 8 + [_I] * 5 + [_P]}
+
+
+# --------------------------------------------------------------------------
+# Mamba selective scan
+# --------------------------------------------------------------------------
+
+def _check_mamba_shapes(delta, A, Bt, Ct, x, h0) -> tuple[int, int, int, int]:
+    if delta.ndim != 3 or A.ndim != 2:
+        raise ValueError("want delta, x (B, S, Di), A (Di, N), Bt, Ct "
+                         "(B, S, N)")
+    B, S, Di = delta.shape
+    N = A.shape[1]
+    if (tuple(x.shape) != (B, S, Di) or tuple(A.shape) != (Di, N)
+            or tuple(Bt.shape) != (B, S, N) or tuple(Ct.shape) != (B, S, N)
+            or (h0 is not None and tuple(h0.shape) != (B, Di, N))):
+        raise ValueError(
+            f"shapes delta {tuple(delta.shape)}, A {tuple(A.shape)}, Bt "
+            f"{tuple(Bt.shape)}, Ct {tuple(Ct.shape)}, x {tuple(x.shape)}, "
+            f"h0 {None if h0 is None else tuple(h0.shape)} do not fit")
+    if S < 1:
+        raise ValueError("the scan needs at least one step")
+    return B, S, Di, N
+
+
+def mamba_scan_plain(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
+                     Ct: torch.Tensor, x: torch.Tensor,
+                     h0: torch.Tensor | None = None):
+    """The reference's sequential recurrence in float32: for each step,
+    h = exp(delta A) h + (delta x) B_t and y_t = sum_N h C_t, with
+    delta x rounded to x's dtype before it is widened, as the reference
+    rounds it. Returns (y (B, S, Di) in x's dtype, final state (B, Di, N)
+    float32)."""
+    B, S, Di, N = _check_mamba_shapes(delta, A, Bt, Ct, x, h0)
+    h = (torch.zeros((B, Di, N), dtype=torch.float32, device=delta.device)
+         if h0 is None else h0.float())
+    df, dx = delta.float(), (delta * x).float()
+    Af, Bf, Cf = A.float()[None], Bt.float(), Ct.float()
+    ys = []
+    for t in range(S):
+        h = (torch.exp(df[:, t, :, None] * Af) * h
+             + dx[:, t, :, None] * Bf[:, t, None, :])
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def mamba_decode_step_plain(delta: torch.Tensor, A: torch.Tensor,
+                            Bt: torch.Tensor, Ct: torch.Tensor,
+                            x: torch.Tensor, h: torch.Tensor):
+    """One step as the reference's ``ops.mamba_decode_step`` writes it:
+    delta, x (B, Di), Bt, Ct (B, N), state h (B, Di, N) float32. The new
+    state is written into ``h`` in place; returns (y (B, Di) in x's dtype,
+    h)."""
+    dA = torch.exp(delta.float()[..., None] * A.float()[None])
+    dBx = (delta * x).float()[..., None] * Bt.float()[:, None]
+    h.copy_(dA * h + dBx)
+    y = torch.einsum("bdn,bn->bd", h, Ct.float())
+    return y.to(x.dtype), h
+
+
+def mamba_scan(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
+               Ct: torch.Tensor, x: torch.Tensor,
+               h0: torch.Tensor | None = None, *,
+               state_out: torch.Tensor | None = None):
+    """Mamba selective scan: delta, x (B, S, Di), A (Di, N), Bt, Ct
+    (B, S, N), optional initial state h0 (B, Di, N) -> (y (B, S, Di) in
+    x's dtype, final state (B, Di, N) float32). ``state_out``, when given,
+    is the float32 tensor the final state is written into, and may be
+    ``h0`` itself.
+
+    A CPU tensor goes to :func:`mamba_scan_plain`; a CUDA tensor to the
+    kernel, which takes contiguous delta, x, Bt, Ct of one dtype (bfloat16
+    or float32), float32 h0, N in :data:`MAMBA_WIDTHS`, and raises on
+    anything else. A is widened to float32 here, as the Pallas kernel
+    widens it.
+    """
+    B, S, Di, N = _check_mamba_shapes(delta, A, Bt, Ct, x, h0)
+    if state_out is not None and (tuple(state_out.shape) != (B, Di, N)
+                                  or state_out.dtype != torch.float32):
+        raise ValueError("state_out must be a (B, Di, N) float32 tensor")
+    if delta.device.type == "cpu":
+        y, h = mamba_scan_plain(delta, A, Bt, Ct, x, h0)
+        if state_out is None:
+            return y, h
+        return y, state_out.copy_(h)
+    if x.dtype not in _DTYPES:
+        raise ValueError("mamba scan kernel takes bfloat16 or float32, got "
+                         f"{x.dtype}")
+    if any(t.dtype != x.dtype for t in (delta, Bt, Ct)):
+        raise ValueError("mamba scan kernel takes delta, x, Bt, Ct of one "
+                         "dtype")
+    if N not in MAMBA_WIDTHS:
+        raise ValueError(f"mamba scan kernel takes N in {MAMBA_WIDTHS}; got "
+                         f"N={N}")
+    Af = A.to(torch.float32).contiguous()
+    state = (torch.empty((B, Di, N), dtype=torch.float32, device=x.device)
+             if state_out is None else state_out)
+    tensors = [delta, x, Af, Bt, Ct, state] + ([] if h0 is None else [h0])
+    for t in tensors:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("mamba scan kernel takes contiguous tensors on "
+                             "one device")
+    if h0 is not None and h0.dtype != torch.float32:
+        raise ValueError(f"h0 must be float32, got {h0.dtype}")
+    y = torch.empty((B, S, Di), dtype=x.dtype, device=x.device)
+    lib = build.library("linear_scan", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        rc = lib.mamba_scan(
+            delta.data_ptr(), x.data_ptr(), Af.data_ptr(), Bt.data_ptr(),
+            Ct.data_ptr(), None if h0 is None else h0.data_ptr(),
+            y.data_ptr(), state.data_ptr(), _DTYPES[x.dtype], B, S, Di, N,
+            build.stream_ptr(x.device))
+    build.check(lib, rc, "mamba_scan")
+    build.count_launch(mamba_scan)
+    return y, state
+
+
+mamba_scan.launches = 0
+
+
+def mamba_decode_step(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
+                      Ct: torch.Tensor, x: torch.Tensor, h: torch.Tensor):
+    """One Mamba step per row: delta, x (B, Di), Bt, Ct (B, N), state h
+    (B, Di, N) float32, updated in place -> (y (B, Di), h).
+
+    A CPU tensor goes to :func:`mamba_decode_step_plain`; a CUDA tensor to
+    the scan kernel at S = 1 with the state read from and written to
+    ``h`` (one launch, counted on :func:`mamba_scan`).
+    """
+    if delta.device.type == "cpu":
+        return mamba_decode_step_plain(delta, A, Bt, Ct, x, h)
+    y, _ = mamba_scan(delta[:, None], A, Bt[:, None], Ct[:, None],
+                      x[:, None], h, state_out=h)
+    return y[:, 0], h
+
+
+# --------------------------------------------------------------------------
+# RWKV6 scan
+# --------------------------------------------------------------------------
 
 
 def _check_shapes(r, w, k, v, u, h0) -> tuple[int, int, int, int, int]:

@@ -1,6 +1,6 @@
 """Public kernel entry points of the port (counterpart of
 ``repro.kernels.ops`` for the face path and the LM serving path: dense
-attention models and RWKV6).
+attention models, RWKV6 and the Mamba layers of the hybrid family).
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor runs
 the plain PyTorch version, a CUDA tensor runs the hand-written CUDA
@@ -66,3 +66,19 @@ def rwkv_decode_step(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,
     """One RWKV6 token per row: r, w, k (B, H, K), v (B, H, V), state h
     (B, H, K, V) float32, updated in place -> (o (B, H, V), h)."""
     return _ls.rwkv_decode_step(r, w, k, v, u, h)
+
+
+def mamba_scan(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
+               Ct: torch.Tensor, x: torch.Tensor,
+               h0: torch.Tensor | None = None):
+    """Mamba selective scan: delta, x (B, S, Di), A (Di, N), Bt, Ct
+    (B, S, N), optional state h0 (B, Di, N) -> (y (B, S, Di) in x's dtype,
+    final state (B, Di, N) float32)."""
+    return _ls.mamba_scan(delta, A, Bt, Ct, x, h0)
+
+
+def mamba_decode_step(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
+                      Ct: torch.Tensor, x: torch.Tensor, h: torch.Tensor):
+    """One Mamba token per row: delta, x (B, Di), Bt, Ct (B, N), state h
+    (B, Di, N) float32, updated in place -> (y (B, Di), h)."""
+    return _ls.mamba_decode_step(delta, A, Bt, Ct, x, h)

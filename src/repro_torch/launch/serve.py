@@ -1,15 +1,22 @@
 """Serving CLI: requests through the ServingEngine with an AI-tax
 report (counterpart of ``repro.launch.serve``).
 
-On the card, at full width in the config's dtype (bf16 for llama3-8b
-and rwkv6-3b), with random weights drawn on the card from seed 0:
+On the card, at full width and depth in the config's dtype (bf16 for
+llama3-8b, rwkv6-3b and jamba-v0.1-52b), with random weights drawn on
+the card from seed 0:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
 
+Before it draws anything it checks that the weights and the decode cache
+fit in the card's free memory, and raises ``MemoryError`` naming both
+numbers where they do not: jamba-v0.1-52b's published 32 layers are
+103.1 GB of bf16 weights, more than one 80 GB card holds (``chip_smoke.py``
+serves it at a reduced depth).
+
 On the CPU, the float32 smoke config, as the reference's ``--smoke``:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
         --smoke --device cpu --requests 8 --max-tokens 8
 """
 from __future__ import annotations
@@ -23,6 +30,20 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import Request, ServingEngine
+
+
+def check_fits(model: Model, slots: int, cache_len: int,
+               free_bytes: int) -> None:
+    """Raise ``MemoryError`` unless ``model``'s weights and a decode cache of
+    ``slots`` rows by ``cache_len`` fit in ``free_bytes`` (activations not
+    counted)."""
+    weights = model.weight_bytes()
+    cache = model.cache_bytes(slots, cache_len)
+    if weights + cache > free_bytes:
+        raise MemoryError(
+            f"{model.cfg.name} ({model.cfg.n_layers} layers, {model.cfg.dtype})"
+            f" needs {weights:,} bytes of weights and {cache:,} bytes of "
+            f"decode cache; the device has {free_bytes:,} bytes free")
 
 
 def main(argv=None) -> None:
@@ -41,6 +62,9 @@ def main(argv=None) -> None:
     if args.smoke:
         cfg = cfg.replace(dtype="float32")
     model = Model(cfg, device=args.device)
+    if model.device.type == "cuda":
+        check_fits(model, args.slots, args.cache_len,
+                   torch.cuda.mem_get_info(model.device)[0])
     params = model.init(seed=0)
     eng = ServingEngine(model, params, batch_slots=args.slots,
                         cache_len=args.cache_len)

@@ -12,6 +12,7 @@ compute-dtype weights for its lifetime.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -60,12 +61,28 @@ def cast_params(params, dtype: torch.dtype, *, stacked: bool = False):
     return map_tree(lambda a: cast_leaf(a, dtype, stacked), params)
 
 
+# a normal draw larger than this in float32 is drawn slice by slice
+WHOLE_DRAW_BYTES = 1 << 31
+
+
 def init_params(tree, generator: torch.Generator, dtype: torch.dtype, *,
                 stacked: bool = False):
     """Materialize a metadata tree on ``generator``'s device: normal draws
     scaled by ``scale`` (default fan_in**-0.5), zeros, ones, each drawn in
-    float32 and then cast by :func:`cast_leaf`."""
+    float32 and then cast by :func:`cast_leaf`.
+
+    A normal leaf whose float32 draw would exceed
+    :data:`WHOLE_DRAW_BYTES` (jamba's (16, 4096, 14336) expert stacks, 3.76
+    GB in float32) is drawn in slices of its leading axis, in order from
+    the same generator, each slice cast into the leaf as it is drawn: the
+    float32 copy of the whole leaf never exists beside the cast one. The
+    draws are as deterministic as whole ones, though not the same
+    numbers."""
     device = generator.device
+
+    def draw(shape, scale):
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=device).mul_(scale)
 
     def make(p: P) -> torch.Tensor:
         if p.init == "zeros":
@@ -75,8 +92,14 @@ def init_params(tree, generator: torch.Generator, dtype: torch.dtype, *,
         else:
             fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
             scale = p.scale if p.scale is not None else fan_in ** -0.5
-            t = torch.randn(p.shape, generator=generator, dtype=torch.float32,
-                            device=device).mul_(scale)
+            if 4 * math.prod(p.shape) <= WHOLE_DRAW_BYTES:
+                t = draw(p.shape, scale)
+            else:                 # a matrix stack: cast_leaf casts it
+                assert len(p.shape) > 1, p.shape
+                t = torch.empty(p.shape, dtype=dtype, device=device)
+                for i in range(p.shape[0]):
+                    t[i] = draw(p.shape[1:], scale)
+                return t
         return cast_leaf(t, dtype, stacked)
 
     return map_tree(make, tree)

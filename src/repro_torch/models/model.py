@@ -22,7 +22,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (
-    cast_params, init_params, map_tree, tree_leaves,
+    cast_leaf, cast_params, init_params, map_tree, tree_leaves,
 )
 
 
@@ -49,13 +49,30 @@ class Model:
     def init(self, seed: int = 0):
         """Random weights with the reference's init scales, drawn tensor by
         tensor on the model's device from a ``torch.Generator`` seeded with
-        ``seed``."""
+        ``seed`` (a leaf over 2 GiB in float32, as jamba's expert stacks,
+        slice by slice: :func:`~repro_torch.models.layers.init_params`)."""
         generator = torch.Generator(device=self.device).manual_seed(seed)
         return _by_part(lambda meta, stacked: init_params(
             meta, generator, self.dtype, stacked=stacked), self.param_meta())
 
     def n_params(self) -> int:
         return sum(math.prod(p.shape) for p in tree_leaves(self.param_meta()))
+
+    def weight_bytes(self) -> int:
+        """Bytes of the parameters as :meth:`init` holds them (each leaf in
+        the dtype :func:`~repro_torch.models.layers.cast_leaf` gives it),
+        from the metadata alone: nothing is drawn."""
+        def part(meta, stacked):
+            return sum(cast_leaf(torch.empty(p.shape, device="meta"),
+                                 self.dtype, stacked).nbytes
+                       for p in tree_leaves(meta))
+        return sum(_by_part(part, self.param_meta()).values())
+
+    def cache_bytes(self, batch: int, cache_len: int) -> int:
+        """Bytes of :meth:`init_cache`'s leaves, from their shapes alone."""
+        blocks = tf.init_cache_blocks(self.cfg, batch, cache_len, self.dtype,
+                                      "meta")
+        return sum(t.nbytes for t in blocks.values())
 
     # ---- caches ----
     def init_cache(self, batch: int, cache_len: int) -> dict:

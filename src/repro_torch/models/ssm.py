@@ -1,19 +1,24 @@
-"""State-space mixers (counterpart of ``repro.models.ssm``): the RWKV6
-(Finch) time-mix with data-dependent decay and its channel-mix FFN.
+"""State-space mixers (counterpart of ``repro.models.ssm``): the Mamba
+mixer of the hybrid family (jamba's SSM layers), and the RWKV6 (Finch)
+time-mix with data-dependent decay and its channel-mix FFN.
 
-The time-mix reduces to the matrix-state recurrence of
-:func:`repro_torch.kernels.ops.rwkv_scan` (the scan kernel on the card);
-decode is one recurrence step, :func:`repro_torch.kernels.ops.rwkv_decode_step`,
-which writes the new state into the cache in place. The decode cache is
-O(1) in sequence length: per layer the normed mixer input of the last
-token (``x_tm``), the normed channel-mix input of the last token
-(``x_cm``) and the (H, K, K) float32 state (``h``). Where the reference
-returns a new cache, the port's decode functions write into the cache
-tensors they are given. The casts are the reference's: the projections
-and the decay LoRA run in the compute dtype, the decay itself in float32.
-
-The Mamba half of the reference module comes with the jamba slice; its
-functions raise ``NotImplementedError`` here.
+Both reduce to first-order recurrences: Mamba's diagonal (Di, N) state
+through :func:`repro_torch.kernels.ops.mamba_scan`, RWKV6's matrix
+state through :func:`repro_torch.kernels.ops.rwkv_scan` (the scan kernels
+on the card). Decode is one recurrence step,
+:func:`~repro_torch.kernels.ops.mamba_decode_step` or
+:func:`~repro_torch.kernels.ops.rwkv_decode_step`, which writes the new
+state into the cache in place. The decode caches are O(1) in sequence
+length. Mamba's, per layer: the last ``ssm_conv - 1`` inputs of the
+causal conv (``conv``, in the compute dtype) and the (Di, N) float32
+state (``h``). RWKV's: the normed mixer input of the last token
+(``x_tm``), the normed channel-mix input of the last token (``x_cm``)
+and the (H, K, K) float32 state (``h``). Where the reference returns a
+new cache, the port's decode functions write into the cache tensors they
+are given. The casts and the order of operations are the reference's:
+the projections, Mamba's causal conv (four products summed in the
+compute dtype, rounding after each add), ``A = -exp(A_log)`` and the
+softplus of the step sizes in the compute dtype; RWKV's decay in float32.
 """
 from __future__ import annotations
 
@@ -25,14 +30,107 @@ from repro_torch.models.layers import P, groupnorm_heads
 
 
 # --------------------------------------------------------------------------
-# Mamba (not ported yet)
+# Mamba
 # --------------------------------------------------------------------------
 
-def _not_ported(*_args, **_kwargs):
-    raise NotImplementedError("Mamba layers (jamba) are not ported yet")
+def _mamba_dims(cfg) -> tuple[int, int, int, int]:
+    """(d_inner, dt rank, state size N, conv width)."""
+    di = cfg.ssm_expand * cfg.d_model
+    dtr = cfg.ssm_dt_rank or max(cfg.d_model // 16, 1)
+    return di, dtr, cfg.ssm_state, cfg.ssm_conv
 
 
-mamba_meta = mamba_cache_meta = mamba_apply = mamba_decode = _not_ported
+def mamba_meta(cfg) -> dict:
+    d = cfg.d_model
+    di, dtr, N, K = _mamba_dims(cfg)
+    return {
+        "in_proj": P((d, 2 * di)),
+        "conv_w": P((K, di), scale=K**-0.5),
+        "conv_b": P((di,), "zeros"),
+        "x_proj": P((di, dtr + 2 * N)),
+        "dt_w": P((dtr, di)),
+        "dt_bias": P((di,), "ones"),
+        "A_log": P((di, N), "zeros"),
+        "D": P((di,), "ones"),
+        "out_proj": P((di, d)),
+    }
+
+
+def mamba_cache_meta(cfg, batch: int) -> dict:
+    """One layer's decode state, name -> (shape, dtype): ``conv``
+    (B, K - 1, Di) in the compute dtype (None), ``h`` (B, Di, N) in
+    float32."""
+    di, dtr, N, K = _mamba_dims(cfg)
+    return {"conv": ((batch, K - 1, di), None),
+            "h": ((batch, di, N), torch.float32)}
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``'s form, logaddexp(x, 0) = max(x, 0) +
+    log1p(exp(-|x|)), in x's dtype."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def causal_conv(xw: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The depthwise causal conv over xw (B, S + K - 1, Di), the K - 1
+    carried inputs first, with taps w (K, Di): sum_k w[k] x[t + k], a
+    Python sum of K products in xw's dtype (rounding after each add, as
+    the reference; ``F.conv1d`` sums in float32 and differs in bf16)."""
+    K = w.shape[0]
+    S = xw.shape[1] - (K - 1)
+    return sum(xw[:, k:k + S] * w[k].to(xw.dtype) for k in range(K))
+
+
+def _mamba_pre(cfg, p, xz, conv_tail):
+    """Shared projection path. xz (B, S, 2 Di), conv_tail (B, K - 1, Di);
+    returns delta, Bt, Ct (contiguous, as the scan kernel takes them), the
+    conv output xc, the gate z and the conv input x_in."""
+    di, dtr, N, K = _mamba_dims(cfg)
+    x_in, z = xz[..., :di], xz[..., di:]
+    xc = causal_conv(torch.cat([conv_tail, x_in], dim=1), p["conv_w"])
+    xc = F.silu(xc + p["conv_b"].to(xc.dtype))
+    xdb = xc @ p["x_proj"]
+    delta = softplus(xdb[..., :dtr] @ p["dt_w"] + p["dt_bias"].to(xdb.dtype))
+    Bt = xdb[..., dtr:dtr + N].contiguous()
+    Ct = xdb[..., dtr + N:].contiguous()
+    return delta, Bt, Ct, xc, z, x_in
+
+
+def _mamba_out(p, y, xc, z):
+    y = y + xc * p["D"].to(y.dtype)
+    return (y * F.silu(z)) @ p["out_proj"]
+
+
+def mamba_apply(cfg, p, x, h0=None, conv_tail=None, return_cache=False):
+    """Mixer over a sequence. x: (B, S, d) (the normed block input).
+    Returns y, or (y, {"conv": last K - 1 conv inputs, "h": final state})
+    with ``return_cache``."""
+    B = x.shape[0]
+    di, dtr, N, K = _mamba_dims(cfg)
+    xz = x @ p["in_proj"]
+    if conv_tail is None:
+        conv_tail = xz.new_zeros((B, K - 1, di))
+    delta, Bt, Ct, xc, z, x_in = _mamba_pre(cfg, p, xz, conv_tail)
+    A = -torch.exp(p["A_log"])
+    y, h = ops.mamba_scan(delta, A, Bt, Ct, xc, h0)
+    out = _mamba_out(p, y, xc, z)
+    if not return_cache:
+        return out
+    tail = torch.cat([conv_tail, x_in], dim=1)[:, -(K - 1):]
+    return out, {"conv": tail, "h": h}
+
+
+def mamba_decode(cfg, p, x, cache):
+    """One token. x: (B, 1, d); ``cache`` {"conv" (B, K - 1, Di), "h"
+    (B, Di, N)} is updated in place and returned."""
+    xz = x @ p["in_proj"]
+    delta, Bt, Ct, xc, z, x_in = _mamba_pre(cfg, p, xz, cache["conv"])
+    A = -torch.exp(p["A_log"])
+    y, _ = ops.mamba_decode_step(delta[:, 0], A, Bt[:, 0], Ct[:, 0],
+                                 xc[:, 0], cache["h"])
+    out = _mamba_out(p, y[:, None], xc, z)
+    cache["conv"].copy_(torch.cat([cache["conv"], x_in], dim=1)[:, 1:])
+    return out, cache
 
 
 # --------------------------------------------------------------------------

@@ -9,25 +9,34 @@ casts the parameters on every call (``cast_params``); here they were cast
 once when loaded (:func:`repro_torch.models.layers.cast_leaf`), which
 gives the same numbers.
 
-Two families are ported: dense GQA attention blocks of the llama family
-(RMSNorm, SiLU GLU MLP) and RWKV6 blocks (LayerNorm, time-mix, channel-mix);
-embeddings are untied and unscaled. Other layers and variants raise
-``NotImplementedError``.
+Three families are ported: dense GQA attention blocks of the llama
+family (RMSNorm, SiLU GLU MLP), RWKV6 blocks (LayerNorm, time-mix,
+channel-mix), and the hybrid family of jamba, whose pattern mixes Mamba
+and attention mixers with dense and MoE MLPs (RMSNorm, SiLU GLU
+experts); embeddings are untied and unscaled. Other layers and variants
+raise ``NotImplementedError``.
 
 The decode cache is a flat dict of tensors, one per leaf name, whose
 leading axis runs over the layers of the kind that owns the leaf:
 attention's ``k``/``v`` (n_attn, B, L, KV, D) in the compute dtype,
-RWKV's ``x_tm``/``x_cm`` (n_rwkv, B, d) in the compute dtype and ``h``
-(n_rwkv, B, H, K, K) in float32. Layer ``i`` works in place on the
-contiguous slice ``[j]`` of its kind's leaves, ``j`` its index among the
-layers of that kind (:func:`cache_slots`); a hybrid family adds its
-kind's leaves beside these.
+Mamba's ``conv`` (n_mamba, B, ssm_conv - 1, Di) in the compute dtype and
+``h`` (n_mamba, B, Di, N) in float32, RWKV's ``x_tm``/``x_cm`` (n_rwkv,
+B, d) in the compute dtype and ``h`` (n_rwkv, B, H, K, K) in float32.
+Layer ``i`` works in place on the contiguous slice ``[j]`` of its kind's
+leaves, ``j`` its index among the layers of that kind
+(:func:`cache_slots`). The names are not qualified by kind, so a name
+must belong to one kind of a config's pattern: :func:`cache_leaf_kinds`
+raises where two kinds share one (Mamba's and RWKV's ``h``, of other
+shapes), and :func:`check_supported` and :func:`init_cache_blocks` call
+it, so no config can build a cache in which one kind's layers would
+reuse another kind's leaf.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
     apply_norm, embed_meta, embed_tokens, mlp_apply, mlp_meta, norm_meta,
@@ -38,7 +47,22 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
 # cache leaves of each ported layer kind
-CACHE_LEAVES = {"attn": ("k", "v"), "rwkv": ("x_tm", "x_cm", "h")}
+CACHE_LEAVES = {"attn": ("k", "v"), "mamba": ("conv", "h"),
+                "rwkv": ("x_tm", "x_cm", "h")}
+
+
+def cache_leaf_kinds(cfg) -> dict[str, str]:
+    """Cache leaf name -> the layer kind that owns it, for the kinds of
+    ``cfg``'s pattern; raises ``ValueError`` where two kinds share a
+    name."""
+    owner: dict[str, str] = {}
+    for kind in dict.fromkeys(spec.kind for spec in cfg.block_pattern):
+        for name in CACHE_LEAVES.get(kind, ()):
+            if owner.setdefault(name, kind) != kind:
+                raise ValueError(
+                    f"{cfg.name}: cache leaf {name!r} belongs to both "
+                    f"{owner[name]!r} and {kind!r} layers")
+    return owner
 
 
 def check_supported(cfg) -> None:
@@ -51,22 +75,27 @@ def check_supported(cfg) -> None:
             f"{cfg.name}: tied or scaled embeddings are not ported yet")
     for spec in cfg.block_pattern:
         if spec.moe:
-            raise NotImplementedError(f"{cfg.name}: MoE blocks are not "
-                                      "ported yet")
-        if spec.kind == "attn":
+            if cfg.moe is None:
+                raise ValueError(f"{cfg.name}: an MoE block needs cfg.moe")
+            if cfg.moe.n_shared:
+                raise NotImplementedError(
+                    f"{cfg.name}: shared experts are not ported yet")
+        if spec.kind in ("attn", "mamba"):
             if (cfg.norm, cfg.mlp_kind, cfg.act) != ("rmsnorm", "glu", "silu"):
                 raise NotImplementedError(
-                    f"{cfg.name}: attention blocks are ported with RMSNorm "
-                    "and the SiLU GLU MLP only")
-            attn.check_supported(cfg, spec)
+                    f"{cfg.name}: attention and Mamba blocks are ported with "
+                    "RMSNorm and the SiLU GLU MLP (dense or MoE) only")
+            if spec.kind == "attn":
+                attn.check_supported(cfg, spec)
         elif spec.kind == "rwkv":
-            if (cfg.norm, cfg.mlp_kind) != ("layernorm", "rwkv"):
+            if (cfg.norm, cfg.mlp_kind) != ("layernorm", "rwkv") or spec.moe:
                 raise NotImplementedError(
                     f"{cfg.name}: RWKV blocks are ported with LayerNorm and "
                     "the RWKV channel-mix only")
         else:
             raise NotImplementedError(f"{cfg.name}: {spec.kind} blocks are "
                                       "not ported yet")
+    cache_leaf_kinds(cfg)
 
 
 def layer_specs(cfg) -> list:
@@ -85,11 +114,19 @@ def cache_slots(cfg) -> list[int]:
     return out
 
 
+_MIXER_META = {"attn": attn.attn_meta, "mamba": ssm.mamba_meta,
+               "rwkv": ssm.rwkv_meta}
+
+
 def _block_meta(cfg, spec) -> dict:
-    mix = attn.attn_meta(cfg) if spec.kind == "attn" else ssm.rwkv_meta(cfg)
-    mlp = ssm.rwkv_cm_meta(cfg) if cfg.mlp_kind == "rwkv" else mlp_meta(cfg)
-    return {"ln1": norm_meta(cfg), "mix": mix, "ln2": norm_meta(cfg),
-            "mlp": mlp}
+    if spec.moe:
+        mlp = moe.moe_meta(cfg)
+    elif cfg.mlp_kind == "rwkv":
+        mlp = ssm.rwkv_cm_meta(cfg)
+    else:
+        mlp = mlp_meta(cfg)
+    return {"ln1": norm_meta(cfg), "mix": _MIXER_META[spec.kind](cfg),
+            "ln2": norm_meta(cfg), "mlp": mlp}
 
 
 def lm_meta(cfg) -> dict:
@@ -105,26 +142,33 @@ def _layer_cache_meta(cfg, spec, batch: int, cache_len: int) -> dict:
     if spec.kind == "attn":
         shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
         return {"k": (shape, None), "v": (shape, None)}
+    if spec.kind == "mamba":
+        return ssm.mamba_cache_meta(cfg, batch)
     return ssm.rwkv_cache_meta(cfg, batch)
 
 
 def init_cache_blocks(cfg, batch: int, cache_len: int, dtype: torch.dtype,
                       device) -> dict:
     """Zeroed decode-cache leaves for ``batch`` rows (see the module
-    docstring for the layout)."""
+    docstring for the layout: each leaf name belongs to one layer kind,
+    :func:`cache_leaf_kinds`)."""
+    owner = cache_leaf_kinds(cfg)
     blocks = {}
     specs = layer_specs(cfg)
-    for spec in specs:
-        n = sum(s.kind == spec.kind for s in specs)
+    for kind in dict.fromkeys(s.kind for s in specs):
+        spec = next(s for s in specs if s.kind == kind)
+        n = sum(s.kind == kind for s in specs)
         for name, (shape, dt) in _layer_cache_meta(cfg, spec, batch,
                                                    cache_len).items():
-            if name not in blocks:
-                blocks[name] = torch.zeros((n, *shape), dtype=dt or dtype,
-                                           device=device)
+            assert owner[name] == kind, (name, kind)
+            blocks[name] = torch.zeros((n, *shape), dtype=dt or dtype,
+                                       device=device)
     return blocks
 
 
-def _mlp_prefill(cfg, lp, h, cache):
+def _mlp_prefill(cfg, spec, lp, h, cache):
+    if spec.moe:
+        return moe.moe_apply(cfg, lp["mlp"], h)[0]
     if cfg.mlp_kind == "rwkv":
         cache["x_cm"] = h[:, -1]
         return ssm.rwkv_cm_apply(cfg, lp["mlp"], h)
@@ -136,11 +180,13 @@ def _apply_layer_prefill(cfg, spec, lp, x, positions, cache_len):
     if spec.kind == "attn":
         mix, cache = attn.attn_prefill(cfg, spec, lp["mix"], h, positions,
                                        cache_len)
+    elif spec.kind == "mamba":
+        mix, cache = ssm.mamba_apply(cfg, lp["mix"], h, return_cache=True)
     else:
         mix, cache = ssm.rwkv_apply(cfg, lp["mix"], h, return_cache=True)
     x = x + mix
-    return x + _mlp_prefill(cfg, lp, apply_norm(cfg, lp["ln2"], x), cache), \
-        cache
+    return x + _mlp_prefill(cfg, spec, lp, apply_norm(cfg, lp["ln2"], x),
+                            cache), cache
 
 
 def _apply_layer_decode(cfg, spec, lp, x, cache, cur_len):
@@ -149,11 +195,15 @@ def _apply_layer_decode(cfg, spec, lp, x, cache, cur_len):
     h = apply_norm(cfg, lp["ln1"], x)
     if spec.kind == "attn":
         mix, _ = attn.attn_decode(cfg, spec, lp["mix"], h, cache, cur_len)
+    elif spec.kind == "mamba":
+        mix, _ = ssm.mamba_decode(cfg, lp["mix"], h, cache)
     else:
         mix, _ = ssm.rwkv_decode(cfg, lp["mix"], h, cache)
     x = x + mix
     h = apply_norm(cfg, lp["ln2"], x)
-    if cfg.mlp_kind == "rwkv":
+    if spec.moe:
+        out, _ = moe.moe_apply(cfg, lp["mlp"], h)
+    elif cfg.mlp_kind == "rwkv":
         out = ssm.rwkv_cm_decode(cfg, lp["mlp"], h, cache["x_cm"])
         cache["x_cm"].copy_(h[:, 0])
     else:
@@ -183,8 +233,8 @@ def lm_prefill(cfg, params, tokens: torch.Tensor, *,
 def _lm_decode_blocks(cfg, params, blocks, tokens, cur_len):
     """Shared decode body: one token per row against the block caches,
     written in place. ``cur_len`` is an int (lock-step) or a (B,) tensor
-    (ragged slots), as in :func:`attention.attn_decode`; RWKV layers do
-    not read it."""
+    (ragged slots), as in :func:`attention.attn_decode`; the state-space
+    layers do not read it."""
     dtype = DTYPES[cfg.dtype]
     x = embed_tokens(params["embed"], tokens, dtype)
     for spec, j, lp in zip(layer_specs(cfg), cache_slots(cfg),

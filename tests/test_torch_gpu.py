@@ -258,3 +258,72 @@ def test_rwkv_scan_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):                       # not contiguous
         ls.rwkv_scan(r.transpose(1, 2).contiguous().transpose(1, 2), w, k,
                      v, u, h0)
+
+
+def _mamba_inputs(B, S, Di, N, dtype, device, seed=11):
+    """delta = softplus(N(0, 1)), A = -exp(N(0, 0.5)) (Di, N) in float32,
+    Bt, Ct (B, S, N), x (B, S, Di), h0 (B, Di, N) float32."""
+    g = _gen(seed)
+    delta = torch.nn.functional.softplus(torch.randn((B, S, Di), generator=g))
+    A = -torch.exp(0.5 * torch.randn((Di, N), generator=g))
+    Bt = torch.randn((B, S, N), generator=g)
+    Ct = torch.randn((B, S, N), generator=g)
+    x = torch.randn((B, S, Di), generator=g)
+    h0 = 0.5 * torch.randn((B, Di, N), generator=g)
+    return (delta.to(device, dtype), A.to(device), Bt.to(device, dtype),
+            Ct.to(device, dtype), x.to(device, dtype), h0.to(device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Di,N,with_h0", [(1, 1024, 8192, 16, False),
+                                              (1, 37, 8192, 16, True),
+                                              (3, 50, 8192, 16, True),
+                                              (8, 1, 8192, 16, True),
+                                              (2, 45, 128, 4, True),
+                                              (1, 19, 200, 4, False)])
+def test_mamba_scan_kernel_vs_plain(cuda, dtype, B, S, Di, N, with_h0):
+    delta, A, Bt, Ct, x, h0 = _mamba_inputs(B, S, Di, N, dtype, cuda)
+    h0 = h0 if with_h0 else None
+    count = ls.mamba_scan.launches
+    y, h = ls.mamba_scan(delta, A, Bt, Ct, x, h0)
+    assert ls.mamba_scan.launches == count + 1
+    py, ph = ls.mamba_scan_plain(delta, A, Bt, Ct, x, h0)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    tol = SCAN_RTOL[dtype] * py.float().abs().max().item()
+    torch.testing.assert_close(y.float(), py.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(h, ph, atol=1e-5 * ph.abs().max().item(),
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Di,N", [(8192, 16), (128, 4)])
+def test_mamba_decode_step_in_place_equals_out_of_place(cuda, dtype, Di, N):
+    delta, A, Bt, Ct, x, h0 = _mamba_inputs(8, 1, Di, N, dtype, cuda)
+    y, h = ls.mamba_scan(delta, A, Bt, Ct, x, h0)
+    state = h0.clone()
+    count = ls.mamba_scan.launches
+    y1, out = ls.mamba_decode_step(delta[:, 0], A, Bt[:, 0], Ct[:, 0],
+                                   x[:, 0], state)
+    assert ls.mamba_scan.launches == count + 1 and out is state
+    assert torch.equal(y1, y[:, 0]) and torch.equal(state, h)
+    py, _ = ls.mamba_decode_step_plain(delta[:, 0], A, Bt[:, 0], Ct[:, 0],
+                                       x[:, 0], h0.clone())
+    tol = SCAN_RTOL[dtype] * py.float().abs().max().item()
+    torch.testing.assert_close(y1.float(), py.float(), atol=tol, rtol=0)
+
+
+def test_mamba_scan_kernel_rejects_what_it_does_not_take(cuda):
+    delta, A, Bt, Ct, x, h0 = _mamba_inputs(1, 4, 64, 8, torch.float32, cuda)
+    with pytest.raises(ValueError):                       # N = 8: not built
+        ls.mamba_scan(delta, A, Bt, Ct, x, h0)
+    delta, A, Bt, Ct, x, h0 = _mamba_inputs(1, 4, 64, 4, torch.float32, cuda)
+    with pytest.raises(ValueError):                       # float64
+        ls.mamba_scan(delta.double(), A, Bt.double(), Ct.double(),
+                      x.double(), h0)
+    with pytest.raises(ValueError):                       # mixed delta, x
+        ls.mamba_scan(delta, A, Bt, Ct, x.bfloat16(), h0)
+    with pytest.raises(ValueError):                       # bf16 h0
+        ls.mamba_scan(delta, A, Bt, Ct, x, h0.bfloat16())
+    wide = torch.zeros((1, 4, 2 * 4), device=cuda)
+    with pytest.raises(ValueError):                       # not contiguous
+        ls.mamba_scan(delta, A, wide[..., :4], Ct, x, h0)

@@ -47,6 +47,12 @@ def test_port_has_the_rwkv_slice_modules():
             "repro_torch.kernels.linear_scan"} <= mods
 
 
+def test_port_has_the_jamba_slice_modules():
+    mods = set(_port_modules())
+    assert {"repro_torch.configs.jamba_v0_1_52b", "repro_torch.models.moe",
+            "repro_torch.models.ssm", "repro_torch.kernels.linear_scan"} <= mods
+
+
 def test_importing_the_port_loads_no_jax_and_no_repro():
     code = (
         "import importlib, sys\n"

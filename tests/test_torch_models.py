@@ -53,7 +53,7 @@ def _prompts(cfg, lens, seed):
 
 # ---- configs ------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-3b", "jamba-v0.1-52b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_copy_equals_reference(smoke, arch):
     ref = jax_get_config(arch, smoke=smoke)
@@ -64,7 +64,8 @@ def test_config_copy_equals_reference(smoke, arch):
 
 
 def test_unported_archs_raise_not_ported_yet():
-    assert configs.list_configs() == ["llama3-8b", "rwkv6-3b"]
+    assert configs.list_configs() == ["llama3-8b", "jamba-v0.1-52b",
+                                      "rwkv6-3b"]
     for name in set(configs.ARCHS) - set(configs.list_configs()):
         with pytest.raises(KeyError, match="not ported yet"):
             configs.get_config(name)
@@ -77,12 +78,40 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError):
         Model(cfg.replace(block_pattern=(configs.LayerSpec(window=8),)),
               device="cpu")
-    for variant in ({"block_pattern": (configs.LayerSpec(kind="mamba"),)},
-                    {"qkv_bias": True}, {"qk_norm": True},
+    moe = configs.MoEConfig(n_experts=4, top_k=2, d_expert=32)
+    for variant in ({"qkv_bias": True}, {"qk_norm": True},
                     {"norm": "layernorm"}, {"act": "gelu"},
-                    {"tie_embeddings": True}, {"embed_scale": True}):
+                    {"tie_embeddings": True}, {"embed_scale": True},
+                    {"mla": configs.MLAConfig(8, 8, 8, 8, 8)},
+                    {"block_pattern": (configs.LayerSpec(moe=True),),
+                     "moe": dataclasses.replace(moe, n_shared=1)},
+                    {"block_pattern": (configs.LayerSpec(kind="mamba"),),
+                     "mlp_kind": "plain"}):
         with pytest.raises(NotImplementedError):
             Model(cfg.replace(**variant), device="cpu")
+
+
+def test_mamba_and_moe_blocks_run_in_a_llama_config():
+    """What the jamba slice made run: Mamba mixers and MoE MLPs beside
+    attention, under llama's RMSNorm and SiLU GLU; an MoE block without
+    an MoE config is refused."""
+    cfg = configs.get_config("llama3-8b", smoke=True).replace(
+        dtype="float32", n_layers=4,
+        block_pattern=(configs.LayerSpec(kind="mamba", moe=True),
+                       configs.LayerSpec()),
+        moe=configs.MoEConfig(n_experts=4, top_k=2, d_expert=32),
+        ssm_state=4)
+    model = Model(cfg, device="cpu")
+    params = model.init(seed=0)
+    tokens = torch.from_numpy(np.arange(6, dtype=np.int64)[None] % 256)
+    logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=8)
+    assert logits.shape == (1, cfg.vocab_size)
+    assert set(cache["blocks"]) == {"conv", "h", "k", "v"}
+    assert cache["blocks"]["h"].shape[0] == 2         # the 2 Mamba layers
+    logits, _ = model.decode_step(params, cache, tokens[:, :1])
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError):
+        Model(cfg.replace(moe=None), device="cpu")
 
 
 # ---- parameters ---------------------------------------------------------

@@ -24,6 +24,7 @@ from repro.models.model import build_model as jax_build_model
 
 from repro_torch import configs
 from repro_torch.models import layers, ssm
+from repro_torch.models import transformer as tf
 from repro_torch.models.model import Model, params_from_jax
 
 RTOL = 1e-4
@@ -65,7 +66,7 @@ def _prompts(cfg, lens, seed):
 
 # ---- the compute-dtype cast of carried weights ---------------------------
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-3b", "jamba-v0.1-52b"])
 def test_bf16_params_equal_the_reference_cast_of_the_stacked_tree(arch):
     """Every leaf of ``params_from_jax`` in bf16 has the dtype and value
     that the reference's ``cast_params`` gives it in the stacked tree it
@@ -106,6 +107,11 @@ def test_bf16_params_equal_the_reference_cast_of_the_stacked_tree(arch):
         mix = got["blocks"][0]["mix"]
         assert {mix[n].dtype for n in ("u", "w0", "gn_w", "gn_b")} == \
             {torch.bfloat16}
+    if arch == "jamba-v0.1-52b":       # pinned float32 in the metadata
+        mix = got["blocks"][0]["mix"]
+        assert {mix[n].dtype for n in ("dt_bias", "A_log", "D")} == \
+            {torch.bfloat16}
+        assert got["blocks"][1]["mlp"]["wg"].ndim == 3     # (E, d, f)
 
 
 # ---- configs and parameters ----------------------------------------------
@@ -204,13 +210,20 @@ def test_channel_mix_equals_reference(pair):
                                       jnp.asarray(xp)))
 
 
-def test_mamba_is_not_ported_yet():
-    cfg = configs.get_config("rwkv6-3b", smoke=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ssm.mamba_meta(cfg)
-    with pytest.raises(NotImplementedError):
-        Model(cfg.replace(block_pattern=(configs.LayerSpec(kind="mamba"),)),
-              device="cpu")
+def test_mamba_and_rwkv_layers_cannot_share_the_h_leaf():
+    """Both kinds name their state ``h``, of other shapes: a pattern with
+    both is refused before any cache is built, so no layer can reuse the
+    other kind's leaf."""
+    cfg = configs.get_config("rwkv6-3b", smoke=True).replace(
+        block_pattern=(configs.LayerSpec(kind="rwkv"),
+                       configs.LayerSpec(kind="mamba")))
+    with pytest.raises(ValueError, match="'h'"):
+        tf.cache_leaf_kinds(cfg)
+    with pytest.raises(ValueError, match="'h'"):
+        tf.init_cache_blocks(cfg, 1, 8, torch.float32, "cpu")
+    assert tf.cache_leaf_kinds(configs.get_config("rwkv6-3b"))["h"] == "rwkv"
+    assert tf.cache_leaf_kinds(configs.get_config("jamba-v0.1-52b")) == {
+        "conv": "mamba", "h": "mamba", "k": "attn", "v": "attn"}
 
 
 # ---- model passes -------------------------------------------------------
