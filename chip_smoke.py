@@ -8,9 +8,13 @@ CUDA toolkit:
 
 Phases, each fatal on failure:
   1. print the card's name and power limit; build every CUDA kernel from
-     ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a), in parallel;
+     ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a), in parallel, and
+     require tensor-core instructions in the attention libraries' SASS
+     (HGMMA for flash, HMMA for decode);
   2. hold each kernel against its plain PyTorch version on the card, at
      the paths' shapes and at ragged ones (YUV decode and IoU exactly);
+     both routes of each attention kernel (tensor cores for bf16 at the
+     built widths, CUDA cores for fp32 and other widths);
   3. run the face-recognition StreamingPipeline on the card at the paper's
      1080p source, fused and unfused identify, with every launch counter
      set to 0 just before each run and read just after, and check its
@@ -32,12 +36,14 @@ Phases, each fatal on failure:
      swapped in (for the scan archs, every layer's scan on its own bf16
      inputs, and the whole step with float32 weights), then 16 requests
      through the continuous-batching engine (counters zeroed just before
-     the run), with its throughput, TTFT, tax split, transfer ledger and
-     the weight-streaming floor of a decode tick;
+     the run; the attention kernels must take their tensor-core routes
+     once an attention layer for every prefill and every tick), with its
+     throughput, TTFT, tax split, transfer ledger and the weight-streaming
+     floor of a decode tick;
   7. time each kernel, its plain version and the matching PyTorch library
-     call with CUDA events, beside the least time the card could take,
-     and profile the device's busy share of a pipeline run and of each
-     arch's serve run.
+     call with CUDA events, beside the least time the card could take
+     (decode attention also with a cold L2), and profile the device's busy
+     share of a pipeline run and of each arch's serve run.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -86,11 +92,21 @@ LOGITS_RTOL_F32 = 1e-3
 
 # serve phase at full width, bf16, on the card, for each served arch
 SERVE_ARCHS = ("llama3-8b", "rwkv6-3b", "jamba-v0.1-52b")
+# the attention kernels' tensor-core instructions in their libraries' SASS,
+# and the route each must take on the full-width serve path: one launch an
+# attention layer for every prefill (flash) and every decode tick (decode)
+TC_SASS = {"flash_attention": "HGMMA", "decode_attention": "HMMA"}
+TC_GATES = {"flash_attention": ("wgmma", "prefills"),
+            "decode_attention": ("mma", "ticks")}
 SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_MAX_TOKENS = 8, 2048, 16, 32
+# bytes written between calls to time a kernel with a cold (50 MB) L2
+L2_FLUSH_BYTES = 128 << 20
 # NMS batteries (candidates per call) and the attention shapes of the path
 NMS_SIZES = (32, 256, 1000, 4096)
 FLASH_SEQS = (16, 37, 512, 1024)
+FLASH_RAGGED = (130, 1000)               # no multiple of any tile
 DECODE_LENS = (768, 2048)
+DECODE_RAGGED = (2047, 50)
 LLAMA_H, LLAMA_KV, LLAMA_D = 32, 8, 128
 RWKV_H, RWKV_K = 40, 64                  # rwkv6-3b's heads and head width
 RWKV_PREFILL, RWKV_DECODE_B = 1024, SERVE_SLOTS
@@ -165,6 +181,36 @@ def cuda_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def cold_time_ms(fn, scratch, reps: int = 20) -> float:
+    """Device time of one call with a cold L2: ``scratch`` (larger than the
+    50 MB L2) is written before each call, then the call, captured in a
+    CUDA graph, is replayed between two CUDA events; the median of
+    ``reps``. The write keeps the card busy while the host queues the
+    replay, so the events time the call alone."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    times = []
+    for _ in range(reps):
+        scratch.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
@@ -395,45 +441,82 @@ def check_serve_kernels(device) -> dict[str, float]:
         require(n_bad == 0, f"iou_matrix N={n} differs on {n_bad} values")
     err["iou_matrix"] = 0.0
 
+    # flash: llama3-8b's heads at the path's lengths and ragged ones (bf16
+    # on the wgmma route, fp32 on the CUDA-core one), then the smoke
+    # configs' D = 16, the CUDA-core route in both dtypes
     worst = 0.0
     cases = [(S, S, {}) for S in FLASH_SEQS]
     cases += [(1024, 1024, {"window": 256}),          # sliding window
               (128, 640, {"q_offset": 512})]          # a chunk after a prefix
+    ragged = [(S, S, {}) for S in FLASH_RAGGED]
+    ragged += [(1000, 1000, {"window": 100}), (130, 300, {"q_offset": 170}),
+               (130, 130, {"causal": False}), (1000, 1000, {"causal": False})]
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
-        for Sq, Skv, kw in cases:
+        for Sq, Skv, kw in cases + (ragged if dtype == torch.bfloat16 else []):
             q, k, v = attn_inputs(Sq, Skv, dtype, device)
-            got = fa.flash_attention(q, k, v, causal=True, **kw)
-            want = fa.flash_attention_plain(q, k, v, causal=True, **kw)
-            e = (got.float() - want.float()).abs().max().item()
-            print(f"check flash_attention {name} q(1,{Sq},32,128) "
-                  f"kv(1,{Skv},8,128) causal {kw}: max_abs_err={e:.3e} "
-                  f"(tolerance {ATTN_ATOL[name]})")
-            require(e <= ATTN_ATOL[name], f"flash {name} {Sq}x{Skv} {kw}: {e}")
-            worst = max(worst, e)
+            worst = max(worst, _check_flash(fa, q, k, v, name, kw))
+        q, k, v = (t[..., :16].contiguous() for t in
+                   attn_inputs(100, 100, dtype, device))
+        worst = max(worst, _check_flash(fa, q, k, v, name, {}))
     err["flash_attention"] = worst
 
+    # decode: llama3-8b's heads (bf16 on the mma route, fp32 on the
+    # CUDA-core one) with cache lengths no tile divides, then the smoke
+    # configs' G = 2, D = 16 (the mma route in bf16)
     worst = 0.0
-    cases = [(L, None) for L in DECODE_LENS] + [(2048, 512)]
+    cases = [(L, None) for L in DECODE_LENS + DECODE_RAGGED] + [(2048, 512)]
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         for L, window in cases:
             q, k, v, lens = decode_inputs(L, dtype, device)
-            got = da.decode_attention(q, k, v, kv_len=lens, window=window)
-            want = da.decode_attention_plain(q, k, v, kv_len=lens,
-                                             window=window)
-            e = (got.float() - want.float()).abs().max().item()
-            zeros = bool((got[lens == 0] == 0).all().item())
-            print(f"check decode_attention {name} q(8,1,32,128) "
-                  f"kv(8,{L},8,128) kv_len={lens.tolist()} window={window}: "
-                  f"max_abs_err={e:.3e} (tolerance {ATTN_ATOL[name]}); "
-                  f"kv_len=0 rows exactly zero: {zeros}")
-            require(e <= ATTN_ATOL[name], f"decode {name} L={L}: {e}")
-            require(zeros, f"decode {name} L={L}: kv_len=0 rows not zero")
-            worst = max(worst, e)
+            worst = max(worst, _check_decode(da, q, k, v, lens, name, window))
+        q, k, v, lens = decode_inputs(96, dtype, device)
+        q, k, v = (q[:, :, :4, :16].contiguous(), k[:, :, :2, :16].contiguous(),
+                   v[:, :, :2, :16].contiguous())
+        worst = max(worst, _check_decode(da, q, k, v, lens, name, 7))
     err["decode_attention"] = worst
     torch.cuda.synchronize()
     return err
+
+
+def _check_flash(fa, q, k, v, name: str, kw: dict) -> float:
+    """One flash call (causal unless ``kw`` says otherwise) against its
+    plain version; prints the route and the error, requires ATTN_ATOL."""
+    kw = {"causal": True, **kw}
+    route = fa._route(q.dtype, q.shape[-1], v.shape[-1])
+    n = fa.flash_attention.launches_by_route[route]
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    e = (got.float() - want.float()).abs().max().item()
+    print(f"check flash_attention {name} ({route} route) q{tuple(q.shape)} "
+          f"kv{tuple(k.shape)} {kw}: max_abs_err={e:.3e} (tolerance "
+          f"{ATTN_ATOL[name]})")
+    require(fa.flash_attention.launches_by_route[route] == n + 1,
+            f"flash {name}: the {route} route did not launch")
+    require(e <= ATTN_ATOL[name], f"flash {name} {tuple(q.shape)} {kw}: {e}")
+    return e
+
+
+def _check_decode(da, q, k, v, lens, name: str, window) -> float:
+    """One decode call against its plain version; prints the route and the
+    error, requires ATTN_ATOL and exact zeros where kv_len = 0."""
+    route = da._route(q.dtype, q.shape[2] // k.shape[2], q.shape[-1],
+                      v.shape[-1])
+    n = da.decode_attention.launches_by_route[route]
+    got = da.decode_attention(q, k, v, kv_len=lens, window=window)
+    want = da.decode_attention_plain(q, k, v, kv_len=lens, window=window)
+    e = (got.float() - want.float()).abs().max().item()
+    zeros = bool((got[lens == 0] == 0).all().item())
+    print(f"check decode_attention {name} ({route} route) q{tuple(q.shape)} "
+          f"kv{tuple(k.shape)} kv_len={lens.tolist()} window={window}: "
+          f"max_abs_err={e:.3e} (tolerance {ATTN_ATOL[name]}); kv_len=0 "
+          f"rows exactly zero: {zeros}")
+    require(da.decode_attention.launches_by_route[route] == n + 1,
+            f"decode {name}: the {route} route did not launch")
+    require(e <= ATTN_ATOL[name], f"decode {name} {tuple(k.shape)}: {e}")
+    require(zeros, f"decode {name} {tuple(k.shape)}: kv_len=0 rows not zero")
+    return e
 
 
 def check_scan_kernel(device) -> dict[str, float]:
@@ -918,9 +1001,11 @@ def serve_requests(cfg, n: int, seed: int):
 
 def run_serve(model, params, prompts, max_tokens: int, wrappers=()):
     """One continuous-batching engine run at the full-width settings;
-    returns (engine, finished, seconds, launches per wrapper), the counts
-    set to 0 just before ``run()`` and read just after."""
+    returns (engine, finished, seconds, launches per wrapper, launches per
+    route of each wrapper that has routes), the counts set to 0 just before
+    ``run()`` and read just after."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.serve.engine import Request, ServingEngine
     eng = ServingEngine(model, params, batch_slots=SERVE_SLOTS,
                         cache_len=SERVE_CACHE_LEN, scheduler="continuous",
@@ -928,12 +1013,14 @@ def run_serve(model, params, prompts, max_tokens: int, wrappers=()):
     for i, p in enumerate(prompts):
         eng.submit(Request(i, p, max_tokens=max_tokens))
     for w in wrappers:
-        w.launches = 0
+        build.zero_launches(w)
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    return eng, done, secs, {w: w.launches for w in wrappers}
+    return (eng, done, secs, {w: w.launches for w in wrappers},
+            {w: dict(w.launches_by_route) for w in wrappers
+             if hasattr(w, "launches_by_route")})
 
 
 def fit_depth(device, cfg):
@@ -1060,8 +1147,8 @@ def serve_full_width(device, arch: str, wrappers) -> dict:
     run_serve(model, params, serve_requests(cfg, 2, seed=2), 2)
     prompts = serve_requests(cfg, SERVE_REQUESTS, seed=0)
     torch.cuda.reset_peak_memory_stats(device)
-    eng, done, secs, launches = run_serve(model, params, prompts,
-                                          SERVE_MAX_TOKENS, wrappers)
+    eng, done, secs, launches, routes = run_serve(
+        model, params, prompts, SERVE_MAX_TOKENS, wrappers)
     peak = torch.cuda.max_memory_allocated(device)
     n_tok = sum(len(r.tokens) for r in done)
     ticks = eng.d2h_syncs - len(prompts)     # one fetch a prefill, one a tick
@@ -1096,7 +1183,7 @@ def serve_full_width(device, arch: str, wrappers) -> dict:
     require(all(0 <= t < cfg.vocab_size for r in done for t in r.tokens),
             f"full-width {arch} serve: token out of the vocabulary")
     return {"model": model, "params": params, "launches": launches,
-            "cfg": cfg, "prefills": len(prompts),
+            "routes": routes, "cfg": cfg, "prefills": len(prompts),
             "ticks": ticks}
 
 
@@ -1108,7 +1195,7 @@ def profile_serve(model, params, cfg) -> None:
     prompts = serve_requests(cfg, SERVE_SLOTS, seed=3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng, done, secs, _ = run_serve(model, params, prompts, 16)
+        eng, done, secs, _, _ = run_serve(model, params, prompts, 16)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -1117,7 +1204,10 @@ def profile_serve(model, params, cfg) -> None:
     print(f"profile serve {cfg.name} ({len(prompts)} requests x 16 tokens): "
           f"wall {secs:.3f} s (decode ticks {decode_s:.3f} s); device busy "
           f"{busy_us / 1e3:.3f} ms = {busy_us / 1e6 / secs:.5f} of the wall")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    # the ten largest, then the port's own kernels below them
+    for e in ranked[:10] + [e for e in ranked[10:]
+                            if "anonymous namespace" in e.key]:
         print(f"profile serve {cfg.name} device time "
               f"{e.self_device_time_total / 1e3:.3f} ms x{e.count}: "
               f"{e.key[:90]}")
@@ -1237,21 +1327,32 @@ def time_kernels(device) -> dict[str, dict]:
                    4 * LLAMA_D * pairs, iters=10, peak_flop_s=PEAK_BF16_FLOP_S)
         out.setdefault("flash_attention", t)
 
+    # decode with a cold L2 too: the engine's cache (67 MB a layer at full
+    # length) exceeds the 50 MB L2, so a tick finds it in device memory
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
     for L in (2048, 768):
         q, k, v, lens = decode_inputs(L, torch.bfloat16, device)
         valid = int(lens.sum().item())                 # cache entries read
         mask = (torch.arange(L, device=device)[None, :]
                 < lens[:, None])[:, None, None, :]
+        kernel = lambda: da.decode_attention(q, k, v, kv_len=lens)
+        library = sdpa_call(q, k, v, causal=False, mask=mask)
         t = _timed("decode_attention", f"bf16 q(8,1,32,128) kv(8,{L},8,128) "
-                   f"kv_len={lens.tolist()}",
-                   lambda: da.decode_attention(q, k, v, kv_len=lens),
+                   f"kv_len={lens.tolist()}", kernel,
                    lambda: da.decode_attention_plain(q, k, v, kv_len=lens),
-                   sdpa_call(q, k, v, causal=False, mask=mask),
+                   library,
                    2 * (2 * valid * LLAMA_KV * LLAMA_D + 2 * q.numel())
                    + 4 * lens.numel(),
                    4 * LLAMA_D * LLAMA_H * valid, iters=20,
                    peak_flop_s=PEAK_BF16_FLOP_S)
+        if L == 2048:
+            cold = {"ms": cold_time_ms(kernel, scratch),
+                    "library_ms": cold_time_ms(library, scratch)}
+            print(f"time decode_attention L2-cold ({L2_FLUSH_BYTES >> 20} MiB "
+                  f"written before each call) kv(8,{L},8,128): "
+                  + json.dumps(cold))
         out.setdefault("decode_attention", t)
+    del scratch
 
     # the RWKV6 scan at the serve path's shapes: a 1024-token prefill from a
     # zero state, then one decode step of 8 slots on their state, in place.
@@ -1403,6 +1504,10 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"ptxas {stem}: {line.strip()}")
+    for stem, op in TC_SASS.items():
+        n = build.sass(stem).count(op)
+        print(f"sass {stem}: {n} {op} instructions (tensor cores)")
+        require(n > 0, f"{stem}: no {op} instruction in its SASS")
 
     kernels = kernel_table()
     errors = check_kernels(device)
@@ -1444,6 +1549,19 @@ def main() -> int:
                       f"{launches[name] == want}")
                 require(launches[name] == want,
                         f"{name} launched {launches[name]} times, want {want}")
+        n_attn = sum(s.kind == "attn" for s in
+                     full["cfg"].block_pattern) * full["cfg"].n_repeats
+        for k in serve:
+            if k["name"] not in TC_GATES:
+                continue
+            route, per = TC_GATES[k["name"]]
+            got = full["routes"][k["wrapper"]]
+            want = n_attn * full[per]
+            print(f"serve launches {k['name']} by route: {arch} {got}; "
+                  f"{route} = {n_attn} attention layers x {full[per]} {per} "
+                  f"= {want}: {got[route] == want}")
+            require(got[route] == want and sum(got.values()) == want,
+                    f"{k['name']}: {got} on {arch}, want {want} on {route}")
         profile_serve(full["model"], full["params"], full["cfg"])
         del full                     # free the weights before the next arch
         torch.cuda.empty_cache()

@@ -11,7 +11,8 @@ and an unchanged one is reused.
 Each C entry point takes its pointers and the stream as ``void*``,
 launches on PyTorch's current stream without synchronising, and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
-exception. Wrappers count their launches with :func:`count_launch`.
+exception. Wrappers count their launches with :func:`count_launch`;
+:func:`sass` disassembles a built library.
 """
 from __future__ import annotations
 
@@ -116,7 +117,27 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def count_launch(wrapper) -> None:
-    """One more launch on ``wrapper.launches`` (thread-safe)."""
+def count_launch(wrapper, route: str | None = None) -> None:
+    """One more launch on ``wrapper.launches`` and, for a wrapper with more
+    than one kernel, on ``wrapper.launches_by_route[route]`` (thread-safe)."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+        if route is not None:
+            wrapper.launches_by_route[route] += 1
+
+
+def zero_launches(wrapper) -> None:
+    """Set ``wrapper.launches`` and every count of its routes to 0."""
+    with _COUNT_LOCK:
+        wrapper.launches = 0
+        for route in getattr(wrapper, "launches_by_route", {}):
+            wrapper.launches_by_route[route] = 0
+
+
+def sass(stem: str) -> str:
+    """The SASS of ``csrc/<stem>.cu``'s built library, as ``cuobjdump
+    -sass`` prints it (to show which instructions the kernels use)."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(build_all()[stem])],
+                         capture_output=True, text=True, check=True)
+    return out.stdout

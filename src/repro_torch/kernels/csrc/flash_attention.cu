@@ -5,26 +5,55 @@
 // v (B, Skv, KV, Dv), bf16 or fp32, contiguous, in the reference's layout
 // -> o (B, Sq, H, Dv) in q's type. Causal and sliding-window masks,
 // q_offset, and GQA by kv head = h / (H / KV) with no KV expansion.
-// Arithmetic as the reference: q * scale in fp32, fp32 scores, masked
-// scores set to NEG_INF = -1e30, fp32 running (m, l, acc), acc / max(l, 1e-30).
+// Arithmetic as the reference: fp32 scores, masked scores set to
+// NEG_INF = -1e30, fp32 running (m, l, acc), acc / max(l, 1e-30).
 //
 // Bound: operations. A causal prefill of S tokens does 2 * S^2 * H * (D + Dv)
 // / 2 FLOP against 2 * S * (H * (D + Dv) + 2 * KV * D) bytes (bf16): at
-// S = 1024, H = 32 that is 8.6 GFLOP against 10.5 MB, ~500 FLOP a byte.
-// Design (simple, no tensor cores; wgmma/TMA is later work): one block of
-// 256 threads per (q tile of 64 rows, head, batch), heaviest causal tiles
-// launched first. The q tile is loaded once, scaled, transposed into shared
-// memory as fp32; for each K/V tile of 64 keys the block stages K
-// (transposed) and V in shared memory, each thread computes a 4x4 block of
-// scores (rows ty + 16 i, columns tx + 16 j: strided so that shared-memory
-// reads hit distinct banks or broadcast), the 16 threads of a row reduce max
-// and sum by warp shuffles, P goes to shared memory over the spent K tile,
-// and each thread accumulates 4 rows x 8 output columns of P @ V in
-// registers. Tiles wholly masked by causality or the window are never
-// loaded. Ragged tiles (Sq or Skv not a multiple of 64) are masked here:
-// rows past Sq are not stored, keys past Skv load as zeros and score NEG_INF.
+// S = 1024, H = 32 that is 8.6 GFLOP against 10.5 MB, ~500 FLOP a byte, so
+// only the tensor cores (989 TFLOP/s bf16, against 67 fp32) can approach it.
+//
+// Two routes, chosen by shape in the Python wrapper (`_route`):
+//
+// flash_attention_wgmma (bf16, D = Dv in {64, 128}): one block of two
+// consumer warpgroups and one producer warp per (128 q rows, head, batch),
+// heaviest causal tiles launched first; each warpgroup owns 64 rows (one
+// wgmma M tile). One thread of the producer warp loads the Q tile once and
+// K/V tiles of 64 keys into a 3-stage ring by TMA, completed on "full"
+// mbarriers; consumers release a stage on an "empty" mbarrier, so the two
+// warpgroups never wait for each other (no block barrier in the loop).
+// The tensor maps are rank 4, (D, heads, S, B), with boxes of
+// (64, 1, rows, 1) and the 128-byte swizzle, so a ragged tail past Sq or Skv
+// reads TMA's zero fill, never the next batch row; D = 128 is two 64-element
+// boxes. S = Q K^T is wgmma m64n64k16 with both operands in shared memory,
+// K-major, unscaled bf16 products summed in fp32 and multiplied by the scale
+// after (in log2 units, for exp2). The softmax runs on the accumulator
+// fragments: a lane holds 2 rows, so a row max is 2 shuffles in the quad;
+// masks are computed only on tiles that cross Skv, the diagonal or the
+// window's edge.
+// P is rounded to bf16 fragments in registers and O += P V is wgmma with A
+// from registers and V read MN-major from shared memory (the transpose bit),
+// one m64n64 product per 64 output columns. O, m and l stay in fp32
+// registers; the epilogue divides, rounds and stores rows below Sq.
+// The numerics differ from the reference in one place: P is rounded to bf16
+// for P V (the reference multiplies in fp32); the tolerance budget is tested
+// on the CPU (tests/test_torch_attention.py) and held on the card.
+//
+// flash_attention (fp32, and bf16 at other widths): the CUDA-core kernel
+// below, one block of 256 threads per (q tile of 64 rows, head, batch), q
+// scaled and transposed into shared memory as fp32; for each K/V tile of 64
+// keys the block stages K (transposed) and V in shared memory, each thread
+// computes a 4x4 block of scores (rows ty + 16 i, columns tx + 16 j), the 16
+// threads of a row reduce max and sum by warp shuffles, P goes to shared
+// memory over the spent K tile, and each thread accumulates 4 rows x 8
+// output columns of P @ V in registers.
+//
+// Both skip tiles wholly masked by causality or the window and mask ragged
+// tiles themselves: rows past Sq are not stored, keys past Skv score NEG_INF.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -210,6 +239,307 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   return launch_status();
 }
 
+// ---- tensor-core route: bf16, D = Dv in {64, 128} ---------------------------
+
+namespace tc {
+
+using namespace tensor_core;
+
+constexpr int BQ = 128;            // q rows a block: two warpgroups of 64
+constexpr int BK = 64;             // keys a K/V tile
+constexpr int STAGES = 3;          // K/V ring
+constexpr int CONSUMERS = 256;     // two warpgroups; then one producer warp
+constexpr int THREADS = CONSUMERS + 32;
+constexpr int BOX = 64;            // bf16 elements in one 128-byte swizzled row
+constexpr int ROW = 128;           // bytes of that row
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Smem {
+  static constexpr int HALVES = D / BOX;              // 64-wide boxes a row
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int T_BYTES = BK * D * 2;          // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * T_BYTES;
+  static constexpr int BYTES = 1024 + Q_BYTES + STAGES * STAGE_BYTES;  // + alignment
+};
+
+// Shared memory, every tile 1024-aligned (the swizzle atom): Q as HALVES
+// boxes of [BQ rows][64], then per stage K and V as HALVES boxes of
+// [BK keys][64] each. A 64-wide box row is 128 bytes, its 16-byte chunks
+// permuted by TMA as chunk ^ (row % 8); wgmma undoes it from the address.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H, int KV,
+                   float scale_log2, int causal, int window, int q_offset) {
+  using S = Smem<D>;
+  constexpr int HALVES = S::HALVES;
+  extern __shared__ uint8_t smem_raw[];
+  // full[s]: stage s loaded (TMA bytes); empty[s]: every consumer thread
+  // is done with it; qbar: the Q tile loaded
+  __shared__ uint64_t full[STAGES], empty[STAGES], qbar_mem;
+  const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t skv = sq + S::Q_BYTES;
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int q0 = qt * BQ;
+
+  // the K/V tiles this q tile can see
+  const int n_k = (Skv + BK - 1) / BK;
+  int kt_end = n_k;
+  if (causal) {
+    const int last_q = min(q0 + BQ, Sq) - 1 + q_offset;
+    kt_end = last_q < 0 ? 0 : min(n_k, last_q / BK + 1);
+  }
+  int kt_begin = 0;
+  if (window > 0) {
+    const int first_k = q0 + q_offset - window + 1;   // first key any row sees
+    if (first_k > 0) kt_begin = first_k / BK;
+  }
+  const int n_tiles = max(0, kt_end - kt_begin);
+
+  auto load_kv = [&](int j) {                  // tile j of the range into its stage
+    const int s = j % STAGES;
+    const uint32_t bar = smem_addr(&full[s]);
+    const uint32_t kd = skv + s * S::STAGE_BYTES, vd = kd + S::T_BYTES;
+    const int k0 = (kt_begin + j) * BK;
+    mbar_arrive_expect_tx(bar, S::STAGE_BYTES);
+    for (int hf = 0; hf < HALVES; ++hf) {
+      tma_load_4d(kd + hf * BK * ROW, &kmap, bar, hf * BOX, kvh, k0, b);
+      tma_load_4d(vd + hf * BK * ROW, &vmap, bar, hf * BOX, kvh, k0, b);
+    }
+  };
+
+  const uint32_t qbar = smem_addr(&qbar_mem);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_addr(&full[s]), 1);
+      mbar_init(smem_addr(&empty[s]), CONSUMERS);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid >= CONSUMERS) {                      // the producer warp: one thread
+    if (tid == CONSUMERS) {                    // keeps the ring full
+      mbar_arrive_expect_tx(qbar, S::Q_BYTES);
+      for (int hf = 0; hf < HALVES; ++hf)
+        tma_load_4d(sq + hf * BQ * ROW, &qmap, qbar, hf * BOX, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        if (j >= STAGES)                       // the stage's last use released
+          mbar_wait(smem_addr(&empty[j % STAGES]), (j / STAGES - 1) & 1);
+        load_kv(j);
+      }
+    }
+    return;
+  }
+
+  // this lane's rows: row (accumulator entries 4 n + {0, 1}) and row + 8
+  // (4 n + {2, 3}), columns 8 n + col + {0, 1}
+  const int row = wg * 64 + warp * 16 + lane / 4;
+  const int qpos = q0 + row + q_offset;
+  const int col = 2 * (lane % 4);
+  const uint32_t q_wg = sq + wg * 64 * ROW;
+  float acc[HALVES][32];
+#pragma unroll
+  for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[hf][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % STAGES;
+    const int k0 = (kt_begin + j) * BK;
+    const uint32_t kd = skv + s * S::STAGE_BYTES, vd = kd + S::T_BYTES;
+    mbar_wait(smem_addr(&full[s]), (j / STAGES) & 1);
+
+    // S = Q K^T: k steps of 16 walk 32 bytes along a 128-byte box row
+    float sc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t qa = q_wg + (kk / 4) * BQ * ROW + (kk % 4) * 32;
+      const uint32_t ka = kd + (kk / 4) * BK * ROW + (kk % 4) * 32;
+      wgmma_ss(sc, wgmma_desc(qa, 16, 1024), wgmma_desc(ka, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int e = 0; e < 32; ++e) reg_fence(sc[e]);
+
+    // masks (only on a tile that crosses Skv, the diagonal or the window's
+    // edge for some row of this warpgroup), then the online softmax in
+    // log2 units
+    float mx[2] = {m[0], m[1]};
+    const int first = q0 + wg * 64 + q_offset;   // this warpgroup's positions
+    const bool edge = k0 + BK > Skv || (causal && k0 + BK - 1 > first) ||
+                      (window > 0 && k0 <= first + 63 - window);
+    if (edge) {
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + n * 8 + col + (e & 1);
+          const int qp = qpos + 8 * (e >> 1);
+          bool ok = kpos < Skv;
+          if (causal) ok = ok && kpos <= qp;
+          if (window > 0) ok = ok && kpos > qp - window;
+          sc[n * 4 + e] = ok ? sc[n * 4 + e] * scale_log2 : NEG_INF;
+        }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] *= scale_log2;
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = exp2f(m[i] - mx[i]);
+      m[i] = mx[i];
+      l[i] *= alpha[i];
+    }
+    // P as bf16 A fragments: k block n / 2, registers {row, row + 8} of
+    // its lower (n even) or upper (n odd) 8 keys
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      const float p0 = exp2f(sc[n * 4 + 0] - m[0]), p1 = exp2f(sc[n * 4 + 1] - m[0]);
+      const float p2 = exp2f(sc[n * 4 + 2] - m[1]), p3 = exp2f(sc[n * 4 + 3] - m[1]);
+      l[0] += p0 + p1;
+      l[1] += p2 + p3;
+      pa[n / 2][(n % 2) * 2 + 0] = pack_bf16(p0, p1);
+      pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[hf][e] *= alpha[(e >> 1) & 1];
+
+    // O += P V: 16 keys a k step, 2048 bytes down the V box
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < BK / 16; ++kb)
+#pragma unroll
+      for (int hf = 0; hf < HALVES; ++hf)
+        wgmma_rs_mn(acc[hf], pa[kb],
+                    wgmma_desc(vd + hf * BK * ROW + kb * 16 * ROW, 1024, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) reg_fence(acc[hf][e]);
+#pragma unroll
+    for (int kb = 0; kb < BK / 16; ++kb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) reg_fence(pa[kb][e]);
+    mbar_arrive(smem_addr(&empty[s]));         // this thread is done with stage s
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + row + 8 * i;
+    if (r >= Sq) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    __nv_bfloat16* orow = o + ((long long)(b * Sq + r) * H + h) * D + col;
+#pragma unroll
+    for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + hf * BOX + n * 8) =
+            __floats2bfloat162_rn(acc[hf][n * 4 + 2 * i] / denom,
+                                  acc[hf][n * 4 + 2 * i + 1] / denom);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time by its entry point (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the rank-4 map (D, heads, S, B) of a contiguous (B, S, heads, D) bf16
+// tensor, boxes of (64, 1, rows, 1), 128-byte swizzle, zero fill outside
+int encode(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B,
+           int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {BOX, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(ptr), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+           int Skv, int H, int KV, float scale, int causal, int window,
+           int q_offset, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  int rc = encode(&qm, q, D, H, Sq, B, BQ);
+  if (rc == 0) rc = encode(&km, k, D, KV, Skv, B, BK);
+  if (rc == 0) rc = encode(&vm, v, D, KV, Skv, B, BK);
+  if (rc != 0) return rc;
+  static bool opted_in = false;                // shared-memory opt-in, once
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Smem<D>::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_wgmma_kernel<D><<<grid, THREADS, Smem<D>::BYTES, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), Sq, Skv, H, KV, scale * LOG2E,
+      causal, window, q_offset);
+  return launch_status();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // dtype 0: fp32, 1: bf16. H % KV == 0, 0 < D <= 256, 0 < Dv <= 128,
@@ -226,4 +556,22 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                                  window, q_offset, s);
   return launch<float>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, scale, causal, window,
                        q_offset, s);
+}
+
+// bf16 only; D = Dv in {64, 128}; 16-byte aligned contiguous q, k, v;
+// H % KV == 0, B * Sq > 0, Skv > 0; window <= 0 means no window. Returns a
+// cudaError_t (cudaErrorNotSupported: no cuTensorMapEncodeTiled entry point).
+extern "C" int flash_attention_wgmma(const void* q, const void* k, const void* v,
+                                     void* o, int B, int Sq, int Skv, int H, int KV,
+                                     int D, float scale, int causal, int window,
+                                     int q_offset, void* stream) {
+  if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return tc::launch<64>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
+                          q_offset, s);
+  if (D == 128)
+    return tc::launch<128>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
+                           q_offset, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,13 +2,16 @@
 version.
 
 Counterpart of ``repro.kernels.decode_attention`` (the Pallas TPU kernel).
-The kernel is ``csrc/decode_attention.cu``; its source note says what
-bounds it on an H100 and how it splits the cache across blocks. The cache
-length L need not be a multiple of any tile. A row with ``kv_len = 0``
-gives exact zeros, the Pallas kernel's contract (the reference's XLA path
-gives the mean of V there). :func:`decode_attention` launches the kernel
-for a CUDA tensor and takes :func:`decode_attention_plain` only for a CPU
-tensor.
+The kernels are in ``csrc/decode_attention.cu``; its source note says what
+bounds them on an H100 and how they split the cache across blocks. Two
+routes, chosen by shape (:func:`_route`): bf16 with head widths that are
+multiples of 16 runs on the tensor cores (mma.sync, the cache staged by
+16-byte cp.async), fp32 and bf16 at other widths on the CUDA cores. The
+cache length L need not be a multiple of any tile. A row with
+``kv_len = 0`` gives exact zeros, the Pallas kernel's contract (the
+reference's XLA path gives the mean of V there). :func:`decode_attention`
+launches a kernel for a CUDA tensor and takes :func:`decode_attention_plain`
+only for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -20,13 +23,16 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-# query heads per kv head -> widest D, Dv the kernel is built for (the
+# query heads per kv head -> widest D, Dv the kernels are built for (the
 # ported configs: llama3-8b G = 4, D = 128; its smoke config G = 2, D = 16)
 WIDTHS = {2: 32, 4: 128}
+TC_MULTIPLE = 16                 # the mma route's D, Dv: multiples of its k step
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _I, _I, _F, _I, _I, _P]}
+                                    _I, _I, _F, _I, _I, _P],
+               "decode_attention_mma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _I, _I, _F, _I, _I, _P]}
 
 
 def _check_shapes(q, k, v, kv_len) -> tuple[int, ...]:
@@ -40,6 +46,23 @@ def _check_shapes(q, k, v, kv_len) -> tuple[int, ...]:
     if tuple(kv_len.shape) != (B,):
         raise ValueError(f"kv_len must be ({B},), got {tuple(kv_len.shape)}")
     return B, H, D, L, KV, Dv
+
+
+def _route(dtype: torch.dtype, G: int, D: int, Dv: int) -> str:
+    """The kernel that takes a CUDA call with G query heads per kv head:
+    ``"mma"`` (tensor cores) for bfloat16 with D, Dv multiples of 16,
+    ``"simt"`` (CUDA cores) for float32 and other bfloat16 widths; both only
+    for D, Dv up to ``WIDTHS[G]``. A choice by shape, not a fallback: what
+    neither takes raises ValueError."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"decode kernel takes bfloat16 or float32, got {dtype}")
+    if not (0 < D <= WIDTHS.get(G, 0) and 0 < Dv <= WIDTHS.get(G, 0)):
+        raise ValueError(f"decode kernel takes H/KV -> widest D, Dv in "
+                         f"{WIDTHS}; got G={G}, D={D}, Dv={Dv}")
+    if dtype == torch.bfloat16 and D % TC_MULTIPLE == 0 \
+            and Dv % TC_MULTIPLE == 0:
+        return "mma"
+    return "simt"
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,9 +110,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     entries -> (B, 1, H, Dv) in q's dtype.
 
     A CPU tensor goes to :func:`decode_attention_plain`; a CUDA tensor to
-    the kernel, which takes contiguous bfloat16 or float32 q, k, v of one
-    dtype, H // KV and D, Dv as in :data:`WIDTHS`, and raises on anything
-    else.
+    the kernel of its route (:func:`_route`), which takes contiguous q, k, v
+    of one dtype and raises on anything else. ``launches`` counts the
+    launches, ``launches_by_route`` each route's.
     """
     B, H, D, L, KV, Dv = _check_shapes(q, k, v, kv_len)
     if window is not None and window <= 0:
@@ -97,17 +120,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_len=kv_len, window=window,
                                       scale=scale)
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"decode kernel takes bfloat16 or float32, got {q.dtype}")
+    route = _route(q.dtype, H // KV, D, Dv)
     for t in (q, k, v):
         if t.device != q.device or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError("decode kernel takes contiguous q, k, v of one "
                              "dtype on one device")
+        if route == "mma" and t.data_ptr() % 16:
+            raise ValueError("the mma route takes 16-byte aligned q, k, v")
     if kv_len.device != q.device:
         raise ValueError("kv_len must be on q's device")
-    if max(D, Dv) > WIDTHS.get(H // KV, 0):
-        raise ValueError(f"decode kernel takes H/KV -> widest D, Dv in "
-                         f"{WIDTHS}; got H={H}, KV={KV}, D={D}, Dv={Dv}")
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
@@ -117,17 +138,24 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         dtype=torch.float32, device=q.device)
             if n_split > 1 else None)
     scale = (1.0 / D**0.5) if scale is None else scale
+    window = 0 if window is None else int(window)
     lib = build.library("decode_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
-        rc = lib.decode_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), part.data_ptr() if part is not None else None,
-            _DTYPES[q.dtype], B, L, H, KV, D, Dv, float(scale),
-            0 if window is None else int(window), n_split,
-            build.stream_ptr(q.device))
-    build.check(lib, rc, "decode_attention")
-    build.count_launch(decode_attention)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                out.data_ptr(), part.data_ptr() if part is not None else None)
+        stream = build.stream_ptr(q.device)
+        if route == "mma":
+            rc = lib.decode_attention_mma(*ptrs, B, L, H, KV, D, Dv,
+                                          float(scale), window, n_split,
+                                          stream)
+        else:
+            rc = lib.decode_attention(*ptrs, _DTYPES[q.dtype], B, L, H, KV, D,
+                                      Dv, float(scale), window, n_split,
+                                      stream)
+    build.check(lib, rc, f"decode_attention ({route})")
+    build.count_launch(decode_attention, route)
     return out
 
 
 decode_attention.launches = 0
+decode_attention.launches_by_route = {"mma": 0, "simt": 0}

@@ -1,12 +1,14 @@
 """Flash attention (prefill): CUDA kernel and plain version.
 
 Counterpart of ``repro.kernels.flash_attention`` (the Pallas TPU kernel).
-The kernel is ``csrc/flash_attention.cu``; its source note says what
-bounds it on an H100 and how its tiles are laid out. Unlike the Pallas
-kernel, which asserts that Sq and Skv divide its tiles, the CUDA kernel
-masks ragged tiles itself, so a prompt of any length goes straight in.
-:func:`flash_attention` launches it for a CUDA tensor and takes
-:func:`flash_attention_plain` only for a CPU tensor.
+The kernels are in ``csrc/flash_attention.cu``; its source note says what
+bounds them on an H100 and how their tiles are laid out. Two routes, chosen
+by shape (:func:`_route`): bf16 at D = Dv in :data:`TC_WIDTHS` runs on the
+tensor cores (wgmma, K/V staged by TMA), fp32 and bf16 at other widths on
+the CUDA cores. Unlike the Pallas kernel, which asserts that Sq and Skv
+divide its tiles, both mask ragged tiles themselves, so a prompt of any
+length goes straight in. :func:`flash_attention` launches a kernel for a
+CUDA tensor and takes :func:`flash_attention_plain` only for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -17,11 +19,14 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-MAX_D, MAX_DV = 256, 128          # head widths the kernel takes
+MAX_D, MAX_DV = 256, 128          # head widths the CUDA-core kernel takes
+TC_WIDTHS = frozenset({64, 128})  # D = Dv the tensor-core kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                   _I, _F, _I, _I, _I, _P]}
+                                   _I, _F, _I, _I, _I, _P],
+               "flash_attention_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _I, _F, _I, _I, _I, _P]}
 
 
 def _check_shapes(q, k, v) -> tuple[int, ...]:
@@ -35,6 +40,21 @@ def _check_shapes(q, k, v) -> tuple[int, ...]:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not fit")
     return B, Sq, H, D, Skv, KV, Dv
+
+
+def _route(dtype: torch.dtype, D: int, Dv: int) -> str:
+    """The kernel that takes a CUDA call: ``"wgmma"`` (tensor cores) for
+    bfloat16 at D = Dv in :data:`TC_WIDTHS`, ``"simt"`` (CUDA cores) for
+    float32 and for bfloat16 at other widths up to MAX_D, MAX_DV. A choice
+    by shape, not a fallback: what neither takes raises ValueError."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"flash kernel takes bfloat16 or float32, got {dtype}")
+    if dtype == torch.bfloat16 and D == Dv and D in TC_WIDTHS:
+        return "wgmma"
+    if 0 < D <= MAX_D and 0 < Dv <= MAX_DV:
+        return "simt"
+    raise ValueError(f"flash kernel takes D <= {MAX_D} and Dv <= {MAX_DV}, "
+                     f"got D={D}, Dv={Dv}")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,8 +91,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     position ``i + q_offset``; kv head of query head h is ``h // (H // KV)``.
 
     A CPU tensor goes to :func:`flash_attention_plain`; a CUDA tensor to
-    the kernel, which takes contiguous bfloat16 or float32 operands of one
-    dtype, D <= 256 and Dv <= 128, and raises on anything else.
+    the kernel of its route (:func:`_route`), which takes contiguous
+    operands of one dtype (16-byte aligned on the wgmma route) and raises on
+    anything else. ``launches`` counts the kernel launches,
+    ``launches_by_route`` each route's.
     """
     B, Sq, H, D, Skv, KV, Dv = _check_shapes(q, k, v)
     if window is not None and window <= 0:
@@ -80,29 +102,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, scale=scale)
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"flash kernel takes bfloat16 or float32, got {q.dtype}")
+    route = _route(q.dtype, D, Dv)
     for t in (q, k, v):
         if t.device != q.device or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError("flash kernel takes contiguous q, k, v of one "
                              "dtype on one device")
-    if D > MAX_D or Dv > MAX_DV:
-        raise ValueError(f"flash kernel takes D <= {MAX_D} and Dv <= {MAX_DV}, "
-                         f"got D={D}, Dv={Dv}")
+        if route == "wgmma" and t.data_ptr() % 16:
+            raise ValueError("the wgmma route takes 16-byte aligned q, k, v")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     scale = (1.0 / D**0.5) if scale is None else scale
+    window = 0 if window is None else int(window)
     lib = build.library("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, Sq, Skv, H, KV, D, Dv, float(scale),
-            int(causal), 0 if window is None else int(window), int(q_offset),
-            build.stream_ptr(q.device))
-    build.check(lib, rc, "flash_attention")
-    build.count_launch(flash_attention)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        stream = build.stream_ptr(q.device)
+        if route == "wgmma":
+            rc = lib.flash_attention_wgmma(
+                *ptrs, B, Sq, Skv, H, KV, D, float(scale), int(causal),
+                window, int(q_offset), stream)
+        else:
+            rc = lib.flash_attention(
+                *ptrs, _DTYPES[q.dtype], B, Sq, Skv, H, KV, D, Dv,
+                float(scale), int(causal), window, int(q_offset), stream)
+    build.check(lib, rc, f"flash_attention ({route})")
+    build.count_launch(flash_attention, route)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}

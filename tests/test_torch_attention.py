@@ -144,13 +144,23 @@ def test_decode_plain_vs_jax_xla_where_rows_are_not_empty(window):
 
 # ---- dispatch and arguments --------------------------------------------------
 
-def test_cpu_tensors_take_the_plain_attention_and_count_no_launch():
-    before = (fa.flash_attention.launches, da.decode_attention.launches)
-    q, k, v = map(torch.from_numpy, _qkv(1, 8, 8, 4, 2, 16))
+def _counts():
+    return (fa.flash_attention.launches,
+            dict(fa.flash_attention.launches_by_route),
+            da.decode_attention.launches,
+            dict(da.decode_attention.launches_by_route))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [16, 64, 128])
+def test_cpu_tensors_take_the_plain_attention_and_count_no_launch(dtype, D):
+    """At the tensor-core routes' widths too: a CPU tensor never reaches a
+    kernel and moves no route's count."""
+    before = _counts()
+    _, (q, k, v) = _both(_qkv(1, 8, 8, 4, 2, D), dtype)
     ops.attention(q, k, v)
     ops.decode_attention(q[:, :1], k, v, kv_len=torch.tensor([3]))
-    assert (fa.flash_attention.launches, da.decode_attention.launches) \
-        == before
+    assert _counts() == before
 
 
 def test_attention_wrappers_reject_what_does_not_fit():
@@ -173,3 +183,137 @@ def test_decode_split_fills_the_card_without_empty_tiny_splits():
     assert da.split_l(8, 8, 256, n_sm=132) == 2       # >= 128 entries a block
     assert da.split_l(1, 2, 48, n_sm=132) == 1
     assert da.split_l(64, 8, 4096, n_sm=132) == 1
+
+
+# ---- the route a CUDA call takes: chosen by dtype and shape ---------------
+
+@pytest.mark.parametrize("dtype,D,Dv,route", [
+    (torch.bfloat16, 128, 128, "wgmma"),       # llama3-8b, jamba
+    (torch.bfloat16, 64, 64, "wgmma"),
+    (torch.float32, 128, 128, "simt"),
+    (torch.float32, 64, 64, "simt"),
+    (torch.bfloat16, 16, 16, "simt"),          # the smoke configs
+    (torch.bfloat16, 192, 128, "simt"),        # MLA's widths
+    (torch.bfloat16, 128, 64, "simt"),
+    (torch.float32, 256, 128, "simt")])
+def test_flash_route_by_dtype_and_width(dtype, D, Dv, route):
+    assert fa._route(dtype, D, Dv) == route
+
+
+@pytest.mark.parametrize("dtype,D,Dv", [(torch.bfloat16, 320, 128),
+                                        (torch.float32, 128, 192),
+                                        (torch.float16, 128, 128),
+                                        (torch.bfloat16, 0, 64)])
+def test_flash_route_raises_where_no_kernel_takes_the_shape(dtype, D, Dv):
+    with pytest.raises(ValueError):
+        fa._route(dtype, D, Dv)
+
+
+@pytest.mark.parametrize("dtype,G,D,Dv,route", [
+    (torch.bfloat16, 4, 128, 128, "mma"),      # llama3-8b, jamba
+    (torch.bfloat16, 4, 64, 64, "mma"),
+    (torch.bfloat16, 2, 16, 16, "mma"),        # the smoke configs
+    (torch.bfloat16, 2, 32, 32, "mma"),
+    (torch.float32, 4, 128, 128, "simt"),
+    (torch.float32, 2, 16, 16, "simt"),
+    (torch.bfloat16, 4, 72, 72, "simt"),       # not a multiple of 16
+    (torch.bfloat16, 2, 24, 16, "simt")])
+def test_decode_route_by_dtype_and_width(dtype, G, D, Dv, route):
+    assert da._route(dtype, G, D, Dv) == route
+
+
+@pytest.mark.parametrize("dtype,G,D,Dv", [(torch.bfloat16, 8, 128, 128),
+                                          (torch.bfloat16, 3, 16, 16),
+                                          (torch.bfloat16, 2, 64, 64),
+                                          (torch.float32, 4, 144, 128),
+                                          (torch.float16, 4, 128, 128)])
+def test_decode_route_raises_where_no_kernel_takes_the_shape(dtype, G, D, Dv):
+    with pytest.raises(ValueError):
+        da._route(dtype, G, D, Dv)
+
+
+# ---- the tensor-core kernels' numerics, emulated, against the reference ----
+#
+# The wgmma flash kernel and the mma.sync decode kernel differ from the
+# reference in where they round: the bf16 q.k products are summed in fp32
+# unscaled and multiplied by the scale after, and P is rounded to bf16 (in
+# each tile, against the running max) before P @ V, which accumulates in
+# fp32. These emulations repeat that arithmetic in plain float32, tile by
+# tile, so that the bf16 tolerance is tested at llama3-8b's head shape on
+# the CPU; the kernels themselves are held to the plain versions on the card.
+
+def _online_softmax_pv(s, valid, vf, tile):
+    """s (..., Sk) fp32 scores with NEG_INF where masked, valid (..., Sk),
+    vf (..., Sk, Dv): the online softmax over key tiles of ``tile``, P
+    rounded to bf16 for P @ V, (m, l, acc) in fp32."""
+    m = torch.full(s.shape[:-1], fa.NEG_INF)
+    l = torch.zeros(s.shape[:-1])
+    acc = torch.zeros((*s.shape[:-1], vf.shape[-1]))
+    for t in range(0, s.shape[-1], tile):
+        st = s[..., t:t + tile]
+        m_new = torch.maximum(m, st.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new[..., None]) * valid[..., t:t + tile]
+        l = l * alpha + p.sum(-1)
+        pb = p.to(torch.bfloat16).float()
+        acc = acc * alpha[..., None] + (pb[..., None, :]
+                                        @ vf[..., t:t + tile, :])[..., 0, :]
+        m = m_new
+    return acc / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def _tc_flash_emulation(q, k, v, *, causal=True, window=None, q_offset=0):
+    B, Sq, H, D = q.shape
+    Skv, G = k.shape[1], H // k.shape[2]
+    kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    s = (q.float().transpose(1, 2) @ kf.transpose(-1, -2)) * (1.0 / D**0.5)
+    q_pos = torch.arange(Sq)[:, None] + q_offset
+    k_pos = torch.arange(Skv)[None, :]
+    ok = torch.ones((Sq, Skv), dtype=torch.bool)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window is not None:
+        ok &= k_pos > q_pos - window
+    s = s.masked_fill(~ok, fa.NEG_INF)
+    o = _online_softmax_pv(s, ok.float().expand_as(s), vf[:, :, None], 64)
+    return o.transpose(1, 2).to(q.dtype)
+
+
+def _tc_decode_emulation(q, k, v, kv_len, *, window=None):
+    B, _, H, D = q.shape
+    L, G = k.shape[1], H // k.shape[2]
+    kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    s = (q[:, 0].float()[:, :, None, :] @ kf.transpose(-1, -2))[:, :, 0]
+    s = s * (1.0 / D**0.5)
+    pos = torch.arange(L)[None, :]
+    ok = pos < kv_len[:, None]
+    if window is not None:
+        ok &= pos > kv_len[:, None] - 1 - window
+    ok = ok[:, None, :].expand_as(s)
+    s = s.masked_fill(~ok, fa.NEG_INF)
+    return _online_softmax_pv(s, ok.float(), vf, 16)[:, None].to(q.dtype)
+
+
+@pytest.mark.parametrize("kw", [{}, {"window": 96}, {"causal": False}])
+def test_tensor_core_flash_numerics_vs_pallas_interpret_at_llama_heads(kw):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(1, 256, 256, 32, 8, 128, seed=5),
+                                       "bfloat16")
+    want = jax_fa.flash_attention(jq, jk, jv, blk_q=128, blk_k=128,
+                                  interpret=True, **kw)
+    _close(_tc_flash_emulation(tq, tk, tv, **kw), want, "bfloat16")
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_tensor_core_decode_numerics_vs_jax_xla_at_llama_heads(window):
+    rng = np.random.default_rng(6)
+    q = rng.normal(size=(4, 1, 32, 128)).astype(np.float32)
+    k = rng.normal(size=(4, 256, 8, 128)).astype(np.float32)
+    v = rng.normal(size=(4, 256, 8, 128)).astype(np.float32)
+    n = np.asarray([1, 256, 131, 40], np.int32)
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v), "bfloat16")
+    want = jax_ops.decode_attention(jq, jk, jv, kv_len=jnp.asarray(n),
+                                    window=window, impl="xla")
+    got = _tc_decode_emulation(tq, tk, tv, torch.from_numpy(n), window=window)
+    _close(got, want, "bfloat16")

@@ -133,32 +133,53 @@ def test_device_nms_on_the_card_equals_host(cuda, n, max_out):
 
 
 FLASH_CASES = [(16, 16, {}), (37, 37, {}), (200, 200, {"window": 64}),
-               (64, 300, {"q_offset": 236}), (130, 130, {"causal": False})]
+               (64, 300, {"q_offset": 236}), (130, 130, {"causal": False}),
+               (200, 200, {"causal": False, "window": 64}),
+               (1000, 1000, {}), (1000, 1000, {"window": 100})]
+# (dtype, head width, the route it takes, tolerance): both routes at the
+# ported widths (fp32 differs only in summation order; bf16 outputs are
+# rounded to bf16 by both sides, and the wgmma route rounds P to bf16)
+FLASH_ROUTES = [(torch.float32, 128, "simt", 2e-5),
+                (torch.bfloat16, 128, "wgmma", 2e-2),
+                (torch.float32, 64, "simt", 2e-5),
+                (torch.bfloat16, 64, "wgmma", 2e-2),
+                (torch.bfloat16, 16, "simt", 2e-2)]
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
-                                        (torch.bfloat16, 2e-2)])
+def _launches(wrapper, route):
+    return wrapper.launches, wrapper.launches_by_route[route]
+
+
+@pytest.mark.parametrize("dtype,D,route,atol", FLASH_ROUTES)
 @pytest.mark.parametrize("Sq,Skv,kw", FLASH_CASES)
-def test_flash_kernel_vs_plain(cuda, dtype, atol, Sq, Skv, kw):
+def test_flash_kernel_vs_plain(cuda, dtype, D, route, atol, Sq, Skv, kw):
     g = _gen(7)
-    q = torch.randn((2, Sq, 8, 64), generator=g).to(cuda, dtype)
-    k = torch.randn((2, Skv, 2, 64), generator=g).to(cuda, dtype)
-    v = torch.randn((2, Skv, 2, 64), generator=g).to(cuda, dtype)
+    q = torch.randn((2, Sq, 8, D), generator=g).to(cuda, dtype)
+    k = torch.randn((2, Skv, 2, D), generator=g).to(cuda, dtype)
+    v = torch.randn((2, Skv, 2, D), generator=g).to(cuda, dtype)
     kw = {"causal": True, **kw}
-    count = fa.flash_attention.launches
+    assert fa._route(dtype, D, D) == route
+    n, n_route = _launches(fa.flash_attention, route)
     got = fa.flash_attention(q, k, v, **kw)
-    assert fa.flash_attention.launches == count + 1
+    assert _launches(fa.flash_attention, route) == (n + 1, n_route + 1)
     torch.testing.assert_close(got.float(),
                                fa.flash_attention_plain(q, k, v, **kw).float(),
                                atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
-                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("L,window,G,D", [(768, None, 4, 128),
-                                         (2048, 300, 4, 128),
-                                         (96, None, 2, 16), (50, 7, 2, 16)])
-def test_decode_kernel_vs_plain(cuda, dtype, atol, L, window, G, D):
+# (dtype, G, D, route, tolerance)
+DECODE_ROUTES = [(torch.float32, 4, 128, "simt", 2e-5),
+                 (torch.bfloat16, 4, 128, "mma", 2e-2),
+                 (torch.bfloat16, 4, 64, "mma", 2e-2),     # D below the built 128
+                 (torch.float32, 2, 16, "simt", 2e-5),
+                 (torch.bfloat16, 2, 16, "mma", 2e-2),
+                 (torch.bfloat16, 4, 72, "simt", 2e-2)]
+
+
+@pytest.mark.parametrize("dtype,G,D,route,atol", DECODE_ROUTES)
+@pytest.mark.parametrize("L,window", [(768, None), (2048, 300), (2047, None),
+                                      (96, None), (50, 7)])
+def test_decode_kernel_vs_plain(cuda, dtype, G, D, route, atol, L, window):
     g = _gen(8)
     B, KV = 6, 2
     q = torch.randn((B, 1, KV * G, D), generator=g).to(cuda, dtype)
@@ -166,14 +187,50 @@ def test_decode_kernel_vs_plain(cuda, dtype, atol, L, window, G, D):
     v = torch.randn((B, L, KV, D), generator=g).to(cuda, dtype)
     lens = torch.tensor([0, 1, L, L // 2, L - 1, 3], dtype=torch.int32,
                         device=cuda)
-    count = da.decode_attention.launches
+    assert da._route(dtype, G, D, D) == route
+    n, n_route = _launches(da.decode_attention, route)
     got = da.decode_attention(q, k, v, kv_len=lens, window=window)
-    assert da.decode_attention.launches == count + 1
+    assert _launches(da.decode_attention, route) == (n + 1, n_route + 1)
     torch.testing.assert_close(
         got.float(),
         da.decode_attention_plain(q, k, v, kv_len=lens, window=window).float(),
         atol=atol, rtol=0)
     assert (got[0] == 0).all()                       # kv_len = 0: zeros
+
+
+def test_tensor_core_attention_kernels_replay_in_a_cuda_graph(cuda):
+    """Both tensor-core kernels captured in one CUDA graph (tensor maps and
+    scratch made at capture) give, replayed, the bits of an eager call."""
+    g = _gen(9)
+    q = torch.randn((1, 300, 32, 128), generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn((1, 300, 8, 128), generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn((1, 300, 8, 128), generator=g).to(cuda, torch.bfloat16)
+    dq = torch.randn((8, 1, 32, 128), generator=g).to(cuda, torch.bfloat16)
+    dk = torch.randn((8, 2048, 8, 128), generator=g).to(cuda, torch.bfloat16)
+    dv = torch.randn((8, 2048, 8, 128), generator=g).to(cuda, torch.bfloat16)
+    lens = torch.tensor([0, 1, 2048, 552, 630, 83, 154, 33],
+                        dtype=torch.int32, device=cuda)
+
+    def both():
+        return (fa.flash_attention(q, k, v, causal=True),
+                da.decode_attention(dq, dk, dv, kv_len=lens))
+
+    eager = both()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = both()
+    n = (fa.flash_attention.launches_by_route["wgmma"],
+         da.decode_attention.launches_by_route["mma"])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert n[0] > 0 and n[1] > 0
+    assert torch.equal(captured[0], eager[0])
+    assert torch.equal(captured[1], eager[1])
 
 
 def test_attention_kernels_reject_what_they_do_not_take(cuda):
@@ -190,6 +247,16 @@ def test_attention_kernels_reject_what_they_do_not_take(cuda):
     q, kv = torch.zeros((1, 1, 4, 64), device=cuda), kv.new_zeros((1, 8, 2, 64))
     with pytest.raises(ValueError):                     # G = 2, D = 64
         da.decode_attention(q, kv, kv, kv_len=torch.ones(1, device=cuda))
+    # contiguous but 2 bytes off a 16-byte boundary: TMA and cp.async
+    # take 16-byte aligned rows, so the tensor-core routes raise
+    buf = torch.zeros(1 + 4 * 32 * 128, device=cuda, dtype=torch.bfloat16)
+    q = buf[1:].view(1, 4, 32, 128)
+    kv = torch.zeros((1, 4, 8, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError):
+        da.decode_attention(q[:, :1].contiguous(), kv, buf[1:1 + kv.numel()]
+                            .view(kv.shape), kv_len=torch.ones(1, device=cuda))
 
 
 def _scan_inputs(B, S, H, K, dtype, device, seed=9):
