@@ -258,23 +258,25 @@ def all_yuv_triples(device):
 
 
 def letterbox_inputs(H, W, out_h, out_w, device, seed=0):
-    import numpy as np
+    """Planes (3, H, W) uint8, the letterbox's tap tables as the device
+    path uploads them, per-plane [scale, offset] and the geometry."""
     import torch
+    from repro_torch.preprocess import device as pp_device
     from repro_torch.preprocess import host
     g = _gen(seed)
     planes = torch.randint(0, 256, (3, H, W), generator=g,
                            dtype=torch.uint8).to(device)
-    ly, lx = host.embedded_interp_matrices(H, W, out_h, out_w)
+    taps_y, taps_x = pp_device._letterbox_operators(H, W, out_h, out_w,
+                                                    str(device))
     sb = torch.stack([torch.rand(3, generator=g) + 0.5,
                       torch.randn(3, generator=g)], dim=1)
-    return (planes, torch.from_numpy(np.array(ly)).to(device),
-            torch.from_numpy(np.array(lx)).to(device), sb.to(device),
+    return (planes, taps_y, taps_x, sb.to(device),
             host.letterbox_geometry(H, W, out_h, out_w))
 
 
-def resize_inputs(N, H, W, device, seed=0):
+def resize_inputs(shape, device, seed=0):
     import torch
-    return (torch.rand((N, H, W, 3), generator=_gen(seed)) * 255).to(device)
+    return (torch.rand(shape, generator=_gen(seed)) * 255).to(device)
 
 
 def box_battery(n: int, seed: int):
@@ -393,13 +395,16 @@ def check_kernels(device) -> dict[str, float]:
     err["yuv_to_rgb"] = float((got.int() - want.int()).abs().max().item())
 
     worst = 0.0
+    # the path's 1080p geometry, a small one, a padded one, and an upscale
+    # to a ragged width (scalar stores, pad rows)
     for H, W, oh, ow, pad in ((SRC_H, SRC_W, SRC_H // 2, SRC_W // 2, 0.0),
                               (216, 384, 108, 192, 0.0),
-                              (SRC_H, SRC_W, 512, 512, -1.0)):
-        planes, ly, lx, sb, geom = letterbox_inputs(H, W, oh, ow, device)
-        got = preproc.letterbox_normalize(planes, ly, lx, sb, geom,
+                              (SRC_H, SRC_W, 512, 512, -1.0),
+                              (20, 30, 61, 67, 0.5)):
+        planes, ty, tx, sb, geom = letterbox_inputs(H, W, oh, ow, device)
+        got = preproc.letterbox_normalize(planes, ty, tx, sb, geom,
                                           pad_value=pad)
-        want = preproc.letterbox_normalize_plain(planes, ly, lx, sb, geom,
+        want = preproc.letterbox_normalize_plain(planes, ty, tx, sb, geom,
                                                  pad_value=pad)
         e = (got - want).abs().max().item()
         print(f"check letterbox_normalize {H}x{W}->{oh}x{ow} pad={pad}: "
@@ -409,14 +414,15 @@ def check_kernels(device) -> dict[str, float]:
     err["letterbox_normalize"] = worst
 
     worst = 0.0
-    for N, H, W, oh, ow in ((8, 48, 48, 32, 32), (3, 50, 70, 21, 33)):
-        img = resize_inputs(N, H, W, device)
+    for shape, oh, ow in (((8, 48, 48, 3), 32, 32), ((3, 50, 70, 3), 21, 33),
+                          ((2, 5, 16, 16, 1), 24, 8)):
+        img = resize_inputs(shape, device)
         got = resize.resize_bilinear(img, oh, ow)
         want = resize.resize_bilinear_plain(img, oh, ow)
         e = (got - want).abs().max().item()
-        print(f"check resize_bilinear ({N},{H},{W},3)->({oh},{ow}): "
+        print(f"check resize_bilinear {shape}->({oh},{ow}): "
               f"max_abs_err={e:.3e}")
-        require(e <= RESIZE_ATOL, f"resize ({N},{H},{W})->({oh},{ow}): {e}")
+        require(e <= RESIZE_ATOL, f"resize {shape}->({oh},{ow}): {e}")
         worst = max(worst, e)
     err["resize_bilinear"] = worst
     torch.cuda.synchronize()
@@ -1233,6 +1239,22 @@ def sdpa_call(q, k, v, *, causal: bool, mask=None):
                                                   is_causal=causal)
 
 
+def tap_work(n_planes: int, taps_y, taps_x, out_rows: int, out_cols: int,
+             elem: int) -> tuple[int, int]:
+    """(bytes, operations) of a 2-tap resize of ``n_planes`` planes of
+    ``elem``-byte values to ``out_rows`` x ``out_cols`` computed outputs a
+    plane, the output's store left out: every input value that a non-zero
+    row tap and column tap reach, read once, and the four tables; ~6
+    operations a row-pass value (one a computed row and reached input
+    column: 2 conversions, a product, an fma) and ~3 an output."""
+    import torch
+    rows = torch.unique(taps_y.idx[taps_y.w != 0]).numel()
+    cols = torch.unique(taps_x.idx[taps_x.w != 0]).numel()
+    nbytes = (n_planes * rows * cols * elem
+              + 16 * (taps_y.idx.shape[0] + taps_x.idx.shape[0]))
+    return nbytes, n_planes * (6 * out_rows * cols + 3 * out_rows * out_cols)
+
+
 def _timed(name: str, shape: str, kernel, plain, library, nbytes: float,
            flops: float, iters: int,
            peak_flop_s: float = PEAK_FP32_FLOP_S, exps: float = 0.0) -> dict:
@@ -1280,28 +1302,35 @@ def time_kernels(device) -> dict[str, dict]:
         None, 2 * yuv.numel(), 20 * SRC_H * SRC_W, iters=20)
 
     oh, ow = SRC_H // 2, SRC_W // 2
-    planes, ly, lx, sb, geom = letterbox_inputs(SRC_H, SRC_W, oh, ow, device)
-    planes_f = planes.float()     # einsum takes one dtype; cast not timed
+    planes, ty, tx, sb, geom = letterbox_inputs(SRC_H, SRC_W, oh, ow, device)
+    ch, cw = geom[:2]
+    # the yardsticks take the dense operators and one dtype; not timed
+    ly, lx = resize.expand_taps(ty), resize.expand_taps(tx)
+    planes_f = planes.float()
     nb = planes.shape[0]
+    lb_bytes, lb_ops = tap_work(nb, ty, tx, ch, cw, 1)
     out["letterbox_normalize"] = _timed(
         "letterbox_normalize", f"(3,{SRC_H},{SRC_W})->(3,{oh},{ow})",
-        lambda: preproc.letterbox_normalize(planes, ly, lx, sb, geom),
-        lambda: preproc.letterbox_normalize_plain(planes, ly, lx, sb, geom),
+        lambda: preproc.letterbox_normalize(planes, ty, tx, sb, geom),
+        lambda: preproc.letterbox_normalize_plain(planes, ty, tx, sb, geom),
         lambda: torch.einsum("oh,nhw,pw->nop", ly, planes_f, lx),
-        planes.numel() + 4 * (ly.numel() + lx.numel() + sb.numel()
-                              + nb * oh * ow),
-        nb * (2 * oh * SRC_H * SRC_W + 2 * oh * SRC_W * ow), iters=5)
+        lb_bytes + 8 * nb + 4 * nb * oh * ow, lb_ops, iters=20)
+    interp_ms = cuda_time_ms(
+        lambda: F.interpolate(planes_f[None], size=(ch, cw), mode="bilinear",
+                              align_corners=False), iters=20)
+    print(f"time letterbox_normalize yardstick F.interpolate (1,3,{SRC_H},"
+          f"{SRC_W})->({ch},{cw}) f32: {interp_ms:.6f} ms")
 
-    img = resize_inputs(8, 48, 48, device)
-    ry, rx = resize._operators(32, 32, 48, 48, str(img.device))
+    img = resize_inputs((8, 48, 48, 3), device)
+    ry, rx = resize._taps(32, 32, 48, 48, str(img.device))
+    rs_bytes, rs_ops = tap_work(8 * 3, ry, rx, 32, 32, 4)
     out["resize_bilinear"] = _timed(
         "resize_bilinear", "(8,48,48,3)->(8,32,32,3)",
         lambda: resize.resize_bilinear(img, 32, 32),
         lambda: resize.resize_bilinear_plain(img, 32, 32),
         lambda: F.interpolate(img.permute(0, 3, 1, 2), size=(32, 32),
                               mode="bilinear", align_corners=False),
-        4 * (img.numel() + ry.numel() + rx.numel() + 8 * 32 * 32 * 3),
-        8 * 3 * (2 * 32 * 48 * 48 + 2 * 32 * 48 * 32), iters=50)
+        rs_bytes + 4 * 8 * 32 * 32 * 3, rs_ops, iters=50)
 
     # the serve path's shapes: bf16 inputs, so the bound takes the dense
     # bf16 tensor-core peak; the library yardstick is PyTorch's SDPA

@@ -22,21 +22,35 @@
 // with letterbox-embedded interpolation operators Ly (out_h, H) and
 // Lx (out_w, W), per-plane [scale, offset] and the content window from
 // the geometry (content_h, content_w, top, left).
-//   Bound: operations. Taken densely, as the function's arguments are, one
-//   1080p frame (3 planes, 1080x1920 -> 540x960) is 12.7 GFLOP: ~190 us at
-//   67 TFLOP/s fp32, against 12.4 MB of bytes (~4 us). The operators have
-//   only 2 non-zeros per row; using that changes the arguments and is left
-//   for a later kernel.
-//   Design: two launches of the shared plane product (separable.cuh): pass
-//   1 writes T = Ly @ plane (out_h, W) to global memory, reading the uint8
-//   plane directly; pass 2 computes T @ Lx^T with the scale, offset and pad
-//   mask applied in the epilogue before the single store. The TPU kept a
-//   (128, W) intermediate in VMEM; at W = 1920 that is 983 KB, which no SM
-//   holds. The affine step is a separately rounded multiply and add, as on
-//   the TPU and in the plain version.
+//   The operators have at most 2 non-zeros a row, so the kernel takes them
+//   as 2-tap tables, idx int32 (n, 2) and w float32 (n, 2), read off the
+//   operators' non-zeros in ascending column order (padded with weight 0).
+//   Bound: bytes. A 1080p frame (3 planes, 1080x1920 -> 540x960) reads
+//   6.2 MB of uint8 and writes 6.2 MB of fp32: ~3.7 us at 3.35 TB/s,
+//   against ~15 flops an output (~0.35 us at 67 TFLOP/s fp32). The dense
+//   product the TPU ran (12.7 GFLOP a frame) is not the function's work.
+//   Tensor cores do not apply: ~6 flops against 8 bytes an output is far
+//   below their ~295 flops a byte, and TF32 would round the operators'
+//   exact weights.
+//   Design: one launch, no intermediate in global memory. A block of 32 x 8
+//   threads covers 128 output columns of 8 rows of one plane; it stages the
+//   128 columns' taps in shared memory once, and each thread makes 4
+//   adjacent outputs of one row, stored as one 16-byte float4 (scalar
+//   stores when out_w % 4 != 0 or out is not 16-byte aligned). For each
+//   output column it gathers its two input columns from the row's two
+//   input rows through the read-only path; at the path's 0.5 scale a warp
+//   reads 256 contiguous bytes of each of two input rows, and every input
+//   byte is read once. Rows and columns outside the content window store
+//   pad_value and load nothing.
+//   Numerics (explicit intrinsics, so the compiler cannot contract the
+//   chain another way): row pass t = fma(wy1, x[iy1], wy0 * x[iy0]) at
+//   each of the two columns, column pass v = fma(wx1, t1, wx0 * t0), then
+//   v * scale + offset as a separately rounded multiply and add (as on the
+//   TPU and in the plain version). This is the dense fmaf chain over the
+//   full row with its exact +0 terms left out, so on finite inputs it
+//   gives the same bits as the dense product in ascending column order.
 #include <cstdint>
 #include "common.cuh"
-#include "separable.cuh"
 
 namespace {
 
@@ -88,15 +102,76 @@ __global__ void yuv_to_rgb_kernel(const uint8_t* __restrict__ yuv,
   }
 }
 
-struct LetterboxEpilogue {
-  const float* sb;   // (planes, 2): [scale, offset] per plane
-  int top, ch, left, cw;
-  float pad_value;
-  __device__ __forceinline__ float operator()(int z, int i, int j, float v) const {
-    const bool inside = i >= top && i < top + ch && j >= left && j < left + cw;
-    return inside ? __fadd_rn(__fmul_rn(v, sb[2 * z]), sb[2 * z + 1]) : pad_value;
+constexpr int LB_TX = 32;               // column quads a block
+constexpr int LB_TY = 8;                // rows a block
+constexpr int LB_COLS = 4 * LB_TX;      // output columns a block
+
+__device__ __forceinline__ float row_pass(const uint8_t* __restrict__ r0,
+                                          const uint8_t* __restrict__ r1,
+                                          int x, float wy0, float wy1) {
+  return __fmaf_rn(wy1, static_cast<float>(__ldg(r1 + x)),
+                   __fmul_rn(wy0, static_cast<float>(__ldg(r0 + x))));
+}
+
+// grid (row tiles * NB, column tiles); blockIdx.x = plane * row tiles + tile
+__global__ void __launch_bounds__(LB_TX * LB_TY)
+letterbox_kernel(const uint8_t* __restrict__ planes, const int* __restrict__ iy,
+                 const float* __restrict__ wy, const int* __restrict__ ix,
+                 const float* __restrict__ wx, const float* __restrict__ sb,
+                 float* __restrict__ out, int H, int W, int out_h, int out_w,
+                 int top, int ch, int left, int cw, float pad_value,
+                 int row_tiles, int vec) {
+  // the block's column taps, split by tap so that a thread reads its 4
+  // columns' values as one 16-byte word each
+  __shared__ __align__(16) int s_ix[2][LB_COLS];
+  __shared__ __align__(16) float s_wx[2][LB_COLS];
+  const int tid = threadIdx.y * LB_TX + threadIdx.x;
+  const int z = blockIdx.x / row_tiles;
+  const int i = (blockIdx.x - z * row_tiles) * LB_TY + threadIdx.y;
+  const int c0 = blockIdx.y * LB_COLS;
+  for (int e = tid; e < 2 * LB_COLS; e += LB_TX * LB_TY) {
+    const int j = c0 + e / 2, k = e % 2;
+    s_ix[k][e / 2] = j < out_w ? __ldg(ix + 2 * j + k) : 0;
+    s_wx[k][e / 2] = j < out_w ? __ldg(wx + 2 * j + k) : 0.f;
   }
-};
+  __syncthreads();
+  const int q = 4 * threadIdx.x;          // first of the thread's columns
+  const int j0 = c0 + q;
+  if (i >= out_h || j0 >= out_w) return;
+
+  float v[4] = {pad_value, pad_value, pad_value, pad_value};
+  if (i >= top && i < top + ch) {
+    const uint8_t* plane = planes + (long long)z * H * W;
+    const uint8_t* r0 = plane + (long long)__ldg(iy + 2 * i) * W;
+    const uint8_t* r1 = plane + (long long)__ldg(iy + 2 * i + 1) * W;
+    const float wy0 = __ldg(wy + 2 * i), wy1 = __ldg(wy + 2 * i + 1);
+    const float scale = __ldg(sb + 2 * z), offset = __ldg(sb + 2 * z + 1);
+    const int4 x0 = *reinterpret_cast<const int4*>(&s_ix[0][q]);
+    const int4 x1 = *reinterpret_cast<const int4*>(&s_ix[1][q]);
+    const float4 w0 = *reinterpret_cast<const float4*>(&s_wx[0][q]);
+    const float4 w1 = *reinterpret_cast<const float4*>(&s_wx[1][q]);
+    const int xa[4] = {x0.x, x0.y, x0.z, x0.w}, xb[4] = {x1.x, x1.y, x1.z, x1.w};
+    const float wa[4] = {w0.x, w0.y, w0.z, w0.w}, wb[4] = {w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = j0 + c;
+      if (j < out_w && j >= left && j < left + cw) {
+        const float t0 = row_pass(r0, r1, xa[c], wy0, wy1);
+        const float t1 = row_pass(r0, r1, xb[c], wy0, wy1);
+        const float s = __fmaf_rn(wb[c], t1, __fmul_rn(wa[c], t0));
+        v[c] = __fadd_rn(__fmul_rn(s, scale), offset);
+      }
+    }
+  }
+  float* o = out + ((long long)z * out_h + i) * out_w + j0;
+  if (vec) {
+    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (j0 + c < out_w) o[c] = v[c];
+  }
+}
 
 }  // namespace
 
@@ -114,30 +189,25 @@ extern "C" int yuv_to_rgb_u8(const void* yuv, void* rgb, int B, int H, int W,
   return launch_status();
 }
 
-// planes (NB, H, W) uint8; ly (out_h, H), lx (out_w, W), sb (NB, 2) fp32;
-// tmp (NB, out_h, W) and out (NB, out_h, out_w) fp32; all contiguous.
-extern "C" int letterbox_normalize_f32(const void* planes, const void* ly,
-                                       const void* lx, const void* sb, void* tmp,
+// planes (NB, H, W) uint8; row taps iy, wy (out_h, 2) and column taps
+// ix, wx (out_w, 2), int32 indices and fp32 weights; sb (NB, 2) fp32;
+// out (NB, out_h, out_w) fp32; all contiguous, NB * out_h * out_w > 0.
+extern "C" int letterbox_normalize_f32(const void* planes, const void* iy,
+                                       const void* wy, const void* ix,
+                                       const void* wx, const void* sb,
                                        void* out, int NB, int H, int W,
                                        int out_h, int out_w, int top, int ch,
                                        int left, int cw, float pad_value,
                                        void* stream) {
-  using namespace separable;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Layout l_ly{0, 0, H, 1};                              // shared by all planes
-  const Layout l_plane{(long long)H * W, 0, W, 1};
-  const Layout l_tmp{(long long)out_h * W, 0, W, 1};
-  const Layout l_lx_t{0, 0, 1, W};                            // Lx^T read in place
-  const Layout l_out{(long long)out_h * out_w, 0, out_w, 1};
-  // pass 1: tmp[n] = Ly @ plane[n]
-  plane_gemm<uint8_t, Identity><<<plane_grid(out_h, W, NB), THREADS, 0, s>>>(
-      static_cast<const float*>(ly), l_ly, static_cast<const uint8_t*>(planes),
-      l_plane, static_cast<float*>(tmp), l_tmp, 1, out_h, W, H, Identity{});
-  // pass 2: out[n] = mask ? (tmp[n] @ Lx^T) * scale + offset : pad
-  const LetterboxEpilogue epi{static_cast<const float*>(sb), top, ch, left, cw,
-                              pad_value};
-  plane_gemm<float, LetterboxEpilogue><<<plane_grid(out_h, out_w, NB), THREADS, 0, s>>>(
-      static_cast<const float*>(tmp), l_tmp, static_cast<const float*>(lx),
-      l_lx_t, static_cast<float*>(out), l_out, 1, out_h, out_w, W, epi);
+  const int row_tiles = (out_h + LB_TY - 1) / LB_TY;
+  const int vec = out_w % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const dim3 grid((unsigned)row_tiles * NB, (out_w + LB_COLS - 1) / LB_COLS);
+  letterbox_kernel<<<grid, dim3(LB_TX, LB_TY), 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(planes), static_cast<const int*>(iy),
+      static_cast<const float*>(wy), static_cast<const int*>(ix),
+      static_cast<const float*>(wx), static_cast<const float*>(sb),
+      static_cast<float*>(out), H, W, out_h, out_w, top, ch, left, cw,
+      pad_value, row_tiles, vec);
   return launch_status();
 }

@@ -16,12 +16,13 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.resize import Taps, check_taps, expand_taps
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "yuv_to_rgb_u8": [_P, _P, _I, _I, _I, _P],
-    "letterbox_normalize_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _F, _P],
+    "letterbox_normalize_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _F, _P],
 }
 _IOU_SIGNATURES = {"iou_f32": [_P, _P, _I, _P]}
 
@@ -97,59 +98,62 @@ def _inside(geometry, out_h: int, out_w: int, device) -> torch.Tensor:
     return (rows >= top) & (rows < top + ch) & (cols >= left) & (cols < left + cw)
 
 
-def letterbox_normalize_plain(planes: torch.Tensor, ly: torch.Tensor,
-                              lx: torch.Tensor, sb: torch.Tensor,
+def letterbox_normalize_plain(planes: torch.Tensor, taps_y: Taps,
+                              taps_x: Taps, sb: torch.Tensor,
                               geometry: tuple[int, int, int, int], *,
                               pad_value: float = 0.0) -> torch.Tensor:
-    """The same function in plain PyTorch, in the kernel's order:
-    ``(Ly @ plane) @ Lx^T``, then ``* scale + offset``, then the pad mask."""
+    """The same function in plain PyTorch, in the reference's dense form:
+    the taps expanded (exactly) to ``Ly`` and ``Lx``, ``(Ly @ plane) @
+    Lx^T``, then ``* scale + offset``, then the pad mask."""
+    ly, lx = expand_taps(taps_y), expand_taps(taps_x)
     t = torch.matmul(torch.matmul(ly, planes.float()), lx.T)
     norm = t * sb[:, 0, None, None] + sb[:, 1, None, None]
     inside = _inside(geometry, ly.shape[0], lx.shape[0], planes.device)
     return torch.where(inside, norm, float(pad_value))
 
 
-def letterbox_normalize(planes: torch.Tensor, ly: torch.Tensor,
-                        lx: torch.Tensor, sb: torch.Tensor,
+def letterbox_normalize(planes: torch.Tensor, taps_y: Taps, taps_x: Taps,
+                        sb: torch.Tensor,
                         geometry: tuple[int, int, int, int], *,
                         pad_value: float = 0.0) -> torch.Tensor:
     """Fused letterbox + normalize over channel-major planes.
 
     ``planes``: (NB, H, W) uint8 (batch * channel, channel fastest);
-    ``ly``/``lx``: letterbox-embedded interpolation operators (out_h, H)
-    and (out_w, W) float32; ``sb``: (NB, 2) per-plane [scale, offset];
-    ``geometry``: (content_h, content_w, top, left) from
+    ``taps_y``/``taps_x``: the 2-tap tables (:class:`~repro_torch.kernels.
+    resize.Taps`) of the letterbox-embedded interpolation operators,
+    (out_h, 2) over H and (out_w, 2) over W; ``sb``: (NB, 2) per-plane
+    [scale, offset]; ``geometry``: (content_h, content_w, top, left) from
     :func:`repro_torch.preprocess.host.letterbox_geometry`. Returns
     (NB, out_h, out_w) float32, ``pad_value`` outside the content window.
     """
     NB, H, W = planes.shape
-    out_h, out_w = ly.shape[0], lx.shape[0]
-    if (ly.shape[1], lx.shape[1], tuple(sb.shape)) != (H, W, (NB, 2)):
-        raise ValueError(f"operators {tuple(ly.shape)}, {tuple(lx.shape)}, "
-                         f"sb {tuple(sb.shape)} do not fit planes "
-                         f"{tuple(planes.shape)}")
+    out_h, out_w = taps_y.idx.shape[0], taps_x.idx.shape[0]
+    check_taps(taps_y, H, planes.device, "row")
+    check_taps(taps_x, W, planes.device, "column")
+    if tuple(sb.shape) != (NB, 2) or sb.device != planes.device:
+        raise ValueError(f"sb {tuple(sb.shape)} on {sb.device} does not fit "
+                         f"planes {tuple(planes.shape)} on {planes.device}")
     if planes.device.type == "cpu":
-        return letterbox_normalize_plain(planes, ly, lx, sb, geometry,
-                                         pad_value=pad_value)
-    if planes.dtype != torch.uint8:
-        raise ValueError(f"letterbox kernel takes uint8 planes, got {planes.dtype}")
-    for t in (ly, lx, sb):
-        if t.dtype != torch.float32 or t.device != planes.device:
-            raise ValueError("letterbox kernel takes float32 operators on the "
-                             "planes' device")
-    planes, ly, lx, sb = (t.contiguous() for t in (planes, ly, lx, sb))
+        return letterbox_normalize_plain(planes, taps_y, taps_x, sb,
+                                         geometry, pad_value=pad_value)
+    if planes.dtype != torch.uint8 or sb.dtype != torch.float32:
+        raise ValueError(f"letterbox kernel takes uint8 planes and float32 "
+                         f"sb, got {planes.dtype} and {sb.dtype}")
+    planes, sb, iy, wy, ix, wx = (
+        t.contiguous() for t in (planes, sb, taps_y.idx, taps_y.w,
+                                 taps_x.idx, taps_x.w))
     out = torch.empty((NB, out_h, out_w), dtype=torch.float32,
                       device=planes.device)
     if out.numel() == 0:
         return out
-    tmp = torch.empty((NB, out_h, W), dtype=torch.float32, device=planes.device)
     ch, cw, top, left = (int(g) for g in geometry)
     lib = _lib()
     with torch.cuda.device(planes.device):
         rc = lib.letterbox_normalize_f32(
-            planes.data_ptr(), ly.data_ptr(), lx.data_ptr(), sb.data_ptr(),
-            tmp.data_ptr(), out.data_ptr(), NB, H, W, out_h, out_w, top, ch,
-            left, cw, float(pad_value), build.stream_ptr(planes.device))
+            planes.data_ptr(), iy.data_ptr(), wy.data_ptr(), ix.data_ptr(),
+            wx.data_ptr(), sb.data_ptr(), out.data_ptr(), NB, H, W, out_h,
+            out_w, top, ch, left, cw, float(pad_value),
+            build.stream_ptr(planes.device))
     build.check(lib, rc, "letterbox_normalize")
     build.count_launch(letterbox_normalize)
     return out

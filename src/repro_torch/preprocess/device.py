@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import preproc
+from repro_torch.kernels.resize import upload_taps
 from repro_torch.preprocess import host as _host
 
 
@@ -32,10 +33,10 @@ def yuv_to_rgb(yuv: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=64)
 def _letterbox_operators(in_h: int, in_w: int, out_h: int, out_w: int,
                          device: str):
-    """(ly, lx) on ``device`` per geometry: the operator build and upload
-    happen once, not per taxed call."""
-    ly, lx = _host.embedded_interp_matrices(in_h, in_w, out_h, out_w)
-    return torch.from_numpy(ly).to(device), torch.from_numpy(lx).to(device)
+    """The tap tables (rows, columns) on ``device`` per geometry: the build
+    and upload happen once, not per taxed call."""
+    ty, tx = _host.embedded_interp_taps(in_h, in_w, out_h, out_w)
+    return (upload_taps(*ty, in_h, device), upload_taps(*tx, in_w, device))
 
 
 def letterbox_normalize(img: torch.Tensor, out_h: int, out_w: int, *,
@@ -46,13 +47,14 @@ def letterbox_normalize(img: torch.Tensor, out_h: int, out_w: int, *,
     ``x * scale + offset`` on the content, ``pad_value`` outside.
     """
     B, H, W, C = img.shape
-    ly, lx = _letterbox_operators(H, W, out_h, out_w, str(img.device))
+    taps_y, taps_x = _letterbox_operators(H, W, out_h, out_w,
+                                          str(img.device))
     geom = _host.letterbox_geometry(H, W, out_h, out_w)
     planes = img.permute(0, 3, 1, 2).reshape(B * C, H, W)
     sb = np.tile(np.stack([np.asarray(scale, np.float32),
                            np.asarray(offset, np.float32)], axis=1), (B, 1))
     out = preproc.letterbox_normalize(
-        planes, ly, lx, torch.from_numpy(sb).to(img.device), geom,
+        planes, taps_y, taps_x, torch.from_numpy(sb).to(img.device), geom,
         pad_value=pad_value)
     return out.reshape(B, C, out_h, out_w).permute(0, 2, 3, 1)
 

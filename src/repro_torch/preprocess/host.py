@@ -2,7 +2,8 @@
 
 A copy of part of ``repro.preprocess.host``: the camera's encoder
 (:func:`rgb_to_yuv`, outside every taxed span), the letterbox geometry
-and its embedded operators, and the detection post-processing of the
+and its embedded operators (and their 2-tap tables, which the letterbox
+kernel takes), and the detection post-processing of the
 host placement (top-k candidates + greedy IoU NMS). Decode and letterbox
 have no NumPy copy here: the host placement runs the kernels' plain
 PyTorch versions on the CPU (:mod:`repro_torch.preprocess.device` with
@@ -19,6 +20,7 @@ import functools
 import numpy as np
 
 from repro_torch.kernels.resize import _interp_matrix as interp_matrix
+from repro_torch.kernels.resize import interp_taps
 
 _RGB_TO_YUV = np.array([[0.299, 0.587, 0.114],
                         [-0.168736, -0.331264, 0.5],
@@ -59,6 +61,16 @@ def embedded_interp_matrices(in_h: int, in_w: int, out_h: int, out_w: int,
     lx = np.zeros((out_w, in_w), np.float32)
     lx[left:left + cw] = interp_matrix(cw, in_w)
     return ly, lx
+
+
+@functools.lru_cache(maxsize=64)
+def embedded_interp_taps(in_h: int, in_w: int, out_h: int, out_w: int):
+    """The 2-tap tables ``((iy, wy), (ix, wx))`` of
+    :func:`embedded_interp_matrices` (:func:`~repro_torch.kernels.resize.
+    interp_taps`): rows outside the content window have weight 0.
+    Cached per geometry (read-only consumers)."""
+    return tuple(interp_taps(m) for m in
+                 embedded_interp_matrices(in_h, in_w, out_h, out_w))
 
 
 @functools.lru_cache(maxsize=64)

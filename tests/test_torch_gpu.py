@@ -26,8 +26,10 @@ pytestmark = pytest.mark.gpu
 MM_CASES = [(1, 6912, 256, False, "tanh"), (8, 6912, 256, False, "tanh"),
             (3, 256, 128, False, "none"), (8, 3072, 256, False, "none"),
             (13, 200, 37, True, "tanh"), (2048, 256, 256, True, "tanh")]
+# the last an upscale to a ragged width (scalar stores, pad rows)
 LB_CASES = [(1080, 1920, 540, 960, 0.0), (216, 384, 108, 192, 0.0),
-            (40, 70, 32, 32, -1.0), (50, 30, 17, 40, 0.5)]
+            (40, 70, 32, 32, -1.0), (50, 30, 17, 40, 0.5),
+            (20, 30, 61, 67, 0.5)]
 
 
 @pytest.fixture
@@ -83,12 +85,13 @@ def test_letterbox_kernel_vs_plain(cuda, H, W, oh, ow, pad):
     g = _gen(5)
     planes = torch.randint(0, 256, (6, H, W), generator=g,
                            dtype=torch.uint8).to(cuda)
-    ly, lx = (torch.from_numpy(np.array(m)).to(cuda)
-              for m in host.embedded_interp_matrices(H, W, oh, ow))
+    taps = pp_device._letterbox_operators(H, W, oh, ow, str(cuda))
     sb = torch.rand((6, 2), generator=g).to(cuda)
     geom = host.letterbox_geometry(H, W, oh, ow)
-    got = preproc.letterbox_normalize(planes, ly, lx, sb, geom, pad_value=pad)
-    want = preproc.letterbox_normalize_plain(planes, ly, lx, sb, geom,
+    n = preproc.letterbox_normalize.launches
+    got = preproc.letterbox_normalize(planes, *taps, sb, geom, pad_value=pad)
+    assert preproc.letterbox_normalize.launches == n + 1
+    want = preproc.letterbox_normalize_plain(planes, *taps, sb, geom,
                                              pad_value=pad)
     torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
 
@@ -101,6 +104,34 @@ def test_resize_kernel_vs_plain(cuda, shape, oh, ow):
     torch.testing.assert_close(resize.resize_bilinear(img, oh, ow),
                                resize.resize_bilinear_plain(img, oh, ow),
                                atol=1e-4, rtol=0)
+
+
+def test_tap_kernels_replay_in_a_cuda_graph_bit_exactly(cuda):
+    """Letterbox and resize captured in one CUDA graph (tap tables uploaded
+    at the warm-up, outside the capture) give the eager calls' bits."""
+    g = _gen(7)
+    planes = torch.randint(0, 256, (3, 1080, 1920), generator=g,
+                           dtype=torch.uint8).to(cuda)
+    taps = pp_device._letterbox_operators(1080, 1920, 540, 960, str(cuda))
+    sb = torch.rand((3, 2), generator=g).to(cuda)
+    geom = host.letterbox_geometry(1080, 1920, 540, 960)
+    img = (torch.rand((8, 48, 48, 3), generator=g) * 255).to(cuda)
+
+    def both():
+        return (preproc.letterbox_normalize(planes, *taps, sb, geom),
+                resize.resize_bilinear(img, 32, 32))
+    both()                                   # warm-up: build, upload taps
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = both()
+    planes.random_(0, 256)
+    img.mul_(0.5)
+    eager = both()
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(captured, eager):
+        assert torch.equal(got, want)
 
 
 def _boxes(n, seed):

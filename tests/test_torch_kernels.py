@@ -154,6 +154,16 @@ def test_yuv_rejects_wrong_layout():
 
 LB_CASES = [(216, 384, 108, 192, 0.0), (40, 70, 32, 32, -1.0),
             (50, 30, 17, 40, 0.5)]
+RESIZE_CASES = [((8, 48, 48, 3), 32, 32), ((3, 50, 70, 3), 21, 33),
+                ((2, 5, 16, 16, 1), 24, 8)]
+
+
+def _lb_taps(H, W, oh, ow):
+    """The letterbox's tap tables on the CPU, as the device path uploads
+    them."""
+    (iy, wy), (ix, wx) = port_host.embedded_interp_taps(H, W, oh, ow)
+    return (resize.upload_taps(iy, wy, H, "cpu"),
+            resize.upload_taps(ix, wx, W, "cpu"))
 
 
 @pytest.mark.parametrize("H,W,oh,ow,pad", LB_CASES)
@@ -168,7 +178,8 @@ def test_letterbox_plain_vs_pallas_interpret(H, W, oh, ow, pad):
         jnp.asarray(planes), jnp.asarray(ly), jnp.asarray(lx),
         jnp.asarray(sb), geom, pad_value=pad, interpret=True))
     got = preproc.letterbox_normalize(
-        _t(planes), _t(ly), _t(lx), _t(sb), geom, pad_value=pad).numpy()
+        _t(planes), *_lb_taps(H, W, oh, ow), _t(sb), geom,
+        pad_value=pad).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
@@ -184,18 +195,112 @@ def test_letterbox_operators_equal_reference():
 
 
 def test_letterbox_rejects_mismatched_operators():
-    ly, lx = port_host.embedded_interp_matrices(20, 30, 10, 15)
+    taps_y, taps_x = _lb_taps(20, 30, 10, 15)
     with pytest.raises(ValueError):
         preproc.letterbox_normalize(torch.zeros((3, 21, 30), dtype=torch.uint8),
-                                    _t(ly), _t(lx), torch.ones((3, 2)),
+                                    taps_y, taps_x, torch.ones((3, 2)),
                                     (10, 15, 0, 0))
+
+
+# ---- 2-tap tables -----------------------------------------------------------
+
+# (out_n, in_n): downscales, upscales whose edge rows merge two taps into one
+# (16 -> 24, 3 -> 7, and both axes of 20x30 -> 61x67), identity, and the
+# axes of the 1080p letterboxes
+INTERP_AXES = [(32, 48), (108, 216), (21, 50), (24, 16), (7, 3), (45, 20),
+               (67, 30), (48, 48), (540, 1080), (960, 1920), (288, 1080),
+               (512, 1920)]
+# (H, W, out_h, out_w): with pad rows or columns, and an upscale
+EMBEDDED = [(20, 30, 61, 67), (1080, 1920, 540, 960), (1080, 1920, 512, 512),
+            (216, 384, 108, 192), (40, 70, 32, 32), (50, 30, 17, 40)]
+
+
+@pytest.mark.parametrize("out_n,in_n", INTERP_AXES)
+def test_interp_taps_expand_to_the_operator_bit_for_bit(out_n, in_n):
+    m = resize._interp_matrix(out_n, in_n)
+    idx, w = resize.interp_taps(m)
+    assert (idx.dtype, w.dtype, idx.shape, w.shape) == \
+        (np.int32, np.float32, (out_n, 2), (out_n, 2))
+    assert (idx[:, 0] <= idx[:, 1]).all()
+    dense = resize.expand_taps(resize.upload_taps(idx, w, in_n, "cpu"))
+    np.testing.assert_array_equal(dense.numpy(), m)
+    assert dense.numpy().tobytes() == m.tobytes()
+
+
+@pytest.mark.parametrize("H,W,oh,ow", EMBEDDED)
+def test_embedded_interp_taps_expand_to_the_operators_bit_for_bit(H, W, oh,
+                                                                  ow):
+    for taps, m in zip(_lb_taps(H, W, oh, ow),
+                       port_host.embedded_interp_matrices(H, W, oh, ow)):
+        assert resize.expand_taps(taps).numpy().tobytes() == m.tobytes()
+
+
+def test_interp_taps_pad_short_rows_and_reject_three_nonzeros():
+    m = np.zeros((3, 5), np.float32)
+    m[1, 4] = 1.0                          # one non-zero: padded at its index
+    m[2, [1, 3]] = (0.25, 0.75)
+    idx, w = resize.interp_taps(m)
+    np.testing.assert_array_equal(idx, [[0, 0], [4, 4], [1, 3]])
+    np.testing.assert_array_equal(w, [[0, 0], [1, 0], [0.25, 0.75]])
+    m[2, 0] = 0.5
+    with pytest.raises(ValueError):
+        resize.interp_taps(m)
+
+
+def _fma(a, b, c):
+    """fmaf in float64 (the product of a float32 weight and a uint8 value
+    is exact there), rounded once to float32."""
+    return (np.float64(a) * b + c).astype(np.float32)
+
+
+def _emulate_taps(x, iy, wy, ix, wx):
+    """The kernels' arithmetic in NumPy on planes (P, H, W): gather the two
+    input rows, row pass at each output column's two input columns, then
+    the column pass; every product of a pass rounded to float32."""
+    r0, r1 = x[:, iy[:, 0]], x[:, iy[:, 1]]                   # (P, oh, W)
+    wy0, wy1 = wy[None, :, 0, None], wy[None, :, 1, None]
+
+    def row_pass(cols):
+        return _fma(wy1, r1[:, :, cols], wy0 * r0[:, :, cols])
+    t0, t1 = row_pass(ix[:, 0]), row_pass(ix[:, 1])
+    return _fma(wx[:, 1], t1, wx[:, 0] * t0)
+
+
+@pytest.mark.parametrize("H,W,oh,ow,pad", LB_CASES + [(20, 30, 61, 67, 0.5)])
+def test_letterbox_tap_arithmetic_equals_plain(H, W, oh, ow, pad):
+    rng = np.random.default_rng(7)
+    planes = rng.integers(0, 256, (6, H, W), dtype=np.uint8)
+    sb = np.stack([rng.uniform(0.5, 1.5, 6), rng.normal(size=6)],
+                  axis=1).astype(np.float32)
+    (iy, wy), (ix, wx) = port_host.embedded_interp_taps(H, W, oh, ow)
+    ch, cw, top, left = geom = port_host.letterbox_geometry(H, W, oh, ow)
+    v = _emulate_taps(planes.astype(np.float32), iy, wy, ix, wx)
+    got = v * sb[:, 0, None, None] + sb[:, 1, None, None]
+    inside = np.zeros((oh, ow), bool)
+    inside[top:top + ch, left:left + cw] = True
+    got = np.where(inside, got, np.float32(pad))
+    want = preproc.letterbox_normalize_plain(
+        _t(planes), *_lb_taps(H, W, oh, ow), _t(sb), geom,
+        pad_value=pad).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("shape,oh,ow", RESIZE_CASES)
+def test_resize_tap_arithmetic_equals_plain(shape, oh, ow):
+    img = np.random.default_rng(8).uniform(0, 255, shape).astype(np.float32)
+    *lead, H, W, C = shape
+    (iy, wy), (ix, wx) = (resize.interp_taps(resize._interp_matrix(o, n))
+                          for o, n in ((oh, H), (ow, W)))
+    planes = np.moveaxis(img.reshape(-1, H, W, C), -1, 1).reshape(-1, H, W)
+    got = _emulate_taps(planes, iy, wy, ix, wx).reshape(-1, C, oh, ow)
+    got = np.moveaxis(got, 1, -1).reshape(*lead, oh, ow, C)
+    want = resize.resize_bilinear_plain(_t(img), oh, ow).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
 # ---- resize_bilinear --------------------------------------------------------
 
-@pytest.mark.parametrize("shape,oh,ow", [((8, 48, 48, 3), 32, 32),
-                                         ((3, 50, 70, 3), 21, 33),
-                                         ((2, 5, 16, 16, 1), 24, 8)])
+@pytest.mark.parametrize("shape,oh,ow", RESIZE_CASES)
 def test_resize_plain_vs_pallas_interpret(shape, oh, ow):
     img = np.random.default_rng(4).uniform(0, 255, shape).astype(np.float32)
     want = np.asarray(jax_resize.resize_bilinear(jnp.asarray(img), oh, ow,
@@ -268,6 +373,9 @@ def test_cpu_tensors_take_plain_versions_and_count_no_launch():
     before = [w.launches for w in wrappers]
     ops.matmul(torch.ones((2, 3)), torch.ones((3, 4)))
     ops.resize_bilinear(torch.ones((1, 4, 4, 3)), 2, 2)
+    preproc.letterbox_normalize(torch.zeros((3, 8, 12), dtype=torch.uint8),
+                                *_lb_taps(8, 12, 4, 4), torch.ones((3, 2)),
+                                port_host.letterbox_geometry(8, 12, 4, 4))
     preproc.yuv_to_rgb(torch.zeros((1, 3, 4, 4), dtype=torch.uint8))
     assert [w.launches for w in wrappers] == before
 
