@@ -9,17 +9,22 @@ CUDA toolkit:
 Phases, each fatal on failure:
   1. print the card's name and power limit; build every CUDA kernel from
      ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a), in parallel, and
-     require tensor-core instructions in the attention libraries' SASS
-     (HGMMA for flash, HMMA for decode);
+     require tensor-core instructions in the SASS of the libraries with
+     tensor-core routes (HGMMA for flash, HMMA for decode and the chunked
+     RWKV6 scan);
   2. hold each kernel against its plain PyTorch version on the card, at
      the paths' shapes and at ragged ones (YUV decode and IoU exactly);
-     both routes of each attention kernel (tensor cores for bf16 at the
-     built widths, CUDA cores for fp32 and other widths);
+     both routes of each kernel that has two (matmul: the one-launch
+     skinny kernel for M <= 8, bit-equal on a repeat and a CUDA-graph
+     replay, and the tiled one; attention: tensor cores for bf16 at the
+     built widths, CUDA cores for fp32 and other widths; the RWKV6 scan:
+     the chunked scan for bf16 prefills from linear_scan.CHUNK_MIN_S
+     steps on, the serial one for the rest);
   3. run the face-recognition StreamingPipeline on the card at the paper's
      1080p source, fused and unfused identify, with every launch counter
-     set to 0 just before each run and read just after, and check its
-     detections and identities against the same pipeline on the CPU
-     (plain versions);
+     set to 0 just before each run and read just after (every matmul
+     launch must take the skinny route), and check its detections and
+     identities against the same pipeline on the CPU (plain versions);
   4. run device NMS on candidate batteries (counters zeroed just before)
      and check its keep lists against the host NMS;
   5. for each served arch, llama3-8b (attention kernels), rwkv6-3b (the
@@ -37,13 +42,17 @@ Phases, each fatal on failure:
      inputs, and the whole step with float32 weights), then 16 requests
      through the continuous-batching engine (counters zeroed just before
      the run; the attention kernels must take their tensor-core routes
-     once an attention layer for every prefill and every tick), with its
-     throughput, TTFT, tax split, transfer ledger and the weight-streaming
-     floor of a decode tick;
+     once an attention layer for every prefill and every tick, the RWKV6
+     scan its chunked route once a layer for every prefill of
+     CHUNK_MIN_S steps or more and its serial route once a layer for
+     every shorter prefill and every tick), with its throughput, TTFT, tax
+     split, transfer ledger and the weight-streaming floor of a decode
+     tick;
   7. time each kernel, its plain version and the matching PyTorch library
      call with CUDA events, beside the least time the card could take
-     (decode attention also with a cold L2), and profile the device's busy
-     share of a pipeline run and of each arch's serve run.
+     (decode attention and matmul also with a cold L2), and profile the
+     device's busy share of a pipeline run (which must launch no second
+     matmul pass) and of each arch's serve run.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -64,13 +73,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks at a 700 W power limit (NVIDIA data sheet): HBM3 bytes/s,
-# fp32 FLOP/s outside the tensor cores, dense bf16 tensor-core FLOP/s; and
-# the SFU's exponentials: 16 a clock an SM for compute capability 9.0 (CUDA
-# programming guide, arithmetic instruction throughput) at 132 SMs and the
-# 1.98 GHz boost clock.
+# fp32 FLOP/s outside the tensor cores, dense bf16 and tf32 tensor-core
+# FLOP/s; and the SFU's exponentials: 16 a clock an SM for compute
+# capability 9.0 (CUDA programming guide, arithmetic instruction
+# throughput) at 132 SMs and the 1.98 GHz boost clock.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
 PEAK_BF16_FLOP_S = 989e12
+PEAK_TF32_FLOP_S = 495e12
 PEAK_SFU_S = 16 * 132 * 1.98e9
 
 MATMUL_ATOL, MATMUL_RTOL = 1e-4, 1e-5
@@ -92,14 +102,16 @@ LOGITS_RTOL_F32 = 1e-3
 
 # serve phase at full width, bf16, on the card, for each served arch
 SERVE_ARCHS = ("llama3-8b", "rwkv6-3b", "jamba-v0.1-52b")
-# the attention kernels' tensor-core instructions in their libraries' SASS,
-# and the route each must take on the full-width serve path: one launch an
-# attention layer for every prefill (flash) and every decode tick (decode)
-TC_SASS = {"flash_attention": "HGMMA", "decode_attention": "HMMA"}
+# the tensor-core instructions in the kernel libraries' SASS (attention and
+# the chunked RWKV6 scan), and the route each attention kernel must take on
+# the full-width serve path: one launch an attention layer for every
+# prefill (flash) and every decode tick (decode)
+TC_SASS = {"flash_attention": "HGMMA", "decode_attention": "HMMA",
+           "linear_scan": "HMMA"}
 TC_GATES = {"flash_attention": ("wgmma", "prefills"),
             "decode_attention": ("mma", "ticks")}
 SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_MAX_TOKENS = 8, 2048, 16, 32
-# bytes written between calls to time a kernel with a cold (50 MB) L2
+# bytes read between calls to time a kernel with a cold (50 MB) L2
 L2_FLUSH_BYTES = 128 << 20
 # NMS batteries (candidates per call) and the attention shapes of the path
 NMS_SIZES = (32, 256, 1000, 4096)
@@ -110,6 +122,9 @@ DECODE_RAGGED = (2047, 50)
 LLAMA_H, LLAMA_KV, LLAMA_D = 32, 8, 128
 RWKV_H, RWKV_K = 40, 64                  # rwkv6-3b's heads and head width
 RWKV_PREFILL, RWKV_DECODE_B = 1024, SERVE_SLOTS
+# the chunked route's checks: the prefill length and lengths no chunk (64)
+# or sub-chunk (16) divides
+RWKV_CHUNK_SEQS = (RWKV_PREFILL, 37, 64, 65, 130, 1000)
 # jamba-v0.1-52b's Mamba layers: d_inner 8192, state 16 (smoke: 128, 4)
 MAMBA_DI, MAMBA_N = 8192, 16
 MAMBA_PREFILL, MAMBA_DECODE_B = 1024, SERVE_SLOTS
@@ -118,6 +133,8 @@ MAMBA_PREFILL, MAMBA_DECODE_B = 1024, SERVE_SLOTS
 SRC_H, SRC_W = 1080, 1920
 # identify batches on the face path are pow2-bucketed and at most batch_size
 FACE_BATCHES = (1, 3, 8)
+# the skinny matmul route's row counts held against the plain version
+SKINNY_CHECK_M = (1, 2, 3, 4, 8)
 # (K, N, epilogue) of the path's three products: fused layer 1, layer 2,
 # and the unfused Embedder's layer 1
 MATMUL_SHAPES = ((48 * 48 * 3, 256, "tanh"), (256, 128, "none"),
@@ -184,34 +201,49 @@ def cuda_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def cold_time_ms(fn, scratch, reps: int = 20) -> float:
-    """Device time of one call with a cold L2: ``scratch`` (larger than the
-    50 MB L2) is written before each call, then the call, captured in a
-    CUDA graph, is replayed between two CUDA events; the median of
-    ``reps``. The write keeps the card busy while the host queues the
-    replay, so the events time the call alone."""
+def cold_time_ms(fn, scratch, iters: int = 20, reps: int = 11) -> float:
+    """Device time of one call with a cold L2: ``scratch`` (float32, larger
+    than the 50 MB L2) is read through before each call, so the L2 holds
+    only its clean lines and the call pays no write-back of dirty ones.
+    ``iters`` (read, call) pairs are captured in one CUDA graph and
+    ``iters`` reads alone in another; after a replay of each, the two are
+    replayed in turn between CUDA events ``reps`` times, and the median
+    of the differences over ``iters`` is returned, so the call's launch is
+    amortised as in :func:`cuda_time_ms` and the reads' time drops out."""
     import torch
+    sink = torch.empty((), dtype=scratch.dtype, device=scratch.device)
+
+    def flush():
+        torch.sum(scratch, 0, out=sink)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
+            flush()
             fn()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    times = []
-    for _ in range(reps):
-        scratch.zero_()
+    pairs, reads = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(pairs):
+        for _ in range(iters):
+            flush()
+            fn()
+    with torch.cuda.graph(reads):
+        for _ in range(iters):
+            flush()
+
+    def replay_ms(graph):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        return start.elapsed_time(end)
+    replay_ms(pairs)
+    replay_ms(reads)
+    return statistics.median(replay_ms(pairs) - replay_ms(reads)
+                             for _ in range(reps)) / iters
 
 
 def eager_time_ms(fn, iters: int = 200) -> float:
@@ -364,27 +396,54 @@ def check_kernels(device) -> dict[str, float]:
     err = {}
 
     worst = 0.0
-    cases = [(B, K, N, epi, False) for K, N, epi in MATMUL_SHAPES
-             for B in FACE_BATCHES]
-    # ragged, and the epilogue once across K splits (first) and fused
-    # into a single split (second)
-    cases += [(13, 200, 37, "tanh", True), (8, 48 * 48 * 3, 256, "tanh", True),
-              (2048, 256, 256, "tanh", True)]
+    # the skinny route at the path's three products, a ragged one with bias
+    # and tanh; the tile route ragged with its K split and unsplit
+    cases = [(M, K, N, epi, False) for K, N, epi in MATMUL_SHAPES
+             for M in SKINNY_CHECK_M]
+    cases += [(5, 200, 37, "tanh", True), (8, 48 * 48 * 3, 256, "tanh", True),
+              (13, 200, 37, "tanh", True), (2048, 256, 256, "tanh", True)]
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     for M, K, N, epi, bias in cases:
         a, b, c = matmul_inputs(M, K, N, bias, device)
+        route = mm._route(M)
+        n = mm.matmul.launches_by_route[route]
         got = mm.matmul(a, b, bias=c, epilogue=epi)
+        again = mm.matmul(a, b, bias=c, epilogue=epi)
         want = mm.matmul_plain(a, b, bias=c, epilogue=epi)
         e = (got - want).abs().max().item()
-        splits = mm.split_k(M, N, K, n_sm)[0]
-        print(f"check matmul ({M},{K})@({K},{N}) bias={bias} {epi} "
-              f"splits={splits}: max_abs_err={e:.3e}")
+        plan = (f"cluster, k_chunk={mm.skinny_plan(N, K, n_sm)}"
+                if route == "skinny" else
+                f"splits={mm.split_k(M, N, K, n_sm)[0]}")
+        same = bool(torch.equal(got, again))
+        print(f"check matmul ({route} route) ({M},{K})@({K},{N}) bias={bias} "
+              f"{epi} {plan}: max_abs_err={e:.3e}; repeat bit-equal: {same}")
+        require(mm.matmul.launches_by_route[route] == n + 2,
+                f"matmul ({M},{K},{N}): the {route} route did not launch")
         require(torch.allclose(got, want, atol=MATMUL_ATOL, rtol=MATMUL_RTOL),
                 f"matmul ({M},{K},{N}) disagrees: {e}")
+        require(same, f"matmul ({M},{K},{N}): a repeat differs")
         worst = max(worst, e)
-    require(mm.split_k(8, 256, 48 * 48 * 3, n_sm)[0] > 1
+    require(mm.split_k(13, 37, 200, n_sm)[0] > 1
             and mm.split_k(2048, 256, 256, n_sm)[0] == 1,
-            "the epilogue checks must cover a split and an unsplit K")
+            "the tile route's checks must cover a split and an unsplit K")
+    # the skinny route replayed in a CUDA graph: the same bits
+    a, b, c = matmul_inputs(8, 48 * 48 * 3, 256, True, device, seed=1)
+    eager = mm.matmul(a, b, bias=c, epilogue="tanh")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mm.matmul(a, b, bias=c, epilogue="tanh")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = mm.matmul(a, b, bias=c, epilogue="tanh")
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(replayed, eager))
+    print(f"check matmul (skinny route) (8,6912)@(6912,256) tanh, 3 CUDA-graph "
+          f"replays: bit-equal to the eager call: {same}")
+    require(same, "matmul: a CUDA-graph replay of the skinny route differs")
     err["matmul"] = worst
 
     yuv = all_yuv_triples(device)
@@ -525,41 +584,75 @@ def _check_decode(da, q, k, v, lens, name: str, window) -> float:
     return e
 
 
+def hard_decays(w, seed: int):
+    """w with exact zeros, denormals (1e-40) and exact ones in about 5% of
+    its values each, as the model's w = exp(-exp(z)) reaches them."""
+    import torch
+    u = torch.rand(w.shape, generator=_gen(seed)).to(w.device)
+    w = torch.where(u < 0.05, torch.zeros_like(w), w)
+    w = torch.where((u >= 0.05) & (u < 0.10), torch.full_like(w, 1e-40), w)
+    return torch.where((u >= 0.10) & (u < 0.15), torch.ones_like(w), w)
+
+
 def check_scan_kernel(device) -> dict[str, float]:
-    """The RWKV6 scan against its plain version at rwkv6-3b's heads: the
-    prefill length, a ragged one, and the S = 1 decode step with a random
-    state, in place equal to out of place."""
+    """The RWKV6 scan against its plain version at rwkv6-3b's heads, both
+    routes: in bf16 the chunked route at the prefill length and at lengths
+    no chunk divides, from a zero state and from a random one (in place
+    equal to out of place), and with decays of 0, denormals and 1; the
+    serial route at a bf16 prompt just short of the chunked route's, at the
+    S = 1 decode step (in place equal to out of place) and in float32 at
+    the prefill and a ragged length."""
     import torch
     from repro_torch.kernels import linear_scan as ls
     worst = 0.0
-    cases = ((1, RWKV_PREFILL, False), (1, 37, True), (RWKV_DECODE_B, 1, True))
-    for dtype in (torch.bfloat16, torch.float32):
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(bf16, 1, S, h0, False) for S in RWKV_CHUNK_SEQS
+             for h0 in (False, True)]
+    cases += [(bf16, 1, S, True, True) for S in (RWKV_PREFILL, 130)]
+    # either side of where the chunked route starts
+    cases += [(bf16, 1, S, True, False)
+              for S in (ls.CHUNK_MIN_S, ls.CHUNK_MIN_S - 1)]
+    cases += [(bf16, RWKV_DECODE_B, 1, True, False),
+              (f32, 1, RWKV_PREFILL, False, False), (f32, 1, 37, True, False),
+              (f32, RWKV_DECODE_B, 1, True, False)]
+    for dtype, B, S, with_h0, hard in cases:
         name = str(dtype).split(".")[1]
-        for B, S, with_h0 in cases:
-            r, w, k, v, u, h0 = scan_inputs(B, S, dtype, device, seed=S)
-            h0 = h0 if with_h0 else None
-            o, h = ls.rwkv_scan(r, w, k, v, u, h0)
-            po, ph = ls.rwkv_scan_plain(r, w, k, v, u, h0)
-            e = (o.float() - po.float()).abs().max().item()
-            rel = e / po.float().abs().max().item()
-            rel_h = ((h - ph).abs().max() / ph.abs().max()).item()
-            line = (f"check rwkv_scan {name} r(B={B},S={S},{RWKV_H},{RWKV_K}) "
-                    f"h0={'random' if with_h0 else 'none'}: max_abs_err o "
-                    f"{e:.3e}, relative o {rel:.3e} state {rel_h:.3e} "
-                    f"(tolerance {SCAN_RTOL[name]} of the largest o, 1e-5 of "
-                    "the largest state)")
-            require(rel <= SCAN_RTOL[name] and rel_h <= 1e-5,
-                    f"rwkv_scan {name} B={B} S={S}: {rel}, {rel_h}")
+        r, w, k, v, u, h0 = scan_inputs(B, S, dtype, device, seed=S)
+        if hard:
+            w = hard_decays(w, seed=S)
+        h0 = h0 if with_h0 else None
+        route = ls._route(dtype, RWKV_K, RWKV_K, S)
+        n = ls.rwkv_scan.launches_by_route[route]
+        o, h = ls.rwkv_scan(r, w, k, v, u, h0)
+        require(ls.rwkv_scan.launches_by_route[route] == n + 1,
+                f"rwkv_scan {name} S={S}: the {route} route did not launch")
+        po, ph = ls.rwkv_scan_plain(r, w, k, v, u, h0)
+        e = (o.float() - po.float()).abs().max().item()
+        rel = e / po.float().abs().max().item()
+        rel_h = ((h - ph).abs().max() / ph.abs().max()).item()
+        finite = bool(torch.isfinite(o.float()).all()
+                      and torch.isfinite(h).all())
+        line = (f"check rwkv_scan {name} ({route} route) r(B={B},S={S},"
+                f"{RWKV_H},{RWKV_K}) h0={'random' if with_h0 else 'none'}"
+                f"{' w with 0, denormals, 1' if hard else ''}: max_abs_err o "
+                f"{e:.3e}, relative o {rel:.3e} state {rel_h:.3e} (tolerance "
+                f"{SCAN_RTOL[name]} of the largest o, {STATE_RTOL} of the "
+                f"largest state); finite: {finite}")
+        require(finite and rel <= SCAN_RTOL[name] and rel_h <= STATE_RTOL,
+                f"rwkv_scan {name} B={B} S={S}: {rel}, {rel_h}")
+        if with_h0:
+            state = h0.clone()
             if S == 1:
-                state = h0.clone()
                 o1, _ = ls.rwkv_decode_step(r[:, 0], w[:, 0], k[:, 0],
                                             v[:, 0], u, state)
-                same = bool(torch.equal(o1, o[:, 0])
-                             and torch.equal(state, h))
-                line += f"; in place (state_out = h0) equal: {same}"
-                require(same, f"rwkv decode step {name}: in place differs")
-            print(line)
-            worst = max(worst, e)
+                o1 = o1[:, None]
+            else:
+                o1, _ = ls.rwkv_scan(r, w, k, v, u, state, state_out=state)
+            same = bool(torch.equal(o1, o) and torch.equal(state, h))
+            line += f"; in place (state_out = h0) equal: {same}"
+            require(same, f"rwkv_scan {name} S={S}: in place differs")
+        print(line)
+        worst = max(worst, e)
     torch.cuda.synchronize()
     return {"rwkv_scan": worst}
 
@@ -616,22 +709,26 @@ def check_mamba_kernel(device) -> dict[str, float]:
 
 def run_pipeline(device, fast_path: bool, *, n_frames: int, src_hw,
                  wrappers=()):
-    """One pipeline run; returns (result, seconds, launches per wrapper),
-    the counts set to 0 just before ``run()`` and read just after."""
+    """One pipeline run; returns (result, seconds, launches per wrapper,
+    launches per route of each wrapper that has routes), the counts set to
+    0 just before ``run()`` and read just after."""
     from repro_torch.core.pipeline import StreamingPipeline
     from repro_torch.data.video import VideoStream
+    from repro_torch.kernels import build
     import torch
     pipe = StreamingPipeline(device=device, placement="device", batch_size=8,
                              n_frames=n_frames, seed=0, fast_path=fast_path)
     pipe.video = VideoStream(height=src_hw[0], width=src_hw[1], seed=0)
     for w in wrappers:
-        w.launches = 0
+        build.zero_launches(w)
     t0 = time.perf_counter()
     res = pipe.run()
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    return res, secs, {w: w.launches for w in wrappers}
+    return (res, secs, {w: w.launches for w in wrappers},
+            {w: dict(w.launches_by_route) for w in wrappers
+             if hasattr(w, "launches_by_route")})
 
 
 def identities(res) -> list:
@@ -640,17 +737,19 @@ def identities(res) -> list:
 
 def check_pipeline(device, kernels, *, n_frames: int, src_hw) -> dict:
     """Fused and unfused runs on ``device`` and on the CPU; returns the
-    launch totals per kernel name and the per-run summaries."""
+    launch totals per kernel name and the per-run summaries. Every matmul
+    launch (face batches of at most 8) must take the skinny route."""
+    from repro_torch.kernels import matmul as mm
     wrappers = [k["wrapper"] for k in kernels]
     # warm-up: CUDA context, kernel libraries and caches, outside any count
     run_pipeline(device, True, n_frames=2, src_hw=src_hw)
     totals = dict.fromkeys((k["name"] for k in kernels), 0)
     runs = {}
     for fast in (True, False):
-        res, secs, launches = run_pipeline(device, fast, n_frames=n_frames,
-                                           src_hw=src_hw, wrappers=wrappers)
-        ref, ref_secs, _ = run_pipeline("cpu", fast, n_frames=n_frames,
-                                        src_hw=src_hw)
+        res, secs, launches, routes = run_pipeline(
+            device, fast, n_frames=n_frames, src_hw=src_hw, wrappers=wrappers)
+        ref, ref_secs, _, _ = run_pipeline("cpu", fast, n_frames=n_frames,
+                                           src_hw=src_hw)
         fr = res.ai_tax()["fractions"]
         label = "fused" if fast else "unfused"
         counts = {k["name"]: launches[k["wrapper"]] for k in kernels}
@@ -678,6 +777,12 @@ def check_pipeline(device, kernels, *, n_frames: int, src_hw) -> dict:
                 | (set() if fast else {"resize_bilinear"}))
         for name in used:
             require(counts[name] > 0, f"{label}: {name} never launched")
+        mm_routes = routes[mm.matmul]
+        print(f"pipeline {label}: matmul launches by route {mm_routes}: all "
+              f"skinny: {mm_routes['skinny'] == counts['matmul']}")
+        require(mm_routes["skinny"] == counts["matmul"]
+                and sum(mm_routes.values()) == counts["matmul"],
+                f"{label}: matmul launches {mm_routes}, want all skinny")
         for name, n in counts.items():
             totals[name] += n
         runs[label] = {"res": res, "secs": secs, "fractions": fr}
@@ -1190,7 +1295,7 @@ def serve_full_width(device, arch: str, wrappers) -> dict:
             f"full-width {arch} serve: token out of the vocabulary")
     return {"model": model, "params": params, "launches": launches,
             "routes": routes, "cfg": cfg, "prefills": len(prompts),
-            "ticks": ticks}
+            "prompt_lens": [len(p) for p in prompts], "ticks": ticks}
 
 
 def profile_serve(model, params, cfg) -> None:
@@ -1282,15 +1387,25 @@ def time_kernels(device) -> dict[str, dict]:
     from repro_torch.kernels import preproc, resize
     out = {}
 
+    # matmul at every face batch of the path's three products, warm and with
+    # a cold L2: on the frame path 6 MB frame copies run between calls
+    scratch = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                          device=device)
     for K, N, epi in MATMUL_SHAPES:
         for M in FACE_BATCHES[::-1]:
             a, b, _ = matmul_inputs(M, K, N, False, device)
+            kernel = lambda: mm.matmul(a, b, epilogue=epi)
             library = ((lambda: torch.tanh(torch.matmul(a, b)))
                        if epi == "tanh" else (lambda: torch.matmul(a, b)))
-            t = _timed("matmul", f"({M},{K})@({K},{N}) {epi}",
-                       lambda: mm.matmul(a, b, epilogue=epi),
+            t = _timed("matmul", f"({M},{K})@({K},{N}) {epi} "
+                       f"({mm._route(M)} route)", kernel,
                        lambda: mm.matmul_plain(a, b, epilogue=epi), library,
                        4 * (M * K + K * N + M * N), 2 * M * N * K, iters=50)
+            cold = {"ms": cold_time_ms(kernel, scratch),
+                    "library_ms": cold_time_ms(library, scratch)}
+            print(f"time matmul L2-cold ({L2_FLUSH_BYTES >> 20} MiB read "
+                  f"before each call) ({M},{K})@({K},{N}) {epi}: "
+                  + json.dumps(cold))
             out.setdefault("matmul", t)
 
     yuv = torch.randint(0, 256, (1, 3, SRC_H, SRC_W), generator=_gen(1),
@@ -1358,7 +1473,6 @@ def time_kernels(device) -> dict[str, dict]:
 
     # decode with a cold L2 too: the engine's cache (67 MB a layer at full
     # length) exceeds the 50 MB L2, so a tick finds it in device memory
-    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
     for L in (2048, 768):
         q, k, v, lens = decode_inputs(L, torch.bfloat16, device)
         valid = int(lens.sum().item())                 # cache entries read
@@ -1378,17 +1492,19 @@ def time_kernels(device) -> dict[str, dict]:
             cold = {"ms": cold_time_ms(kernel, scratch),
                     "library_ms": cold_time_ms(library, scratch)}
             print(f"time decode_attention L2-cold ({L2_FLUSH_BYTES >> 20} MiB "
-                  f"written before each call) kv(8,{L},8,128): "
+                  f"read before each call) kv(8,{L},8,128): "
                   + json.dumps(cold))
         out.setdefault("decode_attention", t)
     del scratch
 
-    # the RWKV6 scan at the serve path's shapes: a 1024-token prefill from a
-    # zero state, then one decode step of 8 slots on their state, in place.
+    # the RWKV6 scan at the serve path's shapes: a 1024-token prefill and a
+    # ragged 37-token one from a zero state (the chunked route), then one
+    # decode step of 8 slots on their state, in place (the serial route).
     # 5 FLOP an (i, j) state element a step: r_i h_ij (2) and
     # w_i h_ij + k_i v_j (3); the bonus needs only (sum_i r_i u_i k_i) v_j,
-    # 3 K + 2 V a head-step. No library call computes the scan.
-    for B, S in ((1, RWKV_PREFILL), (RWKV_DECODE_B, 1)):
+    # 3 K + 2 V a head-step. The chunked route does them on the tf32 tensor
+    # cores, the serial one on fp32 FMAs. No library call computes the scan.
+    for B, S in ((1, RWKV_PREFILL), (1, 37), (RWKV_DECODE_B, 1)):
         r, w, k, v, u, h0 = scan_inputs(B, S, torch.bfloat16, device)
         n = B * S * RWKV_H * RWKV_K
         state = B * RWKV_H * RWKV_K * RWKV_K * 4
@@ -1401,11 +1517,30 @@ def time_kernels(device) -> dict[str, dict]:
             kernel = lambda: ls.rwkv_scan(r, w, k, v, u)
             plain = lambda: ls.rwkv_scan_plain(r, w, k, v, u)
             nbytes = 4 * n * 2 + 4 * n + 2 * u.numel() + state
+        route = ls._route(r.dtype, RWKV_K, RWKV_K, S)
         t = _timed("rwkv_scan", f"bf16 r(B={B},S={S},{RWKV_H},{RWKV_K}) "
-                   f"{'state in place' if S == 1 else 'zero state'}",
+                   f"{'state in place' if S == 1 else 'zero state'} "
+                   f"({route} route)",
                    kernel, plain, None, nbytes, 5 * n * RWKV_K + 5 * n,
-                   iters=5 if S > 1 else 20)
+                   iters=5 if S > 1 else 20,
+                   peak_flop_s=(PEAK_TF32_FLOP_S if route == "chunk"
+                                else PEAK_FP32_FLOP_S))
         out.setdefault("rwkv_scan", t)
+    # yardstick: both routes' kernels on the same bf16 prompts from a zero
+    # state, around the length where ``_route`` starts the chunked one;
+    # timed only (the launches count, but the counts are zeroed before
+    # every path)
+    for S in (RWKV_PREFILL, 64, 37, ls.CHUNK_MIN_S, ls.CHUNK_MIN_S - 1, 16,
+              8, 2):
+        r, w, k, v, u, h0 = scan_inputs(1, S, torch.bfloat16, device)
+        uf, state = u.float().contiguous(), torch.empty_like(h0)
+        times = {route: cuda_time_ms(
+            lambda: ls._launch(route, r, w, k, v, uf, None, state),
+            iters=5 if S > 64 else 20) for route in ("chunk", "serial")}
+        taken = ls._route(r.dtype, RWKV_K, RWKV_K, S)
+        print(f"time rwkv_scan yardstick both routes bf16 r(B=1,S={S},"
+              f"{RWKV_H},{RWKV_K}) zero state ({taken} route taken): "
+              + json.dumps(times))
 
     # the Mamba scan at jamba's serve shapes: a 1024-token prefill from a
     # zero state, then one decode step of 8 slots on their state, in place.
@@ -1451,8 +1586,8 @@ def profile_pipeline(device, *, n_frames: int, src_hw) -> None:
     camera_ms = (time.perf_counter() - t0) / 4 * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _res, secs, _ = run_pipeline(device, True, n_frames=n_frames,
-                                     src_hw=src_hw)
+        _res, secs, _, _ = run_pipeline(device, True, n_frames=n_frames,
+                                        src_hw=src_hw)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -1463,6 +1598,13 @@ def profile_pipeline(device, *, n_frames: int, src_hw) -> None:
     for e in top[:8]:
         print(f"profile device time {e.self_device_time_total / 1e3:.3f} ms "
               f"x{e.count}: {e.key[:90]}")
+    matmul = [e for e in kernels if "matmul" in e.key]
+    for e in matmul:
+        print(f"profile matmul kernel {e.self_device_time_total / 1e3:.3f} ms "
+              f"x{e.count}: {e.key[:90]}")
+    require(matmul and not any("matmul_reduce_kernel" in e.key
+                               for e in matmul),
+            "the frame path's matmul launched a second (reduce) pass")
 
 
 def kernel_table():
@@ -1578,6 +1720,21 @@ def main() -> int:
                       f"{launches[name] == want}")
                 require(launches[name] == want,
                         f"{name} launched {launches[name]} times, want {want}")
+                if name == "rwkv_scan":
+                    # bf16 prefills of CHUNK_MIN_S steps or more on the
+                    # chunked route; shorter ones and the decode steps on
+                    # the serial one
+                    from repro_torch.kernels import linear_scan as ls
+                    got = full["routes"][
+                        next(k["wrapper"] for k in serve if k["name"] == name)]
+                    long = sum(n >= ls.CHUNK_MIN_S
+                               for n in full["prompt_lens"])
+                    want = {"chunk": n_kind * long,
+                            "serial": n_kind * (full["prefills"] - long
+                                                + full["ticks"])}
+                    print(f"serve launches {name} by route: {arch} {got}; want "
+                          f"{want}: {got == want}")
+                    require(got == want, f"{name}: {got} on {arch}, want {want}")
         n_attn = sum(s.kind == "attn" for s in
                      full["cfg"].block_pattern) * full["cfg"].n_repeats
         for k in serve:

@@ -1,8 +1,11 @@
 // PTX wrappers for Hopper's tensor cores and asynchronous copies, shared by
-// the attention kernels' tensor-core routes (sm_90a).
+// the kernels' tensor-core routes (sm_90a).
 //
 //  * mma.sync m16n8k16 bf16 -> fp32, ldmatrix and 16-byte cp.async
-//    (decode_attention.cu);
+//    (decode_attention.cu; the chunked RWKV6 scan in linear_scan.cu; the
+//    4-byte form in matmul.cu);
+//  * mma.sync m16n8k8 tf32 -> fp32, the fp32 -> tf32 rounding and its
+//    hi + lo split (linear_scan.cu's chunked RWKV6 scan);
 //  * wgmma m64n64k16 bf16 -> fp32 with shared-memory descriptors, mbarriers
 //    and TMA tile loads (flash_attention.cu).
 //
@@ -41,6 +44,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 
+// 4 bytes global -> shared through L1
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(dst), "l"(src) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -69,6 +78,34 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// fp32 -> tf32 (round to nearest, ties away from zero), as the fp32 bit
+// pattern with the low 13 mantissa bits zero
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to ~2^-22 of x: two tf32 products against an operand exact in
+// tf32 (a bf16 value) carry x to about fp32's precision
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d (16x8 fp32) += a (16x8 tf32, row-major) @ b (8x8 tf32, column-major).
+// Fragments: a0 row l / 4, k l % 4; a1 row + 8; a2 k + 4; a3 row + 8, k + 4;
+// b0 k l % 4, column l / 4; b1 k + 4; d as for m16n8k16.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));

@@ -4,12 +4,14 @@ CUDA kernel beside its plain versions.
 
 Counterparts of ``repro.kernels.linear_scan.mamba_scan`` and
 ``rwkv_scan`` (the Pallas TPU kernels; their contracts are
-``repro.kernels.ref.mamba_scan`` and ``rwkv_scan``). Both kernels are in
+``repro.kernels.ref.mamba_scan`` and ``rwkv_scan``). The kernels are in
 ``csrc/linear_scan.cu``, whose source notes say what bounds each on an
-H100 and why one thread owns one channel (Mamba) or one column of a
-head's state (RWKV6). They read the projections in their (B, S, ...)
-layout and take any S >= 1: the engine prefills at the raw prompt length
-and decodes at S = 1, where :func:`mamba_decode_step` and
+H100 and how it is laid out. The RWKV6 scan has two routes, chosen by
+shape (:func:`_route`): rwkv6-3b's bf16 prefills take the chunked scan on
+the tensor cores, everything else (the decode step, float32, the smoke
+config's width) the serial one. The kernels read the projections in their
+(B, S, ...) layout and take any S >= 1: the engine prefills at the raw
+prompt length and decodes at S = 1, where :func:`mamba_decode_step` and
 :func:`rwkv_decode_step` write the new state into the cache in place.
 The wrappers launch the kernels for CUDA tensors and take the plain
 versions only for CPU tensors.
@@ -23,14 +25,21 @@ import torch
 from repro_torch.kernels import build
 
 # head widths (K = V) the RWKV6 kernel is built for: rwkv6-3b 64, its smoke
-# config 16
+# config 16; the chunked route's width, steps a chunk, and the fewest steps
+# it takes: its three launches cost ~0.022 ms up to S = 128 at rwkv6-3b's
+# 40 heads, the serial kernel ~0.0027 + 0.00059 S ms, so they meet at S = 32
+# on an H100 (chip_smoke.py's rwkv_scan yardstick)
 WIDTHS = (16, 64)
+CHUNK_WIDTH = 64
+CHUNK = 64
+CHUNK_MIN_S = 33
 # state sizes N the Mamba kernel is built for: jamba-v0.1-52b 16, its smoke
 # config 4
 MAMBA_WIDTHS = (4, 16)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"rwkv_scan": [_P] * 8 + [_I] * 6 + [_P],
+               "rwkv_scan_chunk": [_P] * 10 + [_I] * 3 + [_P],
                "mamba_scan": [_P] * 8 + [_I] * 5 + [_P]}
 
 
@@ -189,6 +198,23 @@ def _check_shapes(r, w, k, v, u, h0) -> tuple[int, int, int, int, int]:
     return B, S, H, K, V
 
 
+def _route(dtype: torch.dtype, K: int, V: int, S: int) -> str:
+    """The kernel that takes a CUDA RWKV6 call: ``"chunk"`` (the chunked
+    scan on the tensor cores) for bfloat16 at K = V = 64 with S >=
+    :data:`CHUNK_MIN_S`, ``"serial"`` for shorter prompts, the S = 1 step,
+    float32 and the other built width. A choice by shape, not a fallback:
+    what neither takes raises ValueError."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"rwkv scan kernel takes bfloat16 or float32, got "
+                         f"{dtype}")
+    if K != V or K not in WIDTHS:
+        raise ValueError(f"rwkv scan kernel takes K = V in {WIDTHS}; got "
+                         f"K={K}, V={V}")
+    if dtype == torch.bfloat16 and K == CHUNK_WIDTH and S >= CHUNK_MIN_S:
+        return "chunk"
+    return "serial"
+
+
 def rwkv_scan_plain(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor, u: torch.Tensor,
                     h0: torch.Tensor | None = None):
@@ -232,9 +258,11 @@ def rwkv_scan(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,
     tensor the final state is written into, and may be ``h0`` itself.
 
     A CPU tensor goes to :func:`rwkv_scan_plain`; a CUDA tensor to the
-    kernel, which takes contiguous r, k, v of one dtype (bfloat16 or
-    float32), float32 w and h0, K = V in :data:`WIDTHS`, and raises on
-    anything else. u is widened to float32 here.
+    kernel of its route (:func:`_route`), which takes contiguous r, k, v of
+    one dtype (bfloat16 or float32), float32 w and h0, K = V in
+    :data:`WIDTHS` (the chunked route also 16-byte aligned tensors), and
+    raises on anything else. u is widened to float32 here. ``launches``
+    counts the wrapper's calls, ``launches_by_route`` each route's.
     """
     B, S, H, K, V = _check_shapes(r, w, k, v, u, h0)
     if state_out is not None and (tuple(state_out.shape) != (B, H, K, V)
@@ -245,15 +273,10 @@ def rwkv_scan(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,
         if state_out is None:
             return o, h
         return o, state_out.copy_(h)
-    if r.dtype not in _DTYPES:
-        raise ValueError("rwkv scan kernel takes bfloat16 or float32, got "
-                         f"{r.dtype}")
+    route = _route(r.dtype, K, V, S)
     if k.dtype != r.dtype or v.dtype != r.dtype or w.dtype != torch.float32:
         raise ValueError("rwkv scan kernel takes r, k, v of one dtype and "
                          "float32 w")
-    if K != V or K not in WIDTHS:
-        raise ValueError(f"rwkv scan kernel takes K = V in {WIDTHS}; got "
-                         f"K={K}, V={V}")
     uf = u.to(torch.float32).contiguous()
     state = (torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
              if state_out is None else state_out)
@@ -264,20 +287,47 @@ def rwkv_scan(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,
                              "one device")
     if h0 is not None and h0.dtype != torch.float32:
         raise ValueError(f"h0 must be float32, got {h0.dtype}")
+    if route == "chunk" and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the chunked rwkv route takes 16-byte aligned "
+                         "tensors")
+    return _launch(route, r, w, k, v, uf, h0, state), state
+
+
+def _launch(route: str, r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, uf: torch.Tensor, h0: torch.Tensor | None,
+            state: torch.Tensor) -> torch.Tensor:
+    """Launches ``route``'s kernel on tensors :func:`rwkv_scan` has checked
+    (u already float32), writes the final state into ``state``, counts the
+    launch and returns o."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
     o = torch.empty((B, S, H, V), dtype=v.dtype, device=r.device)
     lib = build.library("linear_scan", _SIGNATURES)
+    h0_ptr = None if h0 is None else h0.data_ptr()
     with torch.cuda.device(r.device):
-        rc = lib.rwkv_scan(
-            r.data_ptr(), w.data_ptr(), k.data_ptr(), v.data_ptr(),
-            uf.data_ptr(), None if h0 is None else h0.data_ptr(),
-            o.data_ptr(), state.data_ptr(), _DTYPES[r.dtype], B, S, H, K, V,
-            build.stream_ptr(r.device))
-    build.check(lib, rc, "rwkv_scan")
-    build.count_launch(rwkv_scan)
-    return o, state
+        stream = build.stream_ptr(r.device)
+        if route == "chunk":
+            n_chunks = -(-S // CHUNK)
+            U = torch.empty((B, H, n_chunks, K, V), dtype=torch.float32,
+                            device=r.device)
+            P = torch.empty((B, H, n_chunks, K), dtype=torch.float32,
+                            device=r.device)
+            rc = lib.rwkv_scan_chunk(
+                r.data_ptr(), w.data_ptr(), k.data_ptr(), v.data_ptr(),
+                uf.data_ptr(), h0_ptr, o.data_ptr(), state.data_ptr(),
+                U.data_ptr(), P.data_ptr(), B, S, H, stream)
+        else:
+            rc = lib.rwkv_scan(
+                r.data_ptr(), w.data_ptr(), k.data_ptr(), v.data_ptr(),
+                uf.data_ptr(), h0_ptr, o.data_ptr(), state.data_ptr(),
+                _DTYPES[r.dtype], B, S, H, K, V, stream)
+    build.check(lib, rc, f"rwkv_scan ({route})")
+    build.count_launch(rwkv_scan, route)
+    return o
 
 
 rwkv_scan.launches = 0
+rwkv_scan.launches_by_route = {"chunk": 0, "serial": 0}
 
 
 def rwkv_decode_step(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,

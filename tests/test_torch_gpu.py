@@ -61,6 +61,55 @@ def test_matmul_kernel_vs_plain(cuda, M, K, N, bias, epi):
                                atol=1e-4, rtol=1e-5)
 
 
+# (M, K, N, bias, epilogue, route): the skinny route at every face batch
+# size with ragged N and K, the tile route above 8 rows
+MM_ROUTE_CASES = [(M, 6912, 256, False, "tanh", "skinny") for M in (1, 2, 4, 8)]
+MM_ROUTE_CASES += [(3, 3072, 256, False, "none", "skinny"),
+                   (5, 200, 37, True, "tanh", "skinny"),
+                   (7, 33, 5, True, "none", "skinny"),
+                   (2, 3000, 2000, True, "tanh", "skinny"),
+                   (9, 200, 37, True, "tanh", "tile"),
+                   (64, 517, 130, False, "none", "tile")]
+
+
+@pytest.mark.parametrize("M,K,N,bias,epi,route", MM_ROUTE_CASES)
+def test_matmul_routes_vs_plain_and_bit_equal_on_repeat(cuda, M, K, N, bias,
+                                                        epi, route):
+    g = _gen(1)
+    a = torch.randn((M, K), generator=g).to(cuda)
+    b = (torch.randn((K, N), generator=g) / K**0.5).to(cuda)
+    c = torch.randn((N,), generator=g).to(cuda) if bias else None
+    assert mm._route(M) == route
+    n = mm.matmul.launches_by_route[route]
+    got = mm.matmul(a, b, bias=c, epilogue=epi)
+    again = mm.matmul(a, b, bias=c, epilogue=epi)
+    assert mm.matmul.launches_by_route[route] == n + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, mm.matmul_plain(a, b, bias=c,
+                                                    epilogue=epi),
+                               atol=1e-4, rtol=1e-5)
+
+
+def test_matmul_skinny_route_replays_in_a_cuda_graph_bit_exactly(cuda):
+    g = _gen(2)
+    a = torch.randn((8, 6912), generator=g).to(cuda)
+    b = (torch.randn((6912, 256), generator=g) / 6912**0.5).to(cuda)
+    c = torch.randn((256,), generator=g).to(cuda)
+    eager = mm.matmul(a, b, bias=c, epilogue="tanh")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mm.matmul(a, b, bias=c, epilogue="tanh")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = mm.matmul(a, b, bias=c, epilogue="tanh")
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
 def test_matmul_kernel_rejects_what_it_does_not_take(cuda):
     a = torch.ones((4, 8), device=cuda)
     with pytest.raises(ValueError):
@@ -344,6 +393,92 @@ def test_rwkv_decode_step_in_place_equals_out_of_place(cuda, dtype):
     torch.testing.assert_close(o1.float(), po.float(), atol=tol, rtol=0)
 
 
+def _hard_decays(w, seed):
+    """w with exact zeros, denormals and exact ones in about 5% of its
+    values each."""
+    u = torch.rand(w.shape, generator=_gen(seed)).to(w.device)
+    w = torch.where(u < 0.05, torch.zeros_like(w), w)
+    w = torch.where((u >= 0.05) & (u < 0.10), torch.full_like(w, 1e-40), w)
+    return torch.where((u >= 0.10) & (u < 0.15), torch.ones_like(w), w)
+
+
+# (B, S, H, K, dtype, hard decays, route)
+RWKV_ROUTE_CASES = [(1, S, 40, 64, torch.bfloat16, False, "chunk")
+                    for S in (ls.CHUNK_MIN_S, 37, 64, 65, 130, 1000)]
+RWKV_ROUTE_CASES += [(1, S, 40, 64, torch.bfloat16, False, "serial")
+                     for S in (2, ls.CHUNK_MIN_S - 1)]
+RWKV_ROUTE_CASES += [(2, 150, 3, 64, torch.bfloat16, True, "chunk"),
+                     (1, 1024, 40, 64, torch.bfloat16, True, "chunk"),
+                     (8, 1, 40, 64, torch.bfloat16, False, "serial"),
+                     (1, 130, 40, 64, torch.float32, True, "serial"),
+                     (2, 45, 4, 16, torch.bfloat16, False, "serial")]
+
+
+@pytest.mark.parametrize("B,S,H,K,dtype,hard,route", RWKV_ROUTE_CASES)
+def test_rwkv_scan_routes_vs_plain(cuda, B, S, H, K, dtype, hard, route):
+    r, w, k, v, u, h0 = _scan_inputs(B, S, H, K, dtype, cuda, seed=S)
+    if hard:
+        w = _hard_decays(w, seed=S)
+    assert ls._route(dtype, K, K, S) == route
+    for h in (None, h0):
+        n = ls.rwkv_scan.launches_by_route[route]
+        o, st = ls.rwkv_scan(r, w, k, v, u, h)
+        assert ls.rwkv_scan.launches_by_route[route] == n + 1
+        po, ph = ls.rwkv_scan_plain(r, w, k, v, u, h)
+        assert bool(torch.isfinite(o.float()).all() and torch.isfinite(st).all())
+        tol = SCAN_RTOL[dtype] * po.float().abs().max().item()
+        torch.testing.assert_close(o.float(), po.float(), atol=tol, rtol=0)
+        torch.testing.assert_close(st, ph, atol=1e-5 * ph.abs().max().item(),
+                                   rtol=0)
+
+
+def test_rwkv_chunk_route_in_place_equals_out_of_place(cuda):
+    r, w, k, v, u, h0 = _scan_inputs(1, 130, 40, 64, torch.bfloat16, cuda)
+    o, h = ls.rwkv_scan(r, w, k, v, u, h0)
+    state = h0.clone()
+    n = ls.rwkv_scan.launches_by_route["chunk"]
+    o1, out = ls.rwkv_scan(r, w, k, v, u, state, state_out=state)
+    assert ls.rwkv_scan.launches_by_route["chunk"] == n + 1 and out is state
+    assert torch.equal(o1, o) and torch.equal(state, h)
+
+
+def test_rwkv_scan_routes_replay_in_a_cuda_graph(cuda):
+    """A chunked prefill and a serial decode step captured in one CUDA
+    graph (workspaces made at capture) give, replayed, the bits of eager
+    calls, the decode step's state updated in place each replay."""
+    r, w, k, v, u, h0 = _scan_inputs(1, 200, 40, 64, torch.bfloat16, cuda)
+    dr, dw, dk, dv, _, dh = _scan_inputs(8, 1, 40, 64, torch.bfloat16, cuda,
+                                         seed=4)
+    state = dh.clone()
+
+    def both():
+        o, h = ls.rwkv_scan(r, w, k, v, u, h0)
+        od, _ = ls.rwkv_decode_step(dr[:, 0], dw[:, 0], dk[:, 0], dv[:, 0], u,
+                                    state)
+        return o, h, od
+
+    eager = both()
+    after_one = state.clone()
+    want = both()                                  # from after_one
+    state.copy_(dh)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = both()
+    state.copy_(dh)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(c, e) for c, e in zip(captured, eager))
+    assert torch.equal(state, after_one)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(c, e) for c, e in zip(captured, want))
+
+
 def test_rwkv_scan_kernel_rejects_what_it_does_not_take(cuda):
     r, w, k, v, u, h0 = _scan_inputs(1, 4, 2, 32, torch.float32, cuda)
     with pytest.raises(ValueError):                       # K = 32: not built
@@ -356,6 +491,12 @@ def test_rwkv_scan_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):                       # not contiguous
         ls.rwkv_scan(r.transpose(1, 2).contiguous().transpose(1, 2), w, k,
                      v, u, h0)
+    # the chunked route takes 16-byte aligned rows: 2 bytes off raises
+    r, w, k, v, u, h0 = _scan_inputs(1, ls.CHUNK_MIN_S, 2, 64,
+                                     torch.bfloat16, cuda)
+    buf = torch.zeros(1 + r.numel(), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        ls.rwkv_scan(buf[1:].view(r.shape), w, k, v, u, h0)
 
 
 def _mamba_inputs(B, S, Di, N, dtype, device, seed=11):

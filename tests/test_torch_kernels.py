@@ -88,8 +88,80 @@ def test_split_k_covers_k_without_empty_splits(M, K, N):
 
 
 def test_split_k_fills_the_card_on_face_shapes():
+    # the face batches take the skinny route: ceil(N / 16) column slabs
+    # times a cluster of up to 8 along K
+    for K, N in ((6912, 256), (3072, 256)):
+        cluster, _ = mm.skinny_plan(N, K, n_sm=132)
+        assert cluster == mm.MAX_CLUSTER and cluster * -(-N // 16) >= 128
     assert mm.split_k(8, 256, 6912, n_sm=132)[0] > 1
     assert mm.split_k(2048, 256, 256, n_sm=132)[0] == 1
+
+
+def test_matmul_route_sends_face_batches_to_the_skinny_kernel():
+    assert [mm._route(M) for M in (1, 2, 3, 4, 5, 8)] == ["skinny"] * 6
+    assert [mm._route(M) for M in (9, 13, 16, 2048)] == ["tile"] * 4
+
+
+@pytest.mark.parametrize("N,K", [(256, 6912), (128, 256), (256, 3072),
+                                 (37, 200), (9, 0), (16, 1), (16, 33),
+                                 (2000, 3000), (5000, 100000)])
+def test_skinny_plan_covers_k_without_empty_splits(N, K):
+    cluster, chunk = mm.skinny_plan(N, K, n_sm=132)
+    assert 1 <= cluster <= mm.MAX_CLUSTER
+    if K == 0:
+        assert (cluster, chunk) == (1, 0)
+        return
+    assert cluster * chunk >= K                        # every K row covered
+    assert (cluster - 1) * chunk < K                   # no rank left empty
+
+
+def _skinny_sum(a, b, bias, epi, n_sm=132):
+    """csrc/matmul.cu's skinny kernel in NumPy float32, in its order: each
+    K lane's fma chain over every 64th row of its rank's range, a shuffle
+    tree over the 8 lanes of a warp, the 8 warps in order, the cluster's
+    ranks in order from 0, then bias and tanh once."""
+    M, K = a.shape
+    N = b.shape[1]
+    cluster, chunk = mm.skinny_plan(N, K, n_sm)
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    total = np.zeros((M, N), np.float32)
+    for rank in range(cluster):
+        k0, k1 = rank * chunk, min(K, (rank + 1) * chunk)
+        lanes = np.zeros((64, M, N), np.float32)
+        for kk in range(k0, k1):
+            lane = (kk - k0) % 1024 % 64
+            lanes[lane] = (a64[:, kk, None] * b64[None, kk]
+                           + lanes[lane]).astype(np.float32)
+        warps = []
+        for w in range(8):
+            x = lanes[8 * w:8 * w + 8]
+            x = x[0::2] + x[1::2]                      # shuffle xor 4
+            x = x[0::2] + x[1::2]                      # xor 8
+            warps.append(x[0] + x[1])                  # xor 16
+        part = warps[0]
+        for w in warps[1:]:
+            part = part + w
+        total = total + part
+    if bias is not None:
+        total = total + bias
+    return np.tanh(total) if epi == "tanh" else total
+
+
+@pytest.mark.parametrize("M,K,N,bias,epi",
+                         [(8, 6912, 256, True, "tanh"), (3, 256, 128, False, "none"),
+                          (1, 3072, 256, False, "none"), (5, 200, 37, True, "tanh"),
+                          (2, 3000, 2000, True, "none")])
+def test_skinny_split_sum_emulation_vs_jax(M, K, N, bias, epi):
+    a, b, c = _mm_inputs(M, K, N, bias, seed=3)
+    got = _skinny_sum(a, b, c, epi)
+    xla = np.asarray(jax_ops.matmul(
+        jnp.asarray(a), jnp.asarray(b), bias=None if c is None
+        else jnp.asarray(c), epilogue=epi, impl="xla"))
+    ref = np.asarray(jax_matmul._apply_epilogue(
+        jax_ref.matmul(jnp.asarray(a), jnp.asarray(b)),
+        None if c is None else jnp.asarray(c), epi))
+    np.testing.assert_allclose(got, xla, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
 
 
 # ---- yuv_to_rgb -------------------------------------------------------------
