@@ -19,7 +19,11 @@ Phases, each fatal on failure:
      replay, and the tiled one; attention: tensor cores for bf16 at the
      built widths, CUDA cores for fp32 and other widths; the RWKV6 scan:
      the chunked scan for bf16 prefills from linear_scan.CHUNK_MIN_S
-     steps on, the serial one for the rest);
+     steps on, the serial one for the rest; the Mamba scan: the
+     time-segmented scan for prefills from linear_scan.MAMBA_SEG_MIN_S
+     steps on and the lane-split step for S = 1 at N = 16, with steps
+     that drive exp(delta A) to 0 and denormals, the serial kernel for
+     the rest);
   3. run the face-recognition StreamingPipeline on the card at the paper's
      1080p source, fused and unfused identify, with every launch counter
      set to 0 just before each run and read just after (every matmul
@@ -45,12 +49,15 @@ Phases, each fatal on failure:
      once an attention layer for every prefill and every tick, the RWKV6
      scan its chunked route once a layer for every prefill of
      CHUNK_MIN_S steps or more and its serial route once a layer for
-     every shorter prefill and every tick), with its throughput, TTFT, tax
-     split, transfer ledger and the weight-streaming floor of a decode
-     tick;
+     every shorter prefill and every tick, the Mamba scan its segmented
+     route once a layer for every prefill of MAMBA_SEG_MIN_S steps or
+     more, its step route once a layer for every tick and its serial
+     route for the rest), with its throughput, TTFT, tax split, transfer
+     ledger and the weight-streaming floor of a decode tick;
   7. time each kernel, its plain version and the matching PyTorch library
      call with CUDA events, beside the least time the card could take
-     (decode attention and matmul also with a cold L2), and profile the
+     (decode attention, matmul and the Mamba scan also with a cold L2;
+     each two-route scan's kernels side by side by S), and profile the
      device's busy share of a pipeline run (which must launch no second
      matmul pass) and of each arch's serve run.
 
@@ -657,46 +664,83 @@ def check_scan_kernel(device) -> dict[str, float]:
     return {"rwkv_scan": worst}
 
 
+def hard_steps(delta, seed: int):
+    """delta = 100 in about 5% of its elements: delta |A| reaches ~100 and
+    more there, so exp(delta A) underflows to 0 and to denormals, as
+    jamba's unbounded softplus steps and A down to -16 make it."""
+    import torch
+    u = torch.rand(delta.shape, generator=_gen(seed)).to(delta.device)
+    return torch.where(u < 0.05, torch.full_like(delta, 100.0), delta)
+
+
 def check_mamba_kernel(device) -> dict[str, float]:
-    """The Mamba scan against its plain version, fp32 and bf16, at
-    jamba-v0.1-52b's width (Di 8192, N 16): the prefill length, a ragged
-    one and B > 1 with a random state, and the S = 1 decode step of 8 slots
-    in place equal to out of place; and at the smoke config's (Di 128,
-    N 4). y within SCAN_RTOL of the largest plain y, the state within
-    STATE_RTOL of the largest plain state."""
+    """The Mamba scan against its plain version, fp32 and bf16, every
+    route. At jamba-v0.1-52b's width (Di 8192, N 16): the prefill length
+    from a zero state, S = 37 and (B = 3, S = 50) from a random state, S =
+    2, 16, 33 and either side of linear_scan.MAMBA_SEG_MIN_S (the
+    segmented route from there on, the serial one below), and hard decays
+    (delta |A| ~100 in 5% of the elements) at the prefill length and at
+    130; the S = 1
+    decode step of 8 slots, also with hard decays (the step route); and the
+    smoke config's (Di 128, N 4, the serial route). y within SCAN_RTOL of
+    the largest plain y, the state within STATE_RTOL of the largest plain
+    state; from a random state, in place (state_out = h0) bit-equal to out
+    of place."""
     import torch
     from repro_torch.kernels import linear_scan as ls
     worst = 0.0
-    cases = ((1, MAMBA_PREFILL, MAMBA_DI, MAMBA_N, False),
-             (1, 37, MAMBA_DI, MAMBA_N, True), (3, 50, MAMBA_DI, MAMBA_N, True),
-             (MAMBA_DECODE_B, 1, MAMBA_DI, MAMBA_N, True),
-             (2, 45, 128, 4, True), (MAMBA_DECODE_B, 1, 128, 4, True))
+    cases = [(1, MAMBA_PREFILL, MAMBA_DI, MAMBA_N, False, False),
+             (1, 37, MAMBA_DI, MAMBA_N, True, False),
+             (3, 50, MAMBA_DI, MAMBA_N, True, False)]
+    cases += [(1, S, MAMBA_DI, MAMBA_N, True, False)
+              for S in sorted({2, 16, 33, ls.MAMBA_SEG_MIN_S,
+                               ls.MAMBA_SEG_MIN_S - 1})]
+    cases += [(1, MAMBA_PREFILL, MAMBA_DI, MAMBA_N, True, True),
+              (1, 130, MAMBA_DI, MAMBA_N, False, True),
+              (MAMBA_DECODE_B, 1, MAMBA_DI, MAMBA_N, True, False),
+              (MAMBA_DECODE_B, 1, MAMBA_DI, MAMBA_N, True, True),
+              (2, 45, 128, 4, True, False),
+              (MAMBA_DECODE_B, 1, 128, 4, True, False)]
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
-        for B, S, Di, N, with_h0 in cases:
+        for B, S, Di, N, with_h0, hard in cases:
             delta, A, Bt, Ct, x, h0 = mamba_inputs(B, S, dtype, device,
                                                    seed=S, Di=Di, N=N)
+            if hard:
+                delta = hard_steps(delta, seed=S)
             h0 = h0 if with_h0 else None
+            route = ls._mamba_route(dtype, N, S)
+            n = ls.mamba_scan.launches_by_route[route]
             y, h = ls.mamba_scan(delta, A, Bt, Ct, x, h0)
+            require(ls.mamba_scan.launches_by_route[route] == n + 1,
+                    f"mamba_scan {name} S={S}: the {route} route did not "
+                    "launch")
             py, ph = ls.mamba_scan_plain(delta, A, Bt, Ct, x, h0)
             e = (y.float() - py.float()).abs().max().item()
             rel = e / py.float().abs().max().item()
             rel_h = ((h - ph).abs().max() / ph.abs().max()).item()
-            line = (f"check mamba_scan {name} delta(B={B},S={S},{Di}) N={N} "
-                    f"h0={'random' if with_h0 else 'none'}: max_abs_err y "
-                    f"{e:.3e}, relative y {rel:.3e} state {rel_h:.3e} "
+            finite = bool(torch.isfinite(y.float()).all()
+                          and torch.isfinite(h).all())
+            line = (f"check mamba_scan {name} ({route} route) delta(B={B},"
+                    f"S={S},{Di}) N={N} h0={'random' if with_h0 else 'none'}"
+                    f"{' delta |A| ~100 in 5%' if hard else ''}: max_abs_err "
+                    f"y {e:.3e}, relative y {rel:.3e} state {rel_h:.3e} "
                     f"(tolerance {SCAN_RTOL[name]} of the largest y, "
-                    f"{STATE_RTOL} of the largest state)")
-            require(rel <= SCAN_RTOL[name] and rel_h <= STATE_RTOL,
+                    f"{STATE_RTOL} of the largest state); finite: {finite}")
+            require(finite and rel <= SCAN_RTOL[name] and rel_h <= STATE_RTOL,
                     f"mamba_scan {name} B={B} S={S} N={N}: {rel}, {rel_h}")
-            if S == 1:
+            if with_h0:
                 state = h0.clone()
-                y1, _ = ls.mamba_decode_step(delta[:, 0], A, Bt[:, 0],
-                                             Ct[:, 0], x[:, 0], state)
-                same = bool(torch.equal(y1, y[:, 0])
-                            and torch.equal(state, h))
+                if S == 1:
+                    y1, _ = ls.mamba_decode_step(delta[:, 0], A, Bt[:, 0],
+                                                 Ct[:, 0], x[:, 0], state)
+                    y1 = y1[:, None]
+                else:
+                    y1, _ = ls.mamba_scan(delta, A, Bt, Ct, x, state,
+                                          state_out=state)
+                same = bool(torch.equal(y1, y) and torch.equal(state, h))
                 line += f"; in place (state_out = h0) equal: {same}"
-                require(same, f"mamba decode step {name}: in place differs")
+                require(same, f"mamba_scan {name} S={S}: in place differs")
             print(line)
             worst = max(worst, e)
     torch.cuda.synchronize()
@@ -1495,7 +1539,6 @@ def time_kernels(device) -> dict[str, dict]:
                   f"read before each call) kv(8,{L},8,128): "
                   + json.dumps(cold))
         out.setdefault("decode_attention", t)
-    del scratch
 
     # the RWKV6 scan at the serve path's shapes: a 1024-token prefill and a
     # ragged 37-token one from a zero state (the chunked route), then one
@@ -1542,13 +1585,27 @@ def time_kernels(device) -> dict[str, dict]:
               f"{RWKV_H},{RWKV_K}) zero state ({taken} route taken): "
               + json.dumps(times))
 
+    out["mamba_scan"] = time_mamba(device, scratch)
+    del scratch
+    return out
+
+
+def time_mamba(device, scratch) -> dict:
+    """The Mamba scan's times (``scratch`` the L2 flush of
+    :func:`cold_time_ms`); returns the prefill's, the one reported in the
+    kernels line."""
+    import torch
+    from repro_torch.kernels import linear_scan as ls
+    first = None
     # the Mamba scan at jamba's serve shapes: a 1024-token prefill from a
-    # zero state, then one decode step of 8 slots on their state, in place.
-    # 6 FLOP a state element a step (delta A, exp(.) h, (delta x) B, the
-    # add, h C, the add) and 1 a channel-step (delta x), and one
-    # exponential a state element a step on the SFU, which binds. No
-    # library call computes the scan.
-    for B, S in ((1, MAMBA_PREFILL), (MAMBA_DECODE_B, 1)):
+    # zero state (the segmented route), one decode step of 8 slots on their
+    # state, in place (the step route), and a ragged 37-token prefill; warm
+    # and with a cold L2. 6 FLOP a state element a step (delta A, exp(.) h,
+    # (delta x) B, the add, h C, the add) and 1 a channel-step (delta x), and
+    # one exponential a state element a step on the SFU, which binds the
+    # prefills (the segmented route computes each twice: its own floor is
+    # twice the bound). No library call computes the scan.
+    for B, S in ((1, MAMBA_PREFILL), (MAMBA_DECODE_B, 1), (1, 37)):
         delta, A, Bt, Ct, x, h0 = mamba_inputs(B, S, torch.bfloat16, device)
         n = B * S * MAMBA_DI
         state = B * MAMBA_DI * MAMBA_N * 4
@@ -1561,13 +1618,38 @@ def time_kernels(device) -> dict[str, dict]:
         else:
             kernel = lambda: ls.mamba_scan(delta, A, Bt, Ct, x)
             plain = lambda: ls.mamba_scan_plain(delta, A, Bt, Ct, x)
-        t = _timed("mamba_scan", f"bf16 delta,x (B={B},S={S},{MAMBA_DI}) "
-                   f"N={MAMBA_N} "
-                   f"{'state in place' if S == 1 else 'zero state'}",
-                   kernel, plain, None, nbytes, (6 * MAMBA_N + 1) * n,
-                   iters=5 if S > 1 else 20, exps=n * MAMBA_N)
-        out.setdefault("mamba_scan", t)
-    return out
+        shape = (f"bf16 delta,x (B={B},S={S},{MAMBA_DI}) N={MAMBA_N} "
+                 f"{'state in place' if S == 1 else 'zero state'} "
+                 f"({ls._mamba_route(torch.bfloat16, MAMBA_N, S)} route)")
+        t = _timed("mamba_scan", shape, kernel, plain, None, nbytes,
+                   (6 * MAMBA_N + 1) * n, iters=5 if S > 64 else 20,
+                   exps=n * MAMBA_N)
+        cold = {"ms": cold_time_ms(kernel, scratch)}
+        print(f"time mamba_scan L2-cold ({L2_FLUSH_BYTES >> 20} MiB read "
+              f"before each call) {shape}: " + json.dumps(cold))
+        first = first or t
+    # yardstick: the segmented and serial kernels on the same prompts from a
+    # zero state, in bf16 and fp32, by S (where they meet sets
+    # MAMBA_SEG_MIN_S), and the step and serial kernels on the decode step;
+    # timed only (the launches count, but the counts are zeroed before
+    # every path)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        seqs = sorted({1024, 256, 64, 37, 32, 16, ls.MAMBA_SEG_MIN_S,
+                       ls.MAMBA_SEG_MIN_S - 1, 8, 2}, reverse=True)
+        for B, S in [(1, S) for S in seqs] + [(MAMBA_DECODE_B, 1)]:
+            delta, A, Bt, Ct, x, h0 = mamba_inputs(B, S, dtype, device)
+            Af, state = A.float().contiguous(), torch.empty_like(h0)
+            routes = ("step" if S == 1 else "segmented", "serial")
+            times = {route: cuda_time_ms(
+                lambda: ls._launch_mamba(route, delta, x, Af, Bt, Ct, None,
+                                         state),
+                iters=5 if S > 64 else 20) for route in routes}
+            taken = ls._mamba_route(dtype, MAMBA_N, S)
+            print(f"time mamba_scan yardstick both routes {name} delta(B={B},"
+                  f"S={S},{MAMBA_DI}) N={MAMBA_N} zero state ({taken} route "
+                  "taken): " + json.dumps(times))
+    return first
 
 
 def profile_pipeline(device, *, n_frames: int, src_hw) -> None:
@@ -1672,9 +1754,12 @@ def main() -> int:
     print(f"built {sorted(build.BUILD_LOG) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s")
     for stem, log in sorted(build.BUILD_LOG.items()):
+        entry = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]     # the mangled kernel name
             if "Used" in line or "spill" in line:
-                print(f"ptxas {stem}: {line.strip()}")
+                print(f"ptxas {stem} {entry}: {line.strip()}")
     for stem, op in TC_SASS.items():
         n = build.sass(stem).count(op)
         print(f"sass {stem}: {n} {op} instructions (tensor cores)")
@@ -1720,21 +1805,26 @@ def main() -> int:
                       f"{launches[name] == want}")
                 require(launches[name] == want,
                         f"{name} launched {launches[name]} times, want {want}")
+                # by route: the long prefills on the chunked (RWKV6) or
+                # segmented (Mamba) scan, from CHUNK_MIN_S or MAMBA_SEG_MIN_S
+                # steps on; the decode ticks on the serial (RWKV6) or step
+                # (Mamba) kernel; shorter prefills on the serial kernels
+                from repro_torch.kernels import linear_scan as ls
+                got = full["routes"][
+                    next(k["wrapper"] for k in serve if k["name"] == name)]
+                lens, ticks = full["prompt_lens"], full["ticks"]
                 if name == "rwkv_scan":
-                    # bf16 prefills of CHUNK_MIN_S steps or more on the
-                    # chunked route; shorter ones and the decode steps on
-                    # the serial one
-                    from repro_torch.kernels import linear_scan as ls
-                    got = full["routes"][
-                        next(k["wrapper"] for k in serve if k["name"] == name)]
-                    long = sum(n >= ls.CHUNK_MIN_S
-                               for n in full["prompt_lens"])
+                    long = sum(n >= ls.CHUNK_MIN_S for n in lens)
                     want = {"chunk": n_kind * long,
-                            "serial": n_kind * (full["prefills"] - long
-                                                + full["ticks"])}
-                    print(f"serve launches {name} by route: {arch} {got}; want "
-                          f"{want}: {got == want}")
-                    require(got == want, f"{name}: {got} on {arch}, want {want}")
+                            "serial": n_kind * (len(lens) - long + ticks)}
+                else:
+                    long = sum(n >= ls.MAMBA_SEG_MIN_S for n in lens)
+                    want = {"segmented": n_kind * long,
+                            "step": n_kind * ticks,
+                            "serial": n_kind * (len(lens) - long)}
+                print(f"serve launches {name} by route: {arch} {got}; want "
+                      f"{want}: {got == want}")
+                require(got == want, f"{name}: {got} on {arch}, want {want}")
         n_attn = sum(s.kind == "attn" for s in
                      full["cfg"].block_pattern) * full["cfg"].n_repeats
         for k in serve:

@@ -17,7 +17,8 @@
 // own channel's state. delta x is rounded to x's type before it is widened,
 // as the reference and the Pallas kernel round it (__float2bfloat16_rn in
 // bf16; the product of two bf16 values is exact in fp32, so this is the
-// rounding of a bf16 multiply). expf, not __expf, keeps fp32 within 1e-5.
+// rounding of a bf16 multiply). expf, not __expf, keeps fp32 within 1e-5 on
+// the serial and step routes; the segmented route's exponentials are below.
 //
 // Bound at the prefill shape (1, 1024, 8192), N = 16, bf16: bytes 51.4 MB
 // (delta, x, y 50.3 MB; Bt, Ct, A and the state 1.1 MB) over 3.35 TB/s,
@@ -27,25 +28,70 @@
 // SM for compute capability 9.0 (CUDA programming guide, arithmetic
 // instructions), 4.18e12 a second at 132 SMs and 1.98 GHz, 0.0321 ms: the
 // exponentials bind. At the decode shape (8, 1, 8192) the state read and
-// written, 8.4 MB, ~0.0025 ms.
+// written, 8.4 MB, 0.0025 ms: bytes bind.
 //
-// Design. Channel c's N state values depend only on delta_t[c], x_t[c], A[c, :]
-// and the shared B_t, C_t. So one thread owns one channel, with its N fp32
-// state values and its row of A in registers, and y_t[c] is its own N-term dot
-// product (four partial sums): nothing is reduced across threads. A block of
-// MCOLS threads owns MCOLS channels of one b; the grid is (ceil(Di / MCOLS),
-// B). The TPU walked time as the innermost sequential grid axis with the state
-// in VMEM; here the time loop runs inside the block over tiles of MTILE steps:
-// B_t and C_t (MTILE x N, shared by every channel of the block) and the
-// block's delta and delta x (read coalesced across channels) are staged in
-// shared memory as fp32, so the serial loop touches no global memory but its
-// y stores. The (B, S, Di) layout is read in place (the Pallas kernel
-// transposed A and h0) and any S >= 1 is taken: the ragged last tile is
-// masked. MCOLS = 32: at B = 1 the 8192 channels make 256 one-warp blocks, so
-// every one of the 132 SMs gets one or two (64 channels a block would leave 4
-// SMs idle with the same 256 warps). With two warps an SM the serial chain of
-// each step (exp, FMA into h, FMA into y) is exposed: the (channel, n) split
-// across lanes with a shuffle reduction, or a chunked scan, is later work.
+// Three routes, chosen by the wrapper (kernels/linear_scan.py `_mamba_route`):
+// the segmented scan for prefills of N = 16 from MAMBA_SEG_MIN_S steps, the
+// lane-split step for S = 1 at N = 16, and the serial kernel for the rest
+// (shorter prompts, the smoke config's N = 4). Mamba-1's decay is diagonal,
+// exp(delta_t[c] A[c, n]) for each (channel, n): there is no matrix product
+// for the tensor cores, so the routes gain by parallelism over time and by
+// memory access.
+//
+// Serial route (mamba_kernel). One thread owns one channel, with its N fp32
+// state values and its row of A in registers, and y_t[c] is its own N-term
+// dot product (four partial sums). A block of MCOLS = 32
+// threads owns 32 channels of one b; the time loop runs inside the block over
+// tiles of MTILE steps, B_t, C_t, delta and delta x staged in shared memory as
+// fp32. At B = 1 that is 256 one-warp blocks, two warps an SM: the serial
+// chain of each step (exp, FMA into h, FMA into y) is exposed, 22x the SFU
+// bound at the prefill shape.
+//
+// Segmented route (mamba_segmented_kernel). A block owns SCH = 32 channels
+// of one b (a warp's lanes, so its loads of delta and x and its stores of y
+// are coalesced across channels in the (B, S, Di) layout) and cuts S into
+// SEGS = 16 segments of ceil(S / 16) steps, a warp each: at B = 1, 256 blocks
+// of 16 warps, 16x the serial route's warps, two blocks (64 registers a
+// thread) on each SM. Three phases:
+//  (a) each warp scans its segment from a zero state, keeping its channel's
+//      N state values and sum_t delta_t in registers; the segment's decay is
+//      exp(A[c, n] sum_t delta_t), one exponential of a sum;
+//  (b) the carry: the segments' decays and end states meet in shared memory,
+//      and one thread for each (channel, n) walks the segments in order,
+//      h_in(s + 1) = P(s) h_in(s) + h_end(s), from h0;
+//  (c) each warp replays its segment from its true incoming state, y in the
+//      serial route's four partial sums over n % 4, and writes y; the last
+//      segment's warp writes the final state.
+// No decay is ever a quotient of prefix products: jamba's A = -exp(A_log)
+// reaches -16 and delta = softplus(.) is unbounded, so exp(delta A)
+// underflows to denormals and 0, and a quotient would be 0 / 0. A decay
+// across a range is the exponential of that range's sum.
+// Each warp stages its steps STILE = 8 at a time with 16-byte cp.async into a
+// double buffer of its own (delta, x, B_t and, in the replay, C_t), so the
+// next tile's loads overlap this tile's arithmetic, and widens a bf16 tile's
+// B_t and C_t rows to fp32 once (8 values a lane) rather than on every lane
+// at every step; the buffers share their shared memory with the carry's
+// arrays (phases (a) and (c) against (b)), 80 KB a block in bf16 and 96 KB in
+// fp32, above the 48 KB default. The replay computes the exponentials again:
+// the design's own SFU floor is 2 B S Di N exponentials, 0.0642 ms at the
+// prefill shape, beside the function's 0.0321 ms bound. So each is one SFU
+// instruction, 2^(delta A log2 e) by ex2.approx.f32 with A log2 e formed
+// once (2 ulp; subnormal results kept, as expf keeps them), where expf
+// spends ~8 FMA-pipe instructions beside its SFU one and made the FMA pipe
+// the limit; fp32 stays within ~1e-7 of the largest y and state. The kernel
+// takes 0.114 ms at the prefill shape in bf16 and fp32 (H100 80GB HBM3 at
+// 700 W, chip_smoke.py's mamba_scan yardstick), 1.8x its own floor. Di must
+// be a multiple of 8 (whole 16-byte chunks) and every pointer 16-byte
+// aligned; the wrapper checks both.
+//
+// Step route (mamba_step_kernel), S = 1 at any B: four lanes own a channel,
+// each loads and stores one float4 of its state (n = 4q .. 4q + 3), so a
+// warp's state loads and stores are 512 contiguous bytes (the serial route
+// read 16 scalars a thread, neighbouring lanes 64 bytes apart). y is the sum
+// of the four lanes' partial dot products by two __shfl_xor_sync, in a fixed
+// order, ((p0 + p1) + (p2 + p3)) on every lane. delta, x, B_t and C_t are read
+// once per channel or row (one transaction a warp). hout may alias h0: each
+// lane reads and writes only its own 16 bytes.
 //
 // ---------------------------------------------------------------------------
 // RWKV6 scan.
@@ -112,6 +158,8 @@
 #include "tensor_core.cuh"
 
 namespace {
+
+namespace tc = tensor_core;
 
 constexpr int COLS = 32;   // state columns (threads) a block
 constexpr int TILE = 32;   // time steps staged at a time
@@ -213,6 +261,317 @@ int launch_mamba(int N, const void* delta, const void* x, const float* A,
   return launch_status();
 }
 
+// ---- Mamba, segmented route ----------------------------------------------------
+
+constexpr int SN = 16;                  // the state size the segmented and step routes take
+constexpr int SEGS = 16;                // segments (warps) a block
+constexpr int SCH = 32;                 // channels (lanes) a block
+constexpr int STILE = 8;                // steps a staged tile
+constexpr int SEG_THREADS = 32 * SEGS;
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(SEG_THREADS == SCH * SN, "the carry gives each thread one (channel, n)");
+
+// one warp's staged steps: delta and x for the block's channels, B_t and C_t;
+// bf16 rows of B_t and C_t are widened to fp32 once a tile, not once a lane
+template <typename T>
+struct SegTile {
+  T d[STILE][SCH];
+  T x[STILE][SCH];
+  T b[STILE][SN];
+  T c[STILE][SN];
+  float bf[STILE][SN];
+  float cf[STILE][SN];
+  __device__ const float* brow(int j) const { return bf[j]; }
+  __device__ const float* crow(int j) const { return cf[j]; }
+};
+template <>
+struct SegTile<float> {
+  float d[STILE][SCH];
+  float x[STILE][SCH];
+  float b[STILE][SN];
+  float c[STILE][SN];
+  __device__ const float* brow(int j) const { return b[j]; }
+  __device__ const float* crow(int j) const { return c[j]; }
+};
+
+// 2^x on the SFU, one instruction and its subnormal handling: results below
+// 2^-126 stay denormals, as expf gives them (ex2.approx.ftz would flush them)
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the scan and replay phases' double buffers share their bytes with the carry's
+// arrays; rows of SN + 4 floats keep a quarter-warp's float4 accesses free of
+// bank conflicts
+template <typename T>
+union SegSmem {
+  SegTile<T> tile[SEGS][2];
+  struct {
+    float p[SEGS][SCH][SN + 4];         // each segment's decay
+    float h[SEGS][SCH][SN + 4];         // its end state, then its incoming state
+  } carry;
+};
+
+// 8 consecutive staged values (16-byte aligned) as fp32
+__device__ __forceinline__ void load8(const float* p, float* out) {
+  const float4 u = reinterpret_cast<const float4*>(p)[0];
+  const float4 v = reinterpret_cast<const float4*>(p)[1];
+  out[0] = u.x; out[1] = u.y; out[2] = u.z; out[3] = u.w;
+  out[4] = v.x; out[5] = v.y; out[6] = v.z; out[7] = v.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(pair[k]);
+    out[2 * k] = f.x;
+    out[2 * k + 1] = f.y;
+  }
+}
+
+// One warp stages steps [t0, t0 + n) of batch row b (row0 = b S) for the
+// block's channels [c0, c0 + SCH): 16-byte cp.async, zero-filled past the
+// n steps and past Di (a multiple of 8, so a chunk is all in or all out).
+template <typename T>
+__device__ __forceinline__ void stage_tile(SegTile<T>& tile, const T* delta, const T* x,
+                                           const T* Bt, const T* Ct, long long row0,
+                                           int t0, int n, int c0, int Di, bool with_c,
+                                           int lane) {
+  constexpr int EPC = 16 / sizeof(T);   // values a chunk
+  constexpr int CPR = SCH / EPC;        // chunks a row of delta or x
+  constexpr int NPR = SN / EPC;         // chunks a row of B_t or C_t
+  for (int i = lane; i < STILE * CPR; i += 32) {
+    const int j = i / CPR, col = (i % CPR) * EPC;
+    const bool ok = j < n && c0 + col < Di;
+    const long long off = ok ? (row0 + t0 + j) * Di + c0 + col : 0;
+    tc::cp_async16(tc::smem_addr(&tile.d[j][col]), delta + off, ok ? 16 : 0);
+    tc::cp_async16(tc::smem_addr(&tile.x[j][col]), x + off, ok ? 16 : 0);
+  }
+  for (int i = lane; i < STILE * NPR; i += 32) {
+    const int j = i / NPR, col = (i % NPR) * EPC;
+    const bool ok = j < n;
+    const long long off = ok ? (row0 + t0 + j) * SN + col : 0;
+    tc::cp_async16(tc::smem_addr(&tile.b[j][col]), Bt + off, ok ? 16 : 0);
+    if (with_c) tc::cp_async16(tc::smem_addr(&tile.c[j][col]), Ct + off, ok ? 16 : 0);
+  }
+}
+
+// One warp walks its segment's `steps` steps from t_begin, lane = channel
+// c0 + lane, state h in registers, a tile staged ahead of the one in use.
+// The scan (REPLAY false) also sums delta; the replay (REPLAY true) writes y
+// with the serial kernel's arithmetic and summation order.
+template <bool REPLAY, typename T>
+__device__ __forceinline__ void walk_segment(SegTile<T> (&tiles)[2], const T* delta,
+                                             const T* x, const T* Bt, const T* Ct, T* y,
+                                             long long row0, int t_begin, int steps, int c0,
+                                             int Di, int lane, const float (&a)[SN],
+                                             float (&h)[SN], float& sumd) {
+  const int c = c0 + lane;
+  if (steps > 0)
+    stage_tile(tiles[0], delta, x, Bt, Ct, row0, t_begin, min(STILE, steps), c0, Di,
+               REPLAY, lane);
+  tc::cp_async_commit();
+  for (int k = 0; k * STILE < steps; ++k) {
+    const int next = (k + 1) * STILE;
+    if (next < steps)
+      stage_tile(tiles[(k + 1) & 1], delta, x, Bt, Ct, row0, t_begin + next,
+                 min(STILE, steps - next), c0, Di, REPLAY, lane);
+    tc::cp_async_commit();             // empty groups keep the count uniform
+    tc::cp_async_wait<1>();            // tile k has landed (this lane's part)
+    __syncwarp();                      // ... and every lane's
+    SegTile<T>& tile = tiles[k & 1];
+    if constexpr (sizeof(T) == 2) {
+      // lanes 0-15 widen B's 8 x 16 values, 16-31 C's, 8 a lane
+      const int j = (lane % 16) / 2, col = 8 * (lane % 2);
+      if (lane < 16 || REPLAY) {
+        float v[8];
+        load8(lane < 16 ? &tile.b[j][col] : &tile.c[j][col], v);
+        float4* out = reinterpret_cast<float4*>(lane < 16 ? &tile.bf[j][col]
+                                                          : &tile.cf[j][col]);
+        out[0] = make_float4(v[0], v[1], v[2], v[3]);
+        out[1] = make_float4(v[4], v[5], v[6], v[7]);
+      }
+      __syncwarp();
+    }
+    const int n = min(STILE, steps - k * STILE);
+    for (int j = 0; j < n; ++j) {
+      const float d = to_f(tile.d[j][lane]);
+      const float dx = round_to(d * to_f(tile.x[j][lane]), x);
+      if (!REPLAY) sumd += d;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < SN / 8; ++i) {
+        float bv[8], cv[8];
+        load8(tile.brow(j) + 8 * i, bv);
+        if (REPLAY) load8(tile.crow(j) + 8 * i, cv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int nn = 8 * i + e;   // a holds A log2(e): exp(d A) = 2^(d a)
+          h[nn] = fmaf(exp2_sfu(d * a[nn]), h[nn], dx * bv[e]);
+          if (REPLAY) acc[nn % 4] = fmaf(h[nn], cv[e], acc[nn % 4]);
+        }
+      }
+      if (REPLAY && c < Di)
+        store(y + (row0 + t_begin + k * STILE + j) * Di + c,
+              (acc[0] + acc[1]) + (acc[2] + acc[3]));
+    }
+    __syncwarp();                      // the tile is consumed before it is staged again
+  }
+  tc::cp_async_wait<0>();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(SEG_THREADS, 2)
+mamba_segmented_kernel(const T* __restrict__ delta, const T* __restrict__ x,
+                       const float* __restrict__ A, const T* __restrict__ Bt,
+                       const T* __restrict__ Ct, const float* h0, T* __restrict__ y,
+                       float* hout, int S, int Di) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SegSmem<T>& sm = *reinterpret_cast<SegSmem<T>*>(smem_raw);
+  const int b = blockIdx.y, c0 = blockIdx.x * SCH;
+  const int seg = threadIdx.x / 32, lane = threadIdx.x % 32, c = c0 + lane;
+  const bool active = c < Di;
+  const int len = (S + SEGS - 1) / SEGS;           // steps a segment
+  const int nseg = (S + len - 1) / len;            // segments that have steps
+  const int t_begin = seg * len;
+  const int steps = max(0, min(S, t_begin + len) - t_begin);
+  const long long row0 = (long long)b * S;
+
+  float a[SN], h[SN];
+#pragma unroll
+  for (int i = 0; i < SN / 4; ++i) {
+    const float4 v = active ? reinterpret_cast<const float4*>(A + (long long)c * SN)[i]
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    a[4 * i] = kLog2e * v.x; a[4 * i + 1] = kLog2e * v.y;
+    a[4 * i + 2] = kLog2e * v.z; a[4 * i + 3] = kLog2e * v.w;
+  }
+  // (a) the segment from a zero state, and its summed step sizes
+#pragma unroll
+  for (int n = 0; n < SN; ++n) h[n] = 0.f;
+  float sumd = 0.f;
+  walk_segment<false>(sm.tile[seg], delta, x, Bt, Ct, y, row0, t_begin, steps, c0, Di,
+                      lane, a, h, sumd);
+  __syncthreads();                     // every warp is done with its tiles
+  if (seg < nseg) {
+#pragma unroll
+    for (int i = 0; i < SN / 4; ++i) {
+      // the decay over the segment: one exponential of the summed step
+      // sizes, never a quotient of prefix products
+      reinterpret_cast<float4*>(sm.carry.p[seg][lane])[i] =
+          make_float4(exp2_sfu(a[4 * i] * sumd), exp2_sfu(a[4 * i + 1] * sumd),
+                      exp2_sfu(a[4 * i + 2] * sumd), exp2_sfu(a[4 * i + 3] * sumd));
+      reinterpret_cast<float4*>(sm.carry.h[seg][lane])[i] =
+          make_float4(h[4 * i], h[4 * i + 1], h[4 * i + 2], h[4 * i + 3]);
+    }
+  }
+  __syncthreads();
+  // (b) the carry, one (channel, n) a thread, segment by segment from h0
+  {
+    const int cc = threadIdx.x / SN, n = threadIdx.x % SN, ch = c0 + cc;
+    float hv = (h0 != nullptr && ch < Di) ? h0[((long long)b * Di + ch) * SN + n] : 0.f;
+    for (int s = 0; s < nseg; ++s) {
+      const float p = sm.carry.p[s][cc][n], e = sm.carry.h[s][cc][n];
+      sm.carry.h[s][cc][n] = hv;
+      hv = fmaf(p, hv, e);
+    }
+  }
+  __syncthreads();
+  if (seg < nseg) {
+#pragma unroll
+    for (int i = 0; i < SN / 4; ++i) {
+      const float4 v = reinterpret_cast<const float4*>(sm.carry.h[seg][lane])[i];
+      h[4 * i] = v.x; h[4 * i + 1] = v.y; h[4 * i + 2] = v.z; h[4 * i + 3] = v.w;
+    }
+  }
+  __syncthreads();                     // the incoming states are read before the tiles
+  // (c) the replay from the incoming state: y, and the final state
+  walk_segment<true>(sm.tile[seg], delta, x, Bt, Ct, y, row0, t_begin, steps, c0, Di,
+                     lane, a, h, sumd);
+  if (seg == nseg - 1 && active) {
+    float4* out = reinterpret_cast<float4*>(hout + ((long long)b * Di + c) * SN);
+#pragma unroll
+    for (int i = 0; i < SN / 4; ++i)
+      out[i] = make_float4(h[4 * i], h[4 * i + 1], h[4 * i + 2], h[4 * i + 3]);
+  }
+}
+
+template <typename T>
+int launch_mamba_segmented(const void* delta, const void* x, const float* A,
+                           const void* Bt, const void* Ct, const float* h0, void* y,
+                           float* hout, int B, int S, int Di, cudaStream_t stream) {
+  static bool opted_in = false;        // shared-memory opt-in, once a type
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(mamba_segmented_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(sizeof(SegSmem<T>)));
+    if (err == cudaSuccess)            // two blocks an SM need the largest carveout
+      err = cudaFuncSetAttribute(mamba_segmented_kernel<T>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  const dim3 grid((Di + SCH - 1) / SCH, B);
+  mamba_segmented_kernel<T><<<grid, SEG_THREADS, sizeof(SegSmem<T>), stream>>>(
+      static_cast<const T*>(delta), static_cast<const T*>(x), A, static_cast<const T*>(Bt),
+      static_cast<const T*>(Ct), h0, static_cast<T*>(y), hout, S, Di);
+  return launch_status();
+}
+
+// ---- Mamba, step route ----------------------------------------------------------
+
+constexpr int STEP_CH = 64;             // channels a block, four lanes each
+constexpr int STEP_THREADS = 4 * STEP_CH;
+
+template <typename T>
+__global__ void __launch_bounds__(STEP_THREADS)
+mamba_step_kernel(const T* __restrict__ delta, const T* __restrict__ x,
+                  const float* __restrict__ A, const T* __restrict__ Bt,
+                  const T* __restrict__ Ct, const float* h0, T* __restrict__ y,
+                  float* hout, int Di) {
+  const int b = blockIdx.y, q = threadIdx.x % 4, n0 = 4 * q;
+  const int c = blockIdx.x * STEP_CH + threadIdx.x / 4;
+  const bool active = c < Di;          // every lane takes part in the shuffles
+  const long long off = (long long)b * Di + c;     // channel (b, c) of delta, x, y
+  float d = 0.f, dx = 0.f;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), h = a;
+  if (active) {
+    d = to_f(delta[off]);
+    dx = round_to(d * to_f(x[off]), x);
+    a = *reinterpret_cast<const float4*>(A + (long long)c * SN + n0);
+    if (h0 != nullptr) h = *reinterpret_cast<const float4*>(h0 + off * SN + n0);
+  }
+  const T* bt = Bt + (long long)b * SN + n0;
+  const T* ct = Ct + (long long)b * SN + n0;
+  h.x = fmaf(expf(d * a.x), h.x, dx * to_f(bt[0]));
+  h.y = fmaf(expf(d * a.y), h.y, dx * to_f(bt[1]));
+  h.z = fmaf(expf(d * a.z), h.z, dx * to_f(bt[2]));
+  h.w = fmaf(expf(d * a.w), h.w, dx * to_f(bt[3]));
+  const float part = fmaf(h.y, to_f(ct[1]), h.x * to_f(ct[0]))
+                   + fmaf(h.w, to_f(ct[3]), h.z * to_f(ct[2]));
+  // (p0 + p1) + (p2 + p3) on every lane of the channel: the adds commute
+  float sum = part + __shfl_xor_sync(0xffffffffu, part, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  if (active) {
+    *reinterpret_cast<float4*>(hout + off * SN + n0) = h;
+    if (q == 0) store(y + off, sum);
+  }
+}
+
+template <typename T>
+int launch_mamba_step(const void* delta, const void* x, const float* A, const void* Bt,
+                      const void* Ct, const float* h0, void* y, float* hout, int B,
+                      int Di, cudaStream_t stream) {
+  const dim3 grid((Di + STEP_CH - 1) / STEP_CH, B);
+  mamba_step_kernel<T><<<grid, STEP_THREADS, 0, stream>>>(
+      static_cast<const T*>(delta), static_cast<const T*>(x), A, static_cast<const T*>(Bt),
+      static_cast<const T*>(Ct), h0, static_cast<T*>(y), hout, Di);
+  return launch_status();
+}
+
 // ---- RWKV6 --------------------------------------------------------------------
 
 // one (row i, column) element of one step
@@ -308,7 +667,6 @@ int launch(int K, const void* r, const float* w, const void* k, const void* v,
 
 // ---- RWKV6, chunked route -----------------------------------------------------
 
-namespace tc = tensor_core;
 
 constexpr int CH = 64;          // steps a chunk
 constexpr int SUB = 16;         // steps a sub-chunk: one warp's query rows
@@ -766,7 +1124,7 @@ extern "C" int rwkv_scan(const void* r, const void* w, const void* k, const void
 // dtype 0: fp32, 1: bf16 (delta, x, Bt, Ct and y). N (the state size of A's
 // rows and of the state) is 4 or 16, the ported configs' sizes (jamba-v0.1-52b's
 // smoke config and jamba-v0.1-52b); B, S, Di > 0; h0 may be null (a zero state)
-// and may equal hout. Returns a cudaError_t.
+// and may equal hout. The serial route. Returns a cudaError_t.
 extern "C" int mamba_scan(const void* delta, const void* x, const void* A,
                           const void* Bt, const void* Ct, const void* h0, void* y,
                           void* hout, int dtype, int B, int S, int Di, int N,
@@ -780,4 +1138,39 @@ extern "C" int mamba_scan(const void* delta, const void* x, const void* A,
   if (dtype == 1)
     return launch_mamba<__nv_bfloat16>(N, delta, x, af, Bt, Ct, h0f, y, hf, B, S, Di, s);
   return launch_mamba<float>(N, delta, x, af, Bt, Ct, h0f, y, hf, B, S, Di, s);
+}
+
+// The segmented route: the arguments of mamba_scan with N = 16, Di a multiple
+// of 8 and every pointer 16-byte aligned. One launch. Returns a cudaError_t.
+extern "C" int mamba_scan_segmented(const void* delta, const void* x, const void* A,
+                                    const void* Bt, const void* Ct, const void* h0,
+                                    void* y, void* hout, int dtype, int B, int S, int Di,
+                                    int N, void* stream) {
+  if (B <= 0 || S <= 0 || Di <= 0 || B > 65535 || N != SN || Di % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* af = static_cast<const float*>(A);
+  const float* h0f = static_cast<const float*>(h0);
+  float* hf = static_cast<float*>(hout);
+  if (dtype == 1)
+    return launch_mamba_segmented<__nv_bfloat16>(delta, x, af, Bt, Ct, h0f, y, hf, B, S,
+                                                 Di, s);
+  return launch_mamba_segmented<float>(delta, x, af, Bt, Ct, h0f, y, hf, B, S, Di, s);
+}
+
+// The step route: the arguments of mamba_scan with S = 1, N = 16 and A, h0 and
+// hout 16-byte aligned. One launch. Returns a cudaError_t.
+extern "C" int mamba_scan_step(const void* delta, const void* x, const void* A,
+                               const void* Bt, const void* Ct, const void* h0, void* y,
+                               void* hout, int dtype, int B, int S, int Di, int N,
+                               void* stream) {
+  if (B <= 0 || S != 1 || Di <= 0 || B > 65535 || N != SN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* af = static_cast<const float*>(A);
+  const float* h0f = static_cast<const float*>(h0);
+  float* hf = static_cast<float*>(hout);
+  if (dtype == 1)
+    return launch_mamba_step<__nv_bfloat16>(delta, x, af, Bt, Ct, h0f, y, hf, B, Di, s);
+  return launch_mamba_step<float>(delta, x, af, Bt, Ct, h0f, y, hf, B, Di, s);
 }

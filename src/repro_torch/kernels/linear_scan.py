@@ -6,15 +6,18 @@ Counterparts of ``repro.kernels.linear_scan.mamba_scan`` and
 ``rwkv_scan`` (the Pallas TPU kernels; their contracts are
 ``repro.kernels.ref.mamba_scan`` and ``rwkv_scan``). The kernels are in
 ``csrc/linear_scan.cu``, whose source notes say what bounds each on an
-H100 and how it is laid out. The RWKV6 scan has two routes, chosen by
-shape (:func:`_route`): rwkv6-3b's bf16 prefills take the chunked scan on
-the tensor cores, everything else (the decode step, float32, the smoke
-config's width) the serial one. The kernels read the projections in their
-(B, S, ...) layout and take any S >= 1: the engine prefills at the raw
-prompt length and decodes at S = 1, where :func:`mamba_decode_step` and
-:func:`rwkv_decode_step` write the new state into the cache in place.
-The wrappers launch the kernels for CUDA tensors and take the plain
-versions only for CPU tensors.
+H100 and how it is laid out. Each scan picks its kernel by shape: the
+Mamba scan (:func:`_mamba_route`) takes jamba-v0.1-52b's prefills on the
+time-segmented scan and its decode steps on the lane-split step, the rest
+(short prompts, the smoke config's state size) on the serial kernel; the
+RWKV6 scan (:func:`_route`) takes rwkv6-3b's bf16 prefills on the chunked
+scan on the tensor cores, everything else (the decode step, float32, the
+smoke config's width) on the serial one. The kernels read the
+projections in their (B, S, ...) layout and take any S >= 1: the engine
+prefills at the raw prompt length and decodes at S = 1, where
+:func:`mamba_decode_step` and :func:`rwkv_decode_step` write the new
+state into the cache in place. The wrappers launch the kernels for CUDA
+tensors and take the plain versions only for CPU tensors.
 """
 from __future__ import annotations
 
@@ -33,14 +36,24 @@ WIDTHS = (16, 64)
 CHUNK_WIDTH = 64
 CHUNK = 64
 CHUNK_MIN_S = 33
-# state sizes N the Mamba kernel is built for: jamba-v0.1-52b 16, its smoke
-# config 4
+# state sizes N the Mamba kernels are built for: jamba-v0.1-52b 16, its smoke
+# config 4; the segmented and step routes' size, the segments (warps) a block
+# of the segmented route cuts S into, and the fewest steps it takes: at
+# jamba's Di = 8192 the segmented kernel costs ~0.005 ms at S = 2 against
+# the serial one's ~0.0037, they tie at S = 10 and the segmented one is
+# ~7% faster at 11 on an H100 (chip_smoke.py's mamba_scan yardstick)
 MAMBA_WIDTHS = (4, 16)
+MAMBA_SEG_WIDTH = 16
+MAMBA_SEGMENTS = 16
+MAMBA_SEG_MIN_S = 11
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_MAMBA_ENTRIES = {"serial": "mamba_scan", "segmented": "mamba_scan_segmented",
+                  "step": "mamba_scan_step"}
 _SIGNATURES = {"rwkv_scan": [_P] * 8 + [_I] * 6 + [_P],
                "rwkv_scan_chunk": [_P] * 10 + [_I] * 3 + [_P],
-               "mamba_scan": [_P] * 8 + [_I] * 5 + [_P]}
+               **{entry: [_P] * 8 + [_I] * 5 + [_P]
+                  for entry in _MAMBA_ENTRIES.values()}}
 
 
 # --------------------------------------------------------------------------
@@ -100,6 +113,27 @@ def mamba_decode_step_plain(delta: torch.Tensor, A: torch.Tensor,
     return y.to(x.dtype), h
 
 
+def _mamba_route(dtype: torch.dtype, N: int, S: int) -> str:
+    """The kernel that takes a CUDA Mamba call: at N =
+    :data:`MAMBA_SEG_WIDTH`, ``"step"`` (the lane-split step) for S = 1 and
+    ``"segmented"`` (the time-segmented scan) for S >=
+    :data:`MAMBA_SEG_MIN_S`; ``"serial"`` for the S between them and for the
+    other built state size. A choice by shape, not a fallback: what no
+    route takes raises ValueError."""
+    if dtype not in _DTYPES:
+        raise ValueError("mamba scan kernel takes bfloat16 or float32, got "
+                         f"{dtype}")
+    if N not in MAMBA_WIDTHS:
+        raise ValueError(f"mamba scan kernel takes N in {MAMBA_WIDTHS}; got "
+                         f"N={N}")
+    if N == MAMBA_SEG_WIDTH:
+        if S == 1:
+            return "step"
+        if S >= MAMBA_SEG_MIN_S:
+            return "segmented"
+    return "serial"
+
+
 def mamba_scan(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
                Ct: torch.Tensor, x: torch.Tensor,
                h0: torch.Tensor | None = None, *,
@@ -111,10 +145,13 @@ def mamba_scan(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
     ``h0`` itself.
 
     A CPU tensor goes to :func:`mamba_scan_plain`; a CUDA tensor to the
-    kernel, which takes contiguous delta, x, Bt, Ct of one dtype (bfloat16
-    or float32), float32 h0, N in :data:`MAMBA_WIDTHS`, and raises on
+    kernel of its route (:func:`_mamba_route`), which takes contiguous
+    delta, x, Bt, Ct of one dtype (bfloat16 or float32), float32 h0, N in
+    :data:`MAMBA_WIDTHS` (the segmented and step routes also 16-byte
+    aligned tensors, the segmented one Di a multiple of 8), and raises on
     anything else. A is widened to float32 here, as the Pallas kernel
-    widens it.
+    widens it. ``launches`` counts the wrapper's calls,
+    ``launches_by_route`` each route's.
     """
     B, S, Di, N = _check_mamba_shapes(delta, A, Bt, Ct, x, h0)
     if state_out is not None and (tuple(state_out.shape) != (B, Di, N)
@@ -125,15 +162,10 @@ def mamba_scan(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
         if state_out is None:
             return y, h
         return y, state_out.copy_(h)
-    if x.dtype not in _DTYPES:
-        raise ValueError("mamba scan kernel takes bfloat16 or float32, got "
-                         f"{x.dtype}")
+    route = _mamba_route(x.dtype, N, S)
     if any(t.dtype != x.dtype for t in (delta, Bt, Ct)):
         raise ValueError("mamba scan kernel takes delta, x, Bt, Ct of one "
                          "dtype")
-    if N not in MAMBA_WIDTHS:
-        raise ValueError(f"mamba scan kernel takes N in {MAMBA_WIDTHS}; got "
-                         f"N={N}")
     Af = A.to(torch.float32).contiguous()
     state = (torch.empty((B, Di, N), dtype=torch.float32, device=x.device)
              if state_out is None else state_out)
@@ -144,20 +176,38 @@ def mamba_scan(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
                              "one device")
     if h0 is not None and h0.dtype != torch.float32:
         raise ValueError(f"h0 must be float32, got {h0.dtype}")
+    if route != "serial" and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the {route} mamba route takes 16-byte aligned "
+                         "tensors")
+    if route == "segmented" and Di % 8:
+        raise ValueError(f"the segmented mamba route takes Di a multiple of "
+                         f"8; got Di={Di}")
+    return _launch_mamba(route, delta, x, Af, Bt, Ct, h0, state), state
+
+
+def _launch_mamba(route: str, delta: torch.Tensor, x: torch.Tensor,
+                  Af: torch.Tensor, Bt: torch.Tensor, Ct: torch.Tensor,
+                  h0: torch.Tensor | None,
+                  state: torch.Tensor) -> torch.Tensor:
+    """Launches ``route``'s kernel on tensors :func:`mamba_scan` has checked
+    (A already float32), writes the final state into ``state``, counts the
+    launch and returns y."""
+    B, S, Di = delta.shape
     y = torch.empty((B, S, Di), dtype=x.dtype, device=x.device)
     lib = build.library("linear_scan", _SIGNATURES)
     with torch.cuda.device(x.device):
-        rc = lib.mamba_scan(
+        rc = getattr(lib, _MAMBA_ENTRIES[route])(
             delta.data_ptr(), x.data_ptr(), Af.data_ptr(), Bt.data_ptr(),
             Ct.data_ptr(), None if h0 is None else h0.data_ptr(),
-            y.data_ptr(), state.data_ptr(), _DTYPES[x.dtype], B, S, Di, N,
-            build.stream_ptr(x.device))
-    build.check(lib, rc, "mamba_scan")
-    build.count_launch(mamba_scan)
-    return y, state
+            y.data_ptr(), state.data_ptr(), _DTYPES[x.dtype], B, S, Di,
+            Af.shape[1], build.stream_ptr(x.device))
+    build.check(lib, rc, f"mamba_scan ({route})")
+    build.count_launch(mamba_scan, route)
+    return y
 
 
 mamba_scan.launches = 0
+mamba_scan.launches_by_route = {"segmented": 0, "step": 0, "serial": 0}
 
 
 def mamba_decode_step(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
@@ -166,8 +216,8 @@ def mamba_decode_step(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
     (B, Di, N) float32, updated in place -> (y (B, Di), h).
 
     A CPU tensor goes to :func:`mamba_decode_step_plain`; a CUDA tensor to
-    the scan kernel at S = 1 with the state read from and written to
-    ``h`` (one launch, counted on :func:`mamba_scan`).
+    the scan at S = 1 (at N = 16 the step route) with the state read from
+    and written to ``h`` (one launch, counted on :func:`mamba_scan`).
     """
     if delta.device.type == "cpu":
         return mamba_decode_step_plain(delta, A, Bt, Ct, x, h)

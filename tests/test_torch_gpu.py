@@ -551,6 +551,101 @@ def test_mamba_decode_step_in_place_equals_out_of_place(cuda, dtype, Di, N):
     torch.testing.assert_close(y1.float(), py.float(), atol=tol, rtol=0)
 
 
+def _hard_steps(delta, seed):
+    """delta = 100 in about 5% of its elements: delta |A| reaches ~100 and
+    more, so exp(delta A) is 0 or a denormal there."""
+    u = torch.rand(delta.shape, generator=_gen(seed)).to(delta.device)
+    return torch.where(u < 0.05, torch.full_like(delta, 100.0), delta)
+
+
+# (B, S, Di, N, dtype, hard decays, route)
+MAMBA_ROUTE_CASES = [(1, S, 8192, 16, dtype, False, "segmented")
+                     for S in (ls.MAMBA_SEG_MIN_S, 16, 33, 37, 1024)
+                     for dtype in (torch.bfloat16, torch.float32)]
+MAMBA_ROUTE_CASES += [(1, S, 8192, 16, torch.bfloat16, False, "serial")
+                      for S in (2, ls.MAMBA_SEG_MIN_S - 1)]
+# float32 within 1e-5 with the segmented route's ex2.approx exponentials,
+# decays of 0 and denormals included
+MAMBA_ROUTE_CASES += [(1, 1024, 8192, 16, torch.float32, True, "segmented"),
+                      (1, 1024, 8192, 16, torch.bfloat16, True, "segmented"),
+                      (1, 130, 8192, 16, torch.float32, True, "segmented"),
+                      (3, 50, 8192, 16, torch.bfloat16, False, "segmented"),
+                      (2, 37, 200, 16, torch.float32, True, "segmented"),
+                      (8, 1, 8192, 16, torch.bfloat16, True, "step"),
+                      (8, 1, 8192, 16, torch.float32, False, "step"),
+                      (3, 1, 100, 16, torch.float32, False, "step"),
+                      (2, 45, 128, 4, torch.bfloat16, True, "serial")]
+
+
+@pytest.mark.parametrize("B,S,Di,N,dtype,hard,route", MAMBA_ROUTE_CASES)
+def test_mamba_scan_routes_vs_plain(cuda, B, S, Di, N, dtype, hard, route):
+    delta, A, Bt, Ct, x, h0 = _mamba_inputs(B, S, Di, N, dtype, cuda, seed=S)
+    if hard:
+        delta = _hard_steps(delta, seed=S)
+    assert ls._mamba_route(dtype, N, S) == route
+    for h in (None, h0):
+        n = ls.mamba_scan.launches_by_route[route]
+        y, st = ls.mamba_scan(delta, A, Bt, Ct, x, h)
+        assert ls.mamba_scan.launches_by_route[route] == n + 1
+        py, ph = ls.mamba_scan_plain(delta, A, Bt, Ct, x, h)
+        assert bool(torch.isfinite(y.float()).all() and torch.isfinite(st).all())
+        tol = SCAN_RTOL[dtype] * py.float().abs().max().item()
+        torch.testing.assert_close(y.float(), py.float(), atol=tol, rtol=0)
+        torch.testing.assert_close(st, ph, atol=1e-5 * ph.abs().max().item(),
+                                   rtol=0)
+
+
+def test_mamba_segmented_route_in_place_equals_out_of_place(cuda):
+    delta, A, Bt, Ct, x, h0 = _mamba_inputs(1, 130, 8192, 16, torch.bfloat16,
+                                            cuda)
+    y, h = ls.mamba_scan(delta, A, Bt, Ct, x, h0)
+    state = h0.clone()
+    n = ls.mamba_scan.launches_by_route["segmented"]
+    y1, out = ls.mamba_scan(delta, A, Bt, Ct, x, state, state_out=state)
+    assert ls.mamba_scan.launches_by_route["segmented"] == n + 1
+    assert out is state and torch.equal(y1, y) and torch.equal(state, h)
+
+
+def test_mamba_scan_routes_replay_in_a_cuda_graph(cuda):
+    """A segmented prefill and a lane-split decode step captured in one
+    CUDA graph give, replayed, the bits of eager calls, the decode step's
+    state updated in place each replay."""
+    delta, A, Bt, Ct, x, h0 = _mamba_inputs(1, 200, 8192, 16, torch.bfloat16,
+                                            cuda)
+    dd, _, db, dc, dx, dh = _mamba_inputs(8, 1, 8192, 16, torch.bfloat16,
+                                          cuda, seed=4)
+    state = dh.clone()
+
+    def both():
+        y, h = ls.mamba_scan(delta, A, Bt, Ct, x, h0)
+        yd, _ = ls.mamba_decode_step(dd[:, 0], A, db[:, 0], dc[:, 0], dx[:, 0],
+                                     state)
+        return y, h, yd
+
+    assert ls._mamba_route(torch.bfloat16, 16, 200) == "segmented"
+    assert ls._mamba_route(torch.bfloat16, 16, 1) == "step"
+    eager = both()
+    after_one = state.clone()
+    want = both()                                  # from after_one
+    state.copy_(dh)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = both()
+    state.copy_(dh)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(c, e) for c, e in zip(captured, eager))
+    assert torch.equal(state, after_one)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(c, e) for c, e in zip(captured, want))
+
+
 def test_mamba_scan_kernel_rejects_what_it_does_not_take(cuda):
     delta, A, Bt, Ct, x, h0 = _mamba_inputs(1, 4, 64, 8, torch.float32, cuda)
     with pytest.raises(ValueError):                       # N = 8: not built
@@ -566,3 +661,11 @@ def test_mamba_scan_kernel_rejects_what_it_does_not_take(cuda):
     wide = torch.zeros((1, 4, 2 * 4), device=cuda)
     with pytest.raises(ValueError):                       # not contiguous
         ls.mamba_scan(delta, A, wide[..., :4], Ct, x, h0)
+    # the segmented route takes Di a multiple of 8 and 16-byte aligned rows
+    delta, A, Bt, Ct, x, h0 = _mamba_inputs(1, 64, 100, 16, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        ls.mamba_scan(delta, A, Bt, Ct, x, h0)
+    delta, A, Bt, Ct, x, h0 = _mamba_inputs(1, 64, 128, 16, torch.bfloat16, cuda)
+    buf = torch.zeros(1 + x.numel(), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        ls.mamba_scan(delta, A, Bt, Ct, buf[1:].view(x.shape), h0)
