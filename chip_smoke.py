@@ -13,8 +13,12 @@ Phases, each fatal on failure:
      tensor-core routes (HGMMA for flash, HMMA for decode and the chunked
      RWKV6 scan);
   2. hold each kernel against its plain PyTorch version on the card, at
-     the paths' shapes and at ragged ones (YUV decode and IoU exactly);
-     both routes of each kernel that has two (matmul: the one-launch
+     the paths' shapes and at ragged ones (YUV decode and IoU exactly:
+     the YUV decode on each of its routes, vec16 on all 2^24 triples and
+     at 1080p, vec4 and scalar on ragged frames and offset inputs, strided
+     views through the wrapper's copy; the IoU equal to its transpose, on
+     boxes with ties and on boxes that all overlap; both bit-equal across CUDA-graph
+     replays); both routes of each kernel that has two (matmul: the one-launch
      skinny kernel for M <= 8, bit-equal on a repeat and a CUDA-graph
      replay, and the tiled one; attention: tensor cores for bf16 at the
      built widths, CUDA cores for fp32 and other widths; the RWKV6 scan:
@@ -27,10 +31,11 @@ Phases, each fatal on failure:
   3. run the face-recognition StreamingPipeline on the card at the paper's
      1080p source, fused and unfused identify, with every launch counter
      set to 0 just before each run and read just after (every matmul
-     launch must take the skinny route), and check its detections and
-     identities against the same pipeline on the CPU (plain versions);
+     launch must take the skinny route, every YUV decode the vec16 one),
+     and check its detections and identities against the same pipeline
+     on the CPU (plain versions);
   4. run device NMS on candidate batteries (counters zeroed just before)
-     and check its keep lists against the host NMS;
+     and check its keep lists against the host NMS, one IoU launch a call;
   5. for each served arch, llama3-8b (attention kernels), rwkv6-3b (the
      RWKV6 scan kernel) and jamba-v0.1-52b (the Mamba scan kernel beside
      the attention kernels, MoE MLPs), serve its smoke config (float32) on
@@ -56,8 +61,9 @@ Phases, each fatal on failure:
      ledger and the weight-streaming floor of a decode tick;
   7. time each kernel, its plain version and the matching PyTorch library
      call with CUDA events, beside the least time the card could take
-     (decode attention, matmul and the Mamba scan also with a cold L2;
-     each two-route scan's kernels side by side by S), and profile the
+     (decode attention, matmul, the YUV decode, the IoU and the Mamba scan
+     also with a cold L2; each two-route scan's kernels side by side by
+     S), and profile the
      device's busy share of a pipeline run (which must launch no second
      matmul pass) and of each arch's serve run.
 
@@ -70,6 +76,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -120,8 +127,11 @@ TC_GATES = {"flash_attention": ("wgmma", "prefills"),
 SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_MAX_TOKENS = 8, 2048, 16, 32
 # bytes read between calls to time a kernel with a cold (50 MB) L2
 L2_FLUSH_BYTES = 128 << 20
-# NMS batteries (candidates per call) and the attention shapes of the path
+# NMS batteries (candidates per call; device NMS pads each to its pow2
+# bucket, so the path's IoU sizes are 32, 256, 1024 and 4096), IoU sizes
+# with a ragged tile or scalar stores, and the attention shapes of the path
 NMS_SIZES = (32, 256, 1000, 4096)
+IOU_RAGGED = (1, 33, 65, 1001, 1024)
 FLASH_SEQS = (16, 37, 512, 1024)
 FLASH_RAGGED = (130, 1000)               # no multiple of any tile
 DECODE_LENS = (768, 2048)
@@ -138,6 +148,11 @@ MAMBA_PREFILL, MAMBA_DECODE_B = 1024, SERVE_SLOTS
 
 # 1080p source, as the paper's (repro/data/video.py), resized 2:1 for detection
 SRC_H, SRC_W = 1080, 1920
+# the YUV decode's checks beyond all triples: (shape, byte offset of the
+# input in its buffer, the route it takes)
+YUV_CASES = (((1, 3, SRC_H, SRC_W), 0, "vec16"), ((2, 3, SRC_H, SRC_W), 0, "vec16"),
+             ((3, 3, 6, 10), 0, "vec4"), ((1, 3, SRC_H, SRC_W), 4, "vec4"),
+             ((1, 3, 7, 13), 0, "scalar"), ((2, 3, 8, 16), 1, "scalar"))
 # identify batches on the face path are pow2-bucketed and at most batch_size
 FACE_BATCHES = (1, 3, 8)
 # the skinny matmul route's row counts held against the plain version
@@ -334,6 +349,17 @@ def box_battery(n: int, seed: int):
     return boxes, scores
 
 
+def dense_boxes(n: int, seed: int):
+    """n boxes that all overlap (corners in [0, 8), sides in [8, 16)), so
+    that every IoU is a division; scores uniform."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    y0, x0 = rng.random(n) * 8, rng.random(n) * 8
+    h, w = 8 + rng.random(n) * 8, 8 + rng.random(n) * 8
+    boxes = np.stack([y0, x0, y0 + h, x0 + w], axis=1).astype(np.float32)
+    return boxes, rng.random(n).astype(np.float32)
+
+
 def attn_inputs(Sq, Skv, dtype, device, seed=0):
     """q (1, Sq, 32, 128), k and v (1, Skv, 8, 128): llama3-8b's heads."""
     import torch
@@ -435,30 +461,14 @@ def check_kernels(device) -> dict[str, float]:
             "the tile route's checks must cover a split and an unsplit K")
     # the skinny route replayed in a CUDA graph: the same bits
     a, b, c = matmul_inputs(8, 48 * 48 * 3, 256, True, device, seed=1)
-    eager = mm.matmul(a, b, bias=c, epilogue="tanh")
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        mm.matmul(a, b, bias=c, epilogue="tanh")
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        replayed = mm.matmul(a, b, bias=c, epilogue="tanh")
-    for _ in range(3):
-        graph.replay()
-    torch.cuda.synchronize()
-    same = bool(torch.equal(replayed, eager))
+    same = replays_equal(lambda: mm.matmul(a, b, bias=c, epilogue="tanh"),
+                         lambda: a.mul_(-1.0))
     print(f"check matmul (skinny route) (8,6912)@(6912,256) tanh, 3 CUDA-graph "
-          f"replays: bit-equal to the eager call: {same}")
+          f"replays: bit-equal to the eager calls: {same}")
     require(same, "matmul: a CUDA-graph replay of the skinny route differs")
     err["matmul"] = worst
 
-    yuv = all_yuv_triples(device)
-    got, want = preproc.yuv_to_rgb(yuv), preproc.yuv_to_rgb_plain(yuv)
-    n_bad = int((got != want).sum().item())
-    print(f"check yuv_to_rgb all 2^24 triples: {n_bad} channel values differ")
-    require(n_bad == 0, f"yuv_to_rgb differs on {n_bad} values")
-    err["yuv_to_rgb"] = float((got.int() - want.int()).abs().max().item())
+    err["yuv_to_rgb"] = check_yuv(device)
 
     worst = 0.0
     # the path's 1080p geometry, a small one, a padded one, and an upscale
@@ -495,6 +505,70 @@ def check_kernels(device) -> dict[str, float]:
     return err
 
 
+def check_yuv(device) -> float:
+    """The YUV kernel exact on every route: all 2^24 triples and 1080p
+    (vec16), frames of 4k but not 16k pixels or a 4-byte-offset input
+    (vec4), ragged frames or a 1-byte offset (scalar), strided views
+    (copied by the wrapper, then on the copy's route); then bit-equal
+    across 3 CUDA-graph replays at 1080p. Returns the max abs error."""
+    import torch
+    from repro_torch.kernels import preproc
+    wrapper = preproc.yuv_to_rgb
+    cases = [("all 2^24 triples", all_yuv_triples(device), "vec16")]
+    for shape, offset, route in YUV_CASES:
+        n = math.prod(shape)
+        buf = torch.randint(0, 256, (n + offset,), generator=_gen(n),
+                            dtype=torch.uint8).to(device)
+        cases.append((f"{shape} at byte offset {offset}",
+                      buf[offset:].view(shape), route))
+    frames = torch.randint(0, 256, (1, 6, SRC_H, SRC_W), generator=_gen(6),
+                           dtype=torch.uint8).to(device)
+    cases += [(f"(1, 3, {SRC_H}, {SRC_W}) strided, every other plane of 6",
+               frames[:, 1::2], "vec16"),
+              ("(1, 3, 7, 13) strided, a crop of all triples",
+               cases[0][1][:, :, :7, :13], "scalar")]
+    worst = 0.0
+    for name, yuv, route in cases:
+        n = wrapper.launches_by_route[route]
+        got, want = wrapper(yuv), preproc.yuv_to_rgb_plain(yuv)
+        n_bad = int((got != want).sum().item())
+        print(f"check yuv_to_rgb {name} ({route} route): {n_bad} channel "
+              f"values differ (tolerance: exact)")
+        require(wrapper.launches_by_route[route] == n + 1,
+                f"yuv_to_rgb {name}: the {route} route did not launch")
+        require(n_bad == 0, f"yuv_to_rgb {name} differs on {n_bad} values")
+        worst = max(worst, float((got.int() - want.int()).abs().max().item()))
+    yuv = cases[1][1]
+    same = replays_equal(lambda: wrapper(yuv), lambda: yuv.random_(0, 256))
+    print(f"check yuv_to_rgb {tuple(yuv.shape)} (vec16 route), 3 CUDA-graph "
+          f"replays on new frames: bit-equal to the eager calls: {same}")
+    require(same, "yuv_to_rgb: a CUDA-graph replay differs")
+    return worst
+
+
+def replays_equal(fn, perturb, n: int = 3) -> bool:
+    """``fn`` captured in a CUDA graph after a warm-up; ``n`` times the
+    inputs are changed in place by ``perturb``, then the eager call and a
+    replay must give the same bits."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    same = True
+    for _ in range(n):
+        perturb()
+        eager = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and bool(torch.equal(captured, eager))
+    return same
+
+
 def check_serve_kernels(device) -> dict[str, float]:
     """The IoU, flash and decode kernels against their plain versions."""
     import torch
@@ -503,14 +577,31 @@ def check_serve_kernels(device) -> dict[str, float]:
     from repro_torch.kernels import preproc
     err = {}
 
-    for n in NMS_SIZES:
-        boxes, _ = box_battery(n, seed=n)
-        bt = torch.from_numpy(boxes.T.copy()).to(device)
-        got, want = preproc.iou_matrix(bt), preproc.iou_matrix_plain(bt)
-        n_bad = int((got != want).sum().item())
-        print(f"check iou_matrix N={n} (ties, zero-area boxes): {n_bad} of "
-              f"{n * n} values differ (tolerance: exact)")
-        require(n_bad == 0, f"iou_matrix N={n} differs on {n_bad} values")
+    for n in NMS_SIZES + IOU_RAGGED:
+        for kind, battery in (("ties, zero-area boxes", box_battery),
+                              ("every pair overlapping", dense_boxes)):
+            boxes, _ = battery(n, seed=n)
+            bt = torch.from_numpy(boxes.T.copy()).to(device)
+            before = preproc.iou_matrix.launches
+            got, want = preproc.iou_matrix(bt), preproc.iou_matrix_plain(bt)
+            n_bad = int((got != want).sum().item())
+            n_asym = int((got != got.T).sum().item())
+            print(f"check iou_matrix N={n} ({kind}): {n_bad} of {n * n} "
+                  f"values differ (tolerance: exact); {n_asym} differ from "
+                  f"their transpose")
+            require(preproc.iou_matrix.launches == before + 1,
+                    f"iou_matrix N={n}: the kernel did not launch")
+            require(n_bad == 0 and n_asym == 0,
+                    f"iou_matrix N={n} differs on {n_bad} values, {n_asym} "
+                    f"from its transpose")
+    boxes, _ = box_battery(4096, seed=7)
+    bt = torch.from_numpy(boxes.T.copy()).to(device)
+    same = replays_equal(lambda: preproc.iou_matrix(bt),
+                         lambda: bt.copy_(bt[:, torch.randperm(
+                             4096, device=device)]))
+    print(f"check iou_matrix N=4096, 3 CUDA-graph replays on permuted "
+          f"boxes: bit-equal to the eager calls: {same}")
+    require(same, "iou_matrix: a CUDA-graph replay differs")
     err["iou_matrix"] = 0.0
 
     # flash: llama3-8b's heads at the path's lengths and ragged ones (bf16
@@ -782,8 +873,10 @@ def identities(res) -> list:
 def check_pipeline(device, kernels, *, n_frames: int, src_hw) -> dict:
     """Fused and unfused runs on ``device`` and on the CPU; returns the
     launch totals per kernel name and the per-run summaries. Every matmul
-    launch (face batches of at most 8) must take the skinny route."""
+    launch (face batches of at most 8) must take the skinny route, and
+    every YUV decode (1080p frames) the vec16 route."""
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import preproc
     wrappers = [k["wrapper"] for k in kernels]
     # warm-up: CUDA context, kernel libraries and caches, outside any count
     run_pipeline(device, True, n_frames=2, src_hw=src_hw)
@@ -821,12 +914,14 @@ def check_pipeline(device, kernels, *, n_frames: int, src_hw) -> dict:
                 | (set() if fast else {"resize_bilinear"}))
         for name in used:
             require(counts[name] > 0, f"{label}: {name} never launched")
-        mm_routes = routes[mm.matmul]
-        print(f"pipeline {label}: matmul launches by route {mm_routes}: all "
-              f"skinny: {mm_routes['skinny'] == counts['matmul']}")
-        require(mm_routes["skinny"] == counts["matmul"]
-                and sum(mm_routes.values()) == counts["matmul"],
-                f"{label}: matmul launches {mm_routes}, want all skinny")
+        for w, name, route in ((mm.matmul, "matmul", "skinny"),
+                               (preproc.yuv_to_rgb, "yuv_to_rgb", "vec16")):
+            got = routes[w]
+            print(f"pipeline {label}: {name} launches by route {got}: all "
+                  f"{route}: {got[route] == counts[name]}")
+            require(got[route] == counts[name]
+                    and sum(got.values()) == counts[name],
+                    f"{label}: {name} launches {got}, want all {route}")
         for name, n in counts.items():
             totals[name] += n
         runs[label] = {"res": res, "secs": secs, "fractions": fr}
@@ -844,12 +939,13 @@ def check_pipeline(device, kernels, *, n_frames: int, src_hw) -> dict:
 
 def run_nms_path(device) -> int:
     """Device NMS over the batteries, IoU launch counter set to 0 just
-    before and read just after; every keep list must equal the host's."""
-    from repro_torch.kernels import preproc
+    before and read just after; every keep list must equal the host's, and
+    each call must launch the IoU kernel once."""
+    from repro_torch.kernels import build, preproc
     from repro_torch.preprocess import device as dev_pp
     from repro_torch.preprocess import host
     settings = ((0.5, 0.0, None), (0.3, 0.25, 16))
-    preproc.iou_matrix.launches = 0
+    build.zero_launches(preproc.iou_matrix)
     for n in NMS_SIZES:
         boxes, scores = box_battery(n, seed=n + 1)
         for iou_t, score_t, max_out in settings:
@@ -860,7 +956,11 @@ def run_nms_path(device) -> int:
                   f"{got == want}")
             require(got == want, f"device nms N={n} {kw} differs from host")
     launches = preproc.iou_matrix.launches
-    require(launches > 0, "iou_matrix was not launched by device nms")
+    want = len(NMS_SIZES) * len(settings)          # one launch a call
+    print(f"nms: iou_matrix launches {launches}; want {want}: "
+          f"{launches == want}")
+    require(launches == want,
+            f"iou_matrix launched {launches} times by the nms calls, want {want}")
     return launches
 
 
@@ -1419,6 +1519,51 @@ def _timed(name: str, shape: str, kernel, plain, library, nbytes: float,
     return t
 
 
+def time_yuv(device, scratch) -> dict:
+    """The YUV decode at the paper's 1080p source (vec16 route), warm and
+    with a cold L2."""
+    import torch
+    from repro_torch.kernels import preproc
+    yuv = torch.randint(0, 256, (1, 3, SRC_H, SRC_W), generator=_gen(1),
+                        dtype=torch.uint8).to(device)
+    kernel = lambda: preproc.yuv_to_rgb(yuv)
+    shape = f"(1,3,{SRC_H},{SRC_W})"
+    # ~20 operations a pixel: 2 centrings, 4 fmas, 3 roundings, 6 clamps
+    t = _timed("yuv_to_rgb", shape, kernel,
+               lambda: preproc.yuv_to_rgb_plain(yuv), None,
+               2 * yuv.numel(), 20 * SRC_H * SRC_W, iters=20)
+    t["cold_ms"] = cold_time_ms(kernel, scratch)
+    print(f"time yuv_to_rgb L2-cold ({L2_FLUSH_BYTES >> 20} MiB read before "
+          f"each call) {shape}: " + json.dumps({"ms": t["cold_ms"]}))
+    return t
+
+
+def time_iou(device, scratch) -> dict:
+    """The IoU kernel at device NMS's bucket sizes, warm and with a cold
+    L2; returns N = 4096's, the one reported in the kernels line."""
+    import torch
+    from repro_torch.kernels import preproc
+    times = {}
+    for kind, battery in (("", box_battery),
+                          (" every pair overlapping", dense_boxes)):
+        for n in (4096, 1024, 256, 32):
+            boxes, _ = battery(n, seed=n)
+            bt = torch.from_numpy(boxes.T.copy()).to(device)
+            kernel = lambda: preproc.iou_matrix(bt)
+            shape = f"(4,{n})->({n},{n}){kind}"
+            # 13 operations an element: 2 min, 4 max, 3 sub, 2 mul, 1 add,
+            # 1 div
+            t = _timed("iou_matrix", shape, kernel,
+                       lambda: preproc.iou_matrix_plain(bt), None,
+                       4 * (4 * n + n * n), 13 * n * n, iters=20)
+            t["cold_ms"] = cold_time_ms(kernel, scratch)
+            print(f"time iou_matrix L2-cold ({L2_FLUSH_BYTES >> 20} MiB read "
+                  f"before each call) {shape}: "
+                  + json.dumps({"ms": t["cold_ms"]}))
+            times.setdefault(n, t)
+    return times[4096]
+
+
 def time_kernels(device) -> dict[str, dict]:
     """Times at the path's shapes; the first shape of each kernel is the
     one reported in the kernels line."""
@@ -1452,13 +1597,7 @@ def time_kernels(device) -> dict[str, dict]:
                   + json.dumps(cold))
             out.setdefault("matmul", t)
 
-    yuv = torch.randint(0, 256, (1, 3, SRC_H, SRC_W), generator=_gen(1),
-                        dtype=torch.uint8).to(device)
-    # ~20 operations a pixel: 2 centrings, 4 fmas, 3 roundings, 6 clamps
-    out["yuv_to_rgb"] = _timed(
-        "yuv_to_rgb", f"(1,3,{SRC_H},{SRC_W})",
-        lambda: preproc.yuv_to_rgb(yuv), lambda: preproc.yuv_to_rgb_plain(yuv),
-        None, 2 * yuv.numel(), 20 * SRC_H * SRC_W, iters=20)
+    out["yuv_to_rgb"] = time_yuv(device, scratch)
 
     oh, ow = SRC_H // 2, SRC_W // 2
     planes, ty, tx, sb, geom = letterbox_inputs(SRC_H, SRC_W, oh, ow, device)
@@ -1491,17 +1630,10 @@ def time_kernels(device) -> dict[str, dict]:
                               mode="bilinear", align_corners=False),
         rs_bytes + 4 * 8 * 32 * 32 * 3, rs_ops, iters=50)
 
+    out["iou_matrix"] = time_iou(device, scratch)
+
     # the serve path's shapes: bf16 inputs, so the bound takes the dense
     # bf16 tensor-core peak; the library yardstick is PyTorch's SDPA
-    for n in (4096, 1024, 32):
-        boxes, _ = box_battery(n, seed=n)
-        bt = torch.from_numpy(boxes.T.copy()).to(device)
-        # 13 operations an element: 2 min, 4 max, 3 sub, 2 mul, 1 add, 1 div
-        t = _timed("iou_matrix", f"(4,{n})->({n},{n})",
-                   lambda: preproc.iou_matrix(bt),
-                   lambda: preproc.iou_matrix_plain(bt), None,
-                   4 * (4 * n + n * n), 13 * n * n, iters=20)
-        out.setdefault("iou_matrix", t)
 
     for S in (1024, 512, 37):
         q, k, v = attn_inputs(S, S, torch.bfloat16, device)

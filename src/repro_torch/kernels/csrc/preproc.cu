@@ -5,16 +5,25 @@
 // `yuv_to_rgb` (the pallas_call at :56): (B, 3, H, W) uint8 planar BT.601
 // full-range YUV -> (B, H, W, 3) uint8 RGB.
 //   Bound: bytes. 3 bytes in and 3 out per pixel against ~20 flops, so
-//   12.4 MB per 1080p frame, ~3.7 us at 3.35 TB/s.
-//   Design: one thread per 4 pixels reads a uchar4 from each plane and
-//   writes its 12 interleaved output bytes as three 32-bit words, so a warp
-//   reads 128 contiguous bytes per plane and stores 384 contiguous bytes.
-//   The arithmetic is the exact contract of the host decode: the fused
-//   chain r = fma(1.402, v, y), g = fma(-0.714136, v, fma(-0.344136, u, y)),
-//   b = fma(1.772, u, y) with float32 constants, u and v centred on 128,
-//   rintf (round half to even; roundf would round half away from zero),
-//   then a clamp to [0, 255]. The separately rounded expression differs
-//   from the host on 4,387 of the 256^3 triples; this chain on none.
+//   12.4 MB per 1080p frame, ~3.7 us at 3.35 TB/s. Two costs can hide
+//   that bound. (1) Conversions: int -> float, rintf and float -> int are
+//   9 instructions a pixel on the conversion pipe, which runs 16 a clock
+//   an SM (~4.5 us a 1080p frame); here each is exact integer or fp32 work
+//   instead: a byte becomes 2^23 + byte by putting it under the bit pattern
+//   of 2^23 (one __byte_perm), and after the clamp, adding 1.5 * 2^23 rounds
+//   to the nearest even integer and leaves it in the low byte of the sum's
+//   bits. (2) Stores: a thread's own bytes lie at a stride of 48, so its
+//   stores write half of every 32-byte sector they touch.
+//   Design, three routes chosen by the wrapper (kernels/preproc.py
+//   _yuv_route): "vec16" when a frame is a multiple of 16 pixels and both
+//   buffers are 16-byte aligned (1080p and the all-triples frame): one
+//   thread per 16 pixels reads a uint4 from each plane, packs its 48
+//   output bytes into three uint4s with __byte_perm, and a warp passes its
+//   96 uint4s through shared memory to store them as three contiguous
+//   512-byte rows; a warp reads 512 contiguous bytes per plane, and a 1080p
+//   frame is 129,600 threads, one wave. "vec4" (a multiple of 4 pixels,
+//   4-byte aligned): one thread per 4 pixels, a word per plane and three
+//   32-bit stores; "scalar" for the rest. A group never spans two frames.
 //
 // letterbox_normalize replaces src/repro/kernels/preproc.py
 // `_letterbox_kernel` / `letterbox_normalize` (the pallas_call at :111):
@@ -54,22 +63,98 @@
 
 namespace {
 
-__device__ __forceinline__ uint32_t yuv_pixel(uint32_t Y, uint32_t U, uint32_t V) {
-  const float y = static_cast<float>(Y);
-  const float u = static_cast<float>(U) - 128.f;
-  const float v = static_cast<float>(V) - 128.f;
+// __byte_perm selectors. byte_perm(x, y, s): nibble k of s picks byte k of
+// the result from the 8 bytes x (0-3), y (4-7). tests/test_torch_kernels.py
+// reads every k...Sel constant here and models the kernels' byte logic.
+constexpr unsigned kLiftSel = 0x7440u;  // | k: [byte k of x, 0, 0, 0x4B] of y = 2^23
+constexpr unsigned kRgSel = 0x0040u;    // [r, g, r, r] from the low bytes of r, g
+constexpr unsigned kRgbSel = 0x0410u;   // [r, g, b, r]: byte 3 is never read
+// 4 pixels p[0..3] (each r | g << 8 | b << 16) -> 3 words of interleaved
+// RGB: word m = byte_perm(p[m], p[m + 1], kPackSelm)
+constexpr unsigned kPackSel0 = 0x4210u;   // r0 g0 b0 r1
+constexpr unsigned kPackSel1 = 0x5421u;   // g1 b1 r2 g2
+constexpr unsigned kPackSel2 = 0x6542u;   // b2 r3 g3 b3
+
+// 2^23 + byte k of w, as a float (exact)
+__device__ __forceinline__ float lift(uint32_t w, int k) {
+  return __int_as_float(__byte_perm(w, 0x4B000000u, kLiftSel | k));
+}
+
+// The pixel in byte k of the Y, U and V words -> r | g << 8 | b << 16 in
+// bytes 0-2 of the result (byte 3 is undefined).
+__device__ __forceinline__ uint32_t yuv_pixel(uint32_t Y, uint32_t U,
+                                              uint32_t V, int k) {
+  const float y = __fsub_rn(lift(Y, k), 8388608.f);   // 2^23
+  const float u = __fsub_rn(lift(U, k), 8388736.f);   // 2^23 + 128
+  const float v = __fsub_rn(lift(V, k), 8388736.f);
   float r = __fmaf_rn(1.402f, v, y);
   float g = __fmaf_rn(-0.714136f, v, __fmaf_rn(-0.344136f, u, y));
   float b = __fmaf_rn(1.772f, u, y);
-  r = fminf(fmaxf(rintf(r), 0.f), 255.f);
-  g = fminf(fmaxf(rintf(g), 0.f), 255.f);
-  b = fminf(fmaxf(rintf(b), 0.f), 255.f);
-  return static_cast<uint32_t>(r) | (static_cast<uint32_t>(g) << 8) |
-         (static_cast<uint32_t>(b) << 16);
+  r = __fadd_rn(fminf(fmaxf(r, 0.f), 255.f), 12582912.f);  // 1.5 * 2^23
+  g = __fadd_rn(fminf(fmaxf(g, 0.f), 255.f), 12582912.f);
+  b = __fadd_rn(fminf(fmaxf(b, 0.f), 255.f), 12582912.f);
+  return __byte_perm(__byte_perm(__float_as_uint(r), __float_as_uint(g), kRgSel),
+                     __float_as_uint(b), kRgbSel);
 }
 
-// vec: the frame size is a multiple of 4 and both buffers are 4-byte aligned,
-// so every group of 4 pixels lies in one frame and can move as words.
+// 4 pixels -> their 12 interleaved RGB bytes as 3 words
+__device__ __forceinline__ void pack4(const uint32_t* p, uint32_t* w) {
+  w[0] = __byte_perm(p[0], p[1], kPackSel0);
+  w[1] = __byte_perm(p[1], p[2], kPackSel1);
+  w[2] = __byte_perm(p[2], p[3], kPackSel2);
+}
+
+constexpr int kYuvThreads = 256;
+
+// route "vec16": the frame size is a multiple of 16 and both buffers are
+// 16-byte aligned, so every group of 16 pixels lies in one frame and moves
+// as one uint4 a plane in and three uint4s out; group t's output is the
+// 48 bytes at 48 t.
+__global__ void __launch_bounds__(kYuvThreads)
+yuv_to_rgb_vec16_kernel(const uint8_t* __restrict__ yuv,
+                        uint8_t* __restrict__ rgb, long long hw,
+                        long long n_groups) {
+  __shared__ uint4 stage[kYuvThreads / 32][96];
+  const int lane = threadIdx.x % 32;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long first = t - lane;          // the warp's first group
+  if (first >= n_groups) return;             // the whole warp
+  // a lane past the end decodes the last group again and stores nothing
+  const long long g0 = (t < n_groups ? t : n_groups - 1) * 16;
+  const long long f = g0 / hw, p = g0 - f * hw;
+  const uint8_t* plane = yuv + f * 3 * hw + p;
+  const uint4 Y = *reinterpret_cast<const uint4*>(plane);
+  const uint4 U = *reinterpret_cast<const uint4*>(plane + hw);
+  const uint4 V = *reinterpret_cast<const uint4*>(plane + 2 * hw);
+  const uint32_t ys[4] = {Y.x, Y.y, Y.z, Y.w};
+  const uint32_t us[4] = {U.x, U.y, U.z, U.w};
+  const uint32_t vs[4] = {V.x, V.y, V.z, V.w};
+  uint32_t w[12];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {   // pixels 4q .. 4q + 3: word q of each plane
+    uint32_t px[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) px[k] = yuv_pixel(ys[q], us[q], vs[q], k);
+    pack4(px, w + 3 * q);
+  }
+  // the warp's 32 groups are 96 contiguous uint4s: lane l's three go to
+  // stage[3l .. 3l + 2] (8 lanes a phase, 48 bytes apart: no bank
+  // conflict), then the warp stores stage[32k + l], k = 0, 1, 2
+  uint4* st = stage[threadIdx.x / 32];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    st[3 * lane + k] = make_uint4(w[4 * k], w[4 * k + 1], w[4 * k + 2], w[4 * k + 3]);
+  __syncwarp();
+  const long long valid = 3 * (n_groups - first < 32 ? n_groups - first : 32);
+  uint4* o = reinterpret_cast<uint4*>(rgb) + 3 * first;
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    if (32 * k + lane < valid) o[32 * k + lane] = st[32 * k + lane];
+}
+
+// routes "vec4" (vec = 1: the frame size is a multiple of 4 and both buffers
+// are 4-byte aligned, so every group of 4 pixels lies in one frame and can
+// move as words) and "scalar" (vec = 0).
 __global__ void yuv_to_rgb_kernel(const uint8_t* __restrict__ yuv,
                                   uint8_t* __restrict__ rgb, long long hw,
                                   long long n_pix, int vec) {
@@ -78,24 +163,20 @@ __global__ void yuv_to_rgb_kernel(const uint8_t* __restrict__ yuv,
   if (vec && g0 + 4 <= n_pix) {
     const long long f = g0 / hw, p = g0 - f * hw;
     const uint8_t* plane = yuv + f * 3 * hw + p;
-    const uchar4 Y = *reinterpret_cast<const uchar4*>(plane);
-    const uchar4 U = *reinterpret_cast<const uchar4*>(plane + hw);
-    const uchar4 V = *reinterpret_cast<const uchar4*>(plane + 2 * hw);
-    const uint32_t p0 = yuv_pixel(Y.x, U.x, V.x);
-    const uint32_t p1 = yuv_pixel(Y.y, U.y, V.y);
-    const uint32_t p2 = yuv_pixel(Y.z, U.z, V.z);
-    const uint32_t p3 = yuv_pixel(Y.w, U.w, V.w);
-    uint32_t* o = reinterpret_cast<uint32_t*>(rgb + g0 * 3);
-    o[0] = p0 | (p1 << 24);            // r0 g0 b0 r1
-    o[1] = (p1 >> 8) | (p2 << 16);     // g1 b1 r2 g2
-    o[2] = (p2 >> 16) | (p3 << 8);     // b2 r3 g3 b3
+    const uint32_t Y = *reinterpret_cast<const uint32_t*>(plane);
+    const uint32_t U = *reinterpret_cast<const uint32_t*>(plane + hw);
+    const uint32_t V = *reinterpret_cast<const uint32_t*>(plane + 2 * hw);
+    uint32_t px[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) px[k] = yuv_pixel(Y, U, V, k);
+    pack4(px, reinterpret_cast<uint32_t*>(rgb + g0 * 3));
     return;
   }
   const long long g_end = g0 + 4 < n_pix ? g0 + 4 : n_pix;
   for (long long g = g0; g < g_end; ++g) {
     const long long f = g / hw, p = g - f * hw;
     const uint8_t* plane = yuv + f * 3 * hw + p;
-    const uint32_t px = yuv_pixel(plane[0], plane[hw], plane[2 * hw]);
+    const uint32_t px = yuv_pixel(plane[0], plane[hw], plane[2 * hw], 0);
     rgb[g * 3] = px & 0xff;
     rgb[g * 3 + 1] = (px >> 8) & 0xff;
     rgb[g * 3 + 2] = (px >> 16) & 0xff;
@@ -175,17 +256,28 @@ letterbox_kernel(const uint8_t* __restrict__ planes, const int* __restrict__ iy,
 
 }  // namespace
 
-// yuv (B, 3, H, W) and rgb (B, H, W, 3), contiguous uint8, B * H * W > 0.
+// yuv (B, 3, H, W) and rgb (B, H, W, 3), contiguous uint8, B * H * W > 0;
+// route 2 = "vec16", 1 = "vec4", 0 = "scalar", as kernels/preproc.py
+// _yuv_route picks it (a route whose conditions do not hold is refused).
 extern "C" int yuv_to_rgb_u8(const void* yuv, void* rgb, int B, int H, int W,
-                             void* stream) {
+                             int route, void* stream) {
   const long long hw = (long long)H * W, n_pix = (long long)B * hw;
-  const int vec = hw % 4 == 0 && reinterpret_cast<uintptr_t>(yuv) % 4 == 0 &&
-                  reinterpret_cast<uintptr_t>(rgb) % 4 == 0;
-  const int threads = 256;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(yuv) |
+                          reinterpret_cast<uintptr_t>(rgb);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* in = static_cast<const uint8_t*>(yuv);
+  uint8_t* out = static_cast<uint8_t*>(rgb);
+  if (route == 2) {
+    if (hw % 16 != 0 || align % 16 != 0) return cudaErrorInvalidValue;
+    const long long groups = n_pix / 16;
+    yuv_to_rgb_vec16_kernel<<<(unsigned)((groups + kYuvThreads - 1) / kYuvThreads),
+                              kYuvThreads, 0, s>>>(in, out, hw, groups);
+    return launch_status();
+  }
+  if (route == 1 && (hw % 4 != 0 || align % 4 != 0)) return cudaErrorInvalidValue;
   const long long groups = (n_pix + 3) / 4;
-  yuv_to_rgb_kernel<<<(unsigned)((groups + threads - 1) / threads), threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(yuv), static_cast<uint8_t*>(rgb), hw, n_pix, vec);
+  yuv_to_rgb_kernel<<<(unsigned)((groups + kYuvThreads - 1) / kYuvThreads),
+                      kYuvThreads, 0, s>>>(in, out, hw, n_pix, route == 1);
   return launch_status();
 }
 

@@ -11,6 +11,7 @@ version beside it only for a CPU tensor.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -20,7 +21,7 @@ from repro_torch.kernels.resize import Taps, check_taps, expand_taps
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "yuv_to_rgb_u8": [_P, _P, _I, _I, _I, _P],
+    "yuv_to_rgb_u8": [_P, _P, _I, _I, _I, _I, _P],
     "letterbox_normalize_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _F, _P],
 }
@@ -63,8 +64,29 @@ def yuv_to_rgb_plain(yuv: torch.Tensor) -> torch.Tensor:
     return torch.round(rgb).clamp_(0.0, 255.0).to(torch.uint8)
 
 
+YUV_ROUTES = ("scalar", "vec4", "vec16")     # index = the C entry's route
+
+
+def _yuv_route(H: int, W: int, ptr_alignment: int) -> str:
+    """The YUV kernel's route for frames of H x W pixels whose input and
+    output buffers are both ``ptr_alignment``-byte aligned: ``"vec16"``
+    (16 pixels a thread, uint4 loads and stores) when a frame is a multiple
+    of 16 pixels and the buffers 16-byte aligned, ``"vec4"`` (4 pixels a
+    thread, words) for 4 and 4, else ``"scalar"``. The batch does not
+    matter: a group of pixels never spans two frames."""
+    hw = H * W
+    if hw % 16 == 0 and ptr_alignment % 16 == 0:
+        return "vec16"
+    if hw % 4 == 0 and ptr_alignment % 4 == 0:
+        return "vec4"
+    return "scalar"
+
+
 def yuv_to_rgb(yuv: torch.Tensor) -> torch.Tensor:
-    """(B, 3, H, W) planar uint8 YUV -> (B, H, W, 3) uint8 RGB (BT.601 full)."""
+    """(B, 3, H, W) planar uint8 YUV -> (B, H, W, 3) uint8 RGB (BT.601 full).
+
+    On a CUDA tensor the kernel's route is :func:`_yuv_route`'s;
+    ``yuv_to_rgb.launches_by_route`` counts each route's launches."""
     if yuv.ndim != 4 or yuv.shape[1] != 3 or yuv.dtype != torch.uint8:
         raise ValueError(f"want (B, 3, H, W) uint8, got {tuple(yuv.shape)} "
                          f"{yuv.dtype}")
@@ -75,16 +97,19 @@ def yuv_to_rgb(yuv: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, H, W, 3), dtype=torch.uint8, device=yuv.device)
     if out.numel() == 0:
         return out
+    route = _yuv_route(H, W, math.gcd(yuv.data_ptr(), out.data_ptr(), 16))
     lib = _lib()
     with torch.cuda.device(yuv.device):
         rc = lib.yuv_to_rgb_u8(yuv.data_ptr(), out.data_ptr(), B, H, W,
+                               YUV_ROUTES.index(route),
                                build.stream_ptr(yuv.device))
-    build.check(lib, rc, "yuv_to_rgb")
-    build.count_launch(yuv_to_rgb)
+    build.check(lib, rc, f"yuv_to_rgb ({route})")
+    build.count_launch(yuv_to_rgb, route)
     return out
 
 
 yuv_to_rgb.launches = 0
+yuv_to_rgb.launches_by_route = dict.fromkeys(YUV_ROUTES, 0)
 
 
 # --------------------------------------------------------------------------
@@ -186,7 +211,7 @@ def iou_matrix_plain(boxes_t: torch.Tensor) -> torch.Tensor:
 
 def iou_matrix(boxes_t: torch.Tensor) -> torch.Tensor:
     """(4, N) component-major float32 boxes -> (N, N) pairwise IoU, equal
-    bit for bit to :func:`iou_matrix_plain` (``csrc/iou.cu``)."""
+    to :func:`iou_matrix_plain` (``csrc/iou.cu``)."""
     if boxes_t.ndim != 2 or boxes_t.shape[0] != 4:
         raise ValueError(f"want (4, N) boxes, got {tuple(boxes_t.shape)}")
     if boxes_t.device.type == "cpu":

@@ -118,15 +118,49 @@ def test_matmul_kernel_rejects_what_it_does_not_take(cuda):
         mm.matmul(a, torch.ones((2, 8), device=cuda).T)     # not contiguous
 
 
+def _yuv_launches():
+    return preproc.yuv_to_rgb.launches, dict(preproc.yuv_to_rgb.launches_by_route)
+
+
+def _check_yuv(yuv, route):
+    """One YUV kernel call on ``route``, equal to the plain version."""
+    n, by_route = _yuv_launches()
+    assert torch.equal(preproc.yuv_to_rgb(yuv), preproc.yuv_to_rgb_plain(yuv))
+    by_route[route] += 1
+    assert _yuv_launches() == (n + 1, by_route)
+
+
 def test_yuv_kernel_exact_on_all_triples(cuda):
     idx = torch.arange(1 << 24, device=cuda, dtype=torch.int32)
     yuv = torch.stack([idx >> 16, (idx >> 8) & 255, idx & 255]) \
         .to(torch.uint8).reshape(1, 3, 4096, 4096)
-    n = preproc.yuv_to_rgb.launches
-    assert torch.equal(preproc.yuv_to_rgb(yuv), preproc.yuv_to_rgb_plain(yuv))
-    assert preproc.yuv_to_rgb.launches == n + 1
+    _check_yuv(yuv, "vec16")
     odd = yuv[:, :, :7, :13]                   # ragged frame, scalar path
-    assert torch.equal(preproc.yuv_to_rgb(odd), preproc.yuv_to_rgb_plain(odd))
+    _check_yuv(odd, "scalar")
+
+
+# (shape, byte offset of the input in its buffer, route)
+YUV_CASES = [((2, 3, 1080, 1920), 0, "vec16"), ((3, 3, 6, 10), 0, "vec4"),
+             ((1, 3, 7, 13), 0, "scalar"), ((1, 3, 1080, 1920), 4, "vec4"),
+             ((2, 3, 8, 16), 1, "scalar")]
+
+
+@pytest.mark.parametrize("shape,offset,route", YUV_CASES)
+def test_yuv_kernel_routes_exact(cuda, shape, offset, route):
+    n = int(np.prod(shape))
+    buf = torch.randint(0, 256, (n + offset,), generator=_gen(n),
+                        dtype=torch.uint8).to(cuda)
+    _check_yuv(buf[offset:].view(shape), route)
+
+
+def test_yuv_kernel_takes_a_strided_1080p_frame(cuda):
+    """Every other plane of a 6-plane buffer: the wrapper's copy reaches
+    the vec16 route."""
+    frames = torch.randint(0, 256, (1, 6, 1080, 1920), generator=_gen(6),
+                           dtype=torch.uint8).to(cuda)
+    yuv = frames[:, 1::2]
+    assert not yuv.is_contiguous()
+    _check_yuv(yuv, "vec16")
 
 
 @pytest.mark.parametrize("H,W,oh,ow,pad", LB_CASES)
@@ -194,7 +228,8 @@ def _boxes(n, seed):
     return boxes, (rng.integers(0, 16, n) / 16.0).astype(np.float32)
 
 
-@pytest.mark.parametrize("n", [1, 31, 256, 1000, 4096])
+@pytest.mark.parametrize("n", [1, 31, 33, 65, 256, 1000, 1001, 1024, 1025,
+                               2048, 4096])
 def test_iou_kernel_bit_exact(cuda, n):
     boxes, _ = _boxes(n, seed=n)
     bt = torch.from_numpy(boxes.T.copy()).to(cuda)
@@ -202,7 +237,34 @@ def test_iou_kernel_bit_exact(cuda, n):
     got = preproc.iou_matrix(bt)
     assert preproc.iou_matrix.launches == count + 1
     assert torch.equal(got, preproc.iou_matrix_plain(bt))
+    assert torch.equal(got, got.T)
     np.testing.assert_array_equal(got.cpu().numpy(), host.iou_matrix(boxes))
+
+
+def test_yuv_and_iou_replay_in_a_cuda_graph_bit_exactly(cuda):
+    """The 1080p YUV decode (vec16 route) and a 4096-box IoU captured in one
+    CUDA graph: 3 replays on new inputs give the eager calls' bits."""
+    g = _gen(8)
+    yuv = torch.randint(0, 256, (1, 3, 1080, 1920), generator=g,
+                        dtype=torch.uint8).to(cuda)
+    boxes, _ = _boxes(4096, seed=8)
+    bt = torch.from_numpy(boxes.T.copy()).to(cuda)
+
+    def both():
+        return preproc.yuv_to_rgb(yuv), preproc.iou_matrix(bt)
+    both()                                   # warm-up: build and load
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = both()
+    for _ in range(3):
+        yuv.random_(0, 256)
+        bt.copy_(bt[:, torch.randperm(4096, device=cuda)])
+        eager = both()
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("n,max_out", [(33, None), (1000, None), (1000, 7)])

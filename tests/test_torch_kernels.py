@@ -6,6 +6,8 @@ kernels themselves are held to their plain versions by the ``gpu``-marked
 tests of ``test_torch_gpu.py``, which skip without a card, and by
 chip_smoke.py on the card.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -222,6 +224,146 @@ def test_yuv_rejects_wrong_layout():
         preproc.yuv_to_rgb(torch.zeros((1, 3, 8, 8), dtype=torch.float32))
 
 
+# A NumPy model of the "vec16" route of csrc/preproc.cu: each thread's
+# pixel-group index, its three uint4 loads (little-endian words), the
+# decode of each byte (the lift to 2^23 + byte, the fma chain, the clamp
+# and the rounding by adding 1.5 * 2^23), the __byte_perm packing with the
+# selectors the source defines, and the warp's stores through shared memory.
+
+def _selectors():
+    """Every ``constexpr unsigned k...Sel`` of csrc/preproc.cu."""
+    src = (build.CSRC / "preproc.cu").read_text()
+    return {name: int(val, 16) for name, val in re.findall(
+        r"constexpr unsigned (k\w+Sel\d?) = (0x[0-9a-fA-F]+)u;", src)}
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm(x, y, sel) with selector nibbles 0-7: byte k of
+    the result is byte (sel >> 4k) & 7 of the 8 bytes x (0-3), y (4-7)."""
+    both = (np.asarray(x).astype(np.uint64)
+            | (np.asarray(y).astype(np.uint64) << np.uint64(32)))
+    out = np.zeros(both.shape, np.uint32)
+    for k in range(4):
+        b = (sel >> (4 * k)) & 0x7
+        out |= (((both >> np.uint64(8 * b)) & np.uint64(0xff))
+                .astype(np.uint32) << np.uint32(8 * k))
+    return out
+
+
+def _f32(bits):
+    return np.asarray(bits, np.uint32).view(np.float32)
+
+
+def _fma(a, x, y):
+    """float32 fma(a, x, y): exact in float64 for these operands, one
+    rounding."""
+    return (np.float64(a) * x.astype(np.float64) + y.astype(np.float64)) \
+        .astype(np.float32)
+
+
+def _yuv_pixel(Y, U, V, k, sel):
+    """yuv_pixel of csrc/preproc.cu on word arrays: the pixel in byte k."""
+    def lift(w):
+        return _f32(_byte_perm(w, 0x4B000000, sel["kLiftSel"] | k))
+    y = lift(Y) - np.float32(8388608.0)
+    u = lift(U) - np.float32(8388736.0)
+    v = lift(V) - np.float32(8388736.0)
+    c = [_fma(np.float32(1.402), v, y),
+         _fma(np.float32(-0.714136), v, _fma(np.float32(-0.344136), u, y)),
+         _fma(np.float32(1.772), u, y)]
+    r, g, b = (np.minimum(np.maximum(x, np.float32(0)), np.float32(255))
+               + np.float32(12582912.0) for x in c)
+    return _byte_perm(_byte_perm(r.view(np.uint32), g.view(np.uint32),
+                                 sel["kRgSel"]),
+                      b.view(np.uint32), sel["kRgbSel"])
+
+
+def _words(byte_rows):
+    """(T, 16) uint8 -> (T, 4) uint32, as a uint4 load reads them."""
+    return np.ascontiguousarray(byte_rows).view("<u4")
+
+
+def _yuv_vec16_emulation(yuv):
+    B, _, H, W = yuv.shape
+    hw = H * W
+    n_groups = B * hw // 16
+    flat = yuv.reshape(-1)
+    t = np.arange(-(-n_groups // 32) * 32)      # whole warps
+    g0 = np.minimum(t, n_groups - 1) * 16       # lanes past the end: the last
+    f = g0 // hw
+    base = f * 3 * hw + (g0 - f * hw)
+    planes = [_words(flat[(base + k * hw)[:, None] + np.arange(16)])
+              for k in range(3)]
+    sel = _selectors()
+    words = []
+    for q in range(4):
+        px = [_yuv_pixel(*(w[:, q] for w in planes), k, sel) for k in range(4)]
+        words += [_byte_perm(px[m], px[m + 1], sel[f"kPackSel{m}"])
+                  for m in range(3)]
+    # lane l's words 4k .. 4k + 3 are stage[3l + k]; the warp stores
+    # stage[32k + l] as uint4 number 3 * first + 32k + l, if below 3 * valid
+    lane_words = np.stack(words, axis=1).reshape(-1, 32, 3, 4)
+    out = np.zeros((3 * n_groups, 4), np.uint32)
+    for wi, stage in enumerate(lane_words):
+        stage = stage.reshape(96, 4)
+        first = 32 * wi
+        valid = 3 * min(n_groups - first, 32)
+        for k in range(3):
+            idx = 32 * k + np.arange(32)
+            keep = idx < valid
+            out[3 * first + idx[keep]] = stage[idx[keep]]
+    return out.astype("<u4").view(np.uint8).reshape(B, H, W, 3)
+
+
+def test_yuv_selectors_pack_rgb_bytes_and_never_read_byte_3():
+    """Word m of a 4-pixel group is the bytes 4m .. 4m + 3 of r0 g0 b0 r1
+    g1 b1 r2 g2 b2 r3 g3 b3; the packing never reads a pixel word's byte 3,
+    which yuv_pixel leaves undefined."""
+    sel = _selectors()
+    px = np.array([0x00a0b0c0 + 0x00010101 * k for k in range(4)], np.uint32)
+    dirty = px | np.uint32(0xee000000)
+    got = np.array([_byte_perm(dirty[m], dirty[m + 1], sel[f"kPackSel{m}"])
+                    for m in range(3)], "<u4").view(np.uint8)
+    want = np.stack([px & 0xff, (px >> 8) & 0xff, (px >> 16) & 0xff],
+                    axis=1).reshape(-1)
+    np.testing.assert_array_equal(got, want)
+    for m in range(3):
+        nibbles = [(sel[f"kPackSel{m}"] >> (4 * k)) & 0xf for k in range(4)]
+        assert not {3, 7} & set(nibbles)
+
+
+def test_yuv_pixel_emulation_equals_plain_on_all_256_cubed_triples():
+    """The lift, fma chain, clamp and magic-number rounding of yuv_pixel,
+    emulated in float32, on every (y, u, v) triple."""
+    sel = _selectors()
+    yuv = _all_yuv_triples(n_frames=1).reshape(3, -1)
+    words = [plane.astype(np.uint32) for plane in yuv]   # the byte in byte 0
+    px = _yuv_pixel(*words, 0, sel)
+    got = np.stack([px & 0xff, (px >> 8) & 0xff, (px >> 16) & 0xff], axis=1)
+    want = preproc.yuv_to_rgb_plain(
+        torch.from_numpy(yuv.reshape(1, 3, 4096, 4096))).numpy().reshape(-1, 3)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("B,H,W", [(1, 4, 16), (2, 6, 8), (3, 16, 16),
+                                   (1, 1080, 1920)])
+def test_yuv_vec16_emulation_equals_plain(B, H, W):
+    yuv = np.random.default_rng(H * W + B).integers(
+        0, 256, (B, 3, H, W), dtype=np.uint8)
+    assert preproc._yuv_route(H, W, 16) == "vec16"
+    want = preproc.yuv_to_rgb_plain(torch.from_numpy(yuv)).numpy()
+    np.testing.assert_array_equal(_yuv_vec16_emulation(yuv), want)
+
+
+@pytest.mark.parametrize("H,W,align,route", [
+    (1080, 1920, 16, "vec16"), (4096, 4096, 256, "vec16"),
+    (1080, 1920, 4, "vec4"), (1080, 1920, 8, "vec4"), (1080, 1920, 2, "scalar"),
+    (6, 10, 16, "vec4"), (7, 13, 16, "scalar"), (2, 2, 16, "vec4"),
+    (1, 1, 16, "scalar")])
+def test_yuv_route(H, W, align, route):
+    assert preproc._yuv_route(H, W, align) == route
+
+
 # ---- letterbox_normalize ----------------------------------------------------
 
 LB_CASES = [(216, 384, 108, 192, 0.0), (40, 70, 32, 32, -1.0),
@@ -435,6 +577,142 @@ def test_device_nms_equals_host_and_reference(n, iou_t, score_t, max_out):
 def test_iou_rejects_wrong_layout():
     with pytest.raises(ValueError):
         preproc.iou_matrix(torch.zeros((5, 4)))
+
+
+IOU_BATTERIES = [(1, 0), (7, 1), (64, 2), (200, 3), (1000, 4)]
+
+
+def _signed_zero_boxes(n, seed):
+    """The box battery (ties, zero-area boxes) moved to corners of both
+    signs, with a fifth of the coordinates set to -0 or +0."""
+    boxes, _ = _box_battery(n, seed)
+    rng = np.random.default_rng(seed)
+    boxes -= 8.0
+    zero = rng.random(boxes.shape) < 0.2
+    boxes[zero] = np.where(rng.random(int(zero.sum())) < 0.5, -0.0, 0.0)
+    return boxes
+
+
+@pytest.mark.parametrize("n,seed", IOU_BATTERIES)
+def test_iou_plain_is_symmetric(n, seed):
+    """What the symmetric kernel relies on: iou[i][j] == iou[j][i] as
+    values, on ties, zero-area boxes and coordinates of -0 and +0."""
+    boxes = _signed_zero_boxes(n, seed)
+    got = preproc.iou_matrix_plain(torch.from_numpy(boxes.T.copy())).numpy()
+    assert not np.isnan(got).any()
+    assert np.array_equal(got, got.T)
+    np.testing.assert_array_equal(got, jax_host.iou_matrix(boxes))
+
+
+@pytest.mark.parametrize("n,seed", IOU_BATTERIES)
+def test_iou_pair_zero_guard_equals_plain(n, seed):
+    """csrc/iou.cu's iou_pair in float32, one IEEE operation a step: a pair
+    with inter == 0 returns inter instead of dividing, and that is the
+    plain version's quotient (as a value) on every pair of the battery."""
+    y0, x0, y1, x1 = _signed_zero_boxes(n, seed).T.astype(np.float32)
+    area = (y1 - y0) * (x1 - x0)
+    zero = np.float32(0.0)
+    ih = np.maximum(zero, np.minimum(y1[:, None], y1[None])
+                    - np.maximum(y0[:, None], y0[None]))
+    iw = np.maximum(zero, np.minimum(x1[:, None], x1[None])
+                    - np.maximum(x0[:, None], x0[None]))
+    inter = ih * iw
+    uni = (area[:, None] + area[None]) - inter
+    quotient = inter / np.maximum(uni, np.float32(1e-12))
+    got = np.where(inter == 0, inter, quotient)
+    assert got.dtype == np.float32 and (inter == 0).any()
+    boxes_t = torch.from_numpy(np.stack([y0, x0, y1, x1]))
+    assert np.array_equal(got, preproc.iou_matrix_plain(boxes_t).numpy())
+
+
+# A NumPy model of csrc/iou.cu's indexing: the block -> (ti, tj) triangle
+# map over 32 x 32 tiles, each thread's 4 outputs of one row (pairs off the
+# edge not computed), its direct stores (float4 or scalar) and the mirror
+# through the padded shared tile.
+
+IOU_TILE = 32
+IOU_NS = [1, 31, 32, 33, 64, 65, 1000, 1024, 4096]
+
+
+def _iou_tile_of(b):
+    """tile_of in csrc/iou.cu: block b -> (ti, tj), ti <= tj."""
+    f32 = np.float32
+    c = int((np.sqrt(f32(8) * f32(b) + f32(1)) - f32(1)) * f32(0.5))
+    while c * (c + 1) // 2 > b:
+        c -= 1
+    while (c + 1) * (c + 2) // 2 <= b:
+        c += 1
+    return b - c * (c + 1) // 2, c
+
+
+def _iou_lanes():
+    """(cq, lr) of each of the 256 threads: columns 4 cq .. 4 cq + 3 of
+    row lr."""
+    t = np.arange(IOU_TILE * IOU_TILE // 4)
+    return t % 8, t // 8
+
+
+def _iou_stores(n, count, vec):
+    """Every store of the kernel for n boxes, float4 (``vec``) or scalar:
+    checks that each stored value is the IoU of the cell's own pair (either
+    order), and counts each cell's stores in ``count``."""
+    tile = IOU_TILE
+    tiles = -(-n // tile)
+    cq, rq = _iou_lanes()
+    c = np.arange(4)[None, :]
+    lr = rq[:, None] + 0 * c                              # (thread, c)
+    lc = 4 * cq[:, None] + c
+    for blk in range(tiles * (tiles + 1) // 2):
+        ti, tj = _iou_tile_of(blk)
+        assert 0 <= ti <= tj < tiles
+        i0, j0 = ti * tile, tj * tile
+        live = (j0 + 4 * cq[:, None] < n) & (i0 + lr < n)
+        pair = (np.where(live, i0 + lr, -1), np.where(live, j0 + lc, -1))
+        stores = [(i0 + lr, j0 + lc, pair)]
+        if ti != tj:
+            mirror = np.full((tile, tile + 1, 2), -2)
+            mirror[lr, lc] = np.stack(pair, axis=-1)
+            m = mirror[lc, lr]                  # m[k] = mirror[4cq+k][lr]
+            stores.append((j0 + lr, i0 + lc, (m[..., 0], m[..., 1])))
+        for row, col, (a, b) in stores:
+            quad = col - (col % 4)
+            if vec:                             # a quad is all in or all out
+                inside = (row < n) & (quad < n)
+                assert (col[inside] < n).all()
+            else:
+                inside = (row < n) & (col < n)
+            a, b, row, col = a[inside], b[inside], row[inside], col[inside]
+            assert ((a == row) & (b == col) | (a == col) & (b == row)).all()
+            np.add.at(count, (row, col), 1)
+
+
+# float4 stores need n % 4 == 0; scalar ones (an unaligned output) take any n
+@pytest.mark.parametrize("n,vec", [(n, False) for n in IOU_NS]
+                         + [(n, True) for n in IOU_NS if n % 4 == 0])
+def test_iou_tiles_store_every_cell_once(n, vec):
+    count = np.zeros((n, n), np.uint8)
+    _iou_stores(n, count, vec)
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 3, 33, 128, 1025])
+def test_iou_triangle_map_is_a_bijection(tiles):
+    got = [_iou_tile_of(b) for b in range(tiles * (tiles + 1) // 2)]
+    assert got == [(ti, tj) for tj in range(tiles) for ti in range(tj + 1)]
+
+
+def test_iou_shared_tile_passes_are_free_of_bank_conflicts():
+    """Each warp's 32 lanes hit 32 distinct banks in every shared-memory
+    access of the mirror: the write of v[c] and the read of m[k]."""
+    cq, row = _iou_lanes()
+    stride = IOU_TILE + 1
+    for warp in range(len(cq) // 32):
+        lanes = slice(32 * warp, 32 * warp + 32)
+        for k in range(4):
+            write = row[lanes] * stride + 4 * cq[lanes] + k
+            read = (4 * cq[lanes] + k) * stride + row[lanes]
+            assert len(set(write % 32)) == 32
+            assert len(set(read % 32)) == 32
 
 
 # ---- dispatch and build -----------------------------------------------------
