@@ -65,7 +65,23 @@ Phases, each fatal on failure:
      also with a cold L2; each two-route scan's kernels side by side by
      S), and profile the
      device's busy share of a pipeline run (which must launch no second
-     matmul pass) and of each arch's serve run.
+     matmul pass) and of each arch's serve run; the matmul also at the
+     cluster's replica batches (16, 32, 64 rows: the tile route);
+  8. run the serving cluster's default deployment (8 replicas, 4
+     producers, 3 brokers, 1 drive) with real-service replicas on the card
+     at S = 4 under each placement, matmul and YUV counters set to 0 after
+     the stack's warm-up and read after the run: completed > 0.8 produced,
+     not diverged, 0 < ai_fraction < 1, the broker's measured storage
+     utilization within 0.25 rho + 0.05 of the closed form's rho (priced
+     at the 6,912-byte crop each real-mode message carries), and every
+     identify batch two matmul launches on its route and, under the device
+     placement, one vec16 YUV launch; print the tails, five-way split,
+     batch histogram and mean decode + identify span a batch; hold the
+     card's replica path against a CPU stack with the card's weights
+     (names equal, scores within 1e-5); bracket the closed-form knee
+     (stable at 0.65x, diverged at 1.4x with a saturated broker and a p99
+     above twice the stable one); print the live knee beside the DES knee
+     and the closed form.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -74,6 +90,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -157,6 +174,31 @@ YUV_CASES = (((1, 3, SRC_H, SRC_W), 0, "vec16"), ((2, 3, SRC_H, SRC_W), 0, "vec1
 FACE_BATCHES = (1, 3, 8)
 # the skinny matmul route's row counts held against the plain version
 SKINNY_CHECK_M = (1, 2, 3, 4, 8)
+# the serving cluster's replicas drain a partition in one fetch and pad the
+# batch to its power of two: the rows its tile-route products are timed at
+CLUSTER_BATCHES = (16, 32, 64)
+# the cluster phase: the reference's default deployment (8 replicas, 4
+# producers, 3 brokers, 1 drive, 6 model seconds at time compression 4)
+# with real service on the card, at S = 4 under each placement; then the
+# bracket at these multiples of the closed-form knee and the live knee.
+# A real-mode message carries its 48x48x3 crop (6,912 bytes) to the broker,
+# not the workload's modelled 37,300-byte face, so the closed form that
+# prices these runs is the workload's at the wire payload
+CLUSTER_S = 4.0
+CLUSTER_PLACEMENTS = ("device", "host")
+CLUSTER_BRACKET = (0.65, 1.4)
+# the bracket and the knee probe up to 2x the knee, where the four producer
+# threads, encoding crops on the host beside eight replica threads, fall
+# behind their schedule (on the card at compression 2, 0.65x the knee
+# produced 5,016 of 5,954 messages and diverged by producer lag); at 1 the
+# same model-time load takes a quarter of the default's wall rate. The
+# closed form does not see the compression; a real-service batch's model
+# time is its wall time times the compression, so the replicas look
+# faster, and they are not the resource that binds
+CLUSTER_KNEE_COMPRESSION = 1.0
+# card vs CPU identify of the same crops: fp32 throughout, the products'
+# summation order differs
+CLUSTER_SCORE_ATOL = 1e-5
 # (K, N, epilogue) of the path's three products: fused layer 1, layer 2,
 # and the unfused Embedder's layer 1
 MATMUL_SHAPES = ((48 * 48 * 3, 256, "tanh"), (256, 128, "none"),
@@ -1596,6 +1638,7 @@ def time_kernels(device) -> dict[str, dict]:
                   f"before each call) ({M},{K})@({K},{N}) {epi}: "
                   + json.dumps(cold))
             out.setdefault("matmul", t)
+    time_cluster_matmul(device, scratch)
 
     out["yuv_to_rgb"] = time_yuv(device, scratch)
 
@@ -1722,6 +1765,29 @@ def time_kernels(device) -> dict[str, dict]:
     return out
 
 
+def time_cluster_matmul(device, scratch) -> None:
+    """The cluster's replica batches: the fused identify's two products at
+    the padded row counts above 8, which take the tile route, warm and
+    with a cold L2."""
+    import torch
+    from repro_torch.kernels import matmul as mm
+    for K, N, epi in MATMUL_SHAPES[:2]:
+        for M in CLUSTER_BATCHES:
+            a, b, _ = matmul_inputs(M, K, N, False, device)
+            kernel = lambda: mm.matmul(a, b, epilogue=epi)
+            library = ((lambda: torch.tanh(torch.matmul(a, b)))
+                       if epi == "tanh" else (lambda: torch.matmul(a, b)))
+            _timed("matmul", f"cluster batch ({M},{K})@({K},{N}) {epi} "
+                   f"({mm._route(M)} route)", kernel,
+                   lambda: mm.matmul_plain(a, b, epilogue=epi), library,
+                   4 * (M * K + K * N + M * N), 2 * M * N * K, iters=50)
+            cold = {"ms": cold_time_ms(kernel, scratch),
+                    "library_ms": cold_time_ms(library, scratch)}
+            print(f"time matmul L2-cold ({L2_FLUSH_BYTES >> 20} MiB read "
+                  f"before each call) cluster batch ({M},{K})@({K},{N}) "
+                  f"{epi}: " + json.dumps(cold))
+
+
 def time_mamba(device, scratch) -> dict:
     """The Mamba scan's times (``scratch`` the L2 flush of
     :func:`cold_time_ms`); returns the prefill's, the one reported in the
@@ -1819,6 +1885,226 @@ def profile_pipeline(device, *, n_frames: int, src_hw) -> None:
     require(matmul and not any("matmul_reduce_kernel" in e.key
                                for e in matmul),
             "the frame path's matmul launched a second (reduce) pass")
+
+
+# --------------------------------------------------------------------------
+# Phase 8: the serving cluster with real-service replicas on the card
+# --------------------------------------------------------------------------
+
+def cluster_spec(device, placement: str, **kw):
+    """The default deployment with real service on ``device``, priced by
+    the closed form at the wire payload (see CLUSTER_S)."""
+    from repro_torch.cluster import ClusterSpec
+    from repro_torch.core.facerec import CROP_SIZE
+    from repro_torch.core.simulator import FaceRecWorkload
+    return ClusterSpec(wl=FaceRecWorkload(face_bytes=float(CROP_SIZE**2 * 3)),
+                       service="real", device=str(device),
+                       placement=placement, **kw)
+
+
+def run_cluster(spec):
+    """One real-service run: the stack built and warmed first, then the
+    matmul and YUV counts set to 0 just before ``run()`` and read just
+    after. Returns (result, launches, launches by route)."""
+    from repro_torch.cluster import ServingCluster
+    from repro_torch.kernels import build
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import preproc
+    cl = ServingCluster(spec)
+    cl.warm()
+    wrappers = {"matmul": mm.matmul, "yuv_to_rgb": preproc.yuv_to_rgb}
+    for w in wrappers.values():
+        build.zero_launches(w)
+    res = cl.run()
+    return (res, {n: w.launches for n, w in wrappers.items()},
+            {n: dict(w.launches_by_route) for n, w in wrappers.items()})
+
+
+def report_cluster_run(label: str, spec, res) -> dict:
+    """Print a run's tail, five-way split, batch histogram and service
+    spans; returns its ``ai_tax()``."""
+    from repro_torch.core import facerec
+    tax = res.ai_tax()
+    fr = tax["fractions"]
+    hist = dict(sorted(collections.Counter(
+        n for n, _ in res.batch_spans).items()))
+    spans = [s for _, s in res.batch_spans]
+    mean_ms = statistics.fmean(spans) * 1e3 if spans else float("nan")
+    by_bucket = {}
+    for n, sec in res.batch_spans:
+        by_bucket.setdefault(facerec._pad_pow2(n), []).append(sec * 1e3)
+    print(f"cluster {label}: S={spec.speedup:.4f} compression "
+          f"{spec.time_compression} produced={res.produced} "
+          f"completed={res.completed} diverged={res.diverged} "
+          f"(in-flight growth {res.inflight_growth:.1f}, producer lag "
+          f"{res.producer_lag_mean:.6f} model s against 5 x period "
+          f"{5 * spec.period_s:.6f}); p50/p95/p99 "
+          f"{res.latency.p50:.6f}/{res.latency.p95:.6f}/"
+          f"{res.latency.p99:.6f} model s; ai_fraction "
+          f"{tax['ai_fraction']:.6f}; five-way "
+          + json.dumps({k: round(v, 6) for k, v in fr.items()}))
+    print(f"cluster {label}: utilization "
+          + json.dumps({k: round(v, 6) for k, v in res.utilization.items()})
+          + " predicted rho " + json.dumps(
+              {k: round(v, 6) for k, v in res.predicted_rho.items()}))
+    print(f"cluster {label}: {len(spans)} identify batches, decode + "
+          f"identify {mean_ms:.6f} ms wall a batch on average; batch sizes "
+          + json.dumps(hist) + "; mean ms by padded bucket "
+          + json.dumps({b: round(statistics.fmean(v), 6)
+                        for b, v in sorted(by_bucket.items())}))
+    return tax
+
+
+def check_cluster_launches(label: str, placement: str, res, launches,
+                           routes) -> None:
+    """Over the timed run every identify batch launched the matmul kernel
+    twice, on the route of its padded row count, and under the device
+    placement the YUV kernel once (vec16: 48 x 48 crops)."""
+    from repro_torch.core import facerec
+    from repro_torch.kernels import matmul as mm
+    n = len(res.batch_spans)
+    sizes = collections.Counter(e.meta["batch_size"] for e in res.log.events
+                                if e.stage == "identify")
+    from_log = round(sum(c / b for b, c in sizes.items()))
+    require(n == from_log and n > 0,
+            f"cluster {label}: {n} batch spans, {from_log} in the event log")
+    want_mm = {"skinny": 0, "tile": 0}
+    for b, _ in res.batch_spans:
+        want_mm[mm._route(facerec._pad_pow2(b))] += 2
+    want_yuv = n if placement == "device" else 0
+    print(f"cluster {label}: launches {launches}; matmul by route "
+          f"{routes['matmul']} (want {want_mm}); yuv_to_rgb by route "
+          f"{routes['yuv_to_rgb']} (want {want_yuv} vec16)")
+    require(launches["matmul"] == 2 * n and routes["matmul"] == want_mm,
+            f"cluster {label}: matmul {routes['matmul']}, want {want_mm}")
+    require(launches["yuv_to_rgb"] == want_yuv
+            and routes["yuv_to_rgb"]["vec16"] == want_yuv,
+            f"cluster {label}: yuv_to_rgb {routes['yuv_to_rgb']}, want "
+            f"{want_yuv} on vec16")
+
+
+def check_cluster_identities(device) -> None:
+    """One seeded batch of wire-format crops through the card's replica
+    path and through a CPU stack carrying the card stack's weights: names
+    equal, scores within CLUSTER_SCORE_ATOL."""
+    import numpy as np
+    from repro_torch.cluster import ServingCluster
+    from repro_torch.core import facerec
+    from repro_torch.preprocess import host
+    spec = cluster_spec(device, "device")
+    card = ServingCluster(spec)
+    card.warm()
+    emb = card._stack.embedder
+    params = {"w1": emb.w1.cpu(), "w2": emb.w2.cpu()}
+    cpu = facerec.build_identify_stack(seed=spec.seed, fast_path=True,
+                                       placement="device", params=params,
+                                       device="cpu")
+    rng = card._crop_rng(0)
+    for n in (5, 13, 64):
+        yuv = np.stack([host.rgb_to_yuv(rng.integers(0, 256, (48, 48, 3),
+                                                     dtype=np.uint8))
+                        for _ in range(n)])
+        got, _ = card._identify_real(yuv, None)
+        want = cpu.fused.identify_crops(cpu.preprocess.decode(
+            facerec._pad_rows_pow2(yuv))[:n])
+        err = max(abs(a[1] - b[1]) for a, b in zip(got, want))
+        same = [a[0] for a in got] == [b[0] for b in want]
+        print(f"cluster identities card vs cpu, batch {n}: names equal "
+              f"{same}; max score error {err:.3e}")
+        require(same and err <= CLUSTER_SCORE_ATOL,
+                f"cluster identities batch {n}: names equal {same}, score "
+                f"error {err}")
+
+
+def time_replica_batches(device) -> None:
+    """A replica's decode + identify of one batch with no other thread
+    running, under each placement: the service span without the cluster's
+    contention, to set beside the runs' mean span a batch."""
+    import numpy as np
+    from repro_torch.cluster import ServingCluster
+    from repro_torch.preprocess import host
+    for placement in CLUSTER_PLACEMENTS:
+        cl = ServingCluster(cluster_spec(device, placement))
+        cl.warm()
+        rng = cl._crop_rng(1)
+        row = {}
+        for n in (1, 13, 64):
+            yuv = np.stack([host.rgb_to_yuv(rng.integers(
+                0, 256, (48, 48, 3), dtype=np.uint8)) for _ in range(n)])
+            times = []
+            for _ in range(21):
+                t0 = time.perf_counter()
+                cl._identify_real(yuv, None)
+                times.append((time.perf_counter() - t0) * 1e3)
+            row[n] = statistics.median(times)
+        print(f"cluster replica alone, placement {placement}: decode + "
+              "identify ms a batch (median of 21) by batch size "
+              + json.dumps({n: round(v, 6) for n, v in row.items()}))
+
+
+def run_cluster_phase(device) -> None:
+    """Phase 8 (see CLUSTER_S): the S = 4 runs under each placement, the
+    card against the CPU on the same crops, the bracket and the knees."""
+    from dataclasses import replace
+    from repro_torch.cluster import ClusterSpec
+    from repro_torch.cluster.crossval import LIVE_TOL, des_knee, live_knee
+    t0 = time.perf_counter()
+    modelled = ClusterSpec(speedup=CLUSTER_S)
+    print("cluster: the default deployment with real service; priced at "
+          "the workload's 37,300-byte face the closed form would predict "
+          f"broker rho {modelled.predicted_rho()['broker_storage_write']:.6f}"
+          f" at S = {CLUSTER_S} and a knee of "
+          f"{modelled.closed_form_knee():.6f}, but the messages carry the "
+          "6,912-byte crop: the gates use the closed form at that payload")
+    for placement in CLUSTER_PLACEMENTS:
+        spec = cluster_spec(device, placement, speedup=CLUSTER_S)
+        res, launches, routes = run_cluster(spec)
+        label = f"placement {placement}"
+        ai = report_cluster_run(label, spec, res)["ai_fraction"]
+        rho = res.predicted_rho["broker_storage_write"]
+        util = res.utilization["broker_storage_write"]
+        require(res.completed > 0.8 * res.produced,
+                f"cluster {label}: {res.completed} of {res.produced}")
+        require(not res.diverged, f"cluster {label}: diverged")
+        require(0.0 < ai < 1.0, f"cluster {label}: ai_fraction {ai}")
+        require(abs(util - rho) < 0.25 * rho + 0.05,
+                f"cluster {label}: broker storage write {util} against "
+                f"predicted rho {rho}")
+        check_cluster_launches(label, placement, res, launches, routes)
+    check_cluster_identities(device)
+    time_replica_batches(device)
+
+    spec = cluster_spec(device, "device",
+                        time_compression=CLUSTER_KNEE_COMPRESSION)
+    knee = spec.closed_form_knee()
+    runs = {}
+    for f in CLUSTER_BRACKET:
+        s = replace(spec, speedup=f * knee)
+        res, _, _ = run_cluster(s)
+        report_cluster_run(f"bracket {f} x knee", s, res)
+        runs[f] = res
+    lo, hi = (runs[f] for f in CLUSTER_BRACKET)
+    print(f"cluster bracket around the closed-form knee {knee:.6f}: "
+          f"{CLUSTER_BRACKET[0]}x diverged={lo.diverged}, "
+          f"{CLUSTER_BRACKET[1]}x diverged={hi.diverged}; p99 "
+          f"{lo.latency.p99:.6f} vs {hi.latency.p99:.6f} model s")
+    require(not lo.diverged, "cluster: diverged below the knee")
+    require(hi.diverged, "cluster: stable above the knee")
+    require(hi.latency.p99 > 2 * lo.latency.p99,
+            "cluster: the saturated p99 is not above 2x the stable one")
+    require(hi.utilization["broker_storage_write"] > 0.8,
+            "cluster: above the knee the broker's storage is not saturated: "
+            f"{hi.utilization['broker_storage_write']}")
+    t_live = time.perf_counter()
+    live = live_knee(spec, iters=3)
+    t_des = time.perf_counter()
+    des = des_knee(spec, iters=4)
+    print(f"cluster knee (real service, placement device): live "
+          f"{live:.6f} ({t_des - t_live:.1f} s), des {des:.6f} "
+          f"({time.perf_counter() - t_des:.1f} s), closed form {knee:.6f}; "
+          f"live within LIVE_TOL "
+          f"{LIVE_TOL}: {abs(live - knee) / knee <= LIVE_TOL} "
+          f"(printed, not gated); phase {time.perf_counter() - t0:.1f} s")
 
 
 def kernel_table():
@@ -1978,6 +2264,7 @@ def main() -> int:
             torch.cuda.empty_cache()
     times = time_kernels(device)
     profile_pipeline(device, n_frames=16, src_hw=(SRC_H, SRC_W))
+    run_cluster_phase(device)
 
     rows = []
     for k in kernels:

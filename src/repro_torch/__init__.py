@@ -8,11 +8,13 @@ written for the H100 (``sm_90a``), each with a plain PyTorch version
 that runs only for CPU tensors.
 
 Ported so far: the face-recognition frame path of
-:class:`repro_torch.core.pipeline.StreamingPipeline` with device NMS, and
-the continuous-batching LM engine of
-:class:`repro_torch.serve.engine.ServingEngine` on llama3-8b and
-rwkv6-3b. Entry
-points run on the card (``device="cuda"``) unless the caller passes
+:class:`repro_torch.core.pipeline.StreamingPipeline` with device NMS; the
+continuous-batching LM engine of
+:class:`repro_torch.serve.engine.ServingEngine` on llama3-8b, rwkv6-3b
+and jamba-v0.1-52b; and the serving cluster of
+:class:`repro_torch.cluster.ServingCluster` with its DES, queueing and TCO
+models, whose real-service replicas run the identify stack. Entry points
+run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``.
 """
 from __future__ import annotations

@@ -12,6 +12,7 @@ the reference's, so the two packages attribute every span alike.
 """
 from __future__ import annotations
 
+import json
 import math
 import time
 from collections import defaultdict
@@ -266,6 +267,49 @@ class EventLog:
         return five_way_fractions(self.breakdown(),
                                   self._kind_aware(category_of))
 
+    def five_way_seconds(self, category_of) -> dict[str, float]:
+        """Total busy seconds per five-way bucket (sums, not means).
+
+        The same attribution as :meth:`five_way` over summed event
+        durations — what the offload benchmarks scale under emulated
+        acceleration. One implementation of the kind-override rule for
+        both aggregations, so they cannot drift.
+        """
+        cat = self._kind_aware(category_of)
+        out = dict.fromkeys(FIVE_WAY, 0.0)
+        for ev in self.events:
+            out[cat(ev.stage)] += ev.duration
+        return out
+
+    def windowed_five_way(self, category_of, window_s: float,
+                          fractions: bool = True) -> dict[int, dict]:
+        """Per-tumbling-window five-way attribution, keyed by window.
+
+        Events land in window ``int(t_end // window_s)`` (the heartbeat
+        grid the digital-twin comparison runs on — same t=0 alignment
+        as ``metrics.windowed_percentile``). With ``fractions=True``
+        each window's buckets sum to 1 when any time was recorded
+        (all-zero otherwise, e.g. a window holding only zero-duration
+        markers); with ``fractions=False`` raw busy seconds per bucket
+        are returned — what the flash-crowd signature check thresholds.
+        """
+        if window_s <= 0:
+            raise ValueError("window_s must be positive")
+        cat = self._kind_aware(category_of)
+        acc: dict[int, dict] = {}
+        for ev in self.events:
+            d = acc.setdefault(int(ev.t_end // window_s),
+                               dict.fromkeys(FIVE_WAY, 0.0))
+            d[cat(ev.stage)] += ev.duration
+        if not fractions:
+            return dict(sorted(acc.items()))
+        out = {}
+        for w, d in sorted(acc.items()):
+            grand = sum(d.values())
+            out[w] = ({k: v / grand for k, v in d.items()} if grand
+                      else d)
+        return out
+
     def ai_tax(self, ai_stages: set[str],
                category_of=None) -> dict[str, float]:
         """Fraction of total time in AI vs supporting stages (the AI tax).
@@ -300,6 +344,24 @@ class EventLog:
             out["pre_fraction"] = fr["pre"]
             out["post_fraction"] = fr["post"]
         return out
+
+
+    def throughput(self) -> float:
+        """Completed requests per second over the observed span."""
+        if not self.events:
+            return 0.0
+        t0 = min(e.t_start for e in self.events)
+        t1 = max(e.t_end for e in self.events)
+        n = len({e.request_id for e in self.events})
+        return n / (t1 - t0) if t1 > t0 else 0.0
+
+    def to_jsonl(self, path: str) -> None:
+        with open(path, "w") as f:
+            for ev in self.events:
+                f.write(json.dumps({
+                    "request_id": ev.request_id, "stage": ev.stage,
+                    "t_start": ev.t_start, "t_end": ev.t_end,
+                    "payload_bytes": ev.payload_bytes, **ev.meta}) + "\n")
 
 
 class Timer:

@@ -148,16 +148,34 @@ class PreprocessStage:
 
     # ---- post-processing --------------------------------------------------
 
-    def postprocess(self, hms: np.ndarray, pool: int,
-                    rids=None) -> list[list[tuple[int, int]]]:
+    def postprocess(self, hms: np.ndarray, pool: int, rids=None, *,
+                    skip_nms: bool = False) -> list[list[tuple[int, int]]]:
         """(B, Hc, Wc) detection heatmaps -> face centers per frame, in
         full-resolution coordinates (``cell * pool + pool//2``),
         best-first. Host and device placements make bit-identical keep
-        decisions."""
+        decisions.
+
+        ``skip_nms=True`` is the degrade ladder's cheap rung
+        (``DegradePolicy`` levels with ``post_nms`` False): threshold +
+        plain top-k by score on the host whatever the placement, since the
+        saving is not launching the suppression; logged as ``post_nms``.
+        """
         rids = list(rids) if rids is not None else list(range(len(hms)))
         p = self.post
         t0 = time.perf_counter()
         centers: list[list[tuple[int, int]]] = []
+        if skip_nms:
+            for hm in hms:
+                boxes, scores = _host.topk_boxes_from_heatmap(
+                    hm, p.max_candidates, box_cells=p.box_cells)
+                # scores come back best-first: the first max_faces over
+                # the bar are the plain top-k keeps
+                keep = [i for i in range(len(scores))
+                        if scores[i] >= p.score_thresh][:p.max_faces]
+                centers.append(self._centers(boxes[keep], pool))
+            self._log_span("post_nms", rids, t0, time.perf_counter(),
+                           hms.nbytes)
+            return centers
         if self.placement == "host":
             for hm in hms:
                 boxes, scores = _host.topk_boxes_from_heatmap(

@@ -731,3 +731,32 @@ def test_mamba_scan_kernel_rejects_what_it_does_not_take(cuda):
     buf = torch.zeros(1 + x.numel(), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         ls.mamba_scan(delta, A, Bt, Ct, buf[1:].view(x.shape), h0)
+
+
+def test_real_service_cluster_serves_on_the_card(cuda):
+    """``ServingCluster(service="real")`` on the card with the device
+    placement: stable at S = 4, and over the timed run every identify
+    batch launched the matmul kernel twice and the YUV kernel once (the
+    warm-up's launches counted apart)."""
+    import collections
+
+    from repro_torch.cluster import ClusterSpec, ServingCluster
+    from repro_torch.kernels import build
+    spec = ClusterSpec(service="real", placement="device", n_replicas=4,
+                       n_producers=2, sim_time=3.0, warmup=1.0, speedup=4.0)
+    assert spec.device == "cuda"
+    cl = ServingCluster(spec)
+    cl.warm()
+    for wrapper in (mm.matmul, preproc.yuv_to_rgb):
+        build.zero_launches(wrapper)
+    res = cl.run()
+    assert res.completed > 0.8 * res.produced and not res.diverged
+    assert 0.0 < res.ai_tax()["ai_fraction"] < 1.0
+    n_batches = len(res.batch_spans)
+    sizes = collections.Counter(e.meta["batch_size"] for e in res.log.events
+                                if e.stage == "identify")
+    assert n_batches == round(sum(c / n for n, c in sizes.items())) > 0
+    assert mm.matmul.launches == 2 * n_batches
+    assert preproc.yuv_to_rgb.launches == n_batches
+    tile = sum(1 for n, _ in res.batch_spans if (1 << (n - 1).bit_length()) > 8)
+    assert mm.matmul.launches_by_route["tile"] == 2 * tile

@@ -53,6 +53,19 @@ def test_port_has_the_jamba_slice_modules():
             "repro_torch.models.ssm", "repro_torch.kernels.linear_scan"} <= mods
 
 
+def test_port_has_the_cluster_slice_modules():
+    mods = set(_port_modules())
+    assert {"repro_torch.core.broker", "repro_torch.core.simulator",
+            "repro_torch.core.queueing", "repro_torch.core.tco",
+            "repro_torch.cluster", "repro_torch.cluster.metrics",
+            "repro_torch.cluster.scheduler", "repro_torch.cluster.topic",
+            "repro_torch.cluster.loadgen", "repro_torch.cluster.reliability",
+            "repro_torch.cluster.trace", "repro_torch.cluster.scenarios",
+            "repro_torch.cluster.faults", "repro_torch.cluster.autoscaler",
+            "repro_torch.cluster.cluster",
+            "repro_torch.cluster.crossval"} <= mods
+
+
 def test_importing_the_port_loads_no_jax_and_no_repro():
     code = (
         "import importlib, sys\n"
