@@ -37,8 +37,11 @@ Phases, each fatal on failure:
   4. run device NMS on candidate batteries (counters zeroed just before)
      and check its keep lists against the host NMS, one IoU launch a call;
   5. for each served arch, llama3-8b (attention kernels), rwkv6-3b (the
-     RWKV6 scan kernel) and jamba-v0.1-52b (the Mamba scan kernel beside
-     the attention kernels, MoE MLPs), serve its smoke config (float32) on
+     RWKV6 scan kernel), jamba-v0.1-52b (the Mamba scan kernel beside
+     the attention kernels, MoE MLPs), qwen2.5-14b (q/k/v bias; decode at
+     G = 5), chameleon-34b (q/k norm; G = 8) and granite-moe-3b-a800m (40
+     experts top-8, tied embeddings; flash and decode at D = 64, G = 3),
+     serve its smoke config (float32) on
      the card and on the CPU with the same numpy-made weights (every leaf
      drawn at random): greedy token streams must agree between the two and
      between the continuous and slot schedulers;
@@ -47,8 +50,11 @@ Phases, each fatal on failure:
      jamba-v0.1-52b, whose depth is cut to what one card is measured to
      hold (printed as a listed reduction): one prefill and one decode step
      through the kernels against the same steps with the plain versions
-     swapped in (for the scan archs, every layer's scan on its own bf16
-     inputs, and the whole step with float32 weights), then 16 requests
+     swapped in (for the attention-only archs also every layer's flash
+     and decode call on its own bf16 inputs; for the scan archs every
+     layer's scan on its own bf16 inputs; for the MoE and scan archs, and
+     qwen2.5-14b and chameleon-34b, the whole step with float32 weights),
+     then 16 requests
      through the continuous-batching engine (counters zeroed just before
      the run; the attention kernels must take their tensor-core routes
      once an attention layer for every prefill and every tick, the RWKV6
@@ -81,7 +87,15 @@ Phases, each fatal on failure:
      (names equal, scores within 1e-5); bracket the closed-form knee
      (stable at 0.65x, diverged at 1.4x with a saturated broker and a p99
      above twice the stable one); print the live knee beside the DES knee
-     and the closed form.
+     and the closed form;
+  9. wrap the fused identify of 8 crops in the paper's ``TaxedStep`` on
+     the card (pre: stacking and padding on the host; h2d; compute: the
+     device program, two matmul launches; d2h; post: names) and print its
+     five-way split: h2d and d2h bytes equal the stack's and the fetched
+     outputs', two matmul launches a compute, names equal
+     ``identify_crops``'s.
+
+Each phase prints the wall seconds it took.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -126,13 +140,30 @@ ATTN_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SCAN_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 STATE_RTOL = 1e-5
 # full-width logits through the kernels vs the plain versions, relative to
-# the largest logit: llama3-8b's in bf16, and rwkv6-3b's and jamba's with
-# float32 weights, where only fp32 summation order differs
+# the largest logit: in bf16 for the dense attention archs (llama3-8b,
+# qwen2.5-14b, chameleon-34b), and with float32 weights, where only fp32
+# summation order differs, for rwkv6-3b, jamba, granite, qwen2.5-14b and
+# chameleon-34b
 LOGITS_RTOL = 5e-2
 LOGITS_RTOL_F32 = 1e-3
+# free memory left beside float32 weights drawn for a logits hold: the
+# 512-token prefill's activations and the plain versions' fp32 scores
+F32_MARGIN_BYTES = 4 << 30
+# the archs whose float32 logits hold runs once their bf16 weights are
+# freed, at the most repeats of the pattern that fit (check_f32_depth):
+# jamba one repeat (two are ~106 GB), qwen2.5-14b whole (59.08 GB),
+# chameleon-34b as deep as fits (137.17 GB whole). Their bf16 holds pass
+# at 5e-2 over 48 layers; these hold the same steps where rounding does
+# not drift
+F32_AFTER = ("jamba-v0.1-52b", "qwen2.5-14b", "chameleon-34b")
 
 # serve phase at full width, bf16, on the card, for each served arch
-SERVE_ARCHS = ("llama3-8b", "rwkv6-3b", "jamba-v0.1-52b")
+SERVE_ARCHS = ("llama3-8b", "rwkv6-3b", "jamba-v0.1-52b", "qwen2.5-14b",
+               "chameleon-34b", "granite-moe-3b-a800m")
+# the other attention archs' (heads, kv heads, head width): decode pairs
+# G = 5, 8 at D = 128 and G = 3 at D = 64; flash at D = 128 and D = 64
+ZOO_HEADS = {"qwen2.5-14b": (40, 8, 128), "chameleon-34b": (64, 8, 128),
+             "granite-moe-3b-a800m": (24, 8, 64)}
 # the tensor-core instructions in the kernel libraries' SASS (attention and
 # the chunked RWKV6 scan), and the route each attention kernel must take on
 # the full-width serve path: one launch an attention layer for every
@@ -172,6 +203,8 @@ YUV_CASES = (((1, 3, SRC_H, SRC_W), 0, "vec16"), ((2, 3, SRC_H, SRC_W), 0, "vec1
              ((1, 3, 7, 13), 0, "scalar"), ((2, 3, 8, 16), 1, "scalar"))
 # identify batches on the face path are pow2-bucketed and at most batch_size
 FACE_BATCHES = (1, 3, 8)
+# the TaxedStep phase: crops a fused identify step, logged steps
+TAXED_CROPS, TAXED_STEPS = 8, 20
 # the skinny matmul route's row counts held against the plain version
 SKINNY_CHECK_M = (1, 2, 3, 4, 8)
 # the serving cluster's replicas drain a partition in one fetch and pad the
@@ -212,6 +245,15 @@ class SmokeFailure(RuntimeError):
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Print the wall seconds a phase took when it ends (a phase that
+    raises prints nothing: the failure ends the script)."""
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
 
 def card_line() -> str:
@@ -402,25 +444,31 @@ def dense_boxes(n: int, seed: int):
     return boxes, rng.random(n).astype(np.float32)
 
 
-def attn_inputs(Sq, Skv, dtype, device, seed=0):
-    """q (1, Sq, 32, 128), k and v (1, Skv, 8, 128): llama3-8b's heads."""
+def attn_inputs(Sq, Skv, dtype, device, seed=0,
+                heads=(LLAMA_H, LLAMA_KV, LLAMA_D)):
+    """q (1, Sq, H, D), k and v (1, Skv, KV, D) for ``heads`` = (H, KV, D),
+    llama3-8b's by default."""
     import torch
+    H, KV, D = heads
     g = _gen(seed)
-    q = torch.randn((1, Sq, LLAMA_H, LLAMA_D), generator=g)
-    k = torch.randn((1, Skv, LLAMA_KV, LLAMA_D), generator=g)
-    v = torch.randn((1, Skv, LLAMA_KV, LLAMA_D), generator=g)
+    q = torch.randn((1, Sq, H, D), generator=g)
+    k = torch.randn((1, Skv, KV, D), generator=g)
+    v = torch.randn((1, Skv, KV, D), generator=g)
     return tuple(t.to(device, dtype) for t in (q, k, v))
 
 
-def decode_inputs(L, dtype, device, seed=0, B=SERVE_SLOTS):
-    """q (B, 1, 32, 128), caches (B, L, 8, 128) and kv_len (B,) int32 drawn
-    from 0..L, its first three rows 0, 1 and L."""
+def decode_inputs(L, dtype, device, seed=0, B=SERVE_SLOTS,
+                  heads=(LLAMA_H, LLAMA_KV, LLAMA_D)):
+    """q (B, 1, H, D), caches (B, L, KV, D) for ``heads`` = (H, KV, D),
+    llama3-8b's by default, and kv_len (B,) int32 drawn from 0..L, its
+    first three rows 0, 1 and L."""
     import numpy as np
     import torch
+    H, KV, D = heads
     g = _gen(seed)
-    q = torch.randn((B, 1, LLAMA_H, LLAMA_D), generator=g)
-    k = torch.randn((B, L, LLAMA_KV, LLAMA_D), generator=g)
-    v = torch.randn((B, L, LLAMA_KV, LLAMA_D), generator=g)
+    q = torch.randn((B, 1, H, D), generator=g)
+    k = torch.randn((B, L, KV, D), generator=g)
+    v = torch.randn((B, L, KV, D), generator=g)
     lens = np.random.default_rng(seed).integers(0, L + 1, B).astype(np.int32)
     lens[:3] = (0, 1, L)
     return (*(t.to(device, dtype) for t in (q, k, v)),
@@ -664,6 +712,12 @@ def check_serve_kernels(device) -> dict[str, float]:
         q, k, v = (t[..., :16].contiguous() for t in
                    attn_inputs(100, 100, dtype, device))
         worst = max(worst, _check_flash(fa, q, k, v, name, {}))
+        # the other attention archs' heads (granite's D = 64 on the wgmma
+        # route in bf16) at a prefill length, a ragged one and a window
+        for heads in ZOO_HEADS.values():
+            for S, kw in ((512, {}), (1000, {}), (1000, {"window": 100})):
+                q, k, v = attn_inputs(S, S, dtype, device, heads=heads)
+                worst = max(worst, _check_flash(fa, q, k, v, name, kw))
     err["flash_attention"] = worst
 
     # decode: llama3-8b's heads (bf16 on the mma route, fp32 on the
@@ -680,6 +734,13 @@ def check_serve_kernels(device) -> dict[str, float]:
         q, k, v = (q[:, :, :4, :16].contiguous(), k[:, :, :2, :16].contiguous(),
                    v[:, :, :2, :16].contiguous())
         worst = max(worst, _check_decode(da, q, k, v, lens, name, 7))
+        # the pairs the other attention archs add: G = 5 and 8 at D = 128,
+        # G = 3 at D = 64, at the engine's cache, a ragged one, a window
+        for heads in ZOO_HEADS.values():
+            for L, window in ((2048, None), (2047, None), (2048, 512)):
+                q, k, v, lens = decode_inputs(L, dtype, device, heads=heads)
+                worst = max(worst, _check_decode(da, q, k, v, lens, name,
+                                                 window))
     err["decode_attention"] = worst
     torch.cuda.synchronize()
     return err
@@ -1087,6 +1148,63 @@ def checked_scan_ops(errs: dict):
     return swapped_ops({op: checked(op) for op in SCAN_OPS})
 
 
+def checked_attention_ops(errs: dict):
+    """The models' attention ops (prefill and decode), each call also run
+    through its plain version on the same inputs: the largest difference
+    within ATTN_ATOL of the largest plain output, layer by layer (the
+    decode cache is written before the op reads it, so both read the same
+    cache). The model goes on with the kernel's results. ``errs``
+    collects, per op, the layers checked and the largest relative and
+    absolute differences."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    plains = {"attention": fa.flash_attention_plain,
+              "decode_attention": da.decode_attention_plain}
+
+    def checked(op):
+        kernel, plain = getattr(ops, op), plains[op]
+
+        def call(*args, **kw):
+            o = kernel(*args, **kw)
+            po = plain(*args, **kw).float()
+            diff = (o.float() - po).abs().max().item()
+            rel = diff / po.abs().max().item()
+            tol = ATTN_ATOL[str(o.dtype).split(".")[1]]
+            n, worst, worst_abs = errs.get(op, (0, 0.0, 0.0))
+            require(rel <= tol, f"{op} layer {n} on the model's activations:"
+                    f" relative difference {rel:.3e} (tolerance {tol})")
+            errs[op] = (n + 1, max(worst, rel), max(worst_abs, diff))
+            return o
+        return call
+
+    return swapped_ops({op: checked(op) for op in plains})
+
+
+def check_attention_layers(model, params) -> None:
+    """One full-width 512-token prefill and one decode step through the
+    attention kernels, every attention layer's flash and decode call held
+    against the plain versions on that layer's own inputs
+    (:func:`checked_attention_ops`); the logits finite."""
+    import torch
+    from repro_torch.models import transformer as tf
+    n_layers = sum(s.kind == "attn" for s in tf.layer_specs(model.cfg))
+    errs = {}
+    logits, _ = _step_logits(model, params, _prompt(model),
+                             lambda: checked_attention_ops(errs))
+    for op, (n, rel, diff) in errs.items():
+        print(f"check {model.cfg.name} {op} ({model.cfg.dtype}, 512-token "
+              f"prompt) on each layer's own inputs vs plain: {n} layers, "
+              f"largest difference {diff:.3e} = {rel:.3e} of the largest "
+              "plain output")
+    for op in ("attention", "decode_attention"):
+        require(errs.get(op, (0,))[0] == n_layers,
+                f"{op}: {errs.get(op, (0,))[0]} of {n_layers} layers checked")
+    for name, a in logits.items():
+        require(bool(torch.isfinite(a).all()),
+                f"full-width {name} logits are not finite")
+
+
 @contextlib.contextmanager
 def recorded_routes(routes: list):
     """Every MoE call of the models also records its router's (probs, top-k
@@ -1380,19 +1498,29 @@ def fit_depth(device, cfg):
     raise SmokeFailure(f"{cfg.name}: not one repeat of the pattern fits")
 
 
-def check_f32_repeat(device, arch: str) -> None:
-    """One repeat of ``arch``'s block pattern at full width with float32
-    weights drawn on the card from seed 0 (no other weights resident): its
-    logits through the kernels against the plain versions, where only the
-    fp32 summation order differs."""
+def check_f32_depth(device, arch: str) -> None:
+    """``arch`` at full width with float32 weights drawn on the card from
+    seed 0 (no other weights resident), at the most repeats of its pattern
+    whose float32 weights fit in the free memory less F32_MARGIN_BYTES
+    (at least one): its logits through the kernels against the plain
+    versions, where only the fp32 summation order differs."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    cfg = get_config(arch)
-    cfg = cfg.replace(n_layers=len(cfg.block_pattern), dtype="float32")
-    model = Model(cfg, device=device)
+    cfg = get_config(arch).replace(dtype="float32")
+    n_pat = len(cfg.block_pattern)
+    free = torch.cuda.mem_get_info(device)[0] - F32_MARGIN_BYTES
+    reps = cfg.n_repeats
+    while reps > 1 and Model(cfg.replace(n_layers=reps * n_pat),
+                             device=device).weight_bytes() > free:
+        reps -= 1
+    model = Model(cfg.replace(n_layers=reps * n_pat), device=device)
+    if reps < cfg.n_repeats:
+        print(f"reduced: float32 n_layers {cfg.n_layers} \u2192 "
+              f"{reps * n_pat} (weights {model.weight_bytes() / 1e9:.2f} GB "
+              f"of {free / 1e9:.2f} GB free less the margin)")
     params = model.init(seed=0)
-    print(f"serve {arch}: one repeat, {cfg.n_layers} layers, "
+    print(f"serve {arch}: {reps * n_pat} of {cfg.n_layers} layers, "
           f"{model.weight_bytes() / 1e9:.3f} GB of float32 weights drawn on "
           f"the card; {torch.cuda.memory_allocated(device) / 1e9:.2f} GB "
           "allocated")
@@ -1424,21 +1552,25 @@ def serve_full_width(device, arch: str, wrappers) -> dict:
           f"card in {time.perf_counter() - t0:.1f} s; "
           f"{torch.cuda.memory_allocated(device) / 1e9:.2f} GB allocated")
     kinds = {spec.kind for spec in cfg.block_pattern}
+    # over 32 bf16 layers of random weights a one-ulp flip of a scan output
+    # moves the logits by ~0.1 of the largest (a change of the plain scan's
+    # summation order alone does), and a bf16 rounding that flips one of
+    # the experts a token takes moves them far more than rounding: there
+    # the kernels are held layer by layer in bf16, and the whole step with
+    # the same weights widened to float32 (its routes compared first). A
+    # Mamba arch's float32 step runs once these weights are freed
     if "rwkv" in kinds:
-        # over 32 bf16 layers of random weights a one-ulp flip of a scan
-        # output moves the logits by ~0.1 of the largest (a change of the
-        # plain scan's summation order alone does), so in bf16 the scan is
-        # held layer by layer, and the whole step with float32 weights
         check_scan_layers(model, params, ("rwkv_scan", "rwkv_decode_step"))
+    elif "mamba" in kinds:
+        check_scan_layers(model, params, ("mamba_scan", "mamba_decode_step"))
+    else:
+        check_attention_layers(model, params)
+    if "rwkv" in kinds or (cfg.moe is not None and "mamba" not in kinds):
         wide = Model(cfg.replace(dtype="float32"), device=device)
         check_full_width_step(
             wide, map_tree(lambda t: t.float(), params), rtol=LOGITS_RTOL_F32)
         del wide
-    elif "mamba" in kinds:
-        # the same for the Mamba scan; the float32 step (one repeat, as 24
-        # layers in float32 do not fit) runs once these weights are freed
-        check_scan_layers(model, params, ("mamba_scan", "mamba_decode_step"))
-    else:
+    elif "mamba" not in kinds:
         check_full_width_step(model, params, rtol=LOGITS_RTOL)
     # warm-up outside the counts: cuBLAS handles and the kernel libraries
     run_serve(model, params, serve_requests(cfg, 2, seed=2), 2)
@@ -1689,6 +1821,19 @@ def time_kernels(device) -> dict[str, dict]:
                    2 * (2 * q.numel() + k.numel() + v.numel()),
                    4 * LLAMA_D * pairs, iters=10, peak_flop_s=PEAK_BF16_FLOP_S)
         out.setdefault("flash_attention", t)
+    # the other attention archs' heads at a 1024-token prompt (granite's
+    # D = 64 the wgmma route's other width)
+    for arch, (H, KV, D) in ZOO_HEADS.items():
+        S = 1024
+        q, k, v = attn_inputs(S, S, torch.bfloat16, device, heads=(H, KV, D))
+        pairs = H * S * (S + 1) // 2
+        _timed("flash_attention", f"{arch} bf16 q(1,{S},{H},{D}) "
+               f"kv(1,{S},{KV},{D}) causal",
+               lambda: fa.flash_attention(q, k, v, causal=True),
+               lambda: fa.flash_attention_plain(q, k, v, causal=True),
+               sdpa_call(q, k, v, causal=True),
+               2 * (2 * q.numel() + k.numel() + v.numel()),
+               4 * D * pairs, iters=10, peak_flop_s=PEAK_BF16_FLOP_S)
 
     # decode with a cold L2 too: the engine's cache (67 MB a layer at full
     # length) exceeds the 50 MB L2, so a tick finds it in device memory
@@ -1714,6 +1859,28 @@ def time_kernels(device) -> dict[str, dict]:
                   f"read before each call) kv(8,{L},8,128): "
                   + json.dumps(cold))
         out.setdefault("decode_attention", t)
+    # the pairs the other attention archs add, at the engine's full cache
+    for arch, (H, KV, D) in ZOO_HEADS.items():
+        L = SERVE_CACHE_LEN
+        q, k, v, lens = decode_inputs(L, torch.bfloat16, device,
+                                      heads=(H, KV, D))
+        valid = int(lens.sum().item())
+        mask = (torch.arange(L, device=device)[None, :]
+                < lens[:, None])[:, None, None, :]
+        kernel = lambda: da.decode_attention(q, k, v, kv_len=lens)
+        library = sdpa_call(q, k, v, causal=False, mask=mask)
+        _timed("decode_attention", f"{arch} bf16 q(8,1,{H},{D}) "
+               f"kv(8,{L},{KV},{D}) G={H // KV} kv_len={lens.tolist()}",
+               kernel,
+               lambda: da.decode_attention_plain(q, k, v, kv_len=lens),
+               library, 2 * (2 * valid * KV * D + 2 * q.numel())
+               + 4 * lens.numel(), 4 * D * H * valid, iters=20,
+               peak_flop_s=PEAK_BF16_FLOP_S)
+        cold = {"ms": cold_time_ms(kernel, scratch),
+                "library_ms": cold_time_ms(library, scratch)}
+        print(f"time decode_attention L2-cold ({L2_FLUSH_BYTES >> 20} MiB "
+              f"read before each call) {arch} kv(8,{L},{KV},{D}): "
+              + json.dumps(cold))
 
     # the RWKV6 scan at the serve path's shapes: a 1024-token prefill and a
     # ragged 37-token one from a zero state (the chunked route), then one
@@ -2048,7 +2215,6 @@ def run_cluster_phase(device) -> None:
     from dataclasses import replace
     from repro_torch.cluster import ClusterSpec
     from repro_torch.cluster.crossval import LIVE_TOL, des_knee, live_knee
-    t0 = time.perf_counter()
     modelled = ClusterSpec(speedup=CLUSTER_S)
     print("cluster: the default deployment with real service; priced at "
           "the workload's 37,300-byte face the closed form would predict "
@@ -2104,7 +2270,95 @@ def run_cluster_phase(device) -> None:
           f"({time.perf_counter() - t_des:.1f} s), closed form {knee:.6f}; "
           f"live within LIVE_TOL "
           f"{LIVE_TOL}: {abs(live - knee) / knee <= LIVE_TOL} "
-          f"(printed, not gated); phase {time.perf_counter() - t0:.1f} s")
+          "(printed, not gated)")
+
+
+# --------------------------------------------------------------------------
+# Phase 9: the paper's tax split of one accelerated step
+# --------------------------------------------------------------------------
+
+def run_taxed_identify(device, n_steps: int = TAXED_STEPS) -> dict:
+    """The fused identify of TAXED_CROPS crops wrapped in a ``TaxedStep``
+    on ``device``: pre = stacking and padding the crops on the host, h2d =
+    the uint8 stack's upload, compute = ``FusedIdentifier.score`` (the two
+    matmul launches), d2h = the (index, score) rows, post = names from
+    indices. One warm-up step outside the log, then ``n_steps`` logged
+    ones. Gates: h2d bytes = the stacks' bytes, d2h bytes = the fetched
+    outputs' bytes, two matmul launches inside each compute (none on the
+    CPU, whose plain version counts none), (name, score) rows equal
+    ``identify_crops``'s. Returns the step's ``breakdown()``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import facerec
+    from repro_torch.core.events import EventLog
+    from repro_torch.core.taxmeter import TaxedStep
+    from repro_torch.kernels import matmul as mm
+    fused = facerec.build_identify_stack(seed=0, fast_path=True,
+                                         placement="device",
+                                         device=device).fused
+    rng = np.random.default_rng(4)
+    crops = [rng.integers(0, 256, (facerec.CROP_SIZE, facerec.CROP_SIZE, 3),
+                          dtype=np.uint8) for _ in range(TAXED_CROPS)]
+    want = fused.identify_crops(np.stack(crops))
+    per_compute, fetched = [], []
+
+    def pre(cs):
+        return np.ascontiguousarray(facerec._pad_rows_pow2(np.stack(cs)))
+
+    def compute(x):
+        before = mm.matmul.launches
+        out = fused.score(x)
+        per_compute.append(mm.matmul.launches - before)
+        return out
+
+    def post(y):
+        fetched.append(sum(t.element_size() * t.numel() for t in y))
+        return fused.named(y[0].numpy()[:len(crops)],
+                           y[1].numpy()[:len(crops)])
+
+    TaxedStep(EventLog(), "identify_fused", device=device).run(
+        0, pre=pre, compute=compute, post=post, payload=crops)
+    per_compute.clear()
+    fetched.clear()
+    step = TaxedStep(EventLog(), "identify_fused", device=device)
+    names = [step.run(i, pre=pre, compute=compute, post=post, payload=crops)
+             for i in range(n_steps)]
+    bd = step.breakdown()
+    stack_bytes = pre(crops).nbytes
+    means = {st.split("/")[1]: statistics.fmean(
+        ev.duration for ev in step.log.events if ev.stage == st) * 1e3
+        for st in bd["per_stage"]}
+    launches = 2 if torch.device(device).type == "cuda" else 0
+    print(f"taxed identify_fused ({len(crops)} crops of "
+          f"{facerec.CROP_SIZE}x{facerec.CROP_SIZE}x3 u8, {n_steps} steps on "
+          f"{device}): mean ms " + json.dumps(
+              {k: round(v, 6) for k, v in means.items()})
+          + "; five-way " + json.dumps(
+              {k: round(v, 6) for k, v in bd["fractions"].items()})
+          + f"; ai_fraction {bd['ai_fraction']:.6f}, transfer_fraction "
+          f"{bd['transfer_fraction']:.6f}; transfer bytes "
+          + json.dumps(bd["transfer_bytes"]) + f"; matmul launches a "
+          f"compute {sorted(set(per_compute))} (want {launches})")
+    require(bd["transfer_bytes"]["h2d"] == n_steps * stack_bytes,
+            f"taxed identify: h2d {bd['transfer_bytes']['h2d']} bytes, want "
+            f"{n_steps} x {stack_bytes}")
+    require(bd["transfer_bytes"]["d2h"] == sum(fetched)
+            and len(fetched) == n_steps,
+            f"taxed identify: d2h {bd['transfer_bytes']['d2h']} bytes, "
+            f"fetched {sum(fetched)}")
+    require(per_compute == [launches] * n_steps,
+            f"taxed identify: matmul launches a compute {per_compute}, want "
+            f"{launches}")
+    # both sides run the same score() on the same device: the (name,
+    # score) rows are bit-equal
+    same = all(n == want for n in names)
+    print(f"taxed identify: (name, score) rows equal identify_crops's: "
+          f"{same}")
+    require(same, "taxed identify: (name, score) rows differ from "
+            "identify_crops's")
+    require(abs(sum(bd["fractions"].values()) - 1.0) < 1e-9,
+            "taxed identify: the five-way split does not sum to 1")
+    return bd
 
 
 def kernel_table():
@@ -2137,12 +2391,12 @@ def kernel_table():
          "source": csrc + "decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:116",
          "path": "serve", "arch": "llama3-8b",
-         "archs": ("llama3-8b", "jamba-v0.1-52b")},
+         "archs": ("llama3-8b", "jamba-v0.1-52b", *ZOO_HEADS)},
         {"name": "flash_attention", "wrapper": fa.flash_attention,
          "source": csrc + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:115",
          "path": "serve", "arch": "llama3-8b",
-         "archs": ("llama3-8b", "jamba-v0.1-52b")},
+         "archs": ("llama3-8b", "jamba-v0.1-52b", *ZOO_HEADS)},
         {"name": "rwkv_scan", "wrapper": ls.rwkv_scan,
          "source": csrc + "linear_scan.cu",
          "replaces": "src/repro/kernels/linear_scan.py:147",
@@ -2152,6 +2406,81 @@ def kernel_table():
          "replaces": "src/repro/kernels/linear_scan.py:74",
          "path": "serve", "arch": "jamba-v0.1-52b"},
     ]
+
+
+def serve_arch(device, arch: str, kernels, launches: dict) -> None:
+    """Phases 5 and 6 for ``arch``: the smoke-size card-vs-CPU serve and
+    the full-width serve with its launch and route gates; the launches of
+    the kernels whose kernels-line arch is ``arch`` go into ``launches``."""
+    import torch
+    serve = [k for k in kernels
+             if arch in k.get("archs", (k.get("arch"),))]
+    wrappers = [k["wrapper"] for k in serve]
+    smoke = check_serve_smoke(device, arch, wrappers)
+    full = serve_full_width(device, arch, wrappers)
+    for k in serve:
+        n_full = full["launches"][k["wrapper"]]
+        by_sched = {s: n[k["wrapper"]] for s, n in smoke.items()}
+        print(f"serve launches {k['name']}: {arch} full width {n_full}; "
+              f"smoke config on the card, each run alone: {by_sched}")
+        require(n_full > 0,
+                f"{k['name']} was not launched on the {arch} serve path")
+        require(all(n > 0 for n in by_sched.values()),
+                f"{k['name']} was not launched by a {arch} smoke run")
+        if k["arch"] == arch:
+            launches[k["name"]] = n_full
+    for name, kind in (("rwkv_scan", "rwkv"), ("mamba_scan", "mamba")):
+        if any(k["name"] == name for k in serve):
+            # one scan launch a layer of the kind for every prefill and
+            # every decode tick
+            n_kind = sum(s.kind == kind for s in
+                         full["cfg"].block_pattern) * full["cfg"].n_repeats
+            want = n_kind * (full["prefills"] + full["ticks"])
+            print(f"serve launches {name}: {launches[name]} = {n_kind} "
+                  f"{kind} layers x ({full['prefills']} prefills + "
+                  f"{full['ticks']} ticks) = {want}: "
+                  f"{launches[name] == want}")
+            require(launches[name] == want,
+                    f"{name} launched {launches[name]} times, want {want}")
+            # by route: the long prefills on the chunked (RWKV6) or
+            # segmented (Mamba) scan, from CHUNK_MIN_S or MAMBA_SEG_MIN_S
+            # steps on; the decode ticks on the serial (RWKV6) or step
+            # (Mamba) kernel; shorter prefills on the serial kernels
+            from repro_torch.kernels import linear_scan as ls
+            got = full["routes"][
+                next(k["wrapper"] for k in serve if k["name"] == name)]
+            lens, ticks = full["prompt_lens"], full["ticks"]
+            if name == "rwkv_scan":
+                long = sum(n >= ls.CHUNK_MIN_S for n in lens)
+                want = {"chunk": n_kind * long,
+                        "serial": n_kind * (len(lens) - long + ticks)}
+            else:
+                long = sum(n >= ls.MAMBA_SEG_MIN_S for n in lens)
+                want = {"segmented": n_kind * long,
+                        "step": n_kind * ticks,
+                        "serial": n_kind * (len(lens) - long)}
+            print(f"serve launches {name} by route: {arch} {got}; want "
+                  f"{want}: {got == want}")
+            require(got == want, f"{name}: {got} on {arch}, want {want}")
+    n_attn = sum(s.kind == "attn" for s in
+                 full["cfg"].block_pattern) * full["cfg"].n_repeats
+    for k in serve:
+        if k["name"] not in TC_GATES:
+            continue
+        route, per = TC_GATES[k["name"]]
+        got = full["routes"][k["wrapper"]]
+        want = n_attn * full[per]
+        print(f"serve launches {k['name']} by route: {arch} {got}; "
+              f"{route} = {n_attn} attention layers x {full[per]} {per} "
+              f"= {want}: {got[route] == want}")
+        require(got[route] == want and sum(got.values()) == want,
+                f"{k['name']}: {got} on {arch}, want {want} on {route}")
+    profile_serve(full["model"], full["params"], full["cfg"])
+    del full                     # free the weights before the next arch
+    torch.cuda.empty_cache()
+    if arch in F32_AFTER:
+        check_f32_depth(device, arch)
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2164,6 +2493,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
 
+    start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -2184,87 +2514,29 @@ def main() -> int:
         require(n > 0, f"{stem}: no {op} instruction in its SASS")
 
     kernels = kernel_table()
-    errors = check_kernels(device)
-    errors.update(check_serve_kernels(device))
-    errors.update(check_scan_kernel(device))
-    errors.update(check_mamba_kernel(device))
+    with phase("kernel checks"):
+        errors = check_kernels(device)
+        errors.update(check_serve_kernels(device))
+        errors.update(check_scan_kernel(device))
+        errors.update(check_mamba_kernel(device))
     launches = {}
-    path = check_pipeline(device, [k for k in kernels if k["path"] == "pipeline"],
-                          n_frames=16, src_hw=(SRC_H, SRC_W))
+    with phase("pipeline"):
+        path = check_pipeline(
+            device, [k for k in kernels if k["path"] == "pipeline"],
+            n_frames=16, src_hw=(SRC_H, SRC_W))
     launches.update(path["launches"])
-    launches["iou_matrix"] = run_nms_path(device)
+    with phase("nms"):
+        launches["iou_matrix"] = run_nms_path(device)
     for arch in SERVE_ARCHS:
-        serve = [k for k in kernels
-                 if arch in k.get("archs", (k.get("arch"),))]
-        wrappers = [k["wrapper"] for k in serve]
-        smoke = check_serve_smoke(device, arch, wrappers)
-        full = serve_full_width(device, arch, wrappers)
-        for k in serve:
-            n_full = full["launches"][k["wrapper"]]
-            by_sched = {s: n[k["wrapper"]] for s, n in smoke.items()}
-            print(f"serve launches {k['name']}: {arch} full width {n_full}; "
-                  f"smoke config on the card, each run alone: {by_sched}")
-            require(n_full > 0,
-                    f"{k['name']} was not launched on the {arch} serve path")
-            require(all(n > 0 for n in by_sched.values()),
-                    f"{k['name']} was not launched by a {arch} smoke run")
-            if k["arch"] == arch:
-                launches[k["name"]] = n_full
-        for name, kind in (("rwkv_scan", "rwkv"), ("mamba_scan", "mamba")):
-            if any(k["name"] == name for k in serve):
-                # one scan launch a layer of the kind for every prefill and
-                # every decode tick
-                n_kind = sum(s.kind == kind for s in
-                             full["cfg"].block_pattern) * full["cfg"].n_repeats
-                want = n_kind * (full["prefills"] + full["ticks"])
-                print(f"serve launches {name}: {launches[name]} = {n_kind} "
-                      f"{kind} layers x ({full['prefills']} prefills + "
-                      f"{full['ticks']} ticks) = {want}: "
-                      f"{launches[name] == want}")
-                require(launches[name] == want,
-                        f"{name} launched {launches[name]} times, want {want}")
-                # by route: the long prefills on the chunked (RWKV6) or
-                # segmented (Mamba) scan, from CHUNK_MIN_S or MAMBA_SEG_MIN_S
-                # steps on; the decode ticks on the serial (RWKV6) or step
-                # (Mamba) kernel; shorter prefills on the serial kernels
-                from repro_torch.kernels import linear_scan as ls
-                got = full["routes"][
-                    next(k["wrapper"] for k in serve if k["name"] == name)]
-                lens, ticks = full["prompt_lens"], full["ticks"]
-                if name == "rwkv_scan":
-                    long = sum(n >= ls.CHUNK_MIN_S for n in lens)
-                    want = {"chunk": n_kind * long,
-                            "serial": n_kind * (len(lens) - long + ticks)}
-                else:
-                    long = sum(n >= ls.MAMBA_SEG_MIN_S for n in lens)
-                    want = {"segmented": n_kind * long,
-                            "step": n_kind * ticks,
-                            "serial": n_kind * (len(lens) - long)}
-                print(f"serve launches {name} by route: {arch} {got}; want "
-                      f"{want}: {got == want}")
-                require(got == want, f"{name}: {got} on {arch}, want {want}")
-        n_attn = sum(s.kind == "attn" for s in
-                     full["cfg"].block_pattern) * full["cfg"].n_repeats
-        for k in serve:
-            if k["name"] not in TC_GATES:
-                continue
-            route, per = TC_GATES[k["name"]]
-            got = full["routes"][k["wrapper"]]
-            want = n_attn * full[per]
-            print(f"serve launches {k['name']} by route: {arch} {got}; "
-                  f"{route} = {n_attn} attention layers x {full[per]} {per} "
-                  f"= {want}: {got[route] == want}")
-            require(got[route] == want and sum(got.values()) == want,
-                    f"{k['name']}: {got} on {arch}, want {want} on {route}")
-        profile_serve(full["model"], full["params"], full["cfg"])
-        del full                     # free the weights before the next arch
-        torch.cuda.empty_cache()
-        if arch == "jamba-v0.1-52b":
-            check_f32_repeat(device, arch)
-            torch.cuda.empty_cache()
-    times = time_kernels(device)
-    profile_pipeline(device, n_frames=16, src_hw=(SRC_H, SRC_W))
-    run_cluster_phase(device)
+        with phase(f"serve {arch}"):
+            serve_arch(device, arch, kernels, launches)
+    with phase("times"):
+        times = time_kernels(device)
+        profile_pipeline(device, n_frames=16, src_hw=(SRC_H, SRC_W))
+    with phase("cluster"):
+        run_cluster_phase(device)
+    with phase("taxed step"):
+        run_taxed_identify(device)
 
     rows = []
     for k in kernels:
@@ -2275,6 +2547,7 @@ def main() -> int:
                      "max_abs_err": errors[k["name"]], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(card)        # as nvidia-smi reports it: name, power limit
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

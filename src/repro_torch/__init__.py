@@ -10,10 +10,13 @@ that runs only for CPU tensors.
 Ported so far: the face-recognition frame path of
 :class:`repro_torch.core.pipeline.StreamingPipeline` with device NMS; the
 continuous-batching LM engine of
-:class:`repro_torch.serve.engine.ServingEngine` on llama3-8b, rwkv6-3b
-and jamba-v0.1-52b; and the serving cluster of
-:class:`repro_torch.cluster.ServingCluster` with its DES, queueing and TCO
-models, whose real-service replicas run the identify stack. Entry points
+:class:`repro_torch.serve.engine.ServingEngine` on llama3-8b, qwen2.5-14b,
+chameleon-34b, jamba-v0.1-52b, rwkv6-3b and granite-moe-3b-a800m; the
+serving cluster of :class:`repro_torch.cluster.ServingCluster` with its
+DES, queueing and TCO models, whose real-service replicas run the
+identify stack; and the paper's tax meter for one accelerated step
+(:class:`repro_torch.core.taxmeter.TaxedStep`) with its Amdahl analytics
+(:mod:`repro_torch.core.acceleration`). Entry points
 run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``.
 """

@@ -30,8 +30,11 @@ ARCHS = [
 # architecture -> module; only the ported ones
 _MODULES = {
     "llama3-8b": "llama3_8b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "chameleon-34b": "chameleon_34b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "rwkv6-3b": "rwkv6_3b",
+    "granite-moe-3b-a800m": "granite_moe_3b",
 }
 
 

@@ -23,9 +23,10 @@ FIVE_WAY = ("pre", "ai", "post", "transfer", "queue")
 
 # Canonical stage -> bucket table, a copy of the reference's. Every
 # categorizer in the port resolves through :func:`categorize`
-# (``facerec.stage_category``, the preprocess stage's log guard) — a
-# stage name that is neither listed here nor matched by the prefix/suffix
-# conventions below cannot silently leak into the residual "pre" bucket.
+# (``facerec.stage_category``, ``taxmeter.taxed_stage_category``, the
+# preprocess stage's log guard) — a stage name that is neither listed
+# here nor matched by the prefix/suffix conventions below cannot silently
+# leak into the residual "pre" bucket.
 STAGE_CATEGORIES = {
     "ingest": "pre",
     "detect": "ai", "identify": "ai",
@@ -88,7 +89,9 @@ def five_way_fractions(per_stage: dict[str, float], category_of,
     """Attribute a per-stage time breakdown into the five tax buckets.
 
     ``category_of`` maps a stage name to one of :data:`FIVE_WAY`
-    (e.g. :func:`repro_torch.core.facerec.stage_category`). Every stage lands in exactly one bucket, so the returned
+    (e.g. :func:`repro_torch.core.facerec.stage_category`, or
+    :func:`repro_torch.core.taxmeter.taxed_stage_category` for TaxedStep
+    logs). Every stage lands in exactly one bucket, so the returned
     fractions sum to 1 whenever any time was recorded — the paper's
     "every microsecond is somebody's tax" discipline. Shared by the
     live pipeline, the DES breakdown (``fig06``) and the TaxedStep

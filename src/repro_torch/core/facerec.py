@@ -236,10 +236,18 @@ class FusedIdentifier:
 
     def identify_crops(self, crops: np.ndarray) -> list[tuple[str, float]]:
         """crops: (B, size, size, 3) any real dtype -> [(name, score)]; B is
-        padded to its power-of-two bucket."""
+        padded to its power-of-two bucket. The host stacking, the upload,
+        :meth:`score` on the device, the fetch and :meth:`named`."""
         B = crops.shape[0]
         x = torch.from_numpy(np.ascontiguousarray(_pad_rows_pow2(crops))) \
             .to(self.device)
+        idx, score = self.score(x)
+        return self.named(idx.cpu().numpy()[:B], score.cpu().numpy()[:B])
+
+    def score(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The device program: a crop stack (B, size, size, 3) on the
+        identifier's device -> (gallery index, score) per row, both (B,)
+        there; two matmul launches."""
         x = x.reshape(x.shape[0], -1).float()
         h = ops.matmul(x, self.w1f, bias=self.b1, epilogue="tanh")
         e = ops.matmul(h, self.w2)
@@ -247,7 +255,11 @@ class FusedIdentifier:
             torch.linalg.vector_norm(e, dim=-1, keepdim=True), 1e-12)
         sims = e @ self.gal_t
         score, idx = torch.max(sims, dim=1)
-        idx, score = idx.cpu().numpy()[:B], score.cpu().numpy()[:B]
+        return idx, score
+
+    def named(self, idx: np.ndarray, score: np.ndarray
+              ) -> list[tuple[str, float]]:
+        """Fetched (gallery index, score) rows -> [(name, score)]."""
         return [(self.names[i], float(s)) for i, s in zip(idx, score)]
 
     def identify_batch(self, frames: list[np.ndarray],

@@ -211,8 +211,11 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len, void*
   return launch_status();
 }
 
-// The (G, DPL) pairs of the ported configs: llama3-8b (G = 4, D = 128) and its
-// smoke config (G = 2, D = 16). Another config adds its pair here.
+// The (G, DPL) pairs of the ported configs: llama3-8b and jamba (G = 4,
+// D = 128), qwen2.5-14b (G = 5, D = 128), chameleon-34b (G = 8, D = 128),
+// granite-moe-3b (G = 3, D = 64) and the smoke configs (G = 2, D = 16).
+// Another config adds its pair here, in decode_attention_mma below and in
+// WIDTHS (kernels/decode_attention.py).
 template <typename T>
 int by_shape(int G, const void* q, const void* k, const void* v, const int* kv_len,
              void* o, float* part, int B, int L, int KV, int D, int Dv, float scale,
@@ -220,8 +223,14 @@ int by_shape(int G, const void* q, const void* k, const void* v, const int* kv_l
   const int w = D > Dv ? D : Dv;
   if (G == 2 && w <= 32)
     return launch<T, 2, 1>(q, k, v, kv_len, o, part, B, L, KV, D, Dv, scale, window, n_split, s);
+  if (G == 3 && w <= 64)
+    return launch<T, 3, 2>(q, k, v, kv_len, o, part, B, L, KV, D, Dv, scale, window, n_split, s);
   if (G == 4 && w <= 128)
     return launch<T, 4, 4>(q, k, v, kv_len, o, part, B, L, KV, D, Dv, scale, window, n_split, s);
+  if (G == 5 && w <= 128)
+    return launch<T, 5, 4>(q, k, v, kv_len, o, part, B, L, KV, D, Dv, scale, window, n_split, s);
+  if (G == 8 && w <= 128)
+    return launch<T, 8, 4>(q, k, v, kv_len, o, part, B, L, KV, D, Dv, scale, window, n_split, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -255,6 +264,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ o,
                   float* __restrict__ part, int L, int KV, int D, int Dv,
                   float scale_log2, int window, int chunk, int n_split) {
+  static_assert(G >= 1 && G <= 8, "the G heads are fragment rows lane / 4 = 0..7");
   using R = Ring<DMAX>;
   extern __shared__ __align__(16) uint8_t ring[];
   __shared__ float sm_m[WARPS][G], sm_l[WARPS][G];
@@ -445,8 +455,8 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len, void*
 
 }  // namespace
 
-// dtype 0: fp32, 1: bf16. G = H / KV = 2 with D, Dv <= 32, or G = 4 with
-// D, Dv <= 128; B, L > 0; part holds B * KV * n_split * G * (2 + Dv) floats when n_split > 1
+// dtype 0: fp32, 1: bf16. G = H / KV = 2 with D, Dv <= 32, G = 3 with D, Dv <= 64,
+// or G = 4, 5, 8 with D, Dv <= 128; B, L > 0; part holds B * KV * n_split * G * (2 + Dv) floats when n_split > 1
 // (else may be null). window <= 0 means no window. Returns a cudaError_t.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* kv_len, void* o, void* part, int dtype,
@@ -464,8 +474,10 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   return by_shape<float>(G, q, k, v, len, o, p, B, L, KV, D, Dv, scale, window, n_split, s);
 }
 
-// bf16 only: G = H / KV = 2 with D, Dv <= 32, or G = 4 with D, Dv <= 128, each
-// a multiple of 16; B, L > 0; part as for decode_attention. Returns a cudaError_t.
+// bf16 only: G = H / KV = 2 with D, Dv <= 32, G = 3 with D, Dv <= 64, or G = 4, 5, 8
+// with D, Dv <= 128, each a multiple of 16; B, L > 0; part as for decode_attention.
+// The G query heads fill rows 0..G-1 of the 16-row A tile (G <= 8: the fragment rows
+// g = lane / 4 hold them; rows 8..15 are the zero registers a1, a3). Returns a cudaError_t.
 extern "C" int decode_attention_mma(const void* q, const void* k, const void* v,
                                     const void* kv_len, void* o, void* part, int B,
                                     int L, int H, int KV, int D, int Dv, float scale,
@@ -479,7 +491,13 @@ extern "C" int decode_attention_mma(const void* q, const void* k, const void* v,
   float* p = static_cast<float*>(part);
   if (G == 2 && w <= 32)
     return tc::launch<2, 32>(q, k, v, len, o, p, B, L, KV, D, Dv, scale, window, n_split, s);
+  if (G == 3 && w <= 64)
+    return tc::launch<3, 64>(q, k, v, len, o, p, B, L, KV, D, Dv, scale, window, n_split, s);
   if (G == 4 && w <= 128)
     return tc::launch<4, 128>(q, k, v, len, o, p, B, L, KV, D, Dv, scale, window, n_split, s);
+  if (G == 5 && w <= 128)
+    return tc::launch<5, 128>(q, k, v, len, o, p, B, L, KV, D, Dv, scale, window, n_split, s);
+  if (G == 8 && w <= 128)
+    return tc::launch<8, 128>(q, k, v, len, o, p, B, L, KV, D, Dv, scale, window, n_split, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

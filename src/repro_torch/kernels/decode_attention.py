@@ -24,8 +24,10 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 # query heads per kv head -> widest D, Dv the kernels are built for (the
-# ported configs: llama3-8b G = 4, D = 128; its smoke config G = 2, D = 16)
-WIDTHS = {2: 32, 4: 128}
+# ported configs: llama3-8b and jamba G = 4, D = 128; qwen2.5-14b G = 5,
+# D = 128; chameleon-34b G = 8, D = 128; granite-moe-3b G = 3, D = 64; the
+# smoke configs G = 2, D = 16)
+WIDTHS = {2: 32, 3: 64, 4: 128, 5: 128, 8: 128}
 TC_MULTIPLE = 16                 # the mma route's D, Dv: multiples of its k step
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

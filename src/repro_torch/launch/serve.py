@@ -2,11 +2,12 @@
 report (counterpart of ``repro.launch.serve``).
 
 On the card, at full width and depth in the config's dtype (bf16 for
-llama3-8b, rwkv6-3b and jamba-v0.1-52b), with random weights drawn on
-the card from seed 0:
+every ported arch: llama3-8b, qwen2.5-14b, chameleon-34b, jamba-v0.1-52b,
+rwkv6-3b, granite-moe-3b-a800m), with random weights drawn on the card
+from seed 0:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chameleon-34b
 
 Before it draws anything it checks that the weights and the decode cache
 fit in the card's free memory, and raises ``MemoryError`` naming both
@@ -48,7 +49,10 @@ def check_fits(model: Model, slots: int, cache_len: int,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="a ported arch (repro_torch.configs.list_configs()): "
+                    "llama3-8b, qwen2.5-14b, chameleon-34b, jamba-v0.1-52b, "
+                    "rwkv6-3b, granite-moe-3b-a800m")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=8)

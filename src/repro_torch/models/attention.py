@@ -7,18 +7,23 @@ Two entry modes per layer:
   * decode: one new token against the cache through
     :func:`repro_torch.kernels.ops.decode_attention` (the decode kernel).
 
+Every mode projects q, k and v through :func:`_project_qkv`, as the
+reference does: the optional q/k/v bias (qwen2.5) is added to the
+compute-dtype product, the heads are split, the optional per-head q/k
+RMSNorm over D (chameleon) runs, then RoPE.
+
 The reference's decode returns a new cache (JAX donates the old one);
 here the new token's K and V are written into the cache tensors in place
 (``index_put_`` for the ragged per-row insert) and the same tensors are
-returned. Sliding-window layers (rolling caches) and MLA are not ported
-yet and raise ``NotImplementedError``.
+returned. Sliding-window layers (rolling caches), MLA and positions other
+than RoPE are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import P, rope
+from repro_torch.models.layers import P, apply_norm, norm_meta, rope
 
 
 def check_supported(cfg, spec) -> None:
@@ -29,24 +34,41 @@ def check_supported(cfg, spec) -> None:
         raise NotImplementedError(
             f"{cfg.name}: sliding-window attention (rolling decode cache) is "
             "not ported yet")
-    if cfg.qkv_bias or cfg.qk_norm or cfg.pos != "rope":
+    if cfg.pos != "rope":
         raise NotImplementedError(
-            f"{cfg.name}: q/k/v bias, q/k norm and non-RoPE positions are not "
-            "ported yet")
+            f"{cfg.name}: positions other than RoPE are not ported yet")
 
 
 def attn_meta(cfg) -> dict:
     d, H, KV, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {"wq": P((d, H * D)), "wk": P((d, KV * D)), "wv": P((d, KV * D)),
+    meta = {"wq": P((d, H * D)), "wk": P((d, KV * D)), "wv": P((d, KV * D)),
             "wo": P((H * D, d))}
+    if cfg.qkv_bias:
+        meta["bq"] = P((H * D,), "zeros")
+        meta["bk"] = P((KV * D,), "zeros")
+        meta["bv"] = P((KV * D,), "zeros")
+    if cfg.qk_norm:
+        meta["qn"] = norm_meta(cfg, D)
+        meta["kn"] = norm_meta(cfg, D)
+    return meta
 
 
 def _project_qkv(cfg, p, x, positions):
     B, S, _ = x.shape
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, D)
-    k = (x @ p["wk"]).reshape(B, S, KV, D)
-    v = (x @ p["wv"]).reshape(B, S, KV, D)
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = q.reshape(B, S, H, D)
+    k = k.reshape(B, S, KV, D)
+    v = v.reshape(B, S, KV, D)
+    if cfg.qk_norm:
+        q = apply_norm(cfg, p["qn"], q)
+        k = apply_norm(cfg, p["kn"], k)
     return rope(q, positions, cfg.rope_theta), rope(k, positions,
                                                     cfg.rope_theta), v
 

@@ -1,6 +1,7 @@
 """Parameter metadata and primitive layers (counterpart of ``repro.models.layers``
 for the layers the ported configs use: RMSNorm and LayerNorm, the RWKV
-per-head GroupNorm, half-split RoPE, the SiLU GLU MLP, untied embeddings).
+per-head GroupNorm, half-split RoPE, the SiLU GLU MLP, unscaled
+embeddings, untied or tied).
 
 Parameters are declared as trees (nested dicts and lists) of :class:`P`:
 a shape and an init kind. :func:`init_params` draws every tensor from one
@@ -177,17 +178,23 @@ def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
 
 
-# ---- embeddings (untied, unscaled) ---------------------------------------
+# ---- embeddings (unscaled; untied, or tied to the token table) ----------
 
 def embed_meta(cfg) -> dict:
-    return {"tok": P((cfg.vocab_size, cfg.d_model), scale=1.0),
-            "head": P((cfg.d_model, cfg.vocab_size))}
+    m = {"tok": P((cfg.vocab_size, cfg.d_model), scale=1.0)}
+    if not cfg.tie_embeddings:
+        m["head"] = P((cfg.d_model, cfg.vocab_size))
+    return m
 
 
-def embed_tokens(p: dict, tokens: torch.Tensor,
+def embed_tokens(cfg, p: dict, tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
     return p["tok"].to(dtype)[tokens.long()]
 
 
-def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
+def unembed(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Logits: ``x @ head``, or ``x @ tok.T`` with tied embeddings (no
+    ``head`` leaf then)."""
+    if cfg.tie_embeddings:
+        return x @ p["tok"].to(x.dtype).T
     return x @ p["head"].to(x.dtype)

@@ -9,12 +9,15 @@ casts the parameters on every call (``cast_params``); here they were cast
 once when loaded (:func:`repro_torch.models.layers.cast_leaf`), which
 gives the same numbers.
 
-Three families are ported: dense GQA attention blocks of the llama
-family (RMSNorm, SiLU GLU MLP), RWKV6 blocks (LayerNorm, time-mix,
-channel-mix), and the hybrid family of jamba, whose pattern mixes Mamba
-and attention mixers with dense and MoE MLPs (RMSNorm, SiLU GLU
-experts); embeddings are untied and unscaled. Other layers and variants
-raise ``NotImplementedError``.
+Ported: dense GQA attention blocks (RMSNorm, SiLU GLU MLP) of llama3-8b,
+qwen2.5-14b (q/k/v bias) and chameleon-34b (per-head q/k RMSNorm); the
+same blocks with MoE MLPs of granite-moe-3b (40 experts top-8, tied
+embeddings); RWKV6 blocks (LayerNorm, time-mix, channel-mix); and the
+hybrid family of jamba, whose pattern mixes Mamba and attention mixers
+with dense and MoE MLPs (RMSNorm, SiLU GLU experts). Embeddings are
+unscaled, untied or tied. Other layers and variants (sliding windows,
+MLA, shared experts, scaled embeddings, encoder-decoders) raise
+``NotImplementedError``.
 
 The decode cache is a flat dict of tensors, one per leaf name, whose
 leading axis runs over the layers of the kind that owns the leaf:
@@ -70,9 +73,9 @@ def check_supported(cfg) -> None:
     if cfg.encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
                                   "not ported yet")
-    if cfg.tie_embeddings or cfg.embed_scale:
+    if cfg.embed_scale:
         raise NotImplementedError(
-            f"{cfg.name}: tied or scaled embeddings are not ported yet")
+            f"{cfg.name}: scaled embeddings are not ported yet")
     for spec in cfg.block_pattern:
         if spec.moe:
             if cfg.moe is None:
@@ -217,7 +220,7 @@ def lm_prefill(cfg, params, tokens: torch.Tensor, *,
     dtype = DTYPES[cfg.dtype]
     B, S = tokens.shape
     cache_len = cache_len or S
-    x = embed_tokens(params["embed"], tokens, dtype)
+    x = embed_tokens(cfg, params["embed"], tokens, dtype)
     positions = torch.arange(S, device=tokens.device)
     leaves: dict[str, list] = {}
     for spec, lp in zip(layer_specs(cfg), params["blocks"]):
@@ -225,7 +228,7 @@ def lm_prefill(cfg, params, tokens: torch.Tensor, *,
         for name in CACHE_LEAVES[spec.kind]:
             leaves.setdefault(name, []).append(c[name])
     x = apply_norm(cfg, params["ln_f"], x)
-    logits = unembed(params["embed"], x[:, -1:])[:, 0]
+    logits = unembed(cfg, params["embed"], x[:, -1:])[:, 0]
     return logits, {"blocks": {n: torch.stack(ts) for n, ts in leaves.items()},
                     "cur_len": S}
 
@@ -236,13 +239,13 @@ def _lm_decode_blocks(cfg, params, blocks, tokens, cur_len):
     (ragged slots), as in :func:`attention.attn_decode`; the state-space
     layers do not read it."""
     dtype = DTYPES[cfg.dtype]
-    x = embed_tokens(params["embed"], tokens, dtype)
+    x = embed_tokens(cfg, params["embed"], tokens, dtype)
     for spec, j, lp in zip(layer_specs(cfg), cache_slots(cfg),
                            params["blocks"]):
         cache = {n: blocks[n][j] for n in CACHE_LEAVES[spec.kind]}
         x = _apply_layer_decode(cfg, spec, lp, x, cache, cur_len)
     x = apply_norm(cfg, params["ln_f"], x)
-    logits = unembed(params["embed"], x[:, -1:])[:, 0]
+    logits = unembed(cfg, params["embed"], x[:, -1:])[:, 0]
     return logits, blocks
 
 

@@ -142,6 +142,34 @@ def test_decode_plain_vs_jax_xla_where_rows_are_not_empty(window):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
+# the zoo's (G, D) pairs: granite-moe-3b G = 3 at D = 64, qwen2.5-14b G = 5
+# and chameleon-34b G = 8 at D = 128 (two kv heads here, the configs' 8 on
+# the card)
+ZOO_PAIRS = [(3, 64), (5, 128), (8, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,D", ZOO_PAIRS)
+def test_decode_plain_vs_pallas_and_xla_at_the_zoo_pairs(dtype, G, D):
+    """All rows against the Pallas kernel in interpret mode, the rows with
+    kv_len > 0 against the XLA path too (an empty row averages V there)."""
+    rng = np.random.default_rng(10 + G)
+    B, L, KV = 5, 256, 2
+    q = rng.normal(size=(B, 1, KV * G, D)).astype(np.float32)
+    k = rng.normal(size=(B, L, KV, D)).astype(np.float32)
+    v = rng.normal(size=(B, L, KV, D)).astype(np.float32)
+    n = np.asarray([0, 1, L, 131, 40], np.int32)
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v), dtype)
+    got = ops.decode_attention(tq, tk, tv, kv_len=torch.from_numpy(n))
+    want = jax_da.decode_attention(jq, jk, jv, kv_len=jnp.asarray(n),
+                                   interpret=True)
+    _close(got, want, dtype)
+    assert (got[0] == 0).all()
+    xla = jax_ops.decode_attention(jq, jk, jv, kv_len=jnp.asarray(n),
+                                   impl="xla")
+    _close(got[1:], xla[1:], dtype)
+
+
 # ---- dispatch and arguments --------------------------------------------------
 
 def _counts():
@@ -214,6 +242,13 @@ def test_flash_route_raises_where_no_kernel_takes_the_shape(dtype, D, Dv):
     (torch.bfloat16, 4, 64, 64, "mma"),
     (torch.bfloat16, 2, 16, 16, "mma"),        # the smoke configs
     (torch.bfloat16, 2, 32, 32, "mma"),
+    (torch.bfloat16, 3, 64, 64, "mma"),        # granite-moe-3b
+    (torch.bfloat16, 5, 128, 128, "mma"),      # qwen2.5-14b
+    (torch.bfloat16, 8, 128, 128, "mma"),      # chameleon-34b
+    (torch.bfloat16, 3, 16, 16, "mma"),        # below the built 64
+    (torch.float32, 3, 64, 64, "simt"),
+    (torch.float32, 5, 128, 128, "simt"),
+    (torch.float32, 8, 128, 128, "simt"),
     (torch.float32, 4, 128, 128, "simt"),
     (torch.float32, 2, 16, 16, "simt"),
     (torch.bfloat16, 4, 72, 72, "simt"),       # not a multiple of 16
@@ -222,8 +257,8 @@ def test_decode_route_by_dtype_and_width(dtype, G, D, Dv, route):
     assert da._route(dtype, G, D, Dv) == route
 
 
-@pytest.mark.parametrize("dtype,G,D,Dv", [(torch.bfloat16, 8, 128, 128),
-                                          (torch.bfloat16, 3, 16, 16),
+@pytest.mark.parametrize("dtype,G,D,Dv", [(torch.bfloat16, 6, 128, 128),
+                                          (torch.bfloat16, 3, 128, 128),
                                           (torch.bfloat16, 2, 64, 64),
                                           (torch.float32, 4, 144, 128),
                                           (torch.float16, 4, 128, 128)])
@@ -316,4 +351,18 @@ def test_tensor_core_decode_numerics_vs_jax_xla_at_llama_heads(window):
     want = jax_ops.decode_attention(jq, jk, jv, kv_len=jnp.asarray(n),
                                     window=window, impl="xla")
     got = _tc_decode_emulation(tq, tk, tv, torch.from_numpy(n), window=window)
+    _close(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("G,D", ZOO_PAIRS)
+def test_tensor_core_decode_numerics_vs_jax_xla_at_the_zoo_pairs(G, D):
+    rng = np.random.default_rng(7 + G)
+    q = rng.normal(size=(4, 1, 8 * G, D)).astype(np.float32)
+    k = rng.normal(size=(4, 256, 8, D)).astype(np.float32)
+    v = rng.normal(size=(4, 256, 8, D)).astype(np.float32)
+    n = np.asarray([1, 256, 131, 40], np.int32)
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v), "bfloat16")
+    want = jax_ops.decode_attention(jq, jk, jv, kv_len=jnp.asarray(n),
+                                    impl="xla")
+    got = _tc_decode_emulation(tq, tk, tv, torch.from_numpy(n))
     _close(got, want, "bfloat16")

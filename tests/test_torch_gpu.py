@@ -309,13 +309,42 @@ def test_flash_kernel_vs_plain(cuda, dtype, D, route, atol, Sq, Skv, kw):
                                atol=atol, rtol=0)
 
 
+# the zoo's prefill heads at their full width: (heads, kv heads, D) of
+# granite-moe-3b, qwen2.5-14b and chameleon-34b, on the wgmma route
+ZOO_HEADS = [(24, 8, 64), (40, 8, 128), (64, 8, 128)]
+
+
+@pytest.mark.parametrize("H,KV,D", ZOO_HEADS)
+@pytest.mark.parametrize("S,kw", [(37, {}), (512, {}), (1000, {"window": 100})])
+def test_flash_kernel_vs_plain_at_the_zoo_heads(cuda, H, KV, D, S, kw):
+    g = _gen(10)
+    q = torch.randn((1, S, H, D), generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn((1, S, KV, D), generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn((1, S, KV, D), generator=g).to(cuda, torch.bfloat16)
+    assert fa._route(torch.bfloat16, D, D) == "wgmma"
+    n, n_route = _launches(fa.flash_attention, "wgmma")
+    got = fa.flash_attention(q, k, v, causal=True, **kw)
+    assert _launches(fa.flash_attention, "wgmma") == (n + 1, n_route + 1)
+    torch.testing.assert_close(
+        got.float(),
+        fa.flash_attention_plain(q, k, v, causal=True, **kw).float(),
+        atol=2e-2, rtol=0)
+
+
 # (dtype, G, D, route, tolerance)
 DECODE_ROUTES = [(torch.float32, 4, 128, "simt", 2e-5),
                  (torch.bfloat16, 4, 128, "mma", 2e-2),
                  (torch.bfloat16, 4, 64, "mma", 2e-2),     # D below the built 128
                  (torch.float32, 2, 16, "simt", 2e-5),
                  (torch.bfloat16, 2, 16, "mma", 2e-2),
-                 (torch.bfloat16, 4, 72, "simt", 2e-2)]
+                 (torch.bfloat16, 4, 72, "simt", 2e-2),
+                 # the zoo's pairs: granite-moe-3b, qwen2.5-14b, chameleon-34b
+                 (torch.bfloat16, 3, 64, "mma", 2e-2),
+                 (torch.bfloat16, 5, 128, "mma", 2e-2),
+                 (torch.bfloat16, 8, 128, "mma", 2e-2),
+                 (torch.float32, 3, 64, "simt", 2e-5),
+                 (torch.float32, 5, 128, "simt", 2e-5),
+                 (torch.float32, 8, 128, "simt", 2e-5)]
 
 
 @pytest.mark.parametrize("dtype,G,D,route,atol", DECODE_ROUTES)
@@ -379,13 +408,13 @@ def test_attention_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros((1, 4, 4, 320), device=cuda)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q[:, :, :2], q[:, :, :2])         # D > 256
-    q = torch.zeros((1, 1, 6, 16), device=cuda)
+    q = torch.zeros((1, 1, 12, 16), device=cuda)
     kv = torch.zeros((1, 8, 2, 16), device=cuda)
-    with pytest.raises(ValueError):                               # G = 3
+    with pytest.raises(ValueError):                     # G = 6: not built
         da.decode_attention(q, kv, kv, kv_len=torch.ones(1, device=cuda))
-    q = torch.zeros((1, 1, 16, 16), device=cuda)
-    with pytest.raises(ValueError):                     # G = 8: not built
-        da.decode_attention(q, kv, kv, kv_len=torch.ones(1, device=cuda))
+    q, kv3 = torch.zeros((1, 1, 6, 128), device=cuda), kv.new_zeros((1, 8, 2, 128))
+    with pytest.raises(ValueError):                     # G = 3, D = 128
+        da.decode_attention(q, kv3, kv3, kv_len=torch.ones(1, device=cuda))
     q, kv = torch.zeros((1, 1, 4, 64), device=cuda), kv.new_zeros((1, 8, 2, 64))
     with pytest.raises(ValueError):                     # G = 2, D = 64
         da.decode_attention(q, kv, kv, kv_len=torch.ones(1, device=cuda))

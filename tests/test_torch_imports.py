@@ -53,6 +53,14 @@ def test_port_has_the_jamba_slice_modules():
             "repro_torch.models.ssm", "repro_torch.kernels.linear_scan"} <= mods
 
 
+def test_port_has_the_tax_meter_and_zoo_slice_modules():
+    mods = set(_port_modules())
+    assert {"repro_torch.core.taxmeter", "repro_torch.core.acceleration",
+            "repro_torch.configs.qwen2_5_14b",
+            "repro_torch.configs.chameleon_34b",
+            "repro_torch.configs.granite_moe_3b"} <= mods
+
+
 def test_port_has_the_cluster_slice_modules():
     mods = set(_port_modules())
     assert {"repro_torch.core.broker", "repro_torch.core.simulator",

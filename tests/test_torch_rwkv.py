@@ -66,7 +66,9 @@ def _prompts(cfg, lens, seed):
 
 # ---- the compute-dtype cast of carried weights ---------------------------
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-3b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-3b", "jamba-v0.1-52b",
+                                  "qwen2.5-14b", "chameleon-34b",
+                                  "granite-moe-3b-a800m"])
 def test_bf16_params_equal_the_reference_cast_of_the_stacked_tree(arch):
     """Every leaf of ``params_from_jax`` in bf16 has the dtype and value
     that the reference's ``cast_params`` gives it in the stacked tree it
@@ -107,6 +109,12 @@ def test_bf16_params_equal_the_reference_cast_of_the_stacked_tree(arch):
         mix = got["blocks"][0]["mix"]
         assert {mix[n].dtype for n in ("u", "w0", "gn_w", "gn_b")} == \
             {torch.bfloat16}
+    if arch == "qwen2.5-14b":          # 1-D, cast as stacked block leaves
+        assert got["blocks"][0]["mix"]["bq"].dtype == torch.bfloat16
+    if arch == "chameleon-34b":
+        assert got["blocks"][0]["mix"]["qn"]["w"].dtype == torch.bfloat16
+    if arch == "granite-moe-3b-a800m":
+        assert "head" not in got["embed"]
     if arch == "jamba-v0.1-52b":       # pinned float32 in the metadata
         mix = got["blocks"][0]["mix"]
         assert {mix[n].dtype for n in ("dt_bias", "A_log", "D")} == \
