@@ -39,25 +39,33 @@ Phases, each fatal on failure:
   5. for each served arch, llama3-8b (attention kernels), rwkv6-3b (the
      RWKV6 scan kernel), jamba-v0.1-52b (the Mamba scan kernel beside
      the attention kernels, MoE MLPs), qwen2.5-14b (q/k/v bias; decode at
-     G = 5), chameleon-34b (q/k norm; G = 8) and granite-moe-3b-a800m (40
+     G = 5), chameleon-34b (q/k norm; G = 8), granite-moe-3b-a800m (40
      experts top-8, tied embeddings; flash and decode at D = 64, G = 3),
+     gemma3-12b (five sliding-window layers with rolling caches to one
+     global; flash and decode at D = 256, G = 2), qwen1.5-110b (G = 8)
+     and deepseek-v2-236b (MLA: flash at D = 192, Dv = 128 on the CUDA
+     cores, decode in plain einsums; 160 experts top-6 and 2 shared),
      serve its smoke config (float32) on
      the card and on the CPU with the same numpy-made weights (every leaf
      drawn at random): greedy token streams must agree between the two and
      between the continuous and slot schedulers;
   6. for each served arch, serve it at full width in bf16 on the card
      (weights drawn on the card from a seed), at full depth but for
-     jamba-v0.1-52b, whose depth is cut to what one card is measured to
-     hold (printed as a listed reduction): one prefill and one decode step
+     jamba-v0.1-52b, qwen1.5-110b and deepseek-v2-236b, whose depth is
+     cut to what one card is measured to hold (printed as a listed
+     reduction): one prefill and one decode step
      through the kernels against the same steps with the plain versions
      swapped in (for the attention-only archs also every layer's flash
      and decode call on its own bf16 inputs; for the scan archs every
      layer's scan on its own bf16 inputs; for the MoE and scan archs, and
-     qwen2.5-14b and chameleon-34b, the whole step with float32 weights),
-     then 16 requests
+     qwen2.5-14b, chameleon-34b, gemma3-12b and qwen1.5-110b, the whole
+     step with float32 weights), then 16 requests (gemma3-12b one more
+     of 1,536 tokens, past its window)
      through the continuous-batching engine (counters zeroed just before
      the run; the attention kernels must take their tensor-core routes
-     once an attention layer for every prefill and every tick, the RWKV6
+     once an attention layer for every prefill and every tick, but
+     deepseek-v2-236b's flash its CUDA-core route and its decode kernel
+     no launch at all, the RWKV6
      scan its chunked route once a layer for every prefill of
      CHUNK_MIN_S steps or more and its serial route once a layer for
      every shorter prefill and every tick, the Mamba scan its segmented
@@ -87,7 +95,11 @@ Phases, each fatal on failure:
      (names equal, scores within 1e-5); bracket the closed-form knee
      (stable at 0.65x, diverged at 1.4x with a saturated broker and a p99
      above twice the stable one); print the live knee beside the DES knee
-     and the closed form;
+     and the closed form. The phase runs in a process of its own
+     (``chip_smoke.py --cluster`` runs it alone): on the H100, after the
+     serve phases in one process, the producers' mean lag at 0.65x the
+     knee read 0.0005-0.0203 model s in five runs against its 0.0201
+     limit, alone 0.0005-0.0010 in two;
   9. wrap the fused identify of 8 crops in the paper's ``TaxedStep`` on
      the card (pre: stacking and padding on the host; h2d; compute: the
      device program, two matmul launches; d2h; post: names) and print its
@@ -95,7 +107,8 @@ Phases, each fatal on failure:
      outputs', two matmul launches a compute, names equal
      ``identify_crops``'s.
 
-Each phase prints the wall seconds it took.
+Each phase prints the wall seconds it took (each served arch's smoke,
+full-width, profile and float32 steps too).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -149,21 +162,41 @@ LOGITS_RTOL_F32 = 1e-3
 # free memory left beside float32 weights drawn for a logits hold: the
 # 512-token prefill's activations and the plain versions' fp32 scores
 F32_MARGIN_BYTES = 4 << 30
+# free memory a depth probe leaves beside the bf16 weights and the decode
+# cache for its 1024-token prefill: it peaked 0.63-0.79 GB above them
+# (jamba 24 layers, qwen1.5-110b 27, deepseek-v2-236b 10), and qwen1.5-110b
+# at 28 layers, 0.93 GB under the free memory, ran out
+FIT_MARGIN_BYTES = 1 << 30
 # the archs whose float32 logits hold runs once their bf16 weights are
 # freed, at the most repeats of the pattern that fit (check_f32_depth):
 # jamba one repeat (two are ~106 GB), qwen2.5-14b whole (59.08 GB),
-# chameleon-34b as deep as fits (137.17 GB whole). Their bf16 holds pass
-# at 5e-2 over 48 layers; these hold the same steps where rounding does
-# not drift
-F32_AFTER = ("jamba-v0.1-52b", "qwen2.5-14b", "chameleon-34b")
+# chameleon-34b as deep as fits (137.17 GB whole), gemma3-12b whole
+# (~47 GB), qwen1.5-110b and deepseek-v2-236b as deep as fits (deepseek's
+# MoE routes compared first). The dense archs' bf16 holds pass at 5e-2;
+# these hold the same steps where rounding does not drift
+F32_AFTER = ("jamba-v0.1-52b", "qwen2.5-14b", "chameleon-34b", "gemma3-12b",
+             "qwen1.5-110b", "deepseek-v2-236b")
 
 # serve phase at full width, bf16, on the card, for each served arch
 SERVE_ARCHS = ("llama3-8b", "rwkv6-3b", "jamba-v0.1-52b", "qwen2.5-14b",
-               "chameleon-34b", "granite-moe-3b-a800m")
-# the other attention archs' (heads, kv heads, head width): decode pairs
-# G = 5, 8 at D = 128 and G = 3 at D = 64; flash at D = 128 and D = 64
+               "chameleon-34b", "granite-moe-3b-a800m", "gemma3-12b",
+               "qwen1.5-110b", "deepseek-v2-236b")
+# the other GQA archs' (heads, kv heads, head width): decode pairs G = 5, 8
+# at D = 128, G = 3 at D = 64 and G = 2 at D = 256; flash at D = 128, 64
+# and 256
 ZOO_HEADS = {"qwen2.5-14b": (40, 8, 128), "chameleon-34b": (64, 8, 128),
-             "granite-moe-3b-a800m": (24, 8, 64)}
+             "granite-moe-3b-a800m": (24, 8, 64),
+             "qwen1.5-110b": (64, 8, 128), "gemma3-12b": (16, 8, 256)}
+GEMMA_HEADS, GEMMA_W = ZOO_HEADS["gemma3-12b"], 1024
+# a windowed arch's full-width serve run takes one more request of this
+# many tokens (1.5 windows): its prefill runs flash's window mask with
+# tiles skipped and rolls the last W keys into the cache, and its decode
+# writes past the rolling cache's end
+LONG_PROMPT = 1536
+# deepseek-v2-236b's MLA prefill: 128 heads of D = qk_nope + qk_rope = 192
+# against Dv = v_head = 128, scaled by 192 ** -0.5 (an MHA: KV = H)
+MLA_H, MLA_D, MLA_DV = 128, 192, 128
+MLA_SCALE = MLA_D ** -0.5
 # the tensor-core instructions in the kernel libraries' SASS (attention and
 # the chunked RWKV6 scan), and the route each attention kernel must take on
 # the full-width serve path: one launch an attention layer for every
@@ -172,6 +205,12 @@ TC_SASS = {"flash_attention": "HGMMA", "decode_attention": "HMMA",
            "linear_scan": "HMMA"}
 TC_GATES = {"flash_attention": ("wgmma", "prefills"),
             "decode_attention": ("mma", "ticks")}
+# an MLA arch (deepseek-v2-236b): flash at D = 192 != Dv = 128 takes the
+# CUDA-core route; its decode is the absorbed-matrix attention over the
+# latent, plain einsums in both packages (the reference has no kernel of
+# it), so the decode kernel must launch no time on its path
+MLA_GATES = {"flash_attention": ("simt", "prefills"),
+             "decode_attention": (None, "ticks")}
 SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_MAX_TOKENS = 8, 2048, 16, 32
 # bytes read between calls to time a kernel with a cold (50 MB) L2
 L2_FLUSH_BYTES = 128 << 20
@@ -229,6 +268,8 @@ CLUSTER_BRACKET = (0.65, 1.4)
 # time is its wall time times the compression, so the replicas look
 # faster, and they are not the resource that binds
 CLUSTER_KNEE_COMPRESSION = 1.0
+# the argument that runs phase 8 alone, and the seconds its process may take
+CLUSTER_ONLY, CLUSTER_TIMEOUT_S = "--cluster", 600
 # card vs CPU identify of the same crops: fp32 throughout, the products'
 # summation order differs
 CLUSTER_SCORE_ATOL = 1e-5
@@ -445,15 +486,15 @@ def dense_boxes(n: int, seed: int):
 
 
 def attn_inputs(Sq, Skv, dtype, device, seed=0,
-                heads=(LLAMA_H, LLAMA_KV, LLAMA_D)):
-    """q (1, Sq, H, D), k and v (1, Skv, KV, D) for ``heads`` = (H, KV, D),
-    llama3-8b's by default."""
+                heads=(LLAMA_H, LLAMA_KV, LLAMA_D), Dv=None):
+    """q (1, Sq, H, D), k (1, Skv, KV, D) and v (1, Skv, KV, Dv, default
+    D) for ``heads`` = (H, KV, D), llama3-8b's by default."""
     import torch
     H, KV, D = heads
     g = _gen(seed)
     q = torch.randn((1, Sq, H, D), generator=g)
     k = torch.randn((1, Skv, KV, D), generator=g)
-    v = torch.randn((1, Skv, KV, D), generator=g)
+    v = torch.randn((1, Skv, KV, Dv or D), generator=g)
     return tuple(t.to(device, dtype) for t in (q, k, v))
 
 
@@ -718,6 +759,16 @@ def check_serve_kernels(device) -> dict[str, float]:
             for S, kw in ((512, {}), (1000, {}), (1000, {"window": 100})):
                 q, k, v = attn_inputs(S, S, dtype, device, heads=heads)
                 worst = max(worst, _check_flash(fa, q, k, v, name, kw))
+        # gemma3-12b's prefill at its window and without, and past the
+        # window (tiles left of it skipped); deepseek-v2's MLA prefill
+        for S, kw in ((1024, {"window": GEMMA_W}), (1024, {}),
+                      (LONG_PROMPT, {"window": GEMMA_W})):
+            q, k, v = attn_inputs(S, S, dtype, device, heads=GEMMA_HEADS)
+            worst = max(worst, _check_flash(fa, q, k, v, name, kw))
+        q, k, v = attn_inputs(1024, 1024, dtype, device,
+                              heads=(MLA_H, MLA_H, MLA_D), Dv=MLA_DV)
+        worst = max(worst, _check_flash(fa, q, k, v, name,
+                                        {"scale": MLA_SCALE}))
     err["flash_attention"] = worst
 
     # decode: llama3-8b's heads (bf16 on the mma route, fp32 on the
@@ -736,8 +787,11 @@ def check_serve_kernels(device) -> dict[str, float]:
         worst = max(worst, _check_decode(da, q, k, v, lens, name, 7))
         # the pairs the other attention archs add: G = 5 and 8 at D = 128,
         # G = 3 at D = 64, at the engine's cache, a ragged one, a window
+        # and gemma3-12b's windowed layers' rolling cache of 1024
         for heads in ZOO_HEADS.values():
-            for L, window in ((2048, None), (2047, None), (2048, 512)):
+            extra = ((GEMMA_W, None),) if heads == GEMMA_HEADS else ()
+            for L, window in ((2048, None), (2047, None), (2048, 512),
+                              *extra):
                 q, k, v, lens = decode_inputs(L, dtype, device, heads=heads)
                 worst = max(worst, _check_decode(da, q, k, v, lens, name,
                                                  window))
@@ -1185,10 +1239,14 @@ def check_attention_layers(model, params) -> None:
     """One full-width 512-token prefill and one decode step through the
     attention kernels, every attention layer's flash and decode call held
     against the plain versions on that layer's own inputs
-    (:func:`checked_attention_ops`); the logits finite."""
+    (:func:`checked_attention_ops`); the logits finite. An MLA arch's
+    decode calls no decode kernel (its absorbed attention is plain
+    einsums): 0 decode layers are checked there, and must be."""
     import torch
     from repro_torch.models import transformer as tf
     n_layers = sum(s.kind == "attn" for s in tf.layer_specs(model.cfg))
+    want = {"attention": n_layers,
+            "decode_attention": 0 if model.cfg.mla else n_layers}
     errs = {}
     logits, _ = _step_logits(model, params, _prompt(model),
                              lambda: checked_attention_ops(errs))
@@ -1197,9 +1255,12 @@ def check_attention_layers(model, params) -> None:
               f"prompt) on each layer's own inputs vs plain: {n} layers, "
               f"largest difference {diff:.3e} = {rel:.3e} of the largest "
               "plain output")
-    for op in ("attention", "decode_attention"):
-        require(errs.get(op, (0,))[0] == n_layers,
-                f"{op}: {errs.get(op, (0,))[0]} of {n_layers} layers checked")
+    if model.cfg.mla:
+        print(f"check {model.cfg.name} decode_attention: 0 layers, as its "
+              "MLA decode has no kernel (absorbed einsums in both packages)")
+    for op, n in want.items():
+        require(errs.get(op, (0,))[0] == n,
+                f"{op}: {errs.get(op, (0,))[0]} layers checked, want {n}")
     for name, a in logits.items():
         require(bool(torch.isfinite(a).all()),
                 f"full-width {name} logits are not finite")
@@ -1441,9 +1502,10 @@ def run_serve(model, params, prompts, max_tokens: int, wrappers=()):
 def fit_depth(device, cfg):
     """The most repeats of ``cfg``'s block pattern that one card holds at
     full width, measured: from the largest count whose weights and decode
-    cache fit in the free memory, down, draw the weights on the card from
-    seed 0, allocate the SERVE_SLOTS x SERVE_CACHE_LEN decode cache and run
-    one MAMBA_PREFILL-token prefill; a count that runs out of memory is
+    cache fit in the free memory less FIT_MARGIN_BYTES, down, draw the
+    weights on the card from seed 0, allocate the SERVE_SLOTS x
+    SERVE_CACHE_LEN decode cache and run one MAMBA_PREFILL-token
+    prefill; a count that runs out of memory is
     freed and the next one tried. Returns (cfg at that depth, model,
     params), and prints the memory and the reduction."""
     import torch
@@ -1451,15 +1513,16 @@ def fit_depth(device, cfg):
     n_pat = len(cfg.block_pattern)
     free, total = torch.cuda.mem_get_info(device)
     reps = cfg.n_repeats
-    while reps > 0:
+
+    def need(reps):
         model = Model(cfg.replace(n_layers=reps * n_pat), device=device)
-        need = (model.weight_bytes()
+        return (model.weight_bytes()
                 + model.cache_bytes(SERVE_SLOTS, SERVE_CACHE_LEN))
-        print(f"depth {cfg.name}: {reps * n_pat} layers need "
-              f"{need / 1e9:.3f} GB of weights and decode cache; "
-              f"{free / 1e9:.3f} GB free of {total / 1e9:.3f} GB")
-        if need <= free:
-            break
+
+    print(f"depth {cfg.name}: {cfg.n_layers} layers need "
+          f"{need(reps) / 1e9:.3f} GB of weights and decode cache; "
+          f"{free / 1e9:.3f} GB free of {total / 1e9:.3f} GB")
+    while reps > 0 and need(reps) + FIT_MARGIN_BYTES > free:
         reps -= 1
     while reps > 0:
         model = Model(cfg.replace(n_layers=reps * n_pat), device=device)
@@ -1532,6 +1595,7 @@ def serve_full_width(device, arch: str, wrappers) -> dict:
     the weights do not fit one card, at the depth :func:`fit_depth`
     measures: the kernel-vs-plain checks, then the engine over
     SERVE_REQUESTS requests."""
+    import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import events
@@ -1565,16 +1629,22 @@ def serve_full_width(device, arch: str, wrappers) -> dict:
         check_scan_layers(model, params, ("mamba_scan", "mamba_decode_step"))
     else:
         check_attention_layers(model, params)
-    if "rwkv" in kinds or (cfg.moe is not None and "mamba" not in kinds):
+    # (deepseek-v2's MoE step in float32 after its bf16 weights are freed:
+    # widened beside them it does not fit)
+    if "rwkv" in kinds or (cfg.moe is not None and "mamba" not in kinds
+                           and arch not in F32_AFTER):
         wide = Model(cfg.replace(dtype="float32"), device=device)
         check_full_width_step(
             wide, map_tree(lambda t: t.float(), params), rtol=LOGITS_RTOL_F32)
         del wide
-    elif "mamba" not in kinds:
+    elif "mamba" not in kinds and cfg.moe is None:
         check_full_width_step(model, params, rtol=LOGITS_RTOL)
     # warm-up outside the counts: cuBLAS handles and the kernel libraries
     run_serve(model, params, serve_requests(cfg, 2, seed=2), 2)
     prompts = serve_requests(cfg, SERVE_REQUESTS, seed=0)
+    if any(spec.window for spec in cfg.block_pattern):
+        prompts.append(np.random.default_rng(4).integers(
+            0, cfg.vocab_size, LONG_PROMPT))
     torch.cuda.reset_peak_memory_stats(device)
     eng, done, secs, launches, routes = run_serve(
         model, params, prompts, SERVE_MAX_TOKENS, wrappers)
@@ -1622,8 +1692,10 @@ def profile_serve(model, params, cfg) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     prompts = serve_requests(cfg, SERVE_SLOTS, seed=3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # CUDA activity alone: only the kernels' device times are read, and
+    # recording every host op as well slowed the profiled run and made its
+    # summary take most of each arch's serve phase
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng, done, secs, _, _ = run_serve(model, params, prompts, 16)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
@@ -1834,6 +1906,37 @@ def time_kernels(device) -> dict[str, dict]:
                sdpa_call(q, k, v, causal=True),
                2 * (2 * q.numel() + k.numel() + v.numel()),
                4 * D * pairs, iters=10, peak_flop_s=PEAK_BF16_FLOP_S)
+    # gemma3-12b's windowed layers at its window W (at S = 1024 every key
+    # is in it; at 1536 the rows past W skip the tiles left of their
+    # window), against SDPA with the same mask; deepseek-v2's MLA prefill
+    # (D = 192, Dv = 128) on the CUDA-core route
+    H, KV, D = GEMMA_HEADS
+    for S in (1024, LONG_PROMPT):
+        q, k, v = attn_inputs(S, S, torch.bfloat16, device, heads=GEMMA_HEADS)
+        pairs = H * sum(min(i + 1, GEMMA_W) for i in range(S))
+        pos = torch.arange(S, device=device)
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - GEMMA_W))
+        _timed("flash_attention", f"gemma3-12b bf16 q(1,{S},{H},{D}) "
+               f"kv(1,{S},{KV},{D}) causal window {GEMMA_W}",
+               lambda: fa.flash_attention(q, k, v, window=GEMMA_W),
+               lambda: fa.flash_attention_plain(q, k, v, window=GEMMA_W),
+               sdpa_call(q, k, v, causal=False, mask=mask),
+               2 * (2 * q.numel() + k.numel() + v.numel()),
+               4 * D * pairs, iters=10, peak_flop_s=PEAK_BF16_FLOP_S)
+    S = 1024
+    q, k, v = attn_inputs(S, S, torch.bfloat16, device,
+                          heads=(MLA_H, MLA_H, MLA_D), Dv=MLA_DV)
+    pairs = MLA_H * S * (S + 1) // 2
+    _timed("flash_attention", f"deepseek-v2-236b MLA bf16 q(1,{S},{MLA_H},"
+           f"{MLA_D}) k(1,{S},{MLA_H},{MLA_D}) v(1,{S},{MLA_H},{MLA_DV}) "
+           f"causal ({fa._route(q.dtype, MLA_D, MLA_DV)} route)",
+           lambda: fa.flash_attention(q, k, v, scale=MLA_SCALE),
+           lambda: fa.flash_attention_plain(q, k, v, scale=MLA_SCALE),
+           sdpa_call(q, k, v, causal=True),
+           2 * (q.numel() + k.numel() + 2 * v.numel()),
+           2 * (MLA_D + MLA_DV) * pairs, iters=10,
+           peak_flop_s=PEAK_BF16_FLOP_S)
 
     # decode with a cold L2 too: the engine's cache (67 MB a layer at full
     # length) exceeds the 50 MB L2, so a tick finds it in device memory
@@ -1881,6 +1984,20 @@ def time_kernels(device) -> dict[str, dict]:
         print(f"time decode_attention L2-cold ({L2_FLUSH_BYTES >> 20} MiB "
               f"read before each call) {arch} kv(8,{L},{KV},{D}): "
               + json.dumps(cold))
+    # gemma3-12b's windowed layers' rolling cache of W entries
+    H, KV, D = GEMMA_HEADS
+    q, k, v, lens = decode_inputs(GEMMA_W, torch.bfloat16, device,
+                                  heads=GEMMA_HEADS)
+    valid = int(lens.sum().item())
+    mask = (torch.arange(GEMMA_W, device=device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    _timed("decode_attention", f"gemma3-12b windowed bf16 q(8,1,{H},{D}) "
+           f"kv(8,{GEMMA_W},{KV},{D}) G={H // KV} kv_len={lens.tolist()}",
+           lambda: da.decode_attention(q, k, v, kv_len=lens),
+           lambda: da.decode_attention_plain(q, k, v, kv_len=lens),
+           sdpa_call(q, k, v, causal=False, mask=mask),
+           2 * (2 * valid * KV * D + 2 * q.numel()) + 4 * lens.numel(),
+           4 * D * H * valid, iters=20, peak_flop_s=PEAK_BF16_FLOP_S)
 
     # the RWKV6 scan at the serve path's shapes: a 1024-token prefill and a
     # ragged 37-token one from a zero state (the chunked route), then one
@@ -2031,8 +2148,7 @@ def profile_pipeline(device, *, n_frames: int, src_hw) -> None:
     for _ in range(4):
         host.rgb_to_yuv(np.asarray(video.next_frame().pixels))
     camera_ms = (time.perf_counter() - t0) / 4 * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _res, secs, _, _ = run_pipeline(device, True, n_frames=n_frames,
                                         src_hw=src_hw)
     kernels = [e for e in prof.key_averages()
@@ -2209,12 +2325,33 @@ def time_replica_batches(device) -> None:
               + json.dumps({n: round(v, 6) for n, v in row.items()}))
 
 
+def host_state() -> str:
+    """The host as phase 8 finds it: this process's threads, the load
+    average, the CPU seconds the process takes in one idle second (its
+    threads' own work), Python's tracked objects and the card memory the
+    allocator holds."""
+    import gc
+    import os
+    import torch
+    threads = next((line.split()[1] for line in
+                    Path("/proc/self/status").read_text().splitlines()
+                    if line.startswith("Threads:")), "?")
+    cpu0 = sum(os.times()[:2])
+    time.sleep(1.0)
+    idle_cpu = sum(os.times()[:2]) - cpu0
+    return (f"threads {threads}, load average {os.getloadavg()[0]:.2f}, "
+            f"{idle_cpu:.3f} CPU s in 1 idle s, {len(gc.get_objects())} "
+            f"Python objects, {torch.cuda.memory_reserved() / 1e9:.2f} GB "
+            "reserved on the card")
+
+
 def run_cluster_phase(device) -> None:
     """Phase 8 (see CLUSTER_S): the S = 4 runs under each placement, the
     card against the CPU on the same crops, the bracket and the knees."""
     from dataclasses import replace
     from repro_torch.cluster import ClusterSpec
     from repro_torch.cluster.crossval import LIVE_TOL, des_knee, live_knee
+    print(f"cluster: host at the start: {host_state()}")
     modelled = ClusterSpec(speedup=CLUSTER_S)
     print("cluster: the default deployment with real service; priced at "
           "the workload's 37,300-byte face the closed form would predict "
@@ -2243,6 +2380,7 @@ def run_cluster_phase(device) -> None:
     spec = cluster_spec(device, "device",
                         time_compression=CLUSTER_KNEE_COMPRESSION)
     knee = spec.closed_form_knee()
+    print(f"cluster: host before the bracket: {host_state()}")
     runs = {}
     for f in CLUSTER_BRACKET:
         s = replace(spec, speedup=f * knee)
@@ -2271,6 +2409,16 @@ def run_cluster_phase(device) -> None:
           f"live within LIVE_TOL "
           f"{LIVE_TOL}: {abs(live - knee) / knee <= LIVE_TOL} "
           "(printed, not gated)")
+
+
+def run_cluster_process() -> None:
+    """Phase 8 in a fresh process (``CLUSTER_ONLY``), its output on this
+    one's: the threads, Python objects and card memory the serve phases
+    leave behind are not the deployment's."""
+    sys.stdout.flush()
+    rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                         CLUSTER_ONLY], timeout=CLUSTER_TIMEOUT_S).returncode
+    require(rc == 0, f"cluster phase: its process exited {rc}")
 
 
 # --------------------------------------------------------------------------
@@ -2365,7 +2513,8 @@ def kernel_table():
     """Every ported kernel: its wrapper, source, the TPU kernel it
     replaces, and the path (for serve, the arch) whose run counts its
     launches in the kernels line; ``archs``, where given, every served
-    arch whose runs must launch it."""
+    arch whose runs gate its launches (all must launch it, but where
+    MLA_GATES says that an arch's path has no such kernel)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import linear_scan as ls
@@ -2391,12 +2540,14 @@ def kernel_table():
          "source": csrc + "decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:116",
          "path": "serve", "arch": "llama3-8b",
-         "archs": ("llama3-8b", "jamba-v0.1-52b", *ZOO_HEADS)},
+         "archs": ("llama3-8b", "jamba-v0.1-52b", *ZOO_HEADS,
+                   "deepseek-v2-236b")},
         {"name": "flash_attention", "wrapper": fa.flash_attention,
          "source": csrc + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:115",
          "path": "serve", "arch": "llama3-8b",
-         "archs": ("llama3-8b", "jamba-v0.1-52b", *ZOO_HEADS)},
+         "archs": ("llama3-8b", "jamba-v0.1-52b", *ZOO_HEADS,
+                   "deepseek-v2-236b")},
         {"name": "rwkv_scan", "wrapper": ls.rwkv_scan,
          "source": csrc + "linear_scan.cu",
          "replaces": "src/repro/kernels/linear_scan.py:147",
@@ -2416,13 +2567,22 @@ def serve_arch(device, arch: str, kernels, launches: dict) -> None:
     serve = [k for k in kernels
              if arch in k.get("archs", (k.get("arch"),))]
     wrappers = [k["wrapper"] for k in serve]
-    smoke = check_serve_smoke(device, arch, wrappers)
-    full = serve_full_width(device, arch, wrappers)
+    with phase(f"serve {arch} smoke"):
+        smoke = check_serve_smoke(device, arch, wrappers)
+    with phase(f"serve {arch} full width"):
+        full = serve_full_width(device, arch, wrappers)
+    gates = MLA_GATES if full["cfg"].mla is not None else TC_GATES
     for k in serve:
         n_full = full["launches"][k["wrapper"]]
         by_sched = {s: n[k["wrapper"]] for s, n in smoke.items()}
         print(f"serve launches {k['name']}: {arch} full width {n_full}; "
               f"smoke config on the card, each run alone: {by_sched}")
+        if gates.get(k["name"], ("",))[0] is None:
+            # a kernel the arch's path has none of: it must not launch
+            require(n_full == 0 and not any(by_sched.values()),
+                    f"{k['name']} launched on the {arch} path, which has "
+                    "no such kernel")
+            continue
         require(n_full > 0,
                 f"{k['name']} was not launched on the {arch} serve path")
         require(all(n > 0 for n in by_sched.values()),
@@ -2465,21 +2625,30 @@ def serve_arch(device, arch: str, kernels, launches: dict) -> None:
     n_attn = sum(s.kind == "attn" for s in
                  full["cfg"].block_pattern) * full["cfg"].n_repeats
     for k in serve:
-        if k["name"] not in TC_GATES:
+        if k["name"] not in gates:
             continue
-        route, per = TC_GATES[k["name"]]
+        route, per = gates[k["name"]]
         got = full["routes"][k["wrapper"]]
+        if route is None:
+            print(f"serve launches {k['name']} by route: {arch} {got}; want "
+                  f"0 over {full[per]} {per}: MLA's absorbed decode is plain "
+                  f"einsums in both packages: {sum(got.values()) == 0}")
+            require(sum(got.values()) == 0,
+                    f"{k['name']}: {got} on {arch}, want no launch")
+            continue
         want = n_attn * full[per]
         print(f"serve launches {k['name']} by route: {arch} {got}; "
               f"{route} = {n_attn} attention layers x {full[per]} {per} "
               f"= {want}: {got[route] == want}")
         require(got[route] == want and sum(got.values()) == want,
                 f"{k['name']}: {got} on {arch}, want {want} on {route}")
-    profile_serve(full["model"], full["params"], full["cfg"])
+    with phase(f"serve {arch} profile"):
+        profile_serve(full["model"], full["params"], full["cfg"])
     del full                     # free the weights before the next arch
     torch.cuda.empty_cache()
     if arch in F32_AFTER:
-        check_f32_depth(device, arch)
+        with phase(f"serve {arch} float32"):
+            check_f32_depth(device, arch)
         torch.cuda.empty_cache()
 
 
@@ -2493,6 +2662,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
 
+    if sys.argv[1:] == [CLUSTER_ONLY]:
+        build.build_all()
+        run_cluster_phase(device)
+        return 0
     start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
@@ -2534,7 +2707,7 @@ def main() -> int:
         times = time_kernels(device)
         profile_pipeline(device, n_frames=16, src_hw=(SRC_H, SRC_W))
     with phase("cluster"):
-        run_cluster_phase(device)
+        run_cluster_process()
     with phase("taxed step"):
         run_taxed_identify(device)
 

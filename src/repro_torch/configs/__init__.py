@@ -31,10 +31,13 @@ ARCHS = [
 _MODULES = {
     "llama3-8b": "llama3_8b",
     "qwen2.5-14b": "qwen2_5_14b",
+    "gemma3-12b": "gemma3_12b",
+    "qwen1.5-110b": "qwen1_5_110b",
     "chameleon-34b": "chameleon_34b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "rwkv6-3b": "rwkv6_3b",
     "granite-moe-3b-a800m": "granite_moe_3b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
 }
 
 

@@ -26,7 +26,12 @@
 // tiles of 16 keys in turn and stages each tile's K and V rows in its own
 // 3-stage ring in shared memory with 16-byte cp.async copies (a key row of
 // 256 bytes is 16 lanes' copies; chunks permuted as chunk ^ (row % 8) so
-// that ldmatrix reads hit distinct banks). Scores are mma.sync m16n8k16
+// that ldmatrix reads hit distinct banks). At DMAX = 256 (gemma3, G = 2) a
+// tile is 8 KB: three stages would take 192 KB for the four warps, two take
+// 128 KB, and either way one block fits an SM (2 x 136 KB > 227 KB). On the
+// H100 the two rings came within 3% of each other, either way, at gemma3's
+// caches in two runs (PERF.md, section 6), so the pair keeps the smaller,
+// 2-stage ring. Scores are mma.sync m16n8k16
 // bf16 -> fp32 with A = the G query heads in rows 0..G-1, zero-padded to
 // 16 (the tensor cores have cycles to spare), and K^T fragments by ldmatrix;
 // the scale multiplies the fp32 score after the product. The softmax runs on
@@ -212,8 +217,9 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len, void*
 }
 
 // The (G, DPL) pairs of the ported configs: llama3-8b and jamba (G = 4,
-// D = 128), qwen2.5-14b (G = 5, D = 128), chameleon-34b (G = 8, D = 128),
-// granite-moe-3b (G = 3, D = 64) and the smoke configs (G = 2, D = 16).
+// D = 128), qwen2.5-14b (G = 5, D = 128), chameleon-34b and qwen1.5-110b
+// (G = 8, D = 128), granite-moe-3b (G = 3, D = 64), gemma3-12b (G = 2,
+// D = 256) and the smoke configs (G = 2, D = 16).
 // Another config adds its pair here, in decode_attention_mma below and in
 // WIDTHS (kernels/decode_attention.py).
 template <typename T>
@@ -223,6 +229,8 @@ int by_shape(int G, const void* q, const void* k, const void* v, const int* kv_l
   const int w = D > Dv ? D : Dv;
   if (G == 2 && w <= 32)
     return launch<T, 2, 1>(q, k, v, kv_len, o, part, B, L, KV, D, Dv, scale, window, n_split, s);
+  if (G == 2 && w <= 256)
+    return launch<T, 2, 8>(q, k, v, kv_len, o, part, B, L, KV, D, Dv, scale, window, n_split, s);
   if (G == 3 && w <= 64)
     return launch<T, 3, 2>(q, k, v, kv_len, o, part, B, L, KV, D, Dv, scale, window, n_split, s);
   if (G == 4 && w <= 128)
@@ -241,12 +249,11 @@ namespace tc {
 using namespace tensor_core;
 
 constexpr int KT = 16;             // keys a warp tile: one k step of P V
-constexpr int STAGES = 3;          // tiles in flight a warp
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 // A warp's ring: STAGES x (K tile, V tile), each [KT keys][DMAX] bf16, the
 // 16-byte chunk c of row r stored at chunk c ^ (r & SWM)
-template <int DMAX>
+template <int DMAX, int STAGES>
 struct Ring {
   static constexpr int CH = DMAX / 8;                 // 16-byte chunks a row
   static constexpr int SWM = (CH < 8 ? CH : 8) - 1;
@@ -256,7 +263,7 @@ struct Ring {
   __device__ static uint32_t at(int r, int c) { return r * CH * 16 + (c ^ (r & SWM)) * 16; }
 };
 
-template <int G, int DMAX>
+template <int G, int DMAX, int STAGES>
 __global__ void __launch_bounds__(WARPS * 32)
 decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -265,7 +272,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   float* __restrict__ part, int L, int KV, int D, int Dv,
                   float scale_log2, int window, int chunk, int n_split) {
   static_assert(G >= 1 && G <= 8, "the G heads are fragment rows lane / 4 = 0..7");
-  using R = Ring<DMAX>;
+  using R = Ring<DMAX, STAGES>;
   extern __shared__ __align__(16) uint8_t ring[];
   __shared__ float sm_m[WARPS][G], sm_l[WARPS][G];
   __shared__ float sm_acc[WARPS][G][DMAX];
@@ -425,20 +432,21 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int G, int DMAX>
+template <int G, int DMAX, int STAGES = 3>
 int launch(const void* q, const void* k, const void* v, const int* kv_len, void* o,
            float* part, int B, int L, int KV, int D, int Dv, float scale, int window,
            int n_split, cudaStream_t stream) {
+  using R = Ring<DMAX, STAGES>;
   static bool opted_in = false;                // shared-memory opt-in, once
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_mma_kernel<G, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Ring<DMAX>::BYTES);
+        decode_mma_kernel<G, DMAX, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        R::BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
   const int chunk = (L + n_split - 1) / n_split;
-  decode_mma_kernel<G, DMAX><<<dim3(KV, B, n_split), WARPS * 32, Ring<DMAX>::BYTES, stream>>>(
+  decode_mma_kernel<G, DMAX, STAGES><<<dim3(KV, B, n_split), WARPS * 32, R::BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), kv_len, static_cast<__nv_bfloat16*>(o), part,
       L, KV, D, Dv, scale * LOG2E, window, chunk, n_split);
@@ -455,7 +463,7 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len, void*
 
 }  // namespace
 
-// dtype 0: fp32, 1: bf16. G = H / KV = 2 with D, Dv <= 32, G = 3 with D, Dv <= 64,
+// dtype 0: fp32, 1: bf16. G = H / KV = 2 with D, Dv <= 256, G = 3 with D, Dv <= 64,
 // or G = 4, 5, 8 with D, Dv <= 128; B, L > 0; part holds B * KV * n_split * G * (2 + Dv) floats when n_split > 1
 // (else may be null). window <= 0 means no window. Returns a cudaError_t.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
@@ -474,10 +482,12 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   return by_shape<float>(G, q, k, v, len, o, p, B, L, KV, D, Dv, scale, window, n_split, s);
 }
 
-// bf16 only: G = H / KV = 2 with D, Dv <= 32, G = 3 with D, Dv <= 64, or G = 4, 5, 8
+// bf16 only: G = H / KV = 2 with D, Dv <= 256, G = 3 with D, Dv <= 64, or G = 4, 5, 8
 // with D, Dv <= 128, each a multiple of 16; B, L > 0; part as for decode_attention.
 // The G query heads fill rows 0..G-1 of the 16-row A tile (G <= 8: the fragment rows
-// g = lane / 4 hold them; rows 8..15 are the zero registers a1, a3). Returns a cudaError_t.
+// g = lane / 4 hold them; rows 8..15 are the zero registers a1, a3). Each pair
+// stages a 3-tile ring a warp, G = 2 at 32 < D, Dv <= 256 a 2-tile one.
+// Returns a cudaError_t.
 extern "C" int decode_attention_mma(const void* q, const void* k, const void* v,
                                     const void* kv_len, void* o, void* part, int B,
                                     int L, int H, int KV, int D, int Dv, float scale,
@@ -491,6 +501,9 @@ extern "C" int decode_attention_mma(const void* q, const void* k, const void* v,
   float* p = static_cast<float*>(part);
   if (G == 2 && w <= 32)
     return tc::launch<2, 32>(q, k, v, len, o, p, B, L, KV, D, Dv, scale, window, n_split, s);
+  if (G == 2 && w <= 256)
+    return tc::launch<2, 256, 2>(q, k, v, len, o, p, B, L, KV, D, Dv, scale, window,
+                                 n_split, s);
   if (G == 3 && w <= 64)
     return tc::launch<3, 64>(q, k, v, len, o, p, B, L, KV, D, Dv, scale, window, n_split, s);
   if (G == 4 && w <= 128)

@@ -15,20 +15,31 @@
 //
 // Two routes, chosen by shape in the Python wrapper (`_route`):
 //
-// flash_attention_wgmma (bf16, D = Dv in {64, 128}): one block of two
-// consumer warpgroups and one producer warp per (128 q rows, head, batch),
-// heaviest causal tiles launched first; each warpgroup owns 64 rows (one
-// wgmma M tile). One thread of the producer warp loads the Q tile once and
-// K/V tiles of 64 keys into a 3-stage ring by TMA, completed on "full"
-// mbarriers; consumers release a stage on an "empty" mbarrier, so the two
-// warpgroups never wait for each other (no block barrier in the loop).
+// flash_attention_wgmma (bf16, D = Dv in {64, 128, 256}): one block of two
+// consumer warpgroups and one producer warpgroup per (128 q rows, head,
+// batch), heaviest causal tiles launched first; each consumer warpgroup owns
+// 64 rows (one wgmma M tile). One thread of the producer loads the Q tile
+// once and K/V tiles of 64 keys into a ring by TMA, completed on "full" mbarriers;
+// consumers release a stage on an "empty" mbarrier, so the two warpgroups
+// never wait for each other (no block barrier in the loop). The ring has 3
+// stages up to D = 128; at D = 256 (gemma3) Q is 64 KB and a K + V stage
+// 64 KB, so three stages (~257 KB) exceed the 227 KB a block may use and the
+// ring has two (~193 KB). There each consumer thread holds O as 128 fp32
+// registers beside the 32 of its score tile and 16 of P, more than the 168
+// a thread ptxas gives this kernel, with 384 threads as with 288. The
+// producer warpgroup lowers itself to 56 registers and the consumers raise
+// themselves to 224 (setmaxnreg). ptxas still reports 168 and spills 428 B
+// at D = 256 (none at D <= 128; chip_smoke.py prints its counts), but on
+// the H100 one producer warp and no setmaxnreg spilled 940 B and took 1.69x
+// the time at D = 256, the same time at D <= 128 (PERF.md, section 6).
 // The tensor maps are rank 4, (D, heads, S, B), with boxes of
 // (64, 1, rows, 1) and the 128-byte swizzle, so a ragged tail past Sq or Skv
-// reads TMA's zero fill, never the next batch row; D = 128 is two 64-element
-// boxes. S = Q K^T is wgmma m64n64k16 with both operands in shared memory,
-// K-major, unscaled bf16 products summed in fp32 and multiplied by the scale
-// after (in log2 units, for exp2). The softmax runs on the accumulator
-// fragments: a lane holds 2 rows, so a row max is 2 shuffles in the quad;
+// reads TMA's zero fill, never the next batch row; a row of D = 128 is two
+// 64-element boxes, of D = 256 four. S = Q K^T is wgmma m64n64k16 with both
+// operands in shared memory, K-major, unscaled bf16 products summed in fp32
+// and multiplied by the scale after (in log2 units, for exp2). The softmax
+// runs on the accumulator fragments: a lane holds 2 rows, so a row max is 2
+// shuffles in the quad;
 // masks are computed only on tiles that cross Skv, the diagonal or the
 // window's edge.
 // P is rounded to bf16 fragments in registers and O += P V is wgmma with A
@@ -45,8 +56,10 @@
 // keys the block stages K (transposed) and V in shared memory, each thread
 // computes a 4x4 block of scores (rows ty + 16 i, columns tx + 16 j), the 16
 // threads of a row reduce max and sum by warp shuffles, P goes to shared
-// memory over the spent K tile, and each thread accumulates 4 rows x 8
-// output columns of P @ V in registers.
+// memory over the spent K tile, and each thread accumulates 4 rows x VPT
+// output columns of P @ V in registers: VPT = 8 for Dv <= 128, 16 for
+// Dv <= 256 (gemma3's fp32 runs; ~194 KB of shared memory at D = Dv = 256,
+// one block an SM).
 //
 // Both skip tiles wholly masked by causality or the window and mask ragged
 // tiles themselves: rows past Sq are not stored, keys past Skv score NEG_INF.
@@ -61,8 +74,7 @@ constexpr int BQ = 64, BK = 64;           // q rows and keys per tile
 constexpr int TX = 16, TY = 16;           // 256 threads as 16 x 16
 constexpr int RPT = BQ / TY;              // 4 rows a thread
 constexpr int CPT = BK / TX;              // 4 score columns a thread
-constexpr int MAX_DV = 128;
-constexpr int VPT = MAX_DV / TX;          // 8 output columns a thread
+constexpr int MAX_DV = 256;               // VPT = 16 output columns a thread
 constexpr int MAX_D = 256;
 constexpr float NEG_INF = -1e30f;
 
@@ -71,8 +83,8 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-template <typename T>
-__global__ void __launch_bounds__(TX * TY, 2)
+template <typename T, int VPT>
+__global__ void __launch_bounds__(TX * TY, VPT <= 8 ? 2 : 1)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
              int H, int KV, int D, int Dv, float scale, int causal,
@@ -218,7 +230,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, int VPT>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
            int Skv, int H, int KV, int D, int Dv, float scale, int causal,
            int window, int q_offset, cudaStream_t stream) {
@@ -228,18 +240,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   static size_t opted_in = 0;                 // shared-memory opt-in, once per size
   if (smem > opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_kernel<T, VPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = smem;
   }
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_kernel<T><<<grid, TX * TY, smem, stream>>>(
+  flash_kernel<T, VPT><<<grid, TX * TY, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), Sq, Skv, H, KV, D, Dv, scale, causal, window, q_offset);
   return launch_status();
 }
 
-// ---- tensor-core route: bf16, D = Dv in {64, 128} ---------------------------
+// Dv <= TX * VPT columns a thread owns
+template <typename T>
+int launch_dv(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+              int Skv, int H, int KV, int D, int Dv, float scale, int causal,
+              int window, int q_offset, cudaStream_t s) {
+  if (Dv <= TX * 8)
+    return launch<T, 8>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, scale, causal, window,
+                        q_offset, s);
+  return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, scale, causal, window,
+                       q_offset, s);
+}
+
+// ---- tensor-core route: bf16, D = Dv in {64, 128, 256} ----------------------
 
 namespace tc {
 
@@ -247,15 +271,16 @@ using namespace tensor_core;
 
 constexpr int BQ = 128;            // q rows a block: two warpgroups of 64
 constexpr int BK = 64;             // keys a K/V tile
-constexpr int STAGES = 3;          // K/V ring
-constexpr int CONSUMERS = 256;     // two warpgroups; then one producer warp
-constexpr int THREADS = CONSUMERS + 32;
+constexpr int CONSUMERS = 256;     // two warpgroups; then a producer warpgroup
+constexpr int THREADS = CONSUMERS + 128;
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;   // 128 x 56 + 256 x 224 <= 64 K
 constexpr int BOX = 64;            // bf16 elements in one 128-byte swizzled row
 constexpr int ROW = 128;           // bytes of that row
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Smem {
+  static constexpr int STAGES = D > 128 ? 2 : 3;      // K/V ring (see the note)
   static constexpr int HALVES = D / BOX;              // 64-wide boxes a row
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int T_BYTES = BK * D * 2;          // one K or V tile
@@ -275,7 +300,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H, int KV,
                    float scale_log2, int causal, int window, int q_offset) {
   using S = Smem<D>;
-  constexpr int HALVES = S::HALVES;
+  constexpr int HALVES = S::HALVES, STAGES = S::STAGES;
   extern __shared__ uint8_t smem_raw[];
   // full[s]: stage s loaded (TMA bytes); empty[s]: every consumer thread
   // is done with it; qbar: the Q tile loaded
@@ -326,8 +351,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_fence_init();
   }
   __syncthreads();
-  if (tid >= CONSUMERS) {                      // the producer warp: one thread
-    if (tid == CONSUMERS) {                    // keeps the ring full
+  if (tid >= CONSUMERS) {                      // the producer warpgroup: one
+    warpgroup_reg_dealloc<PRODUCER_REGS>();    // thread keeps the ring full
+    if (tid == CONSUMERS) {
       mbar_arrive_expect_tx(qbar, S::Q_BYTES);
       for (int hf = 0; hf < HALVES; ++hf)
         tma_load_4d(sq + hf * BQ * ROW, &qmap, qbar, hf * BOX, h, q0, b);
@@ -339,6 +365,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     return;
   }
+  warpgroup_reg_alloc<CONSUMER_REGS>();
 
   // this lane's rows: row (accumulator entries 4 n + {0, 1}) and row + 8
   // (4 n + {2, 3}), columns 8 n + col + {0, 1}
@@ -542,7 +569,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 
 }  // namespace
 
-// dtype 0: fp32, 1: bf16. H % KV == 0, 0 < D <= 256, 0 < Dv <= 128,
+// dtype 0: fp32, 1: bf16. H % KV == 0, 0 < D <= 256, 0 < Dv <= 256,
 // B * Sq > 0, Skv > 0; window <= 0 means no window. Returns a cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
                                int dtype, int B, int Sq, int Skv, int H, int KV,
@@ -552,13 +579,13 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, scale, causal,
-                                 window, q_offset, s);
-  return launch<float>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, scale, causal, window,
-                       q_offset, s);
+    return launch_dv<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, scale,
+                                    causal, window, q_offset, s);
+  return launch_dv<float>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, scale, causal, window,
+                          q_offset, s);
 }
 
-// bf16 only; D = Dv in {64, 128}; 16-byte aligned contiguous q, k, v;
+// bf16 only; D = Dv in {64, 128, 256}; 16-byte aligned contiguous q, k, v;
 // H % KV == 0, B * Sq > 0, Skv > 0; window <= 0 means no window. Returns a
 // cudaError_t (cudaErrorNotSupported: no cuTensorMapEncodeTiled entry point).
 extern "C" int flash_attention_wgmma(const void* q, const void* k, const void* v,
@@ -572,6 +599,9 @@ extern "C" int flash_attention_wgmma(const void* q, const void* k, const void* v
                           q_offset, s);
   if (D == 128)
     return tc::launch<128>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
+                           q_offset, s);
+  if (D == 256)
+    return tc::launch<256>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
                            q_offset, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,8 +6,8 @@
 //    4-byte form in matmul.cu);
 //  * mma.sync m16n8k8 tf32 -> fp32, the fp32 -> tf32 rounding and its
 //    hi + lo split (linear_scan.cu's chunked RWKV6 scan);
-//  * wgmma m64n64k16 bf16 -> fp32 with shared-memory descriptors, mbarriers
-//    and TMA tile loads (flash_attention.cu).
+//  * wgmma m64n64k16 bf16 -> fp32 with shared-memory descriptors, mbarriers,
+//    TMA tile loads and setmaxnreg (flash_attention.cu).
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
 // "wgmma register fragments"): lane l of a warp holds accumulator rows
@@ -184,6 +184,18 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// a warpgroup's registers a thread, raised or lowered (all four warps of the
+// warpgroup execute it; N a multiple of 8 in 24..256): a producer warpgroup
+// gives its registers to the consumers
+template <int N>
+__device__ __forceinline__ void warpgroup_reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void warpgroup_reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
 // keep the compiler from moving reads or writes of a register across the

@@ -19,8 +19,10 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-MAX_D, MAX_DV = 256, 128          # head widths the CUDA-core kernel takes
-TC_WIDTHS = frozenset({64, 128})  # D = Dv the tensor-core kernel is built for
+MAX_D, MAX_DV = 256, 256          # head widths the CUDA-core kernel takes
+# D = Dv the tensor-core kernel is built for: granite's 64, 128 (llama3-8b
+# and the other GQA archs), gemma3's 256
+TC_WIDTHS = frozenset({64, 128, 256})
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -2,9 +2,9 @@
 report (counterpart of ``repro.launch.serve``).
 
 On the card, at full width and depth in the config's dtype (bf16 for
-every ported arch: llama3-8b, qwen2.5-14b, chameleon-34b, jamba-v0.1-52b,
-rwkv6-3b, granite-moe-3b-a800m), with random weights drawn on the card
-from seed 0:
+every ported arch: llama3-8b, qwen2.5-14b, gemma3-12b, qwen1.5-110b,
+chameleon-34b, jamba-v0.1-52b, rwkv6-3b, granite-moe-3b-a800m,
+deepseek-v2-236b), with random weights drawn on the card from seed 0:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chameleon-34b
@@ -12,8 +12,9 @@ from seed 0:
 Before it draws anything it checks that the weights and the decode cache
 fit in the card's free memory, and raises ``MemoryError`` naming both
 numbers where they do not: jamba-v0.1-52b's published 32 layers are
-103.1 GB of bf16 weights, more than one 80 GB card holds (``chip_smoke.py``
-serves it at a reduced depth).
+103.1 GB of bf16 weights, qwen1.5-110b's 80 layers 222.4 GB and
+deepseek-v2-236b's 60 layers 478.8 GB, more than one 80 GB card holds
+(``chip_smoke.py`` serves them at a reduced depth).
 
 On the CPU, the float32 smoke config, as the reference's ``--smoke``:
 
@@ -51,8 +52,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
                     help="a ported arch (repro_torch.configs.list_configs()): "
-                    "llama3-8b, qwen2.5-14b, chameleon-34b, jamba-v0.1-52b, "
-                    "rwkv6-3b, granite-moe-3b-a800m")
+                    "llama3-8b, qwen2.5-14b, gemma3-12b, qwen1.5-110b, "
+                    "chameleon-34b, jamba-v0.1-52b, rwkv6-3b, "
+                    "granite-moe-3b-a800m, deepseek-v2-236b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=8)

@@ -1,22 +1,46 @@
-"""GQA attention layer: prefill and decode (counterpart of
-``repro.models.attention``).
+"""Attention mixers: GQA, sliding-window and MLA (DeepSeek-V2), prefill and
+decode (counterpart of ``repro.models.attention``).
 
 Two entry modes per layer:
   * prefill: full forward through :func:`repro_torch.kernels.ops.attention`
     (the flash kernel on the card), returning the layer's decode cache;
-  * decode: one new token against the cache through
-    :func:`repro_torch.kernels.ops.decode_attention` (the decode kernel).
+  * decode: one new token against the cache.
 
-Every mode projects q, k and v through :func:`_project_qkv`, as the
+GQA layers project q, k and v through :func:`_project_qkv`, as the
 reference does: the optional q/k/v bias (qwen2.5) is added to the
 compute-dtype product, the heads are split, the optional per-head q/k
-RMSNorm over D (chameleon) runs, then RoPE.
+RMSNorm over D (chameleon, gemma3) runs, then RoPE. Their decode goes
+through :func:`repro_torch.kernels.ops.decode_attention` (the decode
+kernel).
+
+A sliding-window layer (``spec.window = W``, gemma3's local layers) keeps
+a rolling cache of L = min(W, cache_len) entries, position p at slot
+p % L. Prefill runs flash with the window; when cache_len >= W the cache
+holds the last W keys at slot ``position % W`` (:func:`_roll_window`).
+For a prompt shorter than W that is positions 0..S-1 at slots 0..S-1
+with zeros after, which is what the reference's docstring states; the
+reference's ``_roll_window`` raises there instead (a broadcast error for
+S < W), a difference that ``tests/test_torch_attention.py`` pins. Decode
+writes the token at slot ``cur_len % L`` and runs the decode kernel with
+``kv_len = min(cur_len + 1, L)`` and no window: the reference's
+``_masked_decode`` keeps slots 0..t while t < L and all L slots after,
+which is the same set, and keys carry their RoPE positions already, so
+the order of the slots does not change the softmax.
+
+MLA (deepseek-v2) projects q through a low-rank ``wq_a``/``wq_b`` and
+keeps a compressed cache: the normed 512-d latent ``ckv`` (B, L,
+kv_lora) and the shared RoPE key ``kr`` (B, L, qk_rope). Prefill expands
+k and v from the latent and runs flash at D = qk_nope + qk_rope, Dv =
+v_head with the scale (qk_nope + qk_rope) ** -0.5. Decode is the
+reference's absorbed-matrix attention over the latent, plain ``torch``
+einsums on every device: the reference computes it with einsums outside
+any Pallas kernel, so there is no kernel of it to port.
 
 The reference's decode returns a new cache (JAX donates the old one);
-here the new token's K and V are written into the cache tensors in place
+here the new token's entries are written into the cache tensors in place
 (``index_put_`` for the ragged per-row insert) and the same tensors are
-returned. Sliding-window layers (rolling caches), MLA and positions other
-than RoPE are not ported yet and raise ``NotImplementedError``.
+returned. Positions other than RoPE (whisper) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,22 +49,30 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models.layers import P, apply_norm, norm_meta, rope
 
+NEG_INF = -1e30
+
 
 def check_supported(cfg, spec) -> None:
     """Raise for the attention variants the port does not run yet."""
-    if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: MLA attention is not ported yet")
-    if spec.window:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention (rolling decode cache) is "
-            "not ported yet")
     if cfg.pos != "rope":
         raise NotImplementedError(
             f"{cfg.name}: positions other than RoPE are not ported yet")
+    if cfg.mla is not None and spec.window:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA with a sliding window is in neither package")
 
 
 def attn_meta(cfg) -> dict:
     d, H, KV, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"wq_a": P((d, m.q_lora)),
+                "q_norm": norm_meta(cfg, m.q_lora),
+                "wq_b": P((m.q_lora, H * (m.qk_nope + m.qk_rope))),
+                "wkv_a": P((d, m.kv_lora + m.qk_rope)),
+                "kv_norm": norm_meta(cfg, m.kv_lora),
+                "wkv_b": P((m.kv_lora, H * (m.qk_nope + m.v_head))),
+                "wo": P((H * m.v_head, d))}
     meta = {"wq": P((d, H * D)), "wk": P((d, KV * D)), "wv": P((d, KV * D)),
             "wo": P((H * D, d))}
     if cfg.qkv_bias:
@@ -51,6 +83,18 @@ def attn_meta(cfg) -> dict:
         meta["qn"] = norm_meta(cfg, D)
         meta["kn"] = norm_meta(cfg, D)
     return meta
+
+
+def attn_cache_meta(cfg, spec, batch: int, cache_len: int) -> dict:
+    """One attention layer's cache leaves, under the reference's names:
+    name -> (shape, dtype; None for the compute dtype)."""
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"ckv": ((batch, cache_len, m.kv_lora), None),
+                "kr": ((batch, cache_len, m.qk_rope), None)}
+    L = min(spec.window, cache_len) if spec.window else cache_len
+    shape = (batch, L, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": (shape, None), "v": (shape, None)}
 
 
 def _project_qkv(cfg, p, x, positions):
@@ -86,45 +130,153 @@ def _fit(t: torch.Tensor, L: int) -> torch.Tensor:
     return out
 
 
+def _roll_window(t: torch.Tensor, W: int) -> torch.Tensor:
+    """The rolling cache of a (B, S, ...) prefill: its last W entries at
+    slot = position % W. For S < W that is positions 0..S-1 at slots
+    0..S-1 and zeros after (:func:`_fit`)."""
+    S = t.shape[1]
+    if S <= W:
+        return _fit(t, W)
+    # position S - W + i goes to slot (S - W + i) % W = (i + S) % W
+    return torch.roll(t[:, S - W:], shifts=S % W, dims=1).contiguous()
+
+
+def _positions(cur_len, B: int, device):
+    """(ragged, slot-or-length, positions (B, 1)) for ``cur_len``, an int
+    (lock-step) or a (B,) integer tensor (ragged slots)."""
+    ragged = isinstance(cur_len, torch.Tensor) and cur_len.ndim == 1
+    if ragged:
+        cur = cur_len.to(torch.int64)
+        return True, cur, cur[:, None]
+    cur = int(cur_len)
+    return False, cur, torch.full((B, 1), cur, dtype=torch.int64,
+                                  device=device)
+
+
+def _insert(cache: torch.Tensor, new: torch.Tensor, slot, ragged: bool):
+    """Write ``new`` (B, ...) at ``slot`` (an int, or one per row) of a
+    (B, L, ...) cache, in place."""
+    if ragged:
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache.index_put_((rows, slot), new)
+    else:
+        cache[:, slot] = new
+
+
 def attn_prefill(cfg, spec, p, x, positions, cache_len: int):
-    """Forward + this layer's decode cache (length ``cache_len``)."""
+    """Forward + this layer's decode cache (length ``cache_len``, or
+    min(W, cache_len) for a window of W)."""
+    if cfg.mla is not None:
+        y, (ckv, kr) = _mla_apply(cfg, p, x, positions)
+        return y, {"ckv": _fit(ckv, cache_len), "kr": _fit(kr, cache_len)}
     q, k, v = _project_qkv(cfg, p, x, positions)
     o = ops.attention(q, k, v, causal=True, window=spec.window)
     B, S = x.shape[:2]
     y = o.reshape(B, S, -1) @ p["wo"]
-    return y, {"k": _fit(k, cache_len), "v": _fit(v, cache_len)}
+    if spec.window and cache_len >= spec.window:
+        cache = {"k": _roll_window(k, spec.window),
+                 "v": _roll_window(v, spec.window)}
+    else:
+        cache = {"k": _fit(k, cache_len), "v": _fit(v, cache_len)}
+    return y, cache
 
 
 def attn_decode(cfg, spec, p, x, cache, cur_len):
-    """One-token decode. x: (B, 1, d); ``cache`` {"k", "v"} (B, L, KV, D),
-    updated in place.
+    """One-token decode. x: (B, 1, d); ``cache`` this layer's leaves
+    (``k``/``v`` (B, L, KV, D), or MLA's ``ckv``/``kr``), updated in place.
 
     ``cur_len`` is the tokens-so-far count: an int (lock-step, every row
     at the same position) or a (B,) integer tensor on x's device
-    (continuous batching, each row at its own length). The new token goes
-    to position ``cur_len`` of its row, and the decode kernel reads
-    ``cur_len + 1`` entries.
+    (continuous batching, each row at its own length). The new token sits
+    at position ``cur_len``: at cache slot ``cur_len`` (``cur_len % L`` in
+    a rolling cache), and the decode kernel reads ``cur_len + 1`` entries
+    (``min(cur_len + 1, L)``).
     """
+    if cfg.mla is not None:
+        return _mla_decode(cfg, p, x, cache, cur_len)
     B = x.shape[0]
     H, D = cfg.n_heads, cfg.head_dim
-    ragged = isinstance(cur_len, torch.Tensor) and cur_len.ndim == 1
-    if ragged:
-        slot = cur_len.to(torch.int64)
-        pos = slot[:, None]
-    else:
-        slot = int(cur_len)
-        pos = torch.full((B, 1), slot, dtype=torch.int64, device=x.device)
+    ragged, cur, pos = _positions(cur_len, B, x.device)
     q, k, v = _project_qkv(cfg, p, x, pos)
     ck, cv = cache["k"], cache["v"]
-    if ragged:
-        rows = torch.arange(B, device=x.device)
-        ck.index_put_((rows, slot), k[:, 0])
-        cv.index_put_((rows, slot), v[:, 0])
-        kv_len = (slot + 1).to(torch.int32)
-    else:
-        ck[:, slot] = k[:, 0]
-        cv[:, slot] = v[:, 0]
-        kv_len = torch.full((B,), slot + 1, dtype=torch.int32, device=x.device)
+    L = ck.shape[1]
+    slot = cur % L if spec.window else cur
+    _insert(ck, k[:, 0], slot, ragged)
+    _insert(cv, v[:, 0], slot, ragged)
+    n = cur + 1
+    if spec.window:
+        n = torch.clamp(n, max=L) if ragged else min(n, L)
+    kv_len = (n.to(torch.int32) if ragged else
+              torch.full((B,), n, dtype=torch.int32, device=x.device))
     o = ops.decode_attention(q, ck, cv, kv_len=kv_len)
     y = o.reshape(B, 1, H * D) @ p["wo"]
+    return y, cache
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank compressed KV cache, absorbed decode
+# --------------------------------------------------------------------------
+
+def _mla_project(cfg, p, x, positions):
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    cq = apply_norm(cfg, p["q_norm"], x @ p["wq_a"])
+    q = (cq @ p["wq_b"]).reshape(B, S, H, m.qk_nope + m.qk_rope)
+    q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    kv = x @ p["wkv_a"]
+    ckv = apply_norm(cfg, p["kv_norm"], kv[..., :m.kv_lora])
+    kr = rope(kv[..., m.kv_lora:][:, :, None], positions,
+              cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, ckv, kr
+
+
+def _mla_apply(cfg, p, x, positions):
+    """Prefill MLA: k and v expanded from the compressed latent, flash at
+    D = qk_nope + qk_rope, Dv = v_head. Returns (y, (ckv, kr))."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    q_nope, q_rope, ckv, kr = _mla_project(cfg, p, x, positions)
+    kvb = (ckv @ p["wkv_b"]).reshape(B, S, H, m.qk_nope + m.v_head)
+    k_nope, v = kvb[..., :m.qk_nope], kvb[..., m.qk_nope:].contiguous()
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, kr[:, :, None].expand(B, S, H, m.qk_rope)],
+                  dim=-1)
+    scale = (m.qk_nope + m.qk_rope) ** -0.5
+    o = ops.attention(q, k, v, causal=True, scale=scale)
+    y = o.reshape(B, S, H * m.v_head) @ p["wo"]
+    return y, (ckv, kr)
+
+
+def _mla_decode(cfg, p, x, cache, cur_len):
+    """Absorbed-matrix decode over the latent: ``wkv_b``'s key half folded
+    into q, scores against ``ckv`` and ``kr`` in float32, the softmax's
+    weights applied to ``ckv`` and then ``wkv_b``'s value half. ``cur_len``
+    as in :func:`attn_decode`; the cache is written in place."""
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    ragged, cur, pos = _positions(cur_len, B, x.device)
+    q_nope, q_rope, ckv_t, kr_t = _mla_project(cfg, p, x, pos)
+    ckv, kr = cache["ckv"], cache["kr"]
+    _insert(ckv, ckv_t[:, 0], cur, ragged)
+    _insert(kr, kr_t[:, 0], cur, ragged)
+    wkv_b = p["wkv_b"].reshape(m.kv_lora, H, m.qk_nope + m.v_head)
+    wk = wkv_b[..., :m.qk_nope]            # (lora, H, nope)
+    wv = wkv_b[..., m.qk_nope:]            # (lora, H, v)
+    q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0], wk)
+    scale = (m.qk_nope + m.qk_rope) ** -0.5
+    ckv_f = ckv.float()
+    s = (torch.einsum("bhl,bsl->bhs", q_lat.float(), ckv_f)
+         + torch.einsum("bhr,bsr->bhs", q_rope[:, 0].float(),
+                        kr.float())) * scale
+    k_pos = torch.arange(ckv.shape[1], device=x.device)
+    bound = cur[:, None, None] if ragged else cur
+    s = s.masked_fill(~(k_pos[None, None, :] <= bound), NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsl->bhl", pr, ckv_f)
+    o = torch.einsum("bhl,lhv->bhv", o_lat.to(x.dtype), wv)
+    y = o.reshape(B, 1, H * m.v_head) @ p["wo"]
     return y, cache

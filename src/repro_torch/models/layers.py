@@ -1,7 +1,7 @@
 """Parameter metadata and primitive layers (counterpart of ``repro.models.layers``
 for the layers the ported configs use: RMSNorm and LayerNorm, the RWKV
-per-head GroupNorm, half-split RoPE, the SiLU GLU MLP, unscaled
-embeddings, untied or tied).
+per-head GroupNorm, half-split RoPE, the GLU MLP with SiLU or GELU,
+embeddings, unscaled or scaled by sqrt(d_model) (gemma3), untied or tied).
 
 Parameters are declared as trees (nested dicts and lists) of :class:`P`:
 a shape and an init kind. :func:`init_params` draws every tensor from one
@@ -167,18 +167,27 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([rotated.to(x.dtype), x[..., R:]], dim=-1)
 
 
+def act_fn(name: str):
+    """The GLU's activation: SiLU, or GELU in the tanh approximation, which
+    is ``jax.nn.gelu``'s default and so the reference's."""
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    return {"silu": F.silu}[name]
+
+
 # ---- GLU MLP ---------------------------------------------------------------
 
-def mlp_meta(cfg) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_meta(cfg, d_ff: int | None = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     return {"wg": P((d, f)), "wi": P((d, f)), "wo": P((f, d))}
 
 
-def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+def mlp_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+    act = act_fn(cfg.act)
+    return (act(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
 
 
-# ---- embeddings (unscaled; untied, or tied to the token table) ----------
+# ---- embeddings (untied, or tied to the token table) ---------------------
 
 def embed_meta(cfg) -> dict:
     m = {"tok": P((cfg.vocab_size, cfg.d_model), scale=1.0)}
@@ -189,7 +198,13 @@ def embed_meta(cfg) -> dict:
 
 def embed_tokens(cfg, p: dict, tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
-    return p["tok"].to(dtype)[tokens.long()]
+    """Token rows in ``dtype``; with ``cfg.embed_scale`` times sqrt(d_model)
+    rounded to ``dtype`` first, as the reference's ``jnp.asarray(d ** 0.5,
+    dtype)`` (sqrt(3840) = 61.97 is 62.0 in bf16)."""
+    x = p["tok"].to(dtype)[tokens.long()]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=x.device)
+    return x
 
 
 def unembed(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -76,9 +76,10 @@ class Model:
 
     # ---- caches ----
     def init_cache(self, batch: int, cache_len: int) -> dict:
-        """Zeroed decode cache for ``batch`` rows, each layer kind with its
-        own leaves (:func:`transformer.init_cache_blocks`); ``cache_len``
-        sizes the attention leaves only."""
+        """Zeroed decode cache for ``batch`` rows, each kind of layer with
+        its own leaves (:func:`transformer.init_cache_blocks`); ``cache_len``
+        sizes the attention leaves only (min(W, cache_len) for a window of
+        W)."""
         return {"blocks": tf.init_cache_blocks(self.cfg, batch, cache_len,
                                                self.dtype, self.device),
                 "cur_len": 0}

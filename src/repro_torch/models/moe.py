@@ -16,25 +16,29 @@ is no kernel of this module. Every expert runs on its whole (B, C, d)
 slice of the dispatch buffer, so a decode tick reads every expert's
 weights.
 
-Returns (y, aux); aux is the Switch load-balance loss. Shared experts
-(``n_shared > 0``, deepseek) have no ported config yet:
-:func:`repro_torch.models.transformer.check_supported` raises for them.
+With ``n_shared > 0`` (deepseek-v2) a shared GLU of width
+``d_expert * n_shared``, which every token takes, is added to the routed
+output, as the reference adds it. Returns (y, aux); aux is the Switch
+load-balance loss.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import P
+from repro_torch.models.layers import P, act_fn, mlp_apply, mlp_meta
 
 
 def moe_meta(cfg) -> dict:
     m = cfg.moe
     d, e, f = cfg.d_model, m.n_experts, m.d_expert
-    return {"router": P((d, e), scale=d**-0.5),
+    meta = {"router": P((d, e), scale=d**-0.5),
             "wg": P((e, d, f)),
             "wi": P((e, d, f)),
             "wo": P((e, f, d))}
+    if m.n_shared:
+        meta["shared"] = mlp_meta(cfg, f * m.n_shared)
+    return meta
 
 
 def _capacity(cfg, S: int) -> int:
@@ -90,7 +94,7 @@ def moe_apply(cfg, p, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         0, (rows + dest).reshape(-1), src.reshape(-1, d))
     buf = buf.view(B, E * C + 1, d)[:, :-1].reshape(B, E, C, d)
 
-    h = F.silu(torch.einsum("becd,edf->becf", buf, p["wg"])) * \
+    h = act_fn(cfg.act)(torch.einsum("becd,edf->becf", buf, p["wg"])) * \
         torch.einsum("becd,edf->becf", buf, p["wi"])
     out = torch.einsum("becf,efd->becd", h, p["wo"])              # (B,E,C,d)
 
@@ -102,4 +106,6 @@ def moe_apply(cfg, p, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         * (flat_g * keep).to(out.dtype)[..., None]
     contrib = contrib.view(B, S, K, d)
     y = sum(contrib[:, :, k] for k in range(K))
+    if m.n_shared:
+        y = y + mlp_apply(cfg, p["shared"], x)
     return y, aux.float()

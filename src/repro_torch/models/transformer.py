@@ -9,32 +9,41 @@ casts the parameters on every call (``cast_params``); here they were cast
 once when loaded (:func:`repro_torch.models.layers.cast_leaf`), which
 gives the same numbers.
 
-Ported: dense GQA attention blocks (RMSNorm, SiLU GLU MLP) of llama3-8b,
-qwen2.5-14b (q/k/v bias) and chameleon-34b (per-head q/k RMSNorm); the
-same blocks with MoE MLPs of granite-moe-3b (40 experts top-8, tied
+Ported: dense GQA attention blocks (RMSNorm, GLU MLP) of llama3-8b,
+qwen2.5-14b and qwen1.5-110b (q/k/v bias), chameleon-34b (per-head q/k
+RMSNorm) and gemma3-12b (q/k RMSNorm, GELU GLU, embeddings scaled by
+sqrt(d_model) and tied, five sliding-window layers to one global); MLA
+attention with MoE MLPs and shared experts of deepseek-v2-236b; the same
+GQA blocks with MoE MLPs of granite-moe-3b (40 experts top-8, tied
 embeddings); RWKV6 blocks (LayerNorm, time-mix, channel-mix); and the
 hybrid family of jamba, whose pattern mixes Mamba and attention mixers
-with dense and MoE MLPs (RMSNorm, SiLU GLU experts). Embeddings are
-unscaled, untied or tied. Other layers and variants (sliding windows,
-MLA, shared experts, scaled embeddings, encoder-decoders) raise
-``NotImplementedError``.
+with dense and MoE MLPs (RMSNorm, SiLU GLU experts). Encoder-decoders and
+positions other than RoPE (whisper) raise ``NotImplementedError``.
 
 The decode cache is a flat dict of tensors, one per leaf name, whose
-leading axis runs over the layers of the kind that owns the leaf:
-attention's ``k``/``v`` (n_attn, B, L, KV, D) in the compute dtype,
-Mamba's ``conv`` (n_mamba, B, ssm_conv - 1, Di) in the compute dtype and
-``h`` (n_mamba, B, Di, N) in float32, RWKV's ``x_tm``/``x_cm`` (n_rwkv,
-B, d) in the compute dtype and ``h`` (n_rwkv, B, H, K, K) in float32.
-Layer ``i`` works in place on the contiguous slice ``[j]`` of its kind's
-leaves, ``j`` its index among the layers of that kind
-(:func:`cache_slots`). The names are not qualified by kind, so a name
-must belong to one kind of a config's pattern: :func:`cache_leaf_kinds`
-raises where two kinds share one (Mamba's and RWKV's ``h``, of other
-shapes), and :func:`check_supported` and :func:`init_cache_blocks` call
-it, so no config can build a cache in which one kind's layers would
-reuse another kind's leaf.
+leading axis runs over the layers that hold the leaf. A leaf is named by
+what fixes its shape (:func:`cache_names`): global attention's ``k``/
+``v`` (n, B, L, KV, D) and sliding-window attention's ``kw``/``vw``
+(n, B, min(W, L), KV, D) in the compute dtype; MLA's ``ckv`` (n, B, L,
+kv_lora) and ``kr`` (n, B, L, qk_rope) in the compute dtype; Mamba's
+``conv`` (n, B, ssm_conv - 1, Di) in the compute dtype and ``h`` (n, B,
+Di, N) in float32; RWKV's ``x_tm``/``x_cm`` (n, B, d) in the compute
+dtype and ``h`` (n, B, H, K, K) in float32. A layer sees its leaves under
+the reference's names (``k``, ``v``, ``ckv``, ...): layer ``i`` works in
+place on the contiguous slice ``[j]`` of its leaves, ``j`` its index
+among the layers that hold them (:func:`cache_slots`).
+:func:`cache_by_pattern` gives the reference's layout (one subtree per
+pattern position ``l{j}``, each leaf stacked over the repeats), which is
+how the tests compare the two leaf by leaf. A leaf name must belong to
+one kind of layer and one shape: :func:`cache_leaf_kinds` raises where
+two kinds share one (Mamba's and RWKV's ``h``, of other shapes) or where
+windowed layers have different windows, and :func:`check_supported` and
+:func:`init_cache_blocks` call it, so no config can build a cache in
+which one layer would reuse a leaf of another shape.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -49,22 +58,38 @@ from repro_torch.models.layers import (
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
-# cache leaves of each ported layer kind
+# cache leaves of each ported layer kind, under the reference's names
 CACHE_LEAVES = {"attn": ("k", "v"), "mamba": ("conv", "h"),
                 "rwkv": ("x_tm", "x_cm", "h")}
 
 
+def cache_names(cfg, spec) -> dict[str, str]:
+    """A layer's cache leaves: the reference's name -> the port's leaf name
+    (the same but for sliding-window attention's ``kw``/``vw`` and MLA's
+    ``ckv``/``kr``)."""
+    if spec.kind == "attn" and cfg.mla is not None:
+        return {"ckv": "ckv", "kr": "kr"}
+    if spec.kind == "attn" and spec.window:
+        return {"k": "kw", "v": "vw"}
+    return {n: n for n in CACHE_LEAVES.get(spec.kind, ())}
+
+
 def cache_leaf_kinds(cfg) -> dict[str, str]:
-    """Cache leaf name -> the layer kind that owns it, for the kinds of
-    ``cfg``'s pattern; raises ``ValueError`` where two kinds share a
-    name."""
+    """Cache leaf name -> the layer kind that owns it, for the layers of
+    ``cfg``'s pattern; raises ``ValueError`` where two kinds share a name
+    or windowed layers of different windows would share ``kw``/``vw``."""
     owner: dict[str, str] = {}
-    for kind in dict.fromkeys(spec.kind for spec in cfg.block_pattern):
-        for name in CACHE_LEAVES.get(kind, ()):
-            if owner.setdefault(name, kind) != kind:
+    for spec in cfg.block_pattern:
+        for name in cache_names(cfg, spec).values():
+            if owner.setdefault(name, spec.kind) != spec.kind:
                 raise ValueError(
                     f"{cfg.name}: cache leaf {name!r} belongs to both "
-                    f"{owner[name]!r} and {kind!r} layers")
+                    f"{owner[name]!r} and {spec.kind!r} layers")
+    windows = {s.window for s in cfg.block_pattern
+               if s.kind == "attn" and s.window}
+    if len(windows) > 1:
+        raise ValueError(f"{cfg.name}: windowed layers of windows "
+                         f"{sorted(windows)} would share one cache leaf")
     return owner
 
 
@@ -73,21 +98,16 @@ def check_supported(cfg) -> None:
     if cfg.encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
                                   "not ported yet")
-    if cfg.embed_scale:
-        raise NotImplementedError(
-            f"{cfg.name}: scaled embeddings are not ported yet")
     for spec in cfg.block_pattern:
-        if spec.moe:
-            if cfg.moe is None:
-                raise ValueError(f"{cfg.name}: an MoE block needs cfg.moe")
-            if cfg.moe.n_shared:
-                raise NotImplementedError(
-                    f"{cfg.name}: shared experts are not ported yet")
+        if spec.moe and cfg.moe is None:
+            raise ValueError(f"{cfg.name}: an MoE block needs cfg.moe")
         if spec.kind in ("attn", "mamba"):
-            if (cfg.norm, cfg.mlp_kind, cfg.act) != ("rmsnorm", "glu", "silu"):
+            if (cfg.norm, cfg.mlp_kind) != ("rmsnorm", "glu") \
+                    or cfg.act not in ("silu", "gelu"):
                 raise NotImplementedError(
                     f"{cfg.name}: attention and Mamba blocks are ported with "
-                    "RMSNorm and the SiLU GLU MLP (dense or MoE) only")
+                    "RMSNorm and the SiLU or GELU GLU MLP (dense or MoE) "
+                    "only")
             if spec.kind == "attn":
                 attn.check_supported(cfg, spec)
         elif spec.kind == "rwkv":
@@ -107,14 +127,27 @@ def layer_specs(cfg) -> list:
 
 
 def cache_slots(cfg) -> list[int]:
-    """For each layer, its index among the layers of its kind: the slice
-    of its kind's cache leaves that it owns."""
-    seen: dict[str, int] = {}
+    """For each layer, its index among the layers that hold the same
+    cache leaves (:func:`cache_names`): the slice of them that it owns."""
+    seen: dict[tuple, int] = {}
     out = []
     for spec in layer_specs(cfg):
-        out.append(seen.get(spec.kind, 0))
-        seen[spec.kind] = out[-1] + 1
+        group = tuple(cache_names(cfg, spec).values())
+        out.append(seen.get(group, 0))
+        seen[group] = out[-1] + 1
     return out
+
+
+def cache_by_pattern(cfg, blocks: dict) -> dict:
+    """The port's block cache in the reference's layout: {``l{j}``:
+    {reference name: the leaf's slices of layers ``r * len(pattern) + j``
+    stacked over r}} (views stacked into new tensors)."""
+    n_pat = len(cfg.block_pattern)
+    slots = cache_slots(cfg)
+    return {f"l{j}": {ref: torch.stack([
+        blocks[leaf][slots[r * n_pat + j]] for r in range(cfg.n_repeats)])
+        for ref, leaf in cache_names(cfg, spec).items()}
+        for j, spec in enumerate(cfg.block_pattern)}
 
 
 _MIXER_META = {"attn": attn.attn_meta, "mamba": ssm.mamba_meta,
@@ -140,11 +173,10 @@ def lm_meta(cfg) -> dict:
 
 
 def _layer_cache_meta(cfg, spec, batch: int, cache_len: int) -> dict:
-    """One layer's cache leaves, name -> (shape, dtype; None for the
-    compute dtype)."""
+    """One layer's cache leaves under the reference's names, name ->
+    (shape, dtype; None for the compute dtype)."""
     if spec.kind == "attn":
-        shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": (shape, None), "v": (shape, None)}
+        return attn.attn_cache_meta(cfg, spec, batch, cache_len)
     if spec.kind == "mamba":
         return ssm.mamba_cache_meta(cfg, batch)
     return ssm.rwkv_cache_meta(cfg, batch)
@@ -153,19 +185,22 @@ def _layer_cache_meta(cfg, spec, batch: int, cache_len: int) -> dict:
 def init_cache_blocks(cfg, batch: int, cache_len: int, dtype: torch.dtype,
                       device) -> dict:
     """Zeroed decode-cache leaves for ``batch`` rows (see the module
-    docstring for the layout: each leaf name belongs to one layer kind,
-    :func:`cache_leaf_kinds`)."""
-    owner = cache_leaf_kinds(cfg)
-    blocks = {}
+    docstring for the layout: each leaf name belongs to one kind of layer
+    and one shape, :func:`cache_leaf_kinds`)."""
+    cache_leaf_kinds(cfg)
     specs = layer_specs(cfg)
-    for kind in dict.fromkeys(s.kind for s in specs):
-        spec = next(s for s in specs if s.kind == kind)
-        n = sum(s.kind == kind for s in specs)
-        for name, (shape, dt) in _layer_cache_meta(cfg, spec, batch,
-                                                   cache_len).items():
-            assert owner[name] == kind, (name, kind)
-            blocks[name] = torch.zeros((n, *shape), dtype=dt or dtype,
-                                       device=device)
+    counts = collections.Counter(tuple(cache_names(cfg, s).values())
+                                 for s in specs)
+    blocks = {}
+    for spec in specs:
+        names = cache_names(cfg, spec)
+        if names and next(iter(names.values())) in blocks:
+            continue
+        n = counts[tuple(names.values())]
+        for ref, (shape, dt) in _layer_cache_meta(cfg, spec, batch,
+                                                  cache_len).items():
+            blocks[names[ref]] = torch.zeros((n, *shape), dtype=dt or dtype,
+                                             device=device)
     return blocks
 
 
@@ -175,7 +210,7 @@ def _mlp_prefill(cfg, spec, lp, h, cache):
     if cfg.mlp_kind == "rwkv":
         cache["x_cm"] = h[:, -1]
         return ssm.rwkv_cm_apply(cfg, lp["mlp"], h)
-    return mlp_apply(lp["mlp"], h)
+    return mlp_apply(cfg, lp["mlp"], h)
 
 
 def _apply_layer_prefill(cfg, spec, lp, x, positions, cache_len):
@@ -210,7 +245,7 @@ def _apply_layer_decode(cfg, spec, lp, x, cache, cur_len):
         out = ssm.rwkv_cm_decode(cfg, lp["mlp"], h, cache["x_cm"])
         cache["x_cm"].copy_(h[:, 0])
     else:
-        out = mlp_apply(lp["mlp"], h)
+        out = mlp_apply(cfg, lp["mlp"], h)
     return x + out
 
 
@@ -225,8 +260,8 @@ def lm_prefill(cfg, params, tokens: torch.Tensor, *,
     leaves: dict[str, list] = {}
     for spec, lp in zip(layer_specs(cfg), params["blocks"]):
         x, c = _apply_layer_prefill(cfg, spec, lp, x, positions, cache_len)
-        for name in CACHE_LEAVES[spec.kind]:
-            leaves.setdefault(name, []).append(c[name])
+        for ref, leaf in cache_names(cfg, spec).items():
+            leaves.setdefault(leaf, []).append(c[ref])
     x = apply_norm(cfg, params["ln_f"], x)
     logits = unembed(cfg, params["embed"], x[:, -1:])[:, 0]
     return logits, {"blocks": {n: torch.stack(ts) for n, ts in leaves.items()},
@@ -242,7 +277,8 @@ def _lm_decode_blocks(cfg, params, blocks, tokens, cur_len):
     x = embed_tokens(cfg, params["embed"], tokens, dtype)
     for spec, j, lp in zip(layer_specs(cfg), cache_slots(cfg),
                            params["blocks"]):
-        cache = {n: blocks[n][j] for n in CACHE_LEAVES[spec.kind]}
+        cache = {ref: blocks[leaf][j]
+                 for ref, leaf in cache_names(cfg, spec).items()}
         x = _apply_layer_decode(cfg, spec, lp, x, cache, cur_len)
     x = apply_norm(cfg, params["ln_f"], x)
     logits = unembed(cfg, params["embed"], x[:, -1:])[:, 0]

@@ -6,6 +6,13 @@ reference's Pallas kernels run in interpret mode and to its XLA path, on
 inputs made from a numpy seed. The CUDA kernels themselves are held to the
 plain versions by the ``gpu``-marked tests of ``test_torch_gpu.py`` and by
 chip_smoke.py on the card.
+
+The attention layers' sliding-window and MLA paths are held here too:
+gemma3's rolling decode cache through the decode kernel's plain version
+against the reference's ``_masked_decode``, the reference's
+``_roll_window`` fault (it raises for a prompt shorter than the window)
+against the port's rolling cache, and deepseek-v2's MLA prefill and
+absorbed decode against ``_mla_apply`` / ``_mla_decode``.
 """
 import numpy as np
 import pytest
@@ -13,13 +20,17 @@ import torch
 
 import jax.numpy as jnp
 
+from repro.configs import get_config as jax_get_config
 from repro.kernels import decode_attention as jax_da
 from repro.kernels import flash_attention as jax_fa
 from repro.kernels import ops as jax_ops
+from repro.models import attention as jax_attn
 
+from repro_torch import configs
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.models import attention as attn
 
 # tolerances: float32 differs from the reference only in summation order;
 # bfloat16 outputs are rounded to bfloat16 by both sides
@@ -143,9 +154,9 @@ def test_decode_plain_vs_jax_xla_where_rows_are_not_empty(window):
 
 
 # the zoo's (G, D) pairs: granite-moe-3b G = 3 at D = 64, qwen2.5-14b G = 5
-# and chameleon-34b G = 8 at D = 128 (two kv heads here, the configs' 8 on
-# the card)
-ZOO_PAIRS = [(3, 64), (5, 128), (8, 128)]
+# and chameleon-34b and qwen1.5-110b G = 8 at D = 128, gemma3-12b G = 2 at
+# D = 256 (two kv heads here, the configs' 8 on the card)
+ZOO_PAIRS = [(3, 64), (5, 128), (8, 128), (2, 256)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -223,13 +234,16 @@ def test_decode_split_fills_the_card_without_empty_tiny_splits():
     (torch.bfloat16, 16, 16, "simt"),          # the smoke configs
     (torch.bfloat16, 192, 128, "simt"),        # MLA's widths
     (torch.bfloat16, 128, 64, "simt"),
-    (torch.float32, 256, 128, "simt")])
+    (torch.float32, 256, 128, "simt"),
+    (torch.bfloat16, 256, 256, "wgmma"),       # gemma3-12b
+    (torch.float32, 256, 256, "simt"),
+    (torch.bfloat16, 256, 128, "simt")])
 def test_flash_route_by_dtype_and_width(dtype, D, Dv, route):
     assert fa._route(dtype, D, Dv) == route
 
 
 @pytest.mark.parametrize("dtype,D,Dv", [(torch.bfloat16, 320, 128),
-                                        (torch.float32, 128, 192),
+                                        (torch.float32, 128, 320),
                                         (torch.float16, 128, 128),
                                         (torch.bfloat16, 0, 64)])
 def test_flash_route_raises_where_no_kernel_takes_the_shape(dtype, D, Dv):
@@ -244,7 +258,10 @@ def test_flash_route_raises_where_no_kernel_takes_the_shape(dtype, D, Dv):
     (torch.bfloat16, 2, 32, 32, "mma"),
     (torch.bfloat16, 3, 64, 64, "mma"),        # granite-moe-3b
     (torch.bfloat16, 5, 128, 128, "mma"),      # qwen2.5-14b
-    (torch.bfloat16, 8, 128, 128, "mma"),      # chameleon-34b
+    (torch.bfloat16, 8, 128, 128, "mma"),      # chameleon-34b, qwen1.5-110b
+    (torch.bfloat16, 2, 256, 256, "mma"),      # gemma3-12b
+    (torch.bfloat16, 2, 64, 64, "mma"),        # below the built 256
+    (torch.float32, 2, 256, 256, "simt"),
     (torch.bfloat16, 3, 16, 16, "mma"),        # below the built 64
     (torch.float32, 3, 64, 64, "simt"),
     (torch.float32, 5, 128, 128, "simt"),
@@ -259,7 +276,7 @@ def test_decode_route_by_dtype_and_width(dtype, G, D, Dv, route):
 
 @pytest.mark.parametrize("dtype,G,D,Dv", [(torch.bfloat16, 6, 128, 128),
                                           (torch.bfloat16, 3, 128, 128),
-                                          (torch.bfloat16, 2, 64, 64),
+                                          (torch.bfloat16, 2, 272, 272),
                                           (torch.float32, 4, 144, 128),
                                           (torch.float16, 4, 128, 128)])
 def test_decode_route_raises_where_no_kernel_takes_the_shape(dtype, G, D, Dv):
@@ -366,3 +383,152 @@ def test_tensor_core_decode_numerics_vs_jax_xla_at_the_zoo_pairs(G, D):
                                     impl="xla")
     got = _tc_decode_emulation(tq, tk, tv, torch.from_numpy(n))
     _close(got, want, "bfloat16")
+
+
+# ---- D = Dv = 256 (gemma3-12b) ----------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kw", [{"window": 48}, {}])
+def test_flash_plain_at_the_gemma_width_vs_pallas_interpret_and_xla(dtype, kw):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(1, 128, 128, 4, 2, 256, seed=8),
+                                       dtype)
+    got = ops.attention(tq, tk, tv, causal=True, **kw)
+    _close(got, jax_fa.flash_attention(jq, jk, jv, blk_q=64, blk_k=64,
+                                       interpret=True, causal=True, **kw),
+           dtype)
+    _close(got, jax_ops.attention(jq, jk, jv, causal=True, impl="xla", **kw),
+           dtype)
+
+
+@pytest.mark.parametrize("kw", [{"window": 96}, {}])
+def test_tensor_core_flash_numerics_vs_pallas_interpret_at_gemma_heads(kw):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(1, 256, 256, 16, 8, 256, seed=9),
+                                       "bfloat16")
+    want = jax_fa.flash_attention(jq, jk, jv, blk_q=128, blk_k=128,
+                                  interpret=True, **kw)
+    _close(_tc_flash_emulation(tq, tk, tv, **kw), want, "bfloat16")
+
+
+# ---- sliding-window layers: the rolling decode cache -----------------------
+
+def _rolling_valid(L: int, t: np.ndarray) -> np.ndarray:
+    """The reference's validity mask of a rolling cache of L slots at
+    tokens-so-far t (``attn_decode``): slot s holds position
+    s + L floor((t - s) / L), valid where that is >= 0."""
+    s = np.arange(L)[None]
+    return s + L * ((t[:, None] - s) // L) >= 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,D", [(2, 32), (2, 256)])
+def test_rolling_decode_through_the_kernel_equals_the_masked_decode(dtype, G,
+                                                                    D):
+    """A window layer's decode runs the decode kernel with
+    kv_len = min(t + 1, L) and no window; the reference masks the rolling
+    cache explicitly (``_masked_decode``). Rows at t < L - 1, t = L - 1
+    and t >= L (the cache wrapped once and more)."""
+    L, KV = 16, 2
+    t = np.asarray([0, 3, L - 2, L - 1, L, L + 5, 3 * L + 7])
+    rng = np.random.default_rng(21)
+    q = rng.normal(size=(len(t), 1, KV * G, D)).astype(np.float32)
+    k = rng.normal(size=(len(t), L, KV, D)).astype(np.float32)
+    v = rng.normal(size=(len(t), L, KV, D)).astype(np.float32)
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v), dtype)
+    cfg = jax_get_config("gemma3-12b", smoke=True)
+    want = jax_attn._masked_decode(cfg, jq, jk, jv,
+                                   jnp.asarray(_rolling_valid(L, t)))
+    n = torch.from_numpy(np.minimum(t + 1, L).astype(np.int32))
+    _close(ops.decode_attention(tq, tk, tv, kv_len=n), want, dtype)
+
+
+@pytest.mark.parametrize("S", [3, 5, 8, 11, 20])
+def test_rolling_prefill_cache_where_the_reference_raises(S):
+    """The reference's ``_roll_window`` raises a broadcast error for a
+    prompt shorter than the window W; what its docstring states (slot =
+    position % W) is ``_fit(t, W)`` there, which the port builds. From
+    S = W on the port equals the reference's roll."""
+    W = 8
+    t = np.random.default_rng(S).normal(size=(2, S, 2, 4)).astype(np.float32)
+    got = attn._roll_window(torch.from_numpy(t), W).numpy()
+    if S < W:
+        with pytest.raises(ValueError, match="Incompatible shapes"):
+            jax_attn._roll_window(jnp.asarray(t), W)
+        want = jax_attn._fit(jnp.asarray(t), W)
+    else:
+        want = jax_attn._roll_window(jnp.asarray(t), W)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    for p in range(max(0, S - W), S):
+        np.testing.assert_array_equal(got[:, p % W], t[:, p])
+
+
+# ---- MLA (deepseek-v2-236b) -------------------------------------------------
+
+def _mla_params(seed: int):
+    """The smoke config's MLA weights from numpy at the reference's init
+    scales, the norm scales moved off 1 by N(0, 0.2): (jax cfg, port cfg,
+    jax params, port params)."""
+    cfg = jax_get_config("deepseek-v2-236b", smoke=True).replace(
+        dtype="float32")
+    pcfg = configs.get_config("deepseek-v2-236b", smoke=True).replace(
+        dtype="float32")
+    rng = np.random.default_rng(seed)
+
+    def draw(p):
+        if p.init == "ones":
+            return (1 + 0.2 * rng.standard_normal(p.shape)).astype(np.float32)
+        return (rng.standard_normal(p.shape)
+                * p.shape[-2] ** -0.5).astype(np.float32)
+
+    meta = attn.attn_meta(pcfg)
+    flat = {n: ({"w": draw(m["w"])} if isinstance(m, dict) else draw(m))
+            for n, m in meta.items()}
+    jp = {n: ({"w": jnp.asarray(a["w"])} if isinstance(a, dict)
+              else jnp.asarray(a)) for n, a in flat.items()}
+    tp = {n: ({"w": torch.from_numpy(a["w"])} if isinstance(a, dict)
+              else torch.from_numpy(a)) for n, a in flat.items()}
+    return cfg, pcfg, jp, tp
+
+
+def _rel(got: torch.Tensor, want, rtol=1e-4):
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    assert float(np.abs(got.float().numpy() - want).max()) <= \
+        rtol * float(np.abs(want).max())
+
+
+def test_mla_prefill_equals_the_reference():
+    cfg, pcfg, jp, tp = _mla_params(31)
+    x = np.random.default_rng(32).normal(size=(2, 13, cfg.d_model)) \
+        .astype(np.float32)
+    jy, (jckv, jkr) = jax_attn._mla_apply(cfg, jp, jnp.asarray(x),
+                                          jnp.arange(13))
+    ty, (tckv, tkr) = attn._mla_apply(pcfg, tp, torch.from_numpy(x),
+                                      torch.arange(13))
+    _rel(ty, jy)
+    _rel(tckv, jckv)
+    _rel(tkr, jkr)
+
+
+@pytest.mark.parametrize("cur_len", [5, [0, 3, 23, 7]])
+def test_mla_absorbed_decode_equals_the_reference(cur_len):
+    """Lock-step and ragged: the output, and the caches written in place
+    at each row's position."""
+    cfg, pcfg, jp, tp = _mla_params(33)
+    m, B, L = cfg.mla, 4, 24
+    rng = np.random.default_rng(34)
+    x = rng.normal(size=(B, 1, cfg.d_model)).astype(np.float32)
+    ckv = rng.normal(size=(B, L, m.kv_lora)).astype(np.float32)
+    kr = rng.normal(size=(B, L, m.qk_rope)).astype(np.float32)
+    ragged = isinstance(cur_len, list)
+    jcur = jnp.asarray(cur_len, jnp.int32) if ragged else cur_len
+    tcur = torch.tensor(cur_len) if ragged else cur_len
+    jy, jc = jax_attn._mla_decode(cfg, jp, jnp.asarray(x),
+                                  {"ckv": jnp.asarray(ckv),
+                                   "kr": jnp.asarray(kr)}, jcur)
+    cache = {"ckv": torch.from_numpy(ckv.copy()),
+             "kr": torch.from_numpy(kr.copy())}
+    ty, tc = attn._mla_decode(pcfg, tp, torch.from_numpy(x), cache, tcur)
+    assert tc["ckv"] is cache["ckv"]
+    _rel(ty, jy)
+    _rel(tc["ckv"], jc["ckv"])
+    _rel(tc["kr"], jc["kr"])

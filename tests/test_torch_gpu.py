@@ -283,6 +283,8 @@ FLASH_CASES = [(16, 16, {}), (37, 37, {}), (200, 200, {"window": 64}),
 # rounded to bf16 by both sides, and the wgmma route rounds P to bf16)
 FLASH_ROUTES = [(torch.float32, 128, "simt", 2e-5),
                 (torch.bfloat16, 128, "wgmma", 2e-2),
+                (torch.float32, 256, "simt", 2e-5),
+                (torch.bfloat16, 256, "wgmma", 2e-2),
                 (torch.float32, 64, "simt", 2e-5),
                 (torch.bfloat16, 64, "wgmma", 2e-2),
                 (torch.bfloat16, 16, "simt", 2e-2)]
@@ -310,8 +312,9 @@ def test_flash_kernel_vs_plain(cuda, dtype, D, route, atol, Sq, Skv, kw):
 
 
 # the zoo's prefill heads at their full width: (heads, kv heads, D) of
-# granite-moe-3b, qwen2.5-14b and chameleon-34b, on the wgmma route
-ZOO_HEADS = [(24, 8, 64), (40, 8, 128), (64, 8, 128)]
+# granite-moe-3b, qwen2.5-14b, chameleon-34b and qwen1.5-110b, and
+# gemma3-12b, on the wgmma route
+ZOO_HEADS = [(24, 8, 64), (40, 8, 128), (64, 8, 128), (16, 8, 256)]
 
 
 @pytest.mark.parametrize("H,KV,D", ZOO_HEADS)
@@ -331,6 +334,26 @@ def test_flash_kernel_vs_plain_at_the_zoo_heads(cuda, H, KV, D, S, kw):
         atol=2e-2, rtol=0)
 
 
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float32, 2e-5)])
+@pytest.mark.parametrize("S", [37, 1024])
+def test_flash_kernel_vs_plain_at_the_mla_widths(cuda, dtype, atol, S):
+    """deepseek-v2's prefill: 128 heads, D = 192 (nope + rope), Dv = 128,
+    its explicit scale, on the CUDA-core route."""
+    g = _gen(12)
+    q = torch.randn((1, S, 128, 192), generator=g).to(cuda, dtype)
+    k = torch.randn((1, S, 128, 192), generator=g).to(cuda, dtype)
+    v = torch.randn((1, S, 128, 128), generator=g).to(cuda, dtype)
+    assert fa._route(dtype, 192, 128) == "simt"
+    n, n_route = _launches(fa.flash_attention, "simt")
+    got = fa.flash_attention(q, k, v, causal=True, scale=192 ** -0.5)
+    assert _launches(fa.flash_attention, "simt") == (n + 1, n_route + 1)
+    torch.testing.assert_close(
+        got.float(), fa.flash_attention_plain(q, k, v, causal=True,
+                                              scale=192 ** -0.5).float(),
+        atol=atol, rtol=0)
+
+
 # (dtype, G, D, route, tolerance)
 DECODE_ROUTES = [(torch.float32, 4, 128, "simt", 2e-5),
                  (torch.bfloat16, 4, 128, "mma", 2e-2),
@@ -342,6 +365,10 @@ DECODE_ROUTES = [(torch.float32, 4, 128, "simt", 2e-5),
                  (torch.bfloat16, 3, 64, "mma", 2e-2),
                  (torch.bfloat16, 5, 128, "mma", 2e-2),
                  (torch.bfloat16, 8, 128, "mma", 2e-2),
+                 # gemma3-12b's pair, and a width below its built 256
+                 (torch.bfloat16, 2, 256, "mma", 2e-2),
+                 (torch.bfloat16, 2, 64, "mma", 2e-2),
+                 (torch.float32, 2, 256, "simt", 2e-5),
                  (torch.float32, 3, 64, "simt", 2e-5),
                  (torch.float32, 5, 128, "simt", 2e-5),
                  (torch.float32, 8, 128, "simt", 2e-5)]
@@ -415,8 +442,8 @@ def test_attention_kernels_reject_what_they_do_not_take(cuda):
     q, kv3 = torch.zeros((1, 1, 6, 128), device=cuda), kv.new_zeros((1, 8, 2, 128))
     with pytest.raises(ValueError):                     # G = 3, D = 128
         da.decode_attention(q, kv3, kv3, kv_len=torch.ones(1, device=cuda))
-    q, kv = torch.zeros((1, 1, 4, 64), device=cuda), kv.new_zeros((1, 8, 2, 64))
-    with pytest.raises(ValueError):                     # G = 2, D = 64
+    q, kv = torch.zeros((1, 1, 4, 272), device=cuda), kv.new_zeros((1, 8, 2, 272))
+    with pytest.raises(ValueError):                     # G = 2, D = 272
         da.decode_attention(q, kv, kv, kv_len=torch.ones(1, device=cuda))
     # contiguous but 2 bytes off a 16-byte boundary: TMA and cp.async
     # take 16-byte aligned rows, so the tensor-core routes raise

@@ -61,6 +61,13 @@ def test_port_has_the_tax_meter_and_zoo_slice_modules():
             "repro_torch.configs.granite_moe_3b"} <= mods
 
 
+def test_port_has_the_window_and_mla_zoo_slice_modules():
+    mods = set(_port_modules())
+    assert {"repro_torch.configs.gemma3_12b",
+            "repro_torch.configs.deepseek_v2_236b",
+            "repro_torch.configs.qwen1_5_110b"} <= mods
+
+
 def test_port_has_the_cluster_slice_modules():
     mods = set(_port_modules())
     assert {"repro_torch.core.broker", "repro_torch.core.simulator",

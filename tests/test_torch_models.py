@@ -1,6 +1,15 @@
 """The port's dense-attention models (repro_torch.models) against the JAX
 package: llama3-8b, and qwen2.5-14b (q/k/v bias), chameleon-34b (q/k
-norm) and granite-moe-3b (MoE, tied embeddings), the ``test_zoo_*`` cases.
+norm), granite-moe-3b (MoE, tied embeddings), gemma3-12b (sliding-window
+layers with rolling caches, GELU, scaled tied embeddings), deepseek-v2-236b
+(MLA, shared experts) and qwen1.5-110b, the ``test_zoo_*`` cases. Caches
+are compared leaf by leaf in the reference's layout
+(``transformer.cache_by_pattern``).
+
+The reference's ``_roll_window`` raises for a prompt shorter than the
+window (``test_torch_attention.py`` pins that); these tests run the
+reference with it as its docstring states it (:func:`roll_window_as_documented`),
+so that gemma3's short prompts can be compared.
 
 The reference's ``Model.init`` tree is carried across with
 ``params_from_jax`` (as numpy arrays), so both packages run the same
@@ -21,19 +30,41 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.models import attention as jax_attn
 from repro.models import layers as jax_layers
 from repro.models import moe as jax_moe
 from repro.models.model import build_model as jax_build_model
 
 from repro_torch import configs
 from repro_torch.models import layers, moe
+from repro_torch.models import transformer as tf
 from repro_torch.models.model import Model, params_from_jax
 
 RTOL = 1e-4
 
 
 # the archs this file holds beside llama3-8b, each with the feature it adds
-ZOO = ["qwen2.5-14b", "chameleon-34b", "granite-moe-3b-a800m"]
+ZOO = ["qwen2.5-14b", "chameleon-34b", "granite-moe-3b-a800m", "gemma3-12b",
+       "deepseek-v2-236b", "qwen1.5-110b"]
+
+_REFERENCE_ROLL = jax_attn._roll_window
+
+
+def roll_window_as_documented(t, W):
+    """The reference's rolling prefill cache as its docstring states it
+    (slot = position % W): its own ``_roll_window`` from S = W on, and
+    ``_fit(t, W)`` below, where it raises a broadcast error."""
+    return jax_attn._fit(t, W) if t.shape[1] < W else _REFERENCE_ROLL(t, W)
+
+
+@pytest.fixture(scope="module")
+def documented_roll():
+    """The reference's ``_roll_window`` replaced by
+    :func:`roll_window_as_documented` for this module's tests."""
+    patch = pytest.MonkeyPatch()
+    patch.setattr(jax_attn, "_roll_window", roll_window_as_documented)
+    yield
+    patch.undo()
 
 
 def _moved_constants(tree, seed: int, scale: float = 0.2):
@@ -68,9 +99,20 @@ def pair():
 
 
 @pytest.fixture(scope="module", params=ZOO)
-def zoo(request):
+def zoo(request, documented_roll):
     """As :func:`pair`, for each arch of :data:`ZOO`."""
     return _pair(request.param, moved=True)
+
+
+def _caches_close(cfg, pblocks, jblocks):
+    """Every leaf of the port's block cache against the reference's, in the
+    reference's layout (one subtree per pattern position)."""
+    view = tf.cache_by_pattern(cfg, pblocks)
+    assert jax.tree.structure(jax.tree.map(np.asarray, dict(jblocks))) == \
+        jax.tree.structure(jax.tree.map(lambda t: t.numpy(), view))
+    for j, sub in view.items():
+        for name, t in sub.items():
+            _rel_close(t, jblocks[j][name])
 
 
 def _rel_close(got: torch.Tensor, want, rtol=RTOL):
@@ -101,8 +143,11 @@ def test_config_copy_equals_reference(smoke, arch):
 
 def test_unported_archs_raise_not_ported_yet():
     assert configs.list_configs() == [
-        "llama3-8b", "qwen2.5-14b", "chameleon-34b", "jamba-v0.1-52b",
-        "rwkv6-3b", "granite-moe-3b-a800m"]
+        "llama3-8b", "qwen2.5-14b", "gemma3-12b", "qwen1.5-110b",
+        "chameleon-34b", "jamba-v0.1-52b", "rwkv6-3b", "granite-moe-3b-a800m",
+        "deepseek-v2-236b"]
+    assert set(configs.ARCHS) - set(configs.list_configs()) == {
+        "whisper-large-v3"}
     for name in set(configs.ARCHS) - set(configs.list_configs()):
         with pytest.raises(KeyError, match="not ported yet"):
             configs.get_config(name)
@@ -111,21 +156,32 @@ def test_unported_archs_raise_not_ported_yet():
 
 
 def test_unported_families_raise():
+    """What no ported config has: positions other than RoPE and
+    encoder-decoders (whisper), LayerNorm or plain MLPs beside attention
+    or Mamba mixers, MLA with a window; and windowed layers of two
+    windows, which would share one cache leaf. Sliding windows, GELU,
+    scaled embeddings, MLA and shared experts build (gemma3, deepseek)."""
     cfg = configs.get_config("llama3-8b", smoke=True)
-    with pytest.raises(NotImplementedError):
-        Model(cfg.replace(block_pattern=(configs.LayerSpec(window=8),)),
-              device="cpu")
-    moe = configs.MoEConfig(n_experts=4, top_k=2, d_expert=32)
     for variant in ({"pos": "sincos"}, {"frontend": "audio", "encdec": True},
-                    {"norm": "layernorm"}, {"act": "gelu"},
-                    {"mlp_kind": "plain"}, {"embed_scale": True},
-                    {"mla": configs.MLAConfig(8, 8, 8, 8, 8)},
-                    {"block_pattern": (configs.LayerSpec(moe=True),),
-                     "moe": dataclasses.replace(moe, n_shared=1)},
+                    {"norm": "layernorm"}, {"act": "relu"},
+                    {"mlp_kind": "plain"},
+                    {"mla": configs.MLAConfig(8, 8, 8, 8, 8),
+                     "block_pattern": (configs.LayerSpec(window=8),)},
                     {"block_pattern": (configs.LayerSpec(kind="mamba"),),
                      "mlp_kind": "plain"}):
         with pytest.raises(NotImplementedError):
             Model(cfg.replace(**variant), device="cpu")
+    with pytest.raises(ValueError, match="windows"):
+        Model(cfg.replace(n_layers=2, block_pattern=(
+            configs.LayerSpec(window=8), configs.LayerSpec(window=4))),
+              device="cpu")
+    moe = configs.MoEConfig(n_experts=4, top_k=2, d_expert=32, n_shared=1)
+    for variant in ({"block_pattern": (configs.LayerSpec(window=8),)},
+                    {"act": "gelu"}, {"embed_scale": True},
+                    {"mla": configs.MLAConfig(8, 8, 8, 8, 8)},
+                    {"block_pattern": (configs.LayerSpec(moe=True),),
+                     "moe": moe}):
+        Model(cfg.replace(**variant), device="cpu")
 
 
 def test_mamba_and_moe_blocks_run_in_a_llama_config():
@@ -165,8 +221,10 @@ def test_params_from_jax_carries_every_leaf(pair):
 
 
 def test_zoo_params_from_jax_carries_every_leaf(zoo):
-    """The feature leaves cross: q/k/v bias (qwen2.5), q/k norm scales
-    (chameleon), no ``head`` with tied embeddings (granite)."""
+    """The feature leaves cross: q/k/v bias (qwen2.5, qwen1.5), q/k norm
+    scales (chameleon, gemma3), no ``head`` with tied embeddings (granite,
+    gemma3), MLA's low-rank projections and norms and the shared experts
+    (deepseek-v2)."""
     jm, jp, pm, pp, cfg = zoo
     assert len(pp["blocks"]) == cfg.n_layers
     n = sum(t.numel() for t in layers.tree_leaves(pp))
@@ -178,10 +236,18 @@ def test_zoo_params_from_jax_carries_every_leaf(zoo):
     assert ("head" in pp["embed"]) == (not cfg.tie_embeddings) \
         == ("head" in jp["embed"])
     for r in range(cfg.n_repeats):
-        for name in sorted(mix - {"qn", "kn"}):
+        for name in sorted(mix - {"qn", "kn", "q_norm", "kv_norm"}):
             np.testing.assert_array_equal(
                 pp["blocks"][r]["mix"][name].numpy(),
                 np.asarray(jp["blocks"]["l0"]["mix"][name][r]))
+    assert ({"q_norm", "kv_norm", "wq_a", "wkv_b"} <= mix) == \
+        (cfg.mla is not None)
+    shared = cfg.moe is not None and cfg.moe.n_shared > 0
+    assert ("shared" in pp["blocks"][0]["mlp"]) == shared
+    if shared:
+        np.testing.assert_array_equal(
+            pp["blocks"][0]["mlp"]["shared"]["wo"].numpy(),
+            np.asarray(jp["blocks"]["l0"]["mlp"]["shared"]["wo"][0]))
 
 
 @pytest.mark.parametrize("arch", ZOO)
@@ -195,7 +261,9 @@ def test_zoo_full_config_counts_the_reference_parameters(arch):
     model = Model(cfg, device="cpu")
     n = model.n_params()
     norms = cfg.d_model * (2 * cfg.n_layers + 1) \
-        + (2 * cfg.head_dim * cfg.n_layers if cfg.qk_norm else 0)
+        + (2 * cfg.head_dim * cfg.n_layers if cfg.qk_norm else 0) \
+        + ((cfg.mla.q_lora + cfg.mla.kv_lora) * cfg.n_layers if cfg.mla
+           else 0)
     assert n - norms == cfg.param_counts()["total"]
     assert model.weight_bytes() == 2 * n + 2 * cfg.d_model
 
@@ -279,8 +347,7 @@ def _check_prefill(pair, S, cache_len):
     pl, pc = pm.prefill(pp, {"tokens": torch.from_numpy(prompt[None])},
                         cache_len=cache_len)
     _rel_close(pl, jl)
-    for name in ("k", "v"):
-        _rel_close(pc["blocks"][name], jc["blocks"]["l0"][name])
+    _caches_close(cfg, pc["blocks"], jc["blocks"])
     assert pc["cur_len"] == int(jc["cur_len"]) == S
 
 
@@ -295,7 +362,7 @@ def _check_decode_lockstep(pair):
         jl, jc = jm.decode_step(jp, jc, jnp.asarray(nxt))
         pl, pc = pm.decode_step(pp, pc, torch.from_numpy(nxt))
         _rel_close(pl, jl)
-    _rel_close(pc["blocks"]["k"], jc["blocks"]["l0"]["k"])
+    _caches_close(cfg, pc["blocks"], jc["blocks"])
     assert pc["cur_len"] == int(jc["cur_len"]) == 12
 
 
@@ -314,8 +381,7 @@ def _check_decode_ragged_and_insert(pair):
                                     jnp.asarray(slot, jnp.int32))
         assert pm.insert_prefill(pblocks, pc["blocks"], slot) is pblocks
         last.append(int(jnp.argmax(jl[0])))
-    for name in ("k", "v"):
-        _rel_close(pblocks[name], jblocks["l0"][name])
+    _caches_close(cfg, pblocks, jblocks)
     kv_len = np.asarray(lens, np.int32)
     tokens = np.asarray(last, np.int32)[:, None]
     for _ in range(2):
@@ -327,8 +393,7 @@ def _check_decode_ragged_and_insert(pair):
         _rel_close(pl, jl)
         tokens = np.array(jnp.argmax(jl, axis=-1), np.int32)[:, None]
         kv_len = kv_len + 1
-    for name in ("k", "v"):
-        _rel_close(pblocks[name], jblocks["l0"][name])
+    _caches_close(cfg, pblocks, jblocks)
 
 
 # ---- granite's MoE: 40 experts top-8 -------------------------------------

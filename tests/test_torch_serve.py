@@ -32,6 +32,12 @@ def arch():
 
 @pytest.fixture(scope="module")
 def models(arch):
+    return build_models(arch)
+
+
+def build_models(arch):
+    """(jax model, jax params, port model, port params, port cfg) of
+    ``arch``'s float32 smoke config, every leaf moved by numpy noise."""
     cfg = jax_get_config(arch, smoke=True).replace(dtype="float32")
     jm = jax_build_model(cfg)
     rng = np.random.default_rng(0)
