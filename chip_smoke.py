@@ -27,7 +27,8 @@ Phases, each fatal on failure:
      time-segmented scan for prefills from linear_scan.MAMBA_SEG_MIN_S
      steps on and the lane-split step for S = 1 at N = 16, with steps
      that drive exp(delta A) to 0 and denormals, the serial kernel for
-     the rest);
+     the rest; the flash backward at llama3-8b's training shape and
+     whisper's encoder; decode at G = 1);
   3. run the face-recognition StreamingPipeline on the card at the paper's
      1080p source, fused and unfused identify, with every launch counter
      set to 0 just before each run and read just after (every matmul
@@ -105,7 +106,35 @@ Phases, each fatal on failure:
      device program, two matmul launches; d2h; post: names) and print its
      five-way split: h2d and d2h bytes equal the stack's and the fetched
      outputs', two matmul launches a compute, names equal
-     ``identify_crops``'s.
+     ``identify_crops``'s;
+ 10. serve whisper-large-v3 (an encoder-decoder) at full width in bf16
+     (random weights from seed 0, ~1.6 B parameters) in lock step through
+     ``Model.prefill`` and ``decode_step``: 8 rows of 1,500 stub frames,
+     187-token prompts, a 448-token cache, 32 greedy steps. Every attention
+     call of a prefill and a step is held against its plain version on its
+     own inputs, the logits against the plain-ops step (bf16 at 5e-2, argmax
+     equal; float32 at 1e-3); the counts set to 0 just before the timed run
+     and read after require 1,120 flash launches on wgmma (encoder, causal
+     prefill, cross attention, and each step's one-row cross attention) and
+     32 x 32 decode launches at G = 1 on mma. It prints encode and prefill
+     ms, decode tokens/s and ms a step against the step's floor (decoder
+     weights and caches over 3.35 TB/s), peak memory and the device busy
+     share (``--whisper`` runs it alone);
+ 11. train llama3-8b at full width on the card (bf16 compute on float32
+     masters, 4 x 1,024-token TokenLoader batches, AdamW as launch/train.py
+     sets it) at the depth ``fit_train_depth`` measures: step 1 against the
+     plain-ops step (loss 1e-3, grad norm 1e-2 relative), every gradient
+     leaf finite and non-zero, 20 Trainer steps whose loss must fall by 0.1,
+     flash forward and backward launches counted (2 on wgmma and 1 on mma
+     a layer a step);
+     then a checkpoint at step 10 restored bit-exactly and a restarted
+     Trainer resuming at step 11, at one layer (at the fitted depth two
+     checkpoints would write ~104 GB to disk); and an RWKV6 scan under grad must
+     raise (``--train`` runs it alone). The flash backward kernel (mma.sync
+     for bf16 at multiples of 16, the CUDA cores otherwise) is held against
+     its plain formulas and autograd of the plain forward in phase 2 (2e-2
+     of the largest gradient in bf16, 1e-4 in fp32) and timed in phase 7
+     beside SDPA's backward.
 
 Each phase prints the wall seconds it took (each served arch's smoke,
 full-width, profile and float32 steps too).
@@ -197,12 +226,44 @@ LONG_PROMPT = 1536
 # against Dv = v_head = 128, scaled by 192 ** -0.5 (an MHA: KV = H)
 MLA_H, MLA_D, MLA_DV = 128, 192, 128
 MLA_SCALE = MLA_D ** -0.5
+# whisper-large-v3 served in lock step (phase 10): 8 rows of 1,500 stub
+# frames, prompts of 1500 / dec_ratio = 187 tokens (the reference's own
+# prefill shape, Model.input_specs), whisper's 448-token decoder context,
+# 32 greedy steps; its MHA heads (20, 20, 64)
+WHISPER = "whisper-large-v3"
+WHISPER_B, WHISPER_PROMPT, WHISPER_CACHE, WHISPER_STEPS = 8, 187, 448, 32
+WHISPER_HEADS = (20, 20, 64)
+# training (phase 11): llama3-8b at full width, bf16 compute on float32
+# masters, TokenLoader batches of 4 x 1,024 tokens, 20 steps of AdamW as
+# launch/train.py sets it (lr 3e-3, warmup steps // 10) at the depth one
+# card holds for training (fit_train_depth); then the checkpoint cycle
+# (a checkpoint at step 10, a restarted Trainer from it to step 20) at
+# TRAIN_CKPT_LAYERS: two checkpoints of float32 masters and moments at the
+# fitted 15 layers would write ~104 GB to the machine's disk, more than the
+# script may write in one run (45 GiB); at one layer they write 30.5 GB
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT = (
+    "llama3-8b", 4, 1024, 20, 10)
+TRAIN_CKPT_LAYERS = 1
+# card memory a training depth needs beyond 16 bytes a parameter (float32
+# param, grad, m, v): the chunked loss's float32 logits (4 x 512 x 128,256,
+# 1.05 GB, and their softmax), the bf16 embedding and head (1.05 GB each),
+# one layer's rematerialised activations and AdamW's temporaries on the
+# 2.1 GB embedding leaves
+TRAIN_MARGIN_BYTES = 12 << 30
+# step 1 through the kernels against the same step with the plain versions
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-3, 1e-2
+# flash backward vs its plain formulas and autograd of the plain forward,
+# relative to the largest gradient: fp32 differs in summation order (and
+# dQ's atomic order); bf16 inputs see the forward's P rounded to bf16
+BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# where the checkpoint cycle writes: inside the checkout (gitignored)
+TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
 # the tensor-core instructions in the kernel libraries' SASS (attention and
 # the chunked RWKV6 scan), and the route each attention kernel must take on
 # the full-width serve path: one launch an attention layer for every
 # prefill (flash) and every decode tick (decode)
 TC_SASS = {"flash_attention": "HGMMA", "decode_attention": "HMMA",
-           "linear_scan": "HMMA"}
+           "linear_scan": "HMMA", "flash_attention_bwd": "HMMA"}
 TC_GATES = {"flash_attention": ("wgmma", "prefills"),
             "decode_attention": ("mma", "ticks")}
 # an MLA arch (deepseek-v2-236b): flash at D = 192 != Dv = 128 takes the
@@ -270,6 +331,9 @@ CLUSTER_BRACKET = (0.65, 1.4)
 CLUSTER_KNEE_COMPRESSION = 1.0
 # the argument that runs phase 8 alone, and the seconds its process may take
 CLUSTER_ONLY, CLUSTER_TIMEOUT_S = "--cluster", 600
+# the arguments that run phase 10 (whisper) or phase 11 (training) alone,
+# after the build and the kernel checks of their kernels
+WHISPER_ONLY, TRAIN_ONLY = "--whisper", "--train"
 # card vs CPU identify of the same crops: fp32 throughout, the products'
 # summation order differs
 CLUSTER_SCORE_ATOL = 1e-5
@@ -486,15 +550,15 @@ def dense_boxes(n: int, seed: int):
 
 
 def attn_inputs(Sq, Skv, dtype, device, seed=0,
-                heads=(LLAMA_H, LLAMA_KV, LLAMA_D), Dv=None):
-    """q (1, Sq, H, D), k (1, Skv, KV, D) and v (1, Skv, KV, Dv, default
+                heads=(LLAMA_H, LLAMA_KV, LLAMA_D), Dv=None, B=1):
+    """q (B, Sq, H, D), k (B, Skv, KV, D) and v (B, Skv, KV, Dv, default
     D) for ``heads`` = (H, KV, D), llama3-8b's by default."""
     import torch
     H, KV, D = heads
     g = _gen(seed)
-    q = torch.randn((1, Sq, H, D), generator=g)
-    k = torch.randn((1, Skv, KV, D), generator=g)
-    v = torch.randn((1, Skv, KV, Dv or D), generator=g)
+    q = torch.randn((B, Sq, H, D), generator=g)
+    k = torch.randn((B, Skv, KV, D), generator=g)
+    v = torch.randn((B, Skv, KV, Dv or D), generator=g)
     return tuple(t.to(device, dtype) for t in (q, k, v))
 
 
@@ -769,6 +833,17 @@ def check_serve_kernels(device) -> dict[str, float]:
                               heads=(MLA_H, MLA_H, MLA_D), Dv=MLA_DV)
         worst = max(worst, _check_flash(fa, q, k, v, name,
                                         {"scale": MLA_SCALE}))
+        # whisper's: the encoder's 8 x 1,500 frames (non-causal, a
+        # 1,500-key ragged tail), the decoder's cross attention of the
+        # 187-token prompt and of one decode row against them, and its
+        # causal prefill
+        for Sq, Skv, kw in ((1500, 1500, {"causal": False}),
+                            (WHISPER_PROMPT, 1500, {"causal": False}),
+                            (1, 1500, {"causal": False}),
+                            (WHISPER_PROMPT, WHISPER_PROMPT, {})):
+            q, k, v = attn_inputs(Sq, Skv, dtype, device, heads=WHISPER_HEADS,
+                                  B=WHISPER_B)
+            worst = max(worst, _check_flash(fa, q, k, v, name, kw))
     err["flash_attention"] = worst
 
     # decode: llama3-8b's heads (bf16 on the mma route, fp32 on the
@@ -795,7 +870,14 @@ def check_serve_kernels(device) -> dict[str, float]:
                 q, k, v, lens = decode_inputs(L, dtype, device, heads=heads)
                 worst = max(worst, _check_decode(da, q, k, v, lens, name,
                                                  window))
+        # whisper's decoder self-attention: G = 1 at D = 64 over its
+        # 448-entry cache, and a ragged one
+        for L in (WHISPER_CACHE, 301):
+            q, k, v, lens = decode_inputs(L, dtype, device,
+                                          heads=WHISPER_HEADS)
+            worst = max(worst, _check_decode(da, q, k, v, lens, name, None))
     err["decode_attention"] = worst
+    err["flash_attention_bwd"] = check_flash_bwd(device)
     torch.cuda.synchronize()
     return err
 
@@ -837,6 +919,92 @@ def _check_decode(da, q, k, v, lens, name: str, window) -> float:
     require(e <= ATTN_ATOL[name], f"decode {name} {tuple(k.shape)}: {e}")
     require(zeros, f"decode {name} {tuple(k.shape)}: kv_len=0 rows not zero")
     return e
+
+
+# the backward's checks and timed rows: (label, B, S, heads, causal) at
+# llama3-8b's training shape and whisper's encoder
+BWD_SHAPES = (("llama3-8b", TRAIN_B, TRAIN_S, (LLAMA_H, LLAMA_KV, LLAMA_D),
+               True),
+              ("whisper encoder", WHISPER_B, 1500, WHISPER_HEADS, False))
+
+
+def bwd_inputs(B, S, heads, causal, dtype, device, seed=3):
+    """q, k, v, the forward's (o, lse) through the kernel, and dO."""
+    from repro_torch.kernels import flash_attention as fa
+    import torch
+    q, k, v = attn_inputs(S, S, dtype, device, seed=seed, heads=heads, B=B)
+    o, lse = fa._forward(q, k, v, causal, None, 0, None, True)
+    do = torch.randn(o.shape, generator=_gen(seed + 1)).to(device, dtype)
+    return q, k, v, o, lse, do
+
+
+def check_flash_bwd(device) -> float:
+    """The flash backward kernel at llama3-8b's training shape (causal) and
+    whisper's encoder (non-causal), bf16 and fp32, plus a window, an offset
+    chunk and a ragged width: dQ, dK, dV against the plain formulas on the
+    same (o, lse) and against autograd of the plain forward, within
+    BWD_RTOL of the largest gradient; the forward's lse against the plain
+    one. Returns the largest absolute difference from the plain formulas."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    worst = 0.0
+    # (label, B, S, heads, causal, Dv, kwargs): widths no multiple of 16
+    # take the CUDA-core route in bf16 too; D != Dv on both routes
+    extra = (("window", 1, 300, (LLAMA_H, LLAMA_KV, LLAMA_D), True, None,
+              {"window": 100}),
+             ("offset chunk", 1, 130, WHISPER_HEADS, True, None,
+              {"q_offset": 170}),
+             ("D = 96, Dv = 112", 1, 77, (4, 2, 96), False, 112, {}),
+             ("D = 40, Dv = 24", 1, 77, (4, 2, 40), True, 24, {}))
+    cases = [(*c, None, {}) for c in BWD_SHAPES] + list(extra)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for label, B, S, heads, causal, Dv, kw in cases:
+            kw = {"causal": causal, **kw}
+            H, KV, D = heads
+            Dv = Dv or D
+            route = fa._bwd_route(dtype, D, Dv)
+            Skv = S + kw.get("q_offset", 0)
+            g = _gen(5)
+            q = torch.randn((B, S, H, D), generator=g).to(device, dtype)
+            k = torch.randn((B, Skv, KV, D), generator=g).to(device, dtype)
+            v = torch.randn((B, Skv, KV, Dv), generator=g).to(device, dtype)
+            do = torch.randn((B, S, H, Dv), generator=g).to(device, dtype)
+            o, lse = fa._forward(q, k, v, kw["causal"], kw.get("window"),
+                                 kw.get("q_offset", 0), None, True)
+            e_lse = (lse - fa.flash_attention_lse_plain(q, k, v, **kw)
+                     ).abs().max().item()
+            n = fa.flash_attention_bwd.launches_by_route[route]
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            require(fa.flash_attention_bwd.launches_by_route[route] == n + 1,
+                    f"flash_attention_bwd: the {route} route did not launch")
+            want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+            leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+            auto = torch.autograd.grad(
+                fa.flash_attention_plain(*leaves, **kw), leaves, do.float())
+            errs = []
+            for gname, a, b, c in zip("QKV", got, want, auto):
+                top = c.abs().max().item()
+                e_plain = (a.float() - b.float()).abs().max().item()
+                e_auto = (a.float() - c).abs().max().item()
+                errs.append(f"d{gname} {e_plain:.3e} / {e_auto:.3e} of "
+                            f"{top:.3e}")
+                worst = max(worst, e_plain)
+                require(e_plain <= BWD_RTOL[name] * top
+                        and e_auto <= BWD_RTOL[name] * top,
+                        f"flash_attention_bwd {name} {label} d{gname}: "
+                        f"{e_plain:.3e} (formulas), {e_auto:.3e} (autograd) "
+                        f"against the largest gradient {top:.3e}")
+            print(f"check flash_attention_bwd {name} ({route} route) {label} "
+                  f"q{tuple(q.shape)}"
+                  f" kv{tuple(k.shape)} {kw}: max_abs_err vs formulas / vs "
+                  f"autograd of the plain forward: {'; '.join(errs)} "
+                  f"(tolerance {BWD_RTOL[name]} of the largest); forward lse "
+                  f"max_abs_err {e_lse:.3e}")
+            require(e_lse <= 1e-4, f"flash lse {name} {label}: {e_lse}")
+            del q, k, v, do, o, lse, got, want, leaves, auto
+            torch.cuda.empty_cache()
+    return worst
 
 
 def hard_decays(w, seed: int):
@@ -1248,7 +1416,7 @@ def check_attention_layers(model, params) -> None:
     want = {"attention": n_layers,
             "decode_attention": 0 if model.cfg.mla else n_layers}
     errs = {}
-    logits, _ = _step_logits(model, params, _prompt(model),
+    logits, _ = _step_logits(model, params, _batch(model),
                              lambda: checked_attention_ops(errs))
     for op, (n, rel, diff) in errs.items():
         print(f"check {model.cfg.name} {op} ({model.cfg.dtype}, 512-token "
@@ -1358,13 +1526,14 @@ def check_serve_smoke(device, arch: str, wrappers) -> dict:
     return launches
 
 
-def _step_logits(model, params, prompt, ops_ctx, tok=None):
-    """Logits of one prefill of ``prompt`` and of one decode step feeding
-    ``tok`` back (the prefill's argmax when None), under ``ops_ctx``."""
+def _step_logits(model, params, batch, ops_ctx, tok=None,
+                 cache_len=SERVE_CACHE_LEN):
+    """Logits of one prefill of ``batch`` ({"tokens"[, "frames"]}) and of
+    one decode step feeding ``tok`` back (the prefill's argmax when None),
+    under ``ops_ctx``."""
     import torch
     with torch.inference_mode(), ops_ctx():
-        lp, cache = model.prefill(params, {"tokens": prompt},
-                                  cache_len=SERVE_CACHE_LEN)
+        lp, cache = model.prefill(params, batch, cache_len=cache_len)
         if tok is None:
             tok = torch.argmax(lp, dim=-1).to(torch.int32)[:, None]
         ld, _ = model.decode_step(params, cache, tok)
@@ -1377,6 +1546,11 @@ def _prompt(model, n: int = 512):
     rng = np.random.default_rng(1)
     return torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (1, n))
                             .astype(np.int32)).to(model.device)
+
+
+def _batch(model):
+    """The full-width checks' step: one 512-token prompt."""
+    return {"tokens": _prompt(model)}
 
 
 def check_routes(cfg, plain: list, kern: list) -> None:
@@ -1407,14 +1581,16 @@ def check_routes(cfg, plain: list, kern: list) -> None:
             f"({flips[0] if flips else ''}); the logits are not comparable")
 
 
-def check_full_width_step(model, params, rtol: float) -> None:
-    """One full-width 512-token prefill and one decode step through the
-    kernels against the same steps with the plain versions
-    (:func:`plain_ops`), on the card: relative max error of the logits
-    within ``rtol``, argmax equal. With MoE layers the routes of the two
-    runs are compared first (:func:`check_routes`)."""
+def check_full_width_step(model, params, rtol: float, batch=None,
+                          cache_len=SERVE_CACHE_LEN,
+                          label="512-token prompt") -> None:
+    """One full-width prefill of ``batch`` (a 512-token prompt by default)
+    and one decode step through the kernels against the same steps with
+    the plain versions (:func:`plain_ops`), on the card: relative max error
+    of the logits within ``rtol``, argmax equal. With MoE layers the routes
+    of the two runs are compared first (:func:`check_routes`)."""
     import torch
-    prompt = _prompt(model)
+    batch = batch or _batch(model)
     routes = {"plain": [], "kernels": []}
 
     def ctx(key, ops_ctx):
@@ -1425,9 +1601,11 @@ def check_full_width_step(model, params, rtol: float) -> None:
             return stack
         return enter
 
-    plain, tok = _step_logits(model, params, prompt, ctx("plain", plain_ops))
-    kern, _ = _step_logits(model, params, prompt,
-                           ctx("kernels", contextlib.nullcontext), tok)
+    plain, tok = _step_logits(model, params, batch, ctx("plain", plain_ops),
+                              cache_len=cache_len)
+    kern, _ = _step_logits(model, params, batch,
+                           ctx("kernels", contextlib.nullcontext), tok,
+                           cache_len=cache_len)
     if model.cfg.moe is not None:
         check_routes(model.cfg, routes["plain"], routes["kernels"])
     for name, b in plain.items():
@@ -1437,7 +1615,7 @@ def check_full_width_step(model, params, rtol: float) -> None:
         rel = ((a - b).abs().max() / b.abs().max()).item()
         same = bool((a.argmax(-1) == b.argmax(-1)).all())
         print(f"check {model.cfg.name} ({model.cfg.n_layers} layers) {name} "
-              f"logits ({model.cfg.dtype}, 512-token prompt) kernels vs plain "
+              f"logits ({model.cfg.dtype}, {label}) kernels vs plain "
               f"versions: max|diff|/max|plain|={rel:.3e} (tolerance {rtol}); "
               f"argmax equal: {same}")
         require(rel <= rtol, f"full-width {name} logits: {rel}")
@@ -1454,7 +1632,7 @@ def check_scan_layers(model, params, ops: tuple) -> None:
     kind = ops[0].split("_")[0]
     n_layers = sum(s.kind == kind for s in tf.layer_specs(model.cfg))
     errs = {}
-    logits, _ = _step_logits(model, params, _prompt(model),
+    logits, _ = _step_logits(model, params, _batch(model),
                              lambda: checked_scan_ops(errs))
     for op, (n, rel, rel_h) in errs.items():
         print(f"check {model.cfg.name} {op} ({model.cfg.dtype}, 512-token "
@@ -1734,6 +1912,17 @@ def sdpa_call(q, k, v, *, causal: bool, mask=None):
                                                   is_causal=causal)
 
 
+def sdpa_backward_call(q, k, v, do, *, causal: bool):
+    """PyTorch's fused attention's backward through autograd, on the
+    kernels' inputs, as a timing yardstick only: the forward runs once
+    here, and the returned call takes the gradients of its kept graph."""
+    import torch
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = sdpa_call(*leaves, causal=causal)()
+    grad = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+
 def tap_work(n_planes: int, taps_y, taps_x, out_rows: int, out_cols: int,
              elem: int) -> tuple[int, int]:
     """(bytes, operations) of a 2-tap resize of ``n_planes`` planes of
@@ -1938,6 +2127,56 @@ def time_kernels(device) -> dict[str, dict]:
            2 * (MLA_D + MLA_DV) * pairs, iters=10,
            peak_flop_s=PEAK_BF16_FLOP_S)
 
+    # whisper's: the encoder's bidirectional attention over 8 x 1,500
+    # frames, the decoder's cross attention of its 187-token prompts and of
+    # one decode row against them (MHA, D = 64)
+    H, KV, D = WHISPER_HEADS
+    for Sq, Skv in ((1500, 1500), (WHISPER_PROMPT, 1500), (1, 1500)):
+        q, k, v = attn_inputs(Sq, Skv, torch.bfloat16, device,
+                              heads=WHISPER_HEADS, B=WHISPER_B)
+        _timed("flash_attention", f"{WHISPER} bf16 q({WHISPER_B},{Sq},{H},"
+               f"{D}) kv({WHISPER_B},{Skv},{KV},{D}) non-causal",
+               lambda: fa.flash_attention(q, k, v, causal=False),
+               lambda: fa.flash_attention_plain(q, k, v, causal=False),
+               sdpa_call(q, k, v, causal=False),
+               2 * (2 * q.numel() + k.numel() + v.numel()),
+               4 * D * H * Sq * Skv * WHISPER_B, iters=5 if Sq > 1 else 20,
+               peak_flop_s=PEAK_BF16_FLOP_S)
+
+    # the flash backward at llama3-8b's training shape (causal) and
+    # whisper's encoder, bf16 and fp32 (the first row goes into the kernels
+    # line); bound: 2 (3 D + 2 Dv) FLOP a visible (q, k) pair and head on
+    # the input type's peak, against one read of q, k, v, o, dO and lse and
+    # one write of dQ, dK, dV; the yardstick is SDPA's backward (autograd)
+    for dtype, peak in ((torch.bfloat16, PEAK_BF16_FLOP_S),
+                        (torch.float32, PEAK_FP32_FLOP_S)):
+        for label, B, S, heads, causal in BWD_SHAPES:
+            H, KV, D = heads
+            q, k, v, o, lse, do = bwd_inputs(B, S, heads, causal, dtype,
+                                             device)
+            pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+            nbytes = (q.element_size() * (3 * q.numel() + 2 * k.numel()
+                                          + 2 * v.numel() + 2 * o.numel())
+                      + 4 * lse.numel())
+            t = _timed("flash_attention_bwd",
+                       f"{label} {str(dtype).split('.')[1]} q{tuple(q.shape)}"
+                       f" kv{tuple(k.shape)} {'causal' if causal else 'non-causal'}"
+                       f" ({fa._bwd_route(dtype, D, D)} route)",
+                       lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                      causal=causal),
+                       lambda: fa.flash_attention_bwd_plain(
+                           q, k, v, o, lse, do, causal=causal),
+                       None, nbytes, 2 * (3 * D + 2 * D) * pairs, iters=3,
+                       peak_flop_s=peak)
+            t["library_ms"] = eager_time_ms(
+                sdpa_backward_call(q, k, v, do, causal=causal), iters=5)
+            print(f"time flash_attention_bwd yardstick SDPA backward "
+                  f"(autograd, eager) {label} {str(dtype).split('.')[1]}: "
+                  f"{t['library_ms']:.6f} ms")
+            out.setdefault("flash_attention_bwd", t)
+            del q, k, v, o, lse, do
+            torch.cuda.empty_cache()
+
     # decode with a cold L2 too: the engine's cache (67 MB a layer at full
     # length) exceeds the 50 MB L2, so a tick finds it in device memory
     for L in (2048, 768):
@@ -1984,6 +2223,20 @@ def time_kernels(device) -> dict[str, dict]:
         print(f"time decode_attention L2-cold ({L2_FLUSH_BYTES >> 20} MiB "
               f"read before each call) {arch} kv(8,{L},{KV},{D}): "
               + json.dumps(cold))
+    # whisper's decoder self-attention: G = 1 over its 448-entry cache
+    H, KV, D = WHISPER_HEADS
+    q, k, v, lens = decode_inputs(WHISPER_CACHE, torch.bfloat16, device,
+                                  heads=WHISPER_HEADS)
+    valid = int(lens.sum().item())
+    mask = (torch.arange(WHISPER_CACHE, device=device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    _timed("decode_attention", f"{WHISPER} bf16 q(8,1,{H},{D}) "
+           f"kv(8,{WHISPER_CACHE},{KV},{D}) G=1 kv_len={lens.tolist()}",
+           lambda: da.decode_attention(q, k, v, kv_len=lens),
+           lambda: da.decode_attention_plain(q, k, v, kv_len=lens),
+           sdpa_call(q, k, v, causal=False, mask=mask),
+           2 * (2 * valid * KV * D + 2 * q.numel()) + 4 * lens.numel(),
+           4 * D * H * valid, iters=20, peak_flop_s=PEAK_BF16_FLOP_S)
     # gemma3-12b's windowed layers' rolling cache of W entries
     H, KV, D = GEMMA_HEADS
     q, k, v, lens = decode_inputs(GEMMA_W, torch.bfloat16, device,
@@ -2509,6 +2762,467 @@ def run_taxed_identify(device, n_steps: int = TAXED_STEPS) -> dict:
     return bd
 
 
+# --------------------------------------------------------------------------
+# Phase 10: whisper-large-v3, encoder-decoder, in lock step
+# --------------------------------------------------------------------------
+
+def whisper_inputs(model):
+    """8 x 1,500 stub frames drawn on the card from seed 0 (in the compute
+    dtype) and 8 prompts of WHISPER_PROMPT tokens from numpy seed 0."""
+    import numpy as np
+    import torch
+    cfg = model.cfg
+    g = torch.Generator(device=model.device).manual_seed(0)
+    frames = torch.randn((WHISPER_B, cfg.cross_seq, cfg.d_model), generator=g,
+                         device=model.device).to(model.dtype)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (WHISPER_B, WHISPER_PROMPT)).astype(np.int32)
+    return frames, torch.from_numpy(tokens).to(model.device)
+
+
+def whisper_decode_floor_bytes(model, params, mean_len: float) -> float:
+    """Bytes one lock-step decode step must read: the decoder's weights
+    (every layer's but its cross-attention k/v projections, which prefill
+    spent) and the head, the self-attention cache at the mean length read
+    and the whole cross-attention cache."""
+    cfg = model.cfg
+    dec = sum(t.nbytes for lp in params["dec"]
+              for path, t in _named_leaves(lp)
+              if path not in ("/xattn/wk", "/xattn/wv"))
+    head = params["embed"]["head"]
+    per_entry = 2 * cfg.n_layers * WHISPER_B * cfg.n_heads * cfg.head_dim \
+        * head.element_size()                      # k and v, every layer
+    return (dec + head.nbytes + per_entry * mean_len
+            + per_entry * cfg.cross_seq)
+
+
+def run_whisper(device, kernels) -> dict:
+    """whisper-large-v3 at full width in bf16 on the card (random weights
+    from seed 0 drawn there): every attention call of one prefill and one
+    decode step held against the plain versions on its own inputs, the
+    logits against the plain-ops step in bf16 and with float32 weights,
+    then the timed lock-step run (encode, prefill, WHISPER_STEPS greedy
+    steps) with the launch counts set to 0 just before it and read just
+    after, and its profile. Returns {kernel name: launches}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import encdec as ed
+    from repro_torch.models.layers import map_tree
+    from repro_torch.models.model import Model
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(WHISPER)
+    model = Model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    print(f"{WHISPER}: {model.n_params():,} parameters ({cfg.n_enc_layers} "
+          f"encoder + {cfg.n_layers} decoder layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads, vocab {cfg.vocab_size}, {cfg.dtype}, "
+          f"{model.weight_bytes() / 1e9:.3f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    frames, tokens = whisper_inputs(model)
+
+    # every attention call of a prefill and a decode step on its own inputs
+    batch = {"frames": frames, "tokens": tokens}
+    errs = {}
+    _step_logits(model, params, batch, lambda: checked_attention_ops(errs),
+                 cache_len=WHISPER_CACHE)
+    for op, (n, rel, diff) in errs.items():
+        print(f"check {WHISPER} {op} ({cfg.dtype}) on each call's own inputs vs "
+              f"plain: {n} calls, largest difference {diff:.3e} = {rel:.3e} "
+              "of the largest plain output")
+    L = cfg.n_layers
+    want = {"attention": cfg.n_enc_layers + 2 * L + L,   # + decode's cross
+            "decode_attention": L}
+    for op, n in want.items():
+        require(errs.get(op, (0,))[0] == n,
+                f"{WHISPER} {op}: {errs.get(op, (0,))[0]} calls checked, "
+                f"want {n}")
+    label = (f"{WHISPER_B} x {WHISPER_PROMPT}-token prompts on "
+             f"{cfg.cross_seq} frames")
+    check_full_width_step(model, params, LOGITS_RTOL, batch, WHISPER_CACHE,
+                          label)
+    wide = Model(cfg.replace(dtype="float32"), device=device)
+    check_full_width_step(wide, map_tree(lambda t: t.float(), params),
+                          LOGITS_RTOL_F32, {**batch, "frames": frames.float()},
+                          WHISPER_CACHE, label)
+    del wide
+    torch.cuda.empty_cache()
+
+    def lock_step():
+        with torch.inference_mode():
+            lp, cache = model.prefill(params, {"frames": frames,
+                                               "tokens": tokens},
+                                      cache_len=WHISPER_CACHE)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter()
+            out = [torch.argmax(lp, dim=-1).to(torch.int32)]
+            for _ in range(WHISPER_STEPS):
+                ld, cache = model.decode_step(params, cache, out[-1][:, None])
+                out.append(torch.argmax(ld, dim=-1).to(torch.int32))
+            torch.cuda.synchronize()
+            return torch.stack(out, 1), cache, ld, t_pre
+
+    # warm-up outside the counts, and the encoder alone
+    lock_step()
+    with torch.inference_mode():
+        ed.encode(cfg, params, frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ed.encode(cfg, params, frames)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+    wrappers = [k["wrapper"] for k in kernels
+                if k["name"] in ("flash_attention", "decode_attention")]
+    torch.cuda.reset_peak_memory_stats(device)
+    for w in wrappers:
+        build.zero_launches(w)
+    t0 = time.perf_counter()
+    out, cache, last, t_pre = lock_step()
+    t1 = time.perf_counter()
+    launches = {w.__name__: w.launches for w in wrappers}
+    routes = {w.__name__: dict(w.launches_by_route) for w in wrappers}
+    peak = torch.cuda.max_memory_allocated(device)
+    pre_s, dec_s = t_pre - t0, t1 - t_pre
+    mean_len = WHISPER_PROMPT + (WHISPER_STEPS + 1) / 2
+    floor = whisper_decode_floor_bytes(model, params, mean_len)
+    n_tok = WHISPER_B * WHISPER_STEPS
+    print(f"{WHISPER} lock step: encode {enc_s * 1e3:.3f} ms ({WHISPER_B} x "
+          f"{cfg.cross_seq} frames); prefill {pre_s * 1e3:.3f} ms (encode + "
+          f"{WHISPER_B} x {WHISPER_PROMPT}-token decoder prefill); decode "
+          f"{WHISPER_STEPS} steps in {dec_s:.4f} s = {n_tok / dec_s:.1f} "
+          f"tokens/s, {dec_s / WHISPER_STEPS * 1e3:.3f} ms a step against a "
+          f"floor of {floor / PEAK_BYTES_S * 1e3:.3f} ms ({floor / 1e9:.3f} GB:"
+          f" decoder weights, the self cache at its mean length "
+          f"{mean_len:.1f} and the cross cache, over {PEAK_BYTES_S / 1e12:.2f}"
+          f" TB/s); peak memory {peak / 1e9:.2f} GB")
+    require(bool(torch.isfinite(last).all()), f"{WHISPER}: logits not finite")
+    require(out.shape == (WHISPER_B, WHISPER_STEPS + 1)
+            and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+            f"{WHISPER}: tokens out of the vocabulary")
+    require(cache["cur_len"] == WHISPER_PROMPT + WHISPER_STEPS,
+            f"{WHISPER}: cache at {cache['cur_len']}")
+    # flash: the encoder, the decoder's causal prefill and cross attention
+    # once a layer, then every step's cross attention (Sq = 1); decode: one
+    # launch a decoder layer a step; all on the tensor-core routes
+    want = {"flash_attention": {"wgmma": cfg.n_enc_layers + 2 * L
+                                + L * WHISPER_STEPS, "simt": 0},
+            "decode_attention": {"mma": L * WHISPER_STEPS, "simt": 0}}
+    for name, got in routes.items():
+        print(f"{WHISPER} launches {name} by route: {got}; want "
+              f"{want[name]}: {got == want[name]}")
+        require(got == want[name], f"{WHISPER} {name}: {got}, want "
+                f"{want[name]}")
+    # where the time goes: device busy share of a profiled lock-step run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lock_step()
+        wall = time.perf_counter() - t0
+    kerns = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kerns)
+    print(f"profile {WHISPER} lock step (prefill + {WHISPER_STEPS} steps): "
+          f"wall {wall:.3f} s; device busy {busy_us / 1e3:.3f} ms = "
+          f"{busy_us / 1e6 / wall:.5f} of the wall")
+    for e in sorted(kerns, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"profile {WHISPER} device time {e.self_device_time_total / 1e3:.3f}"
+              f" ms x{e.count}: {e.key[:90]}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# Phase 11: training llama3-8b at full width
+# --------------------------------------------------------------------------
+
+def train_hp():
+    """AdamW as launch/train.py sets it for TRAIN_STEPS steps."""
+    from repro_torch.train.optimizer import AdamWConfig
+    return AdamWConfig(lr=3e-3, warmup_steps=max(TRAIN_STEPS // 10, 1),
+                       total_steps=TRAIN_STEPS)
+
+
+def train_loader(cfg, device):
+    from repro_torch.data.tokens import TokenLoader
+    return TokenLoader(cfg.vocab_size, batch=TRAIN_B, seq_len=TRAIN_S,
+                       device=device)
+
+
+def fit_train_depth(device, cfg):
+    """The most layers of ``cfg`` that one card trains at full width,
+    measured: from the largest count whose 16 bytes a parameter (float32
+    param, grad, m, v) fit in the free memory less TRAIN_MARGIN_BYTES,
+    down, draw the float32 masters and run one training step (loss,
+    gradients, AdamW) on a TokenLoader batch; a count that runs out of
+    memory is freed and the next one tried. Returns the model."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    free, total = torch.cuda.mem_get_info(device)
+
+    def model_at(n):
+        return Model(cfg.replace(n_layers=n), device=device)
+
+    n = cfg.n_layers
+    while n > 1 and 16 * model_at(n).n_params() + TRAIN_MARGIN_BYTES > free:
+        n -= 1
+    print(f"depth train {cfg.name}: {cfg.n_layers} layers need "
+          f"{16 * model_at(cfg.n_layers).n_params() / 1e9:.2f} GB at 16 bytes "
+          f"a parameter; {free / 1e9:.3f} GB free of {total / 1e9:.3f} GB; "
+          f"first try {n} layers")
+    batch = train_loader(cfg, device).next_batch()
+    while n > 0:
+        model = model_at(n)
+        torch.cuda.reset_peak_memory_stats(device)
+        try:
+            params = model.init(seed=0, masters=True)
+            opt = init_opt_state(params)
+            make_train_step(model, train_hp())(params, opt, batch)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as err:
+            print(f"depth train {cfg.name}: {n} layers ran out of memory "
+                  f"({str(err).splitlines()[0]})")
+            params = opt = None
+            torch.cuda.empty_cache()
+            n -= 1
+            continue
+        peak = torch.cuda.max_memory_allocated(device)
+        del params, opt
+        torch.cuda.empty_cache()
+        print(f"depth train {cfg.name}: {n} layers, {model.n_params():,} "
+              f"parameters; one training step peaks at {peak / 1e9:.3f} GB "
+              f"allocated of {total / 1e9:.3f} GB")
+        print(f"reduced: train n_layers {cfg.n_layers} → {n} (one card "
+              f"holds {peak / 1e9:.2f} GB of {total / 1e9:.2f} in a step)")
+        return model
+    raise SmokeFailure(f"{cfg.name}: not one layer trains on the card")
+
+
+def check_train_step1(model, batch) -> None:
+    """Step 1's loss and gradient norm through the kernels against the same
+    step with the plain versions (to TRAIN_LOSS_RTOL and TRAIN_GNORM_RTOL
+    relative), and every gradient leaf finite and not all zero (a cut
+    graph leaves a leaf without a gradient)."""
+    import torch
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import make_train_step
+    step = make_train_step(model, train_hp())
+    params = model.init(seed=0, masters=True)
+    loss, grads = step.grads(params, batch)
+    gnorm = float(global_norm(grads))
+    named = _named_leaves(grads)
+    bad = [n for n, g in named
+           if not (bool(torch.isfinite(g).all()) and bool((g != 0).any()))]
+    print(f"check train {model.cfg.name}: {len(named)} gradient leaves, "
+          f"{len(named) - len(bad)} finite and non-zero")
+    require(not bad, f"train: gradient leaves zero or not finite: {bad[:5]}")
+    del grads
+    with plain_ops():
+        ploss, pgrads = step.grads(params, batch)
+    pnorm = float(global_norm(pgrads))
+    del pgrads, params
+    torch.cuda.empty_cache()
+    rel_l = abs(float(loss) - float(ploss)) / abs(float(ploss))
+    rel_g = abs(gnorm - pnorm) / pnorm
+    print(f"check train {model.cfg.name} step 1 kernels vs plain versions: "
+          f"loss {float(loss):.6f} vs {float(ploss):.6f} (relative "
+          f"{rel_l:.3e}, tolerance {TRAIN_LOSS_RTOL}); grad norm {gnorm:.6f} "
+          f"vs {pnorm:.6f} (relative {rel_g:.3e}, tolerance "
+          f"{TRAIN_GNORM_RTOL})")
+    require(rel_l <= TRAIN_LOSS_RTOL and rel_g <= TRAIN_GNORM_RTOL,
+            "train step 1: kernels and plain versions differ")
+
+
+def _named_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _named_leaves(v, f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _named_leaves(v, f"{path}/{i}")]
+    return [(path, tree)]
+
+
+def fingerprint(tree) -> list:
+    """Per leaf of a (params, opt) state: its bits as int32 words summed,
+    and weighted by position mod 65521, in int64 on the device (chunked):
+    equal fingerprints are what a bit-exact restore gives."""
+    import torch
+    out = []
+    for name, t in _named_leaves(tree):
+        if not isinstance(t, torch.Tensor):
+            out.append((name, t))
+            continue
+        words = t.detach().reshape(-1).view(torch.int32)
+        s0 = s1 = 0
+        for i in range(0, words.numel(), 1 << 26):
+            w = words[i:i + (1 << 26)].to(torch.int64)
+            pos = torch.arange(i, i + w.numel(), device=w.device) % 65521 + 1
+            s0 += int(w.sum())
+            s1 += int((w * pos).sum())
+        out.append((name, s0, s1))
+    return out
+
+
+def run_train(device, kernels) -> dict:
+    """llama3-8b at full width trained on the card: at the depth
+    fit_train_depth measures, step 1 against the plain versions, then
+    TRAIN_STEPS steps through a Trainer without checkpoints, every launch
+    count set to 0 just before it and read just after, the loss required
+    to fall; then the checkpoint cycle at TRAIN_CKPT_LAYERS
+    (:func:`check_train_restart`). Returns {kernel name: launches}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    # a scan kernel has no backward: under grad it must refuse
+    r = torch.randn((1, 4, RWKV_H, RWKV_K), device=device, requires_grad=True)
+    w = torch.rand((1, 4, RWKV_H, RWKV_K), device=device)
+    u = torch.randn((RWKV_H, RWKV_K), device=device)
+    try:
+        ls.rwkv_scan(r, w, r.detach(), r.detach(), u)
+        raised = ""
+    except RuntimeError as err:
+        raised = str(err)
+    print(f"check train: rwkv_scan on the card under grad raises: "
+          f"{bool(raised)} ({raised})")
+    require("no backward" in raised, "rwkv_scan under grad did not raise")
+
+    cfg = get_config(TRAIN_ARCH)
+    model = fit_train_depth(device, cfg)
+    cfg = model.cfg
+    check_train_step1(model, train_loader(cfg, device).next_batch())
+
+    wrappers = [k["wrapper"] for k in kernels
+                if k["name"] in ("flash_attention", "flash_attention_bwd")]
+    tc = TrainerConfig(steps=TRAIN_STEPS, ckpt_dir=None, log_every=5)
+    trainer = Trainer(model, make_train_step(model, train_hp()),
+                      train_loader(cfg, device), tc)
+    torch.cuda.reset_peak_memory_stats(device)
+    for wr in wrappers:
+        build.zero_launches(wr)
+    t0 = time.perf_counter()
+    params, opt, hist = trainer.run()
+    wall = time.perf_counter() - t0
+    launches = {wr.__name__: wr.launches for wr in wrappers}
+    routes = {wr.__name__: dict(wr.launches_by_route) for wr in wrappers}
+    peak = torch.cuda.max_memory_allocated(device)
+    count = opt.count
+    del params, opt, trainer
+    torch.cuda.empty_cache()
+
+    require([h["step"] for h in hist] == list(range(1, TRAIN_STEPS + 1)),
+            "train: steps missing from the history")
+    require(count == TRAIN_STEPS - sum(h["skipped"] for h in hist),
+            f"train: optimizer count {count}")
+    losses = [h["loss"] for h in hist]
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    print(f"train {cfg.name} losses: " + json.dumps(
+        [round(x, 4) for x in losses]) + "; grad norms: " + json.dumps(
+        [round(h["grad_norm"], 3) for h in hist]) + f"; skipped "
+        f"{sum(h['skipped'] for h in hist)}; mean of the first 5 "
+        f"{first:.4f}, of the last 5 {last:.4f}")
+    require(all(math.isfinite(x) for x in losses), "train: a loss not finite")
+    require(last <= first - 0.1, f"train: loss fell {first - last:.4f} < 0.1")
+    # flash: forward once a layer a step and again in the rematerialised
+    # backward, on wgmma; backward once a layer a step, on mma
+    n_l = cfg.n_layers
+    want = {"flash_attention": {"wgmma": 2 * n_l * TRAIN_STEPS, "simt": 0},
+            "flash_attention_bwd": {"mma": n_l * TRAIN_STEPS, "simt": 0}}
+    print(f"train launches by route: {routes}; want {want}: "
+          f"{routes == want}")
+    require(routes == want and launches == {
+        n: sum(r.values()) for n, r in want.items()},
+        f"train launches {launches} {routes}, want {want}")
+    step_s = statistics.median(h["dt"] for h in hist[1:])
+    tokens = TRAIN_B * TRAIN_S
+    n_par = model.n_params()
+    # model FLOPs: 6 a token per parameter of a product (the token
+    # embedding is a gather), and causal attention's 6 * S * d a layer a
+    # token (QK^T and PV, forward and backward, halved by the mask)
+    n_mat = n_par - cfg.vocab_size * cfg.d_model
+    flops = tokens * (6 * n_mat + 6 * n_l * TRAIN_S * cfg.d_model)
+    print(f"train {cfg.name} ({n_l} layers, {n_par:,} parameters, "
+          f"{TRAIN_B} x {TRAIN_S} tokens a step): median step "
+          f"{step_s * 1e3:.1f} ms (step 1 left out), {tokens / step_s:.0f} "
+          f"tokens/s, model {flops / step_s / 1e12:.1f} TFLOP/s = "
+          f"{flops / step_s / PEAK_BF16_FLOP_S:.4f} of "
+          f"{PEAK_BF16_FLOP_S / 1e12:.0f}; peak memory {peak / 1e9:.2f} GB; "
+          f"{TRAIN_STEPS} steps in {wall:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    check_train_restart(device, cfg.replace(n_layers=TRAIN_CKPT_LAYERS))
+    return launches
+
+
+def check_train_restart(device, cfg) -> None:
+    """The checkpoint cycle on the card at ``cfg``'s depth: a Trainer runs
+    TRAIN_CKPT steps and checkpoints; a restarted Trainer restores it
+    (bit-exactly: the fingerprints of the restored state equal the saved
+    state's) and resumes at step TRAIN_CKPT + 1 up to TRAIN_STEPS."""
+    import shutil
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    model = Model(cfg, device=device)
+    print(f"reduced: train checkpoint cycle {TRAIN_ARCH} n_layers 32 → "
+          f"{cfg.n_layers} ({model.n_params():,} parameters, "
+          f"{12 * model.n_params() / 1e9:.2f} GB a checkpoint of float32 "
+          "masters and moments; at the fitted depth two would write ~104 GB "
+          "to the disk)")
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    fps = {}
+
+    class CheckedTrainer(Trainer):
+        """Records the fingerprint of the state it restores."""
+
+        def restore_or_init(self):
+            params, opt, start = super().restore_or_init()
+            if start:
+                fps["restored"] = fingerprint({"params": params, "opt": opt})
+            return params, opt, start
+
+    def trainer(steps):
+        tc = TrainerConfig(steps=steps, ckpt_every=TRAIN_CKPT, keep=1,
+                           ckpt_dir=str(TRAIN_CKPT_DIR), log_every=5)
+        return CheckedTrainer(model, make_train_step(model, train_hp()),
+                              train_loader(cfg, device), tc)
+
+    t0 = time.perf_counter()
+    params, opt, hist_a = trainer(TRAIN_CKPT).run()
+    t_a = time.perf_counter() - t0
+    fps["saved"] = fingerprint({"params": params, "opt": opt})
+    del params, opt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params, opt, hist_b = trainer(TRAIN_STEPS).run()
+    t_b = time.perf_counter() - t0
+    count = opt.count
+    del params, opt
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    same = fps.get("restored") == fps["saved"]
+    print(f"check train checkpoint ({cfg.n_layers} layer): step "
+          f"{TRAIN_CKPT} restored on the card bit-exactly "
+          f"({len(fps['saved'])} leaves' fingerprints equal): {same}; the "
+          f"restarted Trainer resumed at step {hist_b[0]['step']}, ended at "
+          f"count {count}; {t_a:.1f} s for steps 1-{TRAIN_CKPT} and the "
+          f"checkpoint, {t_b:.1f} s for the restore, the rest and the final "
+          "checkpoint")
+    require(same, "train: the restored state differs from the saved one")
+    require(hist_b[0]["step"] == TRAIN_CKPT + 1,
+            f"train: restart resumed at {hist_b[0]['step']}")
+    require([h["step"] for h in hist_a + hist_b]
+            == list(range(1, TRAIN_STEPS + 1)),
+            "train: the restarted run's steps do not follow on")
+
+
 def kernel_table():
     """Every ported kernel: its wrapper, source, the TPU kernel it
     replaces, and the path (for serve, the arch) whose run counts its
@@ -2548,6 +3262,13 @@ def kernel_table():
          "path": "serve", "arch": "llama3-8b",
          "archs": ("llama3-8b", "jamba-v0.1-52b", *ZOO_HEADS,
                    "deepseek-v2-236b")},
+        # the gradient of the flash forward: the TPU package has no
+        # backward kernel (XLA differentiates its attention), so it stands
+        # beside the forward's pallas_call
+        {"name": "flash_attention_bwd", "wrapper": fa.flash_attention_bwd,
+         "source": csrc + "flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:115",
+         "path": "train"},
         {"name": "rwkv_scan", "wrapper": ls.rwkv_scan,
          "source": csrc + "linear_scan.cu",
          "replaces": "src/repro/kernels/linear_scan.py:147",
@@ -2666,6 +3387,22 @@ def main() -> int:
         build.build_all()
         run_cluster_phase(device)
         return 0
+    if sys.argv[1:] in ([WHISPER_ONLY], [TRAIN_ONLY]):
+        print(f"card: {card_line()}")
+        build.build_all()
+        kernels = kernel_table()
+        with phase("kernel checks (attention)"):
+            check_serve_kernels(device)
+        if sys.argv[1] == WHISPER_ONLY:
+            with phase("whisper"):
+                run_whisper(device, kernels)
+        else:
+            with phase("train"):
+                run_train(device, kernels)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
@@ -2710,6 +3447,15 @@ def main() -> int:
         run_cluster_process()
     with phase("taxed step"):
         run_taxed_identify(device)
+    torch.cuda.empty_cache()
+    # the encoder-decoder and training phases last: phase 8's producer
+    # threads are sensitive to what runs before them (PERF.md, section 6)
+    with phase("whisper"):
+        run_whisper(device, kernels)
+    torch.cuda.empty_cache()
+    with phase("train"):
+        launches["flash_attention_bwd"] = run_train(
+            device, kernels)["flash_attention_bwd"]
 
     rows = []
     for k in kernels:

@@ -10,8 +10,10 @@ that runs only for CPU tensors.
 Ported so far: the face-recognition frame path of
 :class:`repro_torch.core.pipeline.StreamingPipeline` with device NMS; the
 continuous-batching LM engine of
-:class:`repro_torch.serve.engine.ServingEngine` on llama3-8b, qwen2.5-14b,
-chameleon-34b, jamba-v0.1-52b, rwkv6-3b and granite-moe-3b-a800m; the
+:class:`repro_torch.serve.engine.ServingEngine` on the nine decoder-only
+archs, and whisper-large-v3 (encoder-decoder) in lock step through
+:class:`repro_torch.models.model.Model`; training
+(:mod:`repro_torch.train`, flash attention with a backward kernel); the
 serving cluster of :class:`repro_torch.cluster.ServingCluster` with its
 DES, queueing and TCO models, whose real-service replicas run the
 identify stack; and the paper's tax meter for one accelerated step

@@ -2,9 +2,8 @@
 
 ``get_config(name)`` returns the full published config and
 ``get_config(name, smoke=True)`` the reduced config of the CPU tests, for
-the architectures the port runs so far. The others are listed in
-:data:`ARCHS` as the reference lists them, and ``get_config`` raises a
-``KeyError`` for them that says they are not ported yet.
+every architecture of :data:`ARCHS`, listed as the reference lists them;
+an unknown name raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -27,13 +26,14 @@ ARCHS = [
     "deepseek-v2-236b",
 ]
 
-# architecture -> module; only the ported ones
+# architecture -> module
 _MODULES = {
     "llama3-8b": "llama3_8b",
     "qwen2.5-14b": "qwen2_5_14b",
     "gemma3-12b": "gemma3_12b",
     "qwen1.5-110b": "qwen1_5_110b",
     "chameleon-34b": "chameleon_34b",
+    "whisper-large-v3": "whisper_large_v3",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "rwkv6-3b": "rwkv6_3b",
     "granite-moe-3b-a800m": "granite_moe_3b",
@@ -48,9 +48,6 @@ def list_configs() -> list[str]:
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in _MODULES:
-        if name in ARCHS:
-            raise KeyError(f"arch {name!r} is not ported yet; ported: "
-                           f"{list_configs()}")
         raise KeyError(f"unknown arch {name!r}; available: {ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.smoke_config() if smoke else mod.config()

@@ -12,7 +12,9 @@ Each C entry point takes its pointers and the stream as ``void*``,
 launches on PyTorch's current stream without synchronising, and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
 exception. Wrappers count their launches with :func:`count_launch`;
-:func:`sass` disassembles a built library.
+:func:`sass` disassembles a built library. A kernel without a backward
+refuses a call that autograd would have to differentiate
+(:func:`refuse_grad`): only flash attention has one.
 """
 from __future__ import annotations
 
@@ -115,6 +117,18 @@ def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise ``RuntimeError`` where grad is enabled and one of ``tensors``
+    requires it: the kernel's output would carry no gradient, and a
+    training step would silently lose every parameter behind it."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; call it under "
+            "torch.no_grad() or with inputs that do not require grad")
 
 
 def count_launch(wrapper, route: str | None = None) -> None:

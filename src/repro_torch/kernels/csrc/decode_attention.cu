@@ -216,8 +216,8 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len, void*
   return launch_status();
 }
 
-// The (G, DPL) pairs of the ported configs: llama3-8b and jamba (G = 4,
-// D = 128), qwen2.5-14b (G = 5, D = 128), chameleon-34b and qwen1.5-110b
+// The (G, DPL) pairs of the ported configs: whisper-large-v3 (G = 1, an MHA,
+// D = 64), llama3-8b and jamba (G = 4, D = 128), qwen2.5-14b (G = 5, D = 128), chameleon-34b and qwen1.5-110b
 // (G = 8, D = 128), granite-moe-3b (G = 3, D = 64), gemma3-12b (G = 2,
 // D = 256) and the smoke configs (G = 2, D = 16).
 // Another config adds its pair here, in decode_attention_mma below and in
@@ -227,6 +227,8 @@ int by_shape(int G, const void* q, const void* k, const void* v, const int* kv_l
              void* o, float* part, int B, int L, int KV, int D, int Dv, float scale,
              int window, int n_split, cudaStream_t s) {
   const int w = D > Dv ? D : Dv;
+  if (G == 1 && w <= 64)
+    return launch<T, 1, 2>(q, k, v, kv_len, o, part, B, L, KV, D, Dv, scale, window, n_split, s);
   if (G == 2 && w <= 32)
     return launch<T, 2, 1>(q, k, v, kv_len, o, part, B, L, KV, D, Dv, scale, window, n_split, s);
   if (G == 2 && w <= 256)
@@ -463,7 +465,8 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len, void*
 
 }  // namespace
 
-// dtype 0: fp32, 1: bf16. G = H / KV = 2 with D, Dv <= 256, G = 3 with D, Dv <= 64,
+// dtype 0: fp32, 1: bf16. G = H / KV = 1 with D, Dv <= 64, 2 with D, Dv <= 256,
+// G = 3 with D, Dv <= 64,
 // or G = 4, 5, 8 with D, Dv <= 128; B, L > 0; part holds B * KV * n_split * G * (2 + Dv) floats when n_split > 1
 // (else may be null). window <= 0 means no window. Returns a cudaError_t.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
@@ -482,10 +485,11 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   return by_shape<float>(G, q, k, v, len, o, p, B, L, KV, D, Dv, scale, window, n_split, s);
 }
 
-// bf16 only: G = H / KV = 2 with D, Dv <= 256, G = 3 with D, Dv <= 64, or G = 4, 5, 8
-// with D, Dv <= 128, each a multiple of 16; B, L > 0; part as for decode_attention.
-// The G query heads fill rows 0..G-1 of the 16-row A tile (G <= 8: the fragment rows
-// g = lane / 4 hold them; rows 8..15 are the zero registers a1, a3). Each pair
+// bf16 only: G = H / KV = 1 with D, Dv <= 64, 2 with D, Dv <= 256, G = 3 with
+// D, Dv <= 64, or G = 4, 5, 8 with D, Dv <= 128, each a multiple of 16; B, L > 0;
+// part as for decode_attention. The G query heads fill rows 0..G-1 of the 16-row
+// A tile (G <= 8: the fragment rows g = lane / 4 hold them; rows 8..15 are the
+// zero registers a1, a3): at G = 1 (whisper's MHA) 15 of the 16 rows are padding. Each pair
 // stages a 3-tile ring a warp, G = 2 at 32 < D, Dv <= 256 a 2-tile one.
 // Returns a cudaError_t.
 extern "C" int decode_attention_mma(const void* q, const void* k, const void* v,
@@ -499,6 +503,8 @@ extern "C" int decode_attention_mma(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(kv_len);
   float* p = static_cast<float*>(part);
+  if (G == 1 && w <= 64)
+    return tc::launch<1, 64>(q, k, v, len, o, p, B, L, KV, D, Dv, scale, window, n_split, s);
   if (G == 2 && w <= 32)
     return tc::launch<2, 32>(q, k, v, len, o, p, B, L, KV, D, Dv, scale, window, n_split, s);
   if (G == 2 && w <= 256)

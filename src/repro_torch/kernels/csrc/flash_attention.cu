@@ -6,7 +6,10 @@
 // -> o (B, Sq, H, Dv) in q's type. Causal and sliding-window masks,
 // q_offset, and GQA by kv head = h / (H / KV) with no KV expansion.
 // Arithmetic as the reference: fp32 scores, masked scores set to
-// NEG_INF = -1e30, fp32 running (m, l, acc), acc / max(l, 1e-30).
+// NEG_INF = -1e30, fp32 running (m, l, acc), acc / max(l, 1e-30). Given a
+// non-null lse (B, H, Sq) fp32, both routes also write each row's
+// log-sum-exp of its scaled scores, m + ln l in natural-log units, which
+// flash_attention_bwd.cu reads (a training forward asks for it).
 //
 // Bound: operations. A causal prefill of S tokens does 2 * S^2 * H * (D + Dv)
 // / 2 FLOP against 2 * S * (H * (D + Dv) + 2 * KV * D) bytes (bf16): at
@@ -86,9 +89,9 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2
 template <typename T, int VPT>
 __global__ void __launch_bounds__(TX * TY, VPT <= 8 ? 2 : 1)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
-             int H, int KV, int D, int Dv, float scale, int causal,
-             int window, int q_offset) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int Sq, int Skv, int H, int KV, int D,
+             int Dv, float scale, int causal, int window, int q_offset) {
   extern __shared__ float smem[];
   float* Qt = smem;                            // [D][BQ + 1]
   float* Kt = Qt + D * (BQ + 1);               // [D][BK + 1], then P [BQ][BK + 1]
@@ -221,6 +224,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + ty + TY * i;
     if (r >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * H + h) * Sq + r] = m[i] + logf(l[i]);
     T* orow = o + ((long long)(b * Sq + r) * H + h) * Dv;
 #pragma unroll
     for (int e = 0; e < VPT; ++e) {
@@ -231,8 +236,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int VPT>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Skv, int H, int KV, int D, int Dv, float scale, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+           int Sq, int Skv, int H, int KV, int D, int Dv, float scale, int causal,
            int window, int q_offset, cudaStream_t stream) {
   const size_t rows_kp = D > BQ ? D : BQ;     // K tile rows, reused for P
   const size_t smem =
@@ -247,20 +252,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_kernel<T, VPT><<<grid, TX * TY, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, H, KV, D, Dv, scale, causal, window, q_offset);
+      static_cast<T*>(o), lse, Sq, Skv, H, KV, D, Dv, scale, causal, window,
+      q_offset);
   return launch_status();
 }
 
 // Dv <= TX * VPT columns a thread owns
 template <typename T>
-int launch_dv(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-              int Skv, int H, int KV, int D, int Dv, float scale, int causal,
+int launch_dv(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+              int Sq, int Skv, int H, int KV, int D, int Dv, float scale, int causal,
               int window, int q_offset, cudaStream_t s) {
   if (Dv <= TX * 8)
-    return launch<T, 8>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, scale, causal, window,
-                        q_offset, s);
-  return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, scale, causal, window,
-                       q_offset, s);
+    return launch<T, 8>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, Dv, scale, causal,
+                        window, q_offset, s);
+  return launch<T, 16>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, Dv, scale, causal,
+                       window, q_offset, s);
 }
 
 // ---- tensor-core route: bf16, D = Dv in {64, 128, 256} ----------------------
@@ -276,7 +282,7 @@ constexpr int THREADS = CONSUMERS + 128;
 constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;   // 128 x 56 + 256 x 224 <= 64 K
 constexpr int BOX = 64;            // bf16 elements in one 128-byte swizzled row
 constexpr int ROW = 128;           // bytes of that row
-constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Smem {
@@ -297,8 +303,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
-                   __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H, int KV,
-                   float scale_log2, int causal, int window, int q_offset) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
+                   int Skv, int H, int KV, float scale_log2, int causal, int window,
+                   int q_offset) {
   using S = Smem<D>;
   constexpr int HALVES = S::HALVES, STAGES = S::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -485,6 +492,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int r = q0 + row + 8 * i;
     if (r >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && (lane & 3) == 0)     // m is in log2 units here
+      lse[((long long)b * H + h) * Sq + r] = (m[i] + log2f(l[i])) * LN2;
     __nv_bfloat16* orow = o + ((long long)(b * Sq + r) * H + h) * D + col;
 #pragma unroll
     for (int hf = 0; hf < HALVES; ++hf)
@@ -542,8 +551,8 @@ int encode(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Skv, int H, int KV, float scale, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+           int Sq, int Skv, int H, int KV, float scale, int causal, int window,
            int q_offset, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   int rc = encode(&qm, q, D, H, Sq, B, BQ);
@@ -560,8 +569,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   }
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_wgmma_kernel<D><<<grid, THREADS, Smem<D>::BYTES, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), Sq, Skv, H, KV, scale * LOG2E,
-      causal, window, q_offset);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, H, KV,
+      scale * LOG2E, causal, window, q_offset);
   return launch_status();
 }
 
@@ -570,38 +579,42 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 }  // namespace
 
 // dtype 0: fp32, 1: bf16. H % KV == 0, 0 < D <= 256, 0 < Dv <= 256,
-// B * Sq > 0, Skv > 0; window <= 0 means no window. Returns a cudaError_t.
+// B * Sq > 0, Skv > 0; window <= 0 means no window; lse (B, H, Sq) fp32 or
+// null. Returns a cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
-                               int dtype, int B, int Sq, int Skv, int H, int KV,
-                               int D, int Dv, float scale, int causal, int window,
-                               int q_offset, void* stream) {
+                               void* lse, int dtype, int B, int Sq, int Skv, int H,
+                               int KV, int D, int Dv, float scale, int causal,
+                               int window, int q_offset, void* stream) {
   if (D <= 0 || D > MAX_D || Dv <= 0 || Dv > MAX_DV || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 1)
-    return launch_dv<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, scale,
+    return launch_dv<__nv_bfloat16>(q, k, v, o, l, B, Sq, Skv, H, KV, D, Dv, scale,
                                     causal, window, q_offset, s);
-  return launch_dv<float>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, scale, causal, window,
-                          q_offset, s);
+  return launch_dv<float>(q, k, v, o, l, B, Sq, Skv, H, KV, D, Dv, scale, causal,
+                          window, q_offset, s);
 }
 
 // bf16 only; D = Dv in {64, 128, 256}; 16-byte aligned contiguous q, k, v;
-// H % KV == 0, B * Sq > 0, Skv > 0; window <= 0 means no window. Returns a
-// cudaError_t (cudaErrorNotSupported: no cuTensorMapEncodeTiled entry point).
+// H % KV == 0, B * Sq > 0, Skv > 0; window <= 0 means no window; lse
+// (B, H, Sq) fp32 or null. Returns a cudaError_t (cudaErrorNotSupported: no
+// cuTensorMapEncodeTiled entry point).
 extern "C" int flash_attention_wgmma(const void* q, const void* k, const void* v,
-                                     void* o, int B, int Sq, int Skv, int H, int KV,
-                                     int D, float scale, int causal, int window,
+                                     void* o, void* lse, int B, int Sq, int Skv, int H,
+                                     int KV, int D, float scale, int causal, int window,
                                      int q_offset, void* stream) {
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (D == 64)
-    return tc::launch<64>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
+    return tc::launch<64>(q, k, v, o, l, B, Sq, Skv, H, KV, scale, causal, window,
                           q_offset, s);
   if (D == 128)
-    return tc::launch<128>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
+    return tc::launch<128>(q, k, v, o, l, B, Sq, Skv, H, KV, scale, causal, window,
                            q_offset, s);
   if (D == 256)
-    return tc::launch<256>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
+    return tc::launch<256>(q, k, v, o, l, B, Sq, Skv, H, KV, scale, causal, window,
                            q_offset, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

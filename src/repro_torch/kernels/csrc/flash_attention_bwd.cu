@@ -1,0 +1,674 @@
+// Flash attention backward for sm_90a: dQ, dK, dV of flash_attention.cu's
+// forward.
+//
+// The TPU package has no backward kernel: its gradient is XLA's autodiff of
+// its attention (src/repro/kernels/ops.py `_xla_attention`), so this file
+// replaces no pallas_call; it computes the gradient of the forward that
+// replaces src/repro/kernels/flash_attention.py:115. q, do (B, Sq, H, D|Dv),
+// k (B, Skv, KV, D), v (B, Skv, KV, Dv), o the forward's output, lse
+// (B, H, Sq) fp32 its rows' log-sum-exp of the scaled scores (natural log),
+// all bf16 or fp32 but lse, contiguous; causal and sliding-window masks,
+// q_offset, GQA by kv head = h / (H / KV): dK and dV sum over the G query
+// heads of a kv head. D, Dv <= 128. The forward's formulas, fp32 sums:
+//   P = exp(scale * q.k - lse) on the visible (q, k) pairs, 0 elsewhere
+//   Delta = rowsum(dO o O)
+//   dV = P^T dO,  dS = P o (dO V^T - Delta),  dK = scale dS^T Q,
+//   dQ = scale dS K.
+//
+// Bound: operations. Each visible (q, k) pair takes 2 (3 D + 2 Dv) FLOP (S,
+// dP, dV, dK, dQ) against one read of q, k, v, o, do and one write of
+// dq, dk, dv; at llama3-8b's (4, 1024, 32 | 8, 128) causal that is 86 GFLOP
+// against 0.1 GB in bf16, 0.087 ms at 989 TFLOP/s.
+//
+// Both routes launch three kernels on the caller's stream: flash_bwd_delta
+// (one warp a row of (b, i, h): Delta), the route's kernel, and, for bf16,
+// flash_bwd_cast (the fp32 dQ buffer rounded into dq). Each kernel is one
+// block per (K/V tile of 64 keys, kv head, batch row), low key tiles first
+// (in a causal run they see the most q tiles): it keeps the tile's dK, dV
+// in registers over the G query heads of its kv head (GQA sums without
+// atomics) and every q tile of 64 rows that sees one of its keys, and adds
+// dS K into an fp32 dQ buffer with atomicAdd (a q tile's rows are shared by
+// every key tile, so dQ is the one sum that crosses blocks). Rows past Sq and
+// keys past Skv are masked (P = 0) and not stored. Two routes, chosen by
+// shape in the Python wrapper (`_bwd_route`):
+//
+// flash_attention_bwd_mma (bf16, D and Dv multiples of 16): tc::
+// flash_bwd_mma_kernel below, 4 warps, mma.sync m16n8k16 for the five
+// products (P and dS rounded to bf16, as the forward rounds P); ~72 KB of
+// shared memory at 128.
+//
+// flash_attention_bwd (fp32, and bf16 at other widths): flash_bwd_kernel,
+// 256 threads on the CUDA cores. It holds K and V transposed in shared
+// memory as fp32 and its dK, dV accumulators in registers (4 keys x DPT
+// columns a thread); for each q tile it stages Q and dO transposed, computes
+// S and dP (each thread a 4 x 4 block of the 64 x 64 tile, rows ty + 16 i,
+// columns tx + 16 j, as the forward's CUDA-core kernel), P and dS into shared
+// memory, then P^T dO, dS^T Q and dS K. Shared memory: (2 D + 2 Dv) x 65 +
+// 2 x 64 x 65 floats, 167 KB at D = Dv = 128, one block an SM; 100 KB at 64.
+#include <cuda_bf16.h>
+#include "common.cuh"
+#include "tensor_core.cuh"
+
+namespace {
+
+constexpr int BQ = 64, BK = 64;           // q rows and keys a tile
+constexpr int TX = 16, TY = 16;           // 256 threads as 16 x 16
+constexpr int THREADS = TX * TY;
+constexpr int RPT = BQ / TY;              // 4 rows (or keys) a thread
+constexpr int CPT = BK / TX;              // 4 columns a thread
+constexpr int PAD = 65;                   // row stride of a transposed tile
+constexpr int MAX_W = 128;                // widest D, Dv
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// Delta[b, h, i] = sum_e dO[b, i, h, e] O[b, i, h, e]: one warp a row
+template <typename T>
+__global__ void flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+                                float* __restrict__ delta, int Sq, int H, int Dv,
+                                long long rows) {
+  const long long row = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;                   // row = (b * Sq + i) * H + h
+  const T* a = o + row * Dv;
+  const T* g = dout + row * Dv;
+  float s = 0.f;
+  for (int e = lane; e < Dv; e += 32) s = fmaf(to_f(a[e]), to_f(g[e]), s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) {
+    const long long h = row % H, bi = row / H, i = bi % Sq, b = bi / Sq;
+    delta[(b * H + h) * Sq + i] = s;
+  }
+}
+
+template <typename T>
+__global__ void flash_bwd_cast(const float* __restrict__ src, T* __restrict__ dst,
+                               long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) store(dst + i, src[i]);
+}
+
+// DPT: columns of D and Dv a thread owns in the dK, dV and dQ products
+// (D, Dv <= TX * DPT)
+template <typename T, int DPT>
+__global__ void __launch_bounds__(THREADS, DPT <= 4 ? 2 : 1)
+flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 float* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+                 int Sq, int Skv, int H, int KV, int D, int Dv, float scale,
+                 int causal, int window, int q_offset) {
+  extern __shared__ float smem[];
+  float* Kt = smem;                          // [D][PAD]: key c at column c
+  float* Vt = Kt + D * PAD;                  // [Dv][PAD]
+  float* Qt = Vt + Dv * PAD;                 // [D][PAD]: q row r at column r
+  float* Gt = Qt + D * PAD;                  // [Dv][PAD]: dO
+  float* Ps = Gt + Dv * PAD;                 // [BQ][PAD]: P
+  float* Ds = Ps + BQ * PAD;                 // [BQ][PAD]: dS
+  float* Ls = Ds + BQ * PAD;                 // [BQ]: lse of the tile's rows
+  float* Es = Ls + BQ;                       // [BQ]: Delta
+
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV;
+  const int k0 = kt * BK;
+  const int k_last = min(k0 + BK, Skv) - 1;
+
+  for (int i = tid; i < BK * D; i += THREADS) {
+    const int c = i / D, d = i % D;
+    Kt[d * PAD + c] = k0 + c < Skv
+        ? to_f(k[((long long)(b * Skv + k0 + c) * KV + kvh) * D + d]) : 0.f;
+  }
+  for (int i = tid; i < BK * Dv; i += THREADS) {
+    const int c = i / Dv, e = i % Dv;
+    Vt[e * PAD + c] = k0 + c < Skv
+        ? to_f(v[((long long)(b * Skv + k0 + c) * KV + kvh) * Dv + e]) : 0.f;
+  }
+
+  // the q rows that see a key of this tile: row i sits at i + q_offset and
+  // sees key c when c <= i + q_offset (causal) and c > i + q_offset - window
+  int i_begin = 0, i_end = Sq;
+  if (causal) i_begin = max(0, k0 - q_offset);
+  if (window > 0) i_end = min(Sq, k_last + window - q_offset);
+  const int qt_begin = i_begin / BQ;
+  const int qt_end = i_end > i_begin ? (i_end + BQ - 1) / BQ : qt_begin;
+
+  float adk[RPT][DPT], adv[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) adk[i][j] = adv[i][j] = 0.f;
+
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();                       // the last tile's Q, dO, P, dS are spent
+      for (int i = tid; i < BQ * D; i += THREADS) {
+        const int r = i / D, d = i % D;
+        Qt[d * PAD + r] = q0 + r < Sq
+            ? to_f(q[((long long)(b * Sq + q0 + r) * H + h) * D + d]) : 0.f;
+      }
+      for (int i = tid; i < BQ * Dv; i += THREADS) {
+        const int r = i / Dv, e = i % Dv;
+        Gt[e * PAD + r] = q0 + r < Sq
+            ? to_f(dout[((long long)(b * Sq + q0 + r) * H + h) * Dv + e]) : 0.f;
+      }
+      if (tid < BQ) {
+        const bool live = q0 + tid < Sq;
+        const long long at = ((long long)b * H + h) * Sq + q0 + tid;
+        Ls[tid] = live ? lse[at] : 0.f;
+        Es[tid] = live ? delta[at] : 0.f;
+      }
+      __syncthreads();
+
+      // S = Q K^T and dP = dO V^T on the thread's 4 x 4 block
+      float s[RPT][CPT], dp[RPT][CPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        float a[RPT], bb[CPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) a[i] = Qt[d * PAD + ty + TY * i];
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) bb[j] = Kt[d * PAD + tx + TX * j];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
+      }
+      for (int e = 0; e < Dv; ++e) {
+        float a[RPT], bb[CPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) a[i] = Gt[e * PAD + ty + TY * i];
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) bb[j] = Vt[e * PAD + tx + TX * j];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) dp[i][j] = fmaf(a[i], bb[j], dp[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int r = ty + TY * i;
+        const int qpos = q0 + r + q_offset;
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          const int c = tx + TX * j, kpos = k0 + c;
+          bool ok = q0 + r < Sq && kpos < Skv;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && kpos > qpos - window;
+          const float p = ok ? expf(s[i][j] * scale - Ls[r]) : 0.f;
+          Ps[r * PAD + c] = p;
+          Ds[r * PAD + c] = p * (dp[i][j] - Es[r]);
+        }
+      }
+      __syncthreads();
+
+      // dV += P^T dO and dK += dS^T Q: keys ty + 16 i, columns tx + 16 j
+      for (int r = 0; r < BQ; ++r) {
+        float pv[RPT], dsv[RPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          pv[i] = Ps[r * PAD + ty + TY * i];
+          dsv[i] = Ds[r * PAD + ty + TY * i];
+        }
+#pragma unroll
+        for (int j = 0; j < DPT; ++j) {
+          const int col = tx + TX * j;
+          const float gv = col < Dv ? Gt[col * PAD + r] : 0.f;
+          const float qv = col < D ? Qt[col * PAD + r] : 0.f;
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            adv[i][j] = fmaf(pv[i], gv, adv[i][j]);
+            adk[i][j] = fmaf(dsv[i], qv, adk[i][j]);
+          }
+        }
+      }
+
+      // dQ += scale dS K: rows ty + 16 i, columns tx + 16 j, into the fp32
+      // buffer that every key tile adds to
+      float aq[RPT][DPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < DPT; ++j) aq[i][j] = 0.f;
+      for (int c = 0; c < BK; ++c) {
+        float dsv[RPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) dsv[i] = Ds[(ty + TY * i) * PAD + c];
+#pragma unroll
+        for (int j = 0; j < DPT; ++j) {
+          const int col = tx + TX * j;
+          const float kv = col < D ? Kt[col * PAD + c] : 0.f;
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) aq[i][j] = fmaf(dsv[i], kv, aq[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int r = q0 + ty + TY * i;
+        if (r >= Sq) continue;
+        float* row = dq + ((long long)(b * Sq + r) * H + h) * D;
+#pragma unroll
+        for (int j = 0; j < DPT; ++j) {
+          const int col = tx + TX * j;
+          if (col < D) atomicAdd(row + col, aq[i][j] * scale);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int c = k0 + ty + TY * i;
+    if (c >= Skv) continue;
+    T* krow = dk + ((long long)(b * Skv + c) * KV + kvh) * D;
+    T* vrow = dv + ((long long)(b * Skv + c) * KV + kvh) * Dv;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      const int col = tx + TX * j;
+      if (col < D) store(krow + col, adk[i][j] * scale);
+      if (col < Dv) store(vrow + col, adv[i][j]);
+    }
+  }
+}
+
+template <typename T, int DPT>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* dq_acc, float* delta, void* dq,
+           void* dk, void* dv, int B, int Sq, int Skv, int H, int KV, int D, int Dv,
+           float scale, int causal, int window, int q_offset, cudaStream_t stream) {
+  const long long q_elems = (long long)B * Sq * H * D;
+  cudaError_t err = cudaMemsetAsync(dq_acc, 0, sizeof(float) * q_elems, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = (long long)B * Sq * H;
+  flash_bwd_delta<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, Sq, H, Dv, rows);
+  int rc = launch_status();
+  if (rc != 0) return rc;
+  const size_t smem = sizeof(float) * ((size_t)(2 * D + 2 * Dv) * PAD +
+                                       (size_t)2 * BQ * PAD + 2 * BQ);
+  static size_t opted_in = 0;                 // shared-memory opt-in, once per size
+  if (smem > opted_in) {
+    err = cudaFuncSetAttribute(flash_bwd_kernel<T, DPT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = smem;
+  }
+  const dim3 grid((Skv + BK - 1) / BK, KV, B);
+  flash_bwd_kernel<T, DPT><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, dq_acc, static_cast<T*>(dk),
+      static_cast<T*>(dv), Sq, Skv, H, KV, D, Dv, scale, causal, window, q_offset);
+  rc = launch_status();
+  if (rc != 0 || static_cast<void*>(dq_acc) == dq) return rc;
+  flash_bwd_cast<T><<<(unsigned)((q_elems + 255) / 256), 256, 0, stream>>>(
+      dq_acc, static_cast<T*>(dq), q_elems);
+  return launch_status();
+}
+
+template <typename T>
+int by_width(const void* q, const void* k, const void* v, const void* o,
+             const void* dout, const float* lse, float* dq_acc, float* delta,
+             void* dq, void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
+             int D, int Dv, float scale, int causal, int window, int q_offset,
+             cudaStream_t s) {
+  if ((D > Dv ? D : Dv) <= TX * 4)
+    return launch<T, 4>(q, k, v, o, dout, lse, dq_acc, delta, dq, dk, dv, B, Sq, Skv,
+                        H, KV, D, Dv, scale, causal, window, q_offset, s);
+  return launch<T, 8>(q, k, v, o, dout, lse, dq_acc, delta, dq, dk, dv, B, Sq, Skv, H,
+                      KV, D, Dv, scale, causal, window, q_offset, s);
+}
+
+
+// ---- tensor-core route: bf16, D and Dv multiples of 16, up to 128 -----------
+
+namespace tc {
+
+using namespace tensor_core;
+
+constexpr int BQ = 64, BK = 64;           // q rows and keys a tile
+constexpr int WARPS = 4;                  // a warp owns 16 keys of the tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+// A [rows][DMAX] bf16 tile in shared memory, its 16-byte chunk c of row r
+// stored at chunk c ^ (r & 7), so that ldmatrix's eight rows hit distinct
+// banks; DMAX >= 64 (8 chunks a row)
+template <int DMAX>
+__device__ __forceinline__ uint32_t at(uint32_t base, int r, int c) {
+  return base + r * (DMAX * 2) + ((c ^ (r & 7)) << 4);
+}
+
+template <int DMAX>
+struct Smem {
+  static constexpr int TILE = 64 * DMAX * 2;          // K, V, Q or dO
+  static constexpr int DS = BK * BQ * 2;              // dS^T, [key][q] bf16
+  static constexpr int BYTES = 4 * TILE + DS + 2 * BQ * 4;
+};
+
+// rows [row0, row0 + 64) of a (B, S, heads, W) bf16 tensor at head h into a
+// tile, 16-byte cp.async copies; rows past S and columns past W zero-filled
+template <int DMAX>
+__device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* src,
+                                          int b, int row0, int S, int heads, int h,
+                                          int W, int tid) {
+  constexpr int CH = DMAX / 8;
+  for (int i = tid; i < 64 * CH; i += WARPS * 32) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = row0 + r < S && c * 8 < W;
+    const __nv_bfloat16* g =
+        src + (((long long)b * S + (ok ? row0 + r : 0)) * heads + h) * W + (ok ? c * 8 : 0);
+    cp_async16(at<DMAX>(tile, r, c), g, ok ? 16 : 0);
+  }
+}
+
+// One block of 4 warps per (64-key tile, kv head, batch row); warp w owns keys
+// 16 w .. 16 w + 15 of the tile and keeps their dK, dV rows in fp32 registers
+// over the G query heads of the kv head and every q tile that sees a key of the
+// tile. Per q tile, with K, V (staged once), Q and dO in shared memory:
+//   S^T = K Q^T and dP^T = V dO^T (mma.sync m16n8k16, keys as rows), then
+//   P^T = exp2(S^T scale log2e - lse log2e) on the visible pairs and
+//   dS^T = P^T o (dP^T - Delta), in registers;
+//   dV += P^T dO and dK += dS^T Q with P^T, dS^T repacked from the
+//   accumulators as bf16 A fragments (no data exchange between lanes) and dO,
+//   Q read transposed (ldmatrix.trans);
+//   dS^T to shared memory as bf16, then dQ = dS K for the warp's 16 q rows
+//   against all 64 keys, added to the fp32 dQ buffer with atomicAdd.
+// P and dS are rounded to bf16 for the products, as the forward rounds P.
+template <int DMAX>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H, int KV,
+                     int D, int Dv, float scale, int causal, int window,
+                     int q_offset) {
+  using S = Smem<DMAX>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t ks = smem_addr(smem), vs = ks + S::TILE, qs = vs + S::TILE;
+  const uint32_t gs = qs + S::TILE, dss = gs + S::TILE;
+  float* Ls = reinterpret_cast<float*>(smem + 4 * S::TILE + S::DS);
+  float* Es = Ls + BQ;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4, mat = lane / 8;
+  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV;
+  const int k0 = kt * BK;
+  const int k_last = min(k0 + BK, Skv) - 1;
+  const float scale_log2 = scale * LOG2E;
+
+  load_tile<DMAX>(ks, k, b, k0, Skv, KV, kvh, D, tid);
+  load_tile<DMAX>(vs, v, b, k0, Skv, KV, kvh, Dv, tid);
+  cp_async_commit();
+
+  // the q rows that see a key of this tile (as the CUDA-core kernel's)
+  int i_begin = 0, i_end = Sq;
+  if (causal) i_begin = max(0, k0 - q_offset);
+  if (window > 0) i_end = min(Sq, k_last + window - q_offset);
+  const int qt_begin = i_begin / BQ;
+  const int qt_end = i_end > i_begin ? (i_end + BQ - 1) / BQ : qt_begin;
+
+  float adk[DMAX / 8][4], adv[DMAX / 8][4];
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+  const int krow = 16 * warp;               // the warp's first key in the tile
+
+  for (int gh = 0; gh < G; ++gh) {
+    const int h = kvh * G + gh;
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();                      // the last tile's Q, dO, dS^T are spent
+      load_tile<DMAX>(qs, q, b, q0, Sq, H, h, D, tid);
+      load_tile<DMAX>(gs, dout, b, q0, Sq, H, h, Dv, tid);
+      cp_async_commit();
+      if (tid < BQ) {
+        const bool live = q0 + tid < Sq;
+        const long long row = ((long long)b * H + h) * Sq + q0 + tid;
+        Ls[tid] = live ? lse[row] * LOG2E : 0.f;
+        Es[tid] = live ? delta[row] : 0.f;
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x 64 q rows
+      float s[8][4], dp[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DMAX / 16; ++kk) {
+        if (kk * 16 < D) {
+          uint32_t a[4];
+          ldmatrix_x4(a, at<DMAX>(ks, krow + (mat % 2) * 8 + lane % 8, 2 * kk + mat / 2));
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            uint32_t bq[4];
+            ldmatrix_x4(bq, at<DMAX>(qs, 16 * j + (mat / 2) * 8 + lane % 8,
+                                     2 * kk + mat % 2));
+            mma_bf16(s[2 * j], a[0], a[1], a[2], a[3], bq[0], bq[1]);
+            mma_bf16(s[2 * j + 1], a[0], a[1], a[2], a[3], bq[2], bq[3]);
+          }
+        }
+        if (kk * 16 < Dv) {
+          uint32_t a[4];
+          ldmatrix_x4(a, at<DMAX>(vs, krow + (mat % 2) * 8 + lane % 8, 2 * kk + mat / 2));
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            uint32_t bg[4];
+            ldmatrix_x4(bg, at<DMAX>(gs, 16 * j + (mat / 2) * 8 + lane % 8,
+                                     2 * kk + mat % 2));
+            mma_bf16(dp[2 * j], a[0], a[1], a[2], a[3], bg[0], bg[1]);
+            mma_bf16(dp[2 * j + 1], a[0], a[1], a[2], a[3], bg[2], bg[3]);
+          }
+        }
+      }
+
+      // P^T and dS^T on the fragments: entry e of block n is key
+      // krow + g + 8 (e / 2), q row 8 n + 2 c + e % 2 of the tile
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + krow + g + 8 * (e >> 1);
+          const int r = 8 * n + 2 * c + (e & 1);
+          const int qpos = q0 + r + q_offset;
+          bool ok = q0 + r < Sq && kpos < Skv;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && kpos > qpos - window;
+          const float p = ok ? exp2f(s[n][e] * scale_log2 - Ls[r]) : 0.f;
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - Es[r]);
+        }
+        pa[n / 2][(n % 2) * 2 + 0] = pack_bf16(s[n][0], s[n][1]);
+        pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(s[n][2], s[n][3]);
+        da[n / 2][(n % 2) * 2 + 0] = pack_bf16(dp[n][0], dp[n][1]);
+        da[n / 2][(n % 2) * 2 + 1] = pack_bf16(dp[n][2], dp[n][3]);
+      }
+      // dS^T to shared memory for dQ: row key, 8 q a chunk
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const uint32_t lo = at<8 * 8>(dss, krow + g, n) + 4 * c;
+        const uint32_t hi = at<8 * 8>(dss, krow + g + 8, n) + 4 * c;
+        asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(lo), "r"(da[n / 2][(n % 2) * 2]));
+        asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(hi), "r"(da[n / 2][(n % 2) * 2 + 1]));
+      }
+
+      // dV += P^T dO and dK += dS^T Q: k = the tile's 64 q rows
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+        for (int j = 0; j < DMAX / 16; ++j) {
+          if (j * 16 < Dv) {
+            uint32_t bg[4];
+            ldmatrix_x4_trans(bg, at<DMAX>(gs, 16 * kk + (mat % 2) * 8 + lane % 8,
+                                           2 * j + mat / 2));
+            mma_bf16(adv[2 * j], pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3], bg[0], bg[1]);
+            mma_bf16(adv[2 * j + 1], pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3], bg[2],
+                     bg[3]);
+          }
+          if (j * 16 < D) {
+            uint32_t bq[4];
+            ldmatrix_x4_trans(bq, at<DMAX>(qs, 16 * kk + (mat % 2) * 8 + lane % 8,
+                                           2 * j + mat / 2));
+            mma_bf16(adk[2 * j], da[kk][0], da[kk][1], da[kk][2], da[kk][3], bq[0], bq[1]);
+            mma_bf16(adk[2 * j + 1], da[kk][0], da[kk][1], da[kk][2], da[kk][3], bq[2],
+                     bq[3]);
+          }
+        }
+      }
+      __syncthreads();                      // every warp's dS^T is in place
+
+      // dQ = dS K for q rows 16 w .. 16 w + 15 of the tile, 64 columns at a time
+#pragma unroll
+      for (int half = 0; half < DMAX / 64; ++half) {
+        if (half * 64 >= D) break;
+        float aq[8][4];
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) aq[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          uint32_t a[4];
+          ldmatrix_x4_trans(a, at<8 * 8>(dss, 16 * kk + (mat / 2) * 8 + lane % 8,
+                                         2 * warp + mat % 2));
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (half * 64 + j * 16 < D) {
+              uint32_t bk[4];
+              ldmatrix_x4_trans(bk, at<DMAX>(ks, 16 * kk + (mat % 2) * 8 + lane % 8,
+                                             8 * half + 2 * j + mat / 2));
+              mma_bf16(aq[2 * j], a[0], a[1], a[2], a[3], bk[0], bk[1]);
+              mma_bf16(aq[2 * j + 1], a[0], a[1], a[2], a[3], bk[2], bk[3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = q0 + 16 * warp + g + 8 * (e >> 1);
+            const int col = half * 64 + 8 * n + 2 * c + (e & 1);
+            if (r < Sq && col < D)
+              atomicAdd(dq + ((long long)(b * Sq + r) * H + h) * D + col, aq[n][e] * scale);
+          }
+      }
+    }
+  }
+  cp_async_wait<0>();                       // K, V landed even if no q tile came
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + krow + g + 8 * i;
+    if (key >= Skv) continue;
+    __nv_bfloat16* krw = dk + ((long long)(b * Skv + key) * KV + kvh) * D;
+    __nv_bfloat16* vrw = dv + ((long long)(b * Skv + key) * KV + kvh) * Dv;
+#pragma unroll
+    for (int n = 0; n < DMAX / 8; ++n) {
+      const int col = 8 * n + 2 * c;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(krw + col) =
+            __floats2bfloat162_rn(adk[n][2 * i] * scale, adk[n][2 * i + 1] * scale);
+      if (col < Dv)
+        *reinterpret_cast<__nv_bfloat162*>(vrw + col) =
+            __floats2bfloat162_rn(adv[n][2 * i], adv[n][2 * i + 1]);
+    }
+  }
+}
+
+template <int DMAX>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* dq_acc, float* delta, void* dq,
+           void* dk, void* dv, int B, int Sq, int Skv, int H, int KV, int D, int Dv,
+           float scale, int causal, int window, int q_offset, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  const long long q_elems = (long long)B * Sq * H * D;
+  cudaError_t err = cudaMemsetAsync(dq_acc, 0, sizeof(float) * q_elems, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = (long long)B * Sq * H;
+  flash_bwd_delta<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, Sq, H, Dv, rows);
+  int rc = launch_status();
+  if (rc != 0) return rc;
+  static bool opted_in = false;               // shared-memory opt-in, once
+  if (!opted_in) {
+    err = cudaFuncSetAttribute(flash_bwd_mma_kernel<DMAX>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Smem<DMAX>::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  const dim3 grid((Skv + BK - 1) / BK, KV, B);
+  flash_bwd_mma_kernel<DMAX><<<grid, WARPS * 32, Smem<DMAX>::BYTES, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, dq_acc, static_cast<T*>(dk),
+      static_cast<T*>(dv), Sq, Skv, H, KV, D, Dv, scale, causal, window, q_offset);
+  rc = launch_status();
+  if (rc != 0) return rc;
+  flash_bwd_cast<T><<<(unsigned)((q_elems + 255) / 256), 256, 0, stream>>>(
+      dq_acc, static_cast<T*>(dq), q_elems);
+  return launch_status();
+}
+
+}  // namespace tc
+}  // namespace
+
+// dtype 0: fp32, 1: bf16. H % KV == 0, 0 < D, Dv <= 128, B * Sq > 0, Skv > 0;
+// window <= 0 means no window. lse (B, H, Sq) fp32 from the forward; dq_acc
+// (B, Sq, H, D) and delta (B, H, Sq) fp32 workspaces; dq may be dq_acc itself
+// (fp32: no cast launch). Returns a cudaError_t.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
+                                   const void* o, const void* dout, const void* lse,
+                                   void* dq_acc, void* delta, void* dq, void* dk,
+                                   void* dv, int dtype, int B, int Sq, int Skv, int H,
+                                   int KV, int D, int Dv, float scale, int causal,
+                                   int window, int q_offset, void* stream) {
+  if (D <= 0 || D > MAX_W || Dv <= 0 || Dv > MAX_W || KV <= 0 || H % KV != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* acc = static_cast<float*>(dq_acc);
+  float* dl = static_cast<float*>(delta);
+  if (dtype == 1)
+    return by_width<__nv_bfloat16>(q, k, v, o, dout, l, acc, dl, dq, dk, dv, B, Sq, Skv,
+                                   H, KV, D, Dv, scale, causal, window, q_offset, s);
+  return by_width<float>(q, k, v, o, dout, l, acc, dl, dq, dk, dv, B, Sq, Skv, H, KV, D,
+                         Dv, scale, causal, window, q_offset, s);
+}
+
+// bf16 only: D and Dv multiples of 16, up to 128; 16-byte aligned contiguous
+// q, k, v, o, dout, dk, dv; otherwise as flash_attention_bwd (dq is the bf16
+// output, dq_acc its fp32 buffer). Returns a cudaError_t.
+extern "C" int flash_attention_bwd_mma(const void* q, const void* k, const void* v,
+                                       const void* o, const void* dout, const void* lse,
+                                       void* dq_acc, void* delta, void* dq, void* dk,
+                                       void* dv, int B, int Sq, int Skv, int H, int KV,
+                                       int D, int Dv, float scale, int causal,
+                                       int window, int q_offset, void* stream) {
+  if (D <= 0 || D > MAX_W || Dv <= 0 || Dv > MAX_W || D % 16 || Dv % 16 || KV <= 0 ||
+      H % KV != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* acc = static_cast<float*>(dq_acc);
+  float* dl = static_cast<float*>(delta);
+  if ((D > Dv ? D : Dv) <= 64)
+    return tc::launch<64>(q, k, v, o, dout, l, acc, dl, dq, dk, dv, B, Sq, Skv, H, KV, D,
+                          Dv, scale, causal, window, q_offset, s);
+  return tc::launch<128>(q, k, v, o, dout, l, acc, dl, dq, dk, dv, B, Sq, Skv, H, KV, D,
+                         Dv, scale, causal, window, q_offset, s);
+}

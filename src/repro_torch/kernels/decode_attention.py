@@ -24,11 +24,12 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 # query heads per kv head -> widest D, Dv the kernels are built for (the
-# ported configs: llama3-8b and jamba G = 4, D = 128; qwen2.5-14b G = 5,
+# ported configs: whisper-large-v3 G = 1 (MHA), D = 64; llama3-8b and
+# jamba G = 4, D = 128; qwen2.5-14b G = 5,
 # D = 128; chameleon-34b and qwen1.5-110b G = 8, D = 128; granite-moe-3b
 # G = 3, D = 64; gemma3-12b G = 2, D = 256; the smoke configs G = 2, D = 16,
 # which keep their own D <= 32 instances)
-WIDTHS = {2: 256, 3: 64, 4: 128, 5: 128, 8: 128}
+WIDTHS = {1: 64, 2: 256, 3: 64, 4: 128, 5: 128, 8: 128}
 TC_MULTIPLE = 16                 # the mma route's D, Dv: multiples of its k step
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -123,6 +124,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_len=kv_len, window=window,
                                       scale=scale)
+    build.refuse_grad("decode_attention", q, k, v)
     route = _route(q.dtype, H // KV, D, Dv)
     for t in (q, k, v):
         if t.device != q.device or t.dtype != q.dtype or not t.is_contiguous():

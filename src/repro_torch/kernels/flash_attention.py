@@ -9,6 +9,17 @@ the CUDA cores. Unlike the Pallas kernel, which asserts that Sq and Skv
 divide its tiles, both mask ragged tiles themselves, so a prompt of any
 length goes straight in. :func:`flash_attention` launches a kernel for a
 CUDA tensor and takes :func:`flash_attention_plain` only for a CPU tensor.
+
+Training: where grad is enabled and q, k or v requires it, a CUDA call goes
+through :class:`FlashAttentionFn`, whose forward is the same kernel asked
+also for each row's log-sum-exp, and whose backward is the hand-written
+kernel of ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`:
+dQ, dK, dV for D, Dv <= :data:`BWD_MAX_D`, on ``mma.sync`` in bf16 at
+multiples of 16, on the CUDA cores otherwise).
+:func:`flash_attention_bwd_plain` computes the same formulas in plain
+PyTorch. The JAX package has no backward kernel: its gradient is XLA's
+autodiff of its XLA attention, which autograd of
+:func:`flash_attention_plain` is on the CPU.
 """
 from __future__ import annotations
 
@@ -23,12 +34,17 @@ MAX_D, MAX_DV = 256, 256          # head widths the CUDA-core kernel takes
 # D = Dv the tensor-core kernel is built for: granite's 64, 128 (llama3-8b
 # and the other GQA archs), gemma3's 256
 TC_WIDTHS = frozenset({64, 128, 256})
+BWD_MAX_D = 128                   # widest D, Dv the backward kernel takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                   _I, _F, _I, _I, _I, _P],
-               "flash_attention_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                         _I, _F, _I, _I, _I, _P]}
+_SIGNATURES = {"flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _F, _I, _I, _I, _P],
+               "flash_attention_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                         _I, _I, _F, _I, _I, _I, _P]}
+_BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 11 + [_I] * 8
+                   + [_F, _I, _I, _I, _P],
+                   "flash_attention_bwd_mma": [_P] * 11 + [_I] * 7
+                   + [_F, _I, _I, _I, _P]}
 
 
 def _check_shapes(q, k, v) -> tuple[int, ...]:
@@ -59,6 +75,43 @@ def _route(dtype: torch.dtype, D: int, Dv: int) -> str:
                      f"got D={D}, Dv={Dv}")
 
 
+def _mask(Sq: int, Skv: int, causal: bool, window, q_offset: int, device):
+    """(Sq, Skv) bool: which keys each query row sees."""
+    q_pos = torch.arange(Sq, device=device)[:, None] + q_offset
+    k_pos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def _plain_scores(q, k, v, causal, window, q_offset, scale):
+    """fp32 scores (B, KV, G, Sq, Skv) of ``q * scale`` against the kv heads
+    of each group, masked entries NEG_INF, and the mask."""
+    B, Sq, H, D, Skv, KV, Dv = _check_shapes(q, k, v)
+    scale = (1.0 / D**0.5) if scale is None else scale
+    qf = (q.float() * scale).reshape(B, Sq, KV, H // KV, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    mask = _mask(Sq, Skv, causal, window, q_offset, q.device)
+    return s.masked_fill(~mask, NEG_INF), mask
+
+
+def _bwd_route(dtype: torch.dtype, D: int, Dv: int) -> str:
+    """The backward kernel that takes a CUDA call: ``"mma"`` (tensor cores,
+    ``mma.sync``) for bfloat16 with D, Dv multiples of 16, ``"simt"`` (CUDA
+    cores) for float32 and other bfloat16 widths; both for D, Dv up to
+    :data:`BWD_MAX_D`. What neither takes raises ValueError."""
+    if dtype not in _DTYPES or not (0 < D <= BWD_MAX_D and 0 < Dv <= BWD_MAX_D):
+        raise ValueError(f"flash backward kernel takes bfloat16 or float32 "
+                         f"with D, Dv <= {BWD_MAX_D}; got {dtype}, D={D}, "
+                         f"Dv={Dv}")
+    if dtype == torch.bfloat16 and D % 16 == 0 and Dv % 16 == 0:
+        return "mma"
+    return "simt"
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int | None = None,
                           q_offset: int = 0,
@@ -67,21 +120,45 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     computes it: fp32 scores of ``q * scale`` against the kv heads of each
     group, the masks as NEG_INF, softmax, fp32 P @ V, cast to q's type."""
     B, Sq, H, D, Skv, KV, Dv = _check_shapes(q, k, v)
-    G = H // KV
-    scale = (1.0 / D**0.5) if scale is None else scale
-    qf = (q.float() * scale).reshape(B, Sq, KV, G, D)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
-    q_pos = torch.arange(Sq, device=q.device)[:, None] + q_offset
-    k_pos = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window is not None:
-        mask &= k_pos > q_pos - window
-    s = s.masked_fill(~mask, NEG_INF)
+    s, _ = _plain_scores(q, k, v, causal, window, q_offset, scale)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+def flash_attention_lse_plain(q, k, v, *, causal=True, window=None,
+                              q_offset=0, scale=None) -> torch.Tensor:
+    """Each row's log-sum-exp of its scaled, masked scores, (B, H, Sq)
+    float32: what the kernels write beside o for the backward."""
+    B, Sq, H, D, Skv, KV, Dv = _check_shapes(q, k, v)
+    s, _ = _plain_scores(q, k, v, causal, window, q_offset, scale)
+    return torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True,
+                              window=None, q_offset=0, scale=None):
+    """dQ, dK, dV of :func:`flash_attention` in plain PyTorch by the backward
+    kernel's formulas, in float32: P = exp(s - lse) on the visible pairs
+    (s the scaled scores), Delta = rowsum(dO o O), dV = P^T dO,
+    dS = P o (dO V^T - Delta), dK = scale dS^T Q, dQ = scale dS K; GQA's dK
+    and dV summed over the G query heads of a kv head. Returns each in its
+    input's dtype."""
+    B, Sq, H, D, Skv, KV, Dv = _check_shapes(q, k, v)
+    G = H // KV
+    scale = (1.0 / D**0.5) if scale is None else scale
+    s, mask = _plain_scores(q, k, v, causal, window, q_offset, scale)
+    lse = lse.float().reshape(B, KV, G, Sq)
+    p = torch.exp(s - lse[..., None]) * mask
+    dof = do.float().reshape(B, Sq, KV, G, Dv)
+    delta = (dof * o.float().reshape(B, Sq, KV, G, Dv)).sum(-1)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds,
+                      q.float().reshape(B, Sq, KV, G, D)) * scale
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -92,18 +169,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     v (B, Skv, KV, Dv) -> (B, Sq, H, Dv) in q's dtype. Query i sits at
     position ``i + q_offset``; kv head of query head h is ``h // (H // KV)``.
 
-    A CPU tensor goes to :func:`flash_attention_plain`; a CUDA tensor to
-    the kernel of its route (:func:`_route`), which takes contiguous
-    operands of one dtype (16-byte aligned on the wgmma route) and raises on
-    anything else. ``launches`` counts the kernel launches,
+    A CPU tensor goes to :func:`flash_attention_plain` (autograd
+    differentiates it); a CUDA tensor to the kernel of its route
+    (:func:`_route`), which takes contiguous operands of one dtype (16-byte
+    aligned on the wgmma route) and raises on anything else, through
+    :class:`FlashAttentionFn` where grad is enabled and an input requires
+    it. ``launches`` counts the forward kernel's launches,
     ``launches_by_route`` each route's.
     """
-    B, Sq, H, D, Skv, KV, Dv = _check_shapes(q, k, v)
+    _check_shapes(q, k, v)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset,
+                                      scale)
+    return _forward(q, k, v, causal, window, q_offset, scale, False)[0]
+
+
+def _forward(q, k, v, causal, window, q_offset, scale, want_lse: bool):
+    """(o, lse or None): the forward kernel on CUDA tensors, the plain
+    versions on CPU ones."""
+    B, Sq, H, D, Skv, KV, Dv = _check_shapes(q, k, v)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
+    if q.device.type == "cpu":
+        return (flash_attention_plain(q, k, v, **kw),
+                flash_attention_lse_plain(q, k, v, **kw) if want_lse
+                else None)
     route = _route(q.dtype, D, Dv)
     for t in (q, k, v):
         if t.device != q.device or t.dtype != q.dtype or not t.is_contiguous():
@@ -112,13 +206,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if route == "wgmma" and t.data_ptr() % 16:
             raise ValueError("the wgmma route takes 16-byte aligned q, k, v")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     scale = (1.0 / D**0.5) if scale is None else scale
     window = 0 if window is None else int(window)
     lib = build.library("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if want_lse else None)
         stream = build.stream_ptr(q.device)
         if route == "wgmma":
             rc = lib.flash_attention_wgmma(
@@ -130,8 +227,95 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 float(scale), int(causal), window, int(q_offset), stream)
     build.check(lib, rc, f"flash_attention ({route})")
     build.count_launch(flash_attention, route)
-    return out
+    return out, lse
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention under autograd: the forward kernel, asked also for
+    the rows' log-sum-exp, and :func:`flash_attention_bwd` as its backward
+    (on CPU tensors the plain versions of both)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, scale):
+        o, lse = _forward(q, k, v, causal, window, q_offset, scale, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
+                        scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        q_offset: int = 0, scale: float | None = None):
+    """dQ, dK, dV of :func:`flash_attention` at its output ``o`` and row
+    log-sum-exp ``lse`` (B, H, Sq) float32, for the incoming gradient ``do``
+    (B, Sq, H, Dv), each in its input's dtype.
+
+    A CPU tensor goes to :func:`flash_attention_bwd_plain`; a CUDA tensor to
+    the kernel of its route (:func:`_bwd_route`) in
+    ``csrc/flash_attention_bwd.cu``, which takes contiguous q, k, v, o, do
+    of one dtype (16-byte aligned on the mma route) and raises ValueError
+    on anything else (gemma3's D = 256 and MLA's D = 192 among them).
+    ``launches`` counts its calls, ``launches_by_route`` each route's (each
+    call launches the Delta pass, the kernel and, in bf16, dQ's cast).
+    """
+    B, Sq, H, D, Skv, KV, Dv = _check_shapes(q, k, v)
+    if tuple(o.shape) != (B, Sq, H, Dv) or tuple(do.shape) != (B, Sq, H, Dv) \
+            or tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)} do not fit q {tuple(q.shape)}")
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    route = _bwd_route(q.dtype, D, Dv)
+    for t in (q, k, v, o, do):
+        if t.device != q.device or t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError("flash backward kernel takes contiguous q, k, v, "
+                             "o, do of one dtype on one device")
+        if route == "mma" and t.data_ptr() % 16:
+            raise ValueError("the backward's mma route takes 16-byte aligned "
+                             "q, k, v, o, do")
+    if lse.dtype != torch.float32 or not lse.is_contiguous() \
+            or lse.device != q.device:
+        raise ValueError("lse must be a contiguous float32 tensor on q's device")
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dq_acc = torch.empty((B, Sq, H, D), dtype=torch.float32, device=q.device)
+    dq = dq_acc if q.dtype == torch.float32 else torch.empty_like(q)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if B * Sq == 0 or Skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    scale = (1.0 / D**0.5) if scale is None else scale
+    window = 0 if window is None else int(window)
+    lib = build.library("flash_attention_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(q.device):
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), dq_acc.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+        opts = (float(scale), int(causal), window, int(q_offset),
+                build.stream_ptr(q.device))
+        if route == "mma":
+            rc = lib.flash_attention_bwd_mma(*ptrs, B, Sq, Skv, H, KV, D, Dv,
+                                             *opts)
+        else:
+            rc = lib.flash_attention_bwd(*ptrs, _DTYPES[q.dtype], B, Sq, Skv,
+                                         H, KV, D, Dv, *opts)
+    build.check(lib, rc, f"flash_attention_bwd ({route})")
+    build.count_launch(flash_attention_bwd, route)
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_route = {"mma": 0, "simt": 0}

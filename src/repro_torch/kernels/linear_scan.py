@@ -162,6 +162,7 @@ def mamba_scan(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
         if state_out is None:
             return y, h
         return y, state_out.copy_(h)
+    build.refuse_grad("mamba_scan", delta, A, Bt, Ct, x, h0)
     route = _mamba_route(x.dtype, N, S)
     if any(t.dtype != x.dtype for t in (delta, Bt, Ct)):
         raise ValueError("mamba scan kernel takes delta, x, Bt, Ct of one "
@@ -221,6 +222,7 @@ def mamba_decode_step(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
     """
     if delta.device.type == "cpu":
         return mamba_decode_step_plain(delta, A, Bt, Ct, x, h)
+    build.refuse_grad("mamba_decode_step", delta, A, Bt, Ct, x, h)
     y, _ = mamba_scan(delta[:, None], A, Bt[:, None], Ct[:, None],
                       x[:, None], h, state_out=h)
     return y[:, 0], h
@@ -323,6 +325,7 @@ def rwkv_scan(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,
         if state_out is None:
             return o, h
         return o, state_out.copy_(h)
+    build.refuse_grad("rwkv_scan", r, w, k, v, u, h0)
     route = _route(r.dtype, K, V, S)
     if k.dtype != r.dtype or v.dtype != r.dtype or w.dtype != torch.float32:
         raise ValueError("rwkv scan kernel takes r, k, v of one dtype and "
@@ -391,6 +394,7 @@ def rwkv_decode_step(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,
     """
     if r.device.type == "cpu":
         return rwkv_decode_step_plain(r, w, k, v, u, h)
+    build.refuse_grad("rwkv_decode_step", r, w, k, v, u, h)
     o, _ = rwkv_scan(r[:, None], w[:, None], k[:, None], v[:, None], u, h,
                      state_out=h)
     return o[:, 0], h

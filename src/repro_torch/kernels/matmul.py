@@ -102,6 +102,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(f"bias shape {tuple(bias.shape)}, want ({N},)")
     if a.device.type == "cpu":
         return matmul_plain(a, b, bias=bias, epilogue=epilogue)
+    build.refuse_grad("matmul", a, b, bias)
     operands = [a, b] + ([bias] if bias is not None else [])
     for t in operands:
         if (t.device != a.device or t.dtype != torch.float32

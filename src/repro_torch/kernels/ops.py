@@ -7,6 +7,13 @@ the plain PyTorch version, a CUDA tensor runs the hand-written CUDA
 kernel or the call raises. There is no switch that sends a CUDA tensor
 to the plain version, and no block-size arguments: the kernels fix
 their own tiles.
+
+Under autograd (grad enabled, an input requiring it) :func:`attention`
+runs flash attention's forward and backward kernels
+(:class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`); every
+other op raises ``RuntimeError`` on a CUDA tensor there, since its kernel
+has no backward yet. On the CPU all of them are plain PyTorch, which
+autograd differentiates.
 """
 from __future__ import annotations
 

@@ -7,9 +7,11 @@ Two entry modes per layer:
   * decode: one new token against the cache.
 
 GQA layers project q, k and v through :func:`_project_qkv`, as the
-reference does: the optional q/k/v bias (qwen2.5) is added to the
+reference does: the optional q/k/v bias (qwen2.5, whisper) is added to the
 compute-dtype product, the heads are split, the optional per-head q/k
-RMSNorm over D (chameleon, gemma3) runs, then RoPE. Their decode goes
+RMSNorm over D (chameleon, gemma3) runs, then RoPE where ``cfg.pos`` is
+``"rope"`` (whisper's sinusoidal positions are added to the embeddings
+instead, :mod:`repro_torch.models.encdec`). Their decode goes
 through :func:`repro_torch.kernels.ops.decode_attention` (the decode
 kernel).
 
@@ -39,8 +41,10 @@ any Pallas kernel, so there is no kernel of it to port.
 The reference's decode returns a new cache (JAX donates the old one);
 here the new token's entries are written into the cache tensors in place
 (``index_put_`` for the ragged per-row insert) and the same tensors are
-returned. Positions other than RoPE (whisper) raise
-``NotImplementedError``.
+returned.
+
+:func:`attn_apply` is the training forward: :func:`attn_prefill` without
+the cache.
 """
 from __future__ import annotations
 
@@ -53,10 +57,7 @@ NEG_INF = -1e30
 
 
 def check_supported(cfg, spec) -> None:
-    """Raise for the attention variants the port does not run yet."""
-    if cfg.pos != "rope":
-        raise NotImplementedError(
-            f"{cfg.name}: positions other than RoPE are not ported yet")
+    """Raise for the attention variants neither package runs."""
     if cfg.mla is not None and spec.window:
         raise NotImplementedError(
             f"{cfg.name}: MLA with a sliding window is in neither package")
@@ -113,8 +114,10 @@ def _project_qkv(cfg, p, x, positions):
     if cfg.qk_norm:
         q = apply_norm(cfg, p["qn"], q)
         k = apply_norm(cfg, p["kn"], k)
-    return rope(q, positions, cfg.rope_theta), rope(k, positions,
-                                                    cfg.rope_theta), v
+    if cfg.pos == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
 
 def _fit(t: torch.Tensor, L: int) -> torch.Tensor:
@@ -161,6 +164,16 @@ def _insert(cache: torch.Tensor, new: torch.Tensor, slot, ragged: bool):
         cache.index_put_((rows, slot), new)
     else:
         cache[:, slot] = new
+
+
+def attn_apply(cfg, spec, p, x, positions):
+    """Full-sequence (training) attention: the prefill's output, no cache."""
+    if cfg.mla is not None:
+        return _mla_apply(cfg, p, x, positions)[0]
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    o = ops.attention(q, k, v, causal=True, window=spec.window)
+    B, S = x.shape[:2]
+    return o.reshape(B, S, -1) @ p["wo"]
 
 
 def attn_prefill(cfg, spec, p, x, positions, cache_len: int):

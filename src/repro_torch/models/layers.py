@@ -1,6 +1,7 @@
 """Parameter metadata and primitive layers (counterpart of ``repro.models.layers``
 for the layers the ported configs use: RMSNorm and LayerNorm, the RWKV
-per-head GroupNorm, half-split RoPE, the GLU MLP with SiLU or GELU,
+per-head GroupNorm, half-split RoPE and whisper's sinusoidal positions, the
+GLU MLP with SiLU or GELU and whisper's plain MLP (biases, GELU),
 embeddings, unscaled or scaled by sqrt(d_model) (gemma3), untied or tied).
 
 Parameters are declared as trees (nested dicts and lists) of :class:`P`:
@@ -18,6 +19,11 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+
+
+# the configs' compute dtypes
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 
 
 @dataclass(frozen=True)
@@ -167,6 +173,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([rotated.to(x.dtype), x[..., R:]], dim=-1)
 
 
+def sincos_positions(S: int, d: int, offset: int = 0,
+                     device=None) -> torch.Tensor:
+    """Fixed sinusoidal position embeddings (whisper-style), float32
+    (S, d): positions ``offset .. offset + S - 1``, d/2 sines then d/2
+    cosines of frequencies exp(-ln(10000) i / (d/2 - 1))."""
+    pos = torch.arange(S, dtype=torch.float32, device=device) + offset
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=device)
+                      / (half - 1))
+    ang = pos[:, None] * freqs[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def act_fn(name: str):
     """The GLU's activation: SiLU, or GELU in the tanh approximation, which
     is ``jax.nn.gelu``'s default and so the reference's."""
@@ -175,15 +195,21 @@ def act_fn(name: str):
     return {"silu": F.silu}[name]
 
 
-# ---- GLU MLP ---------------------------------------------------------------
+# ---- dense MLP: GLU, or plain with biases (``mlp_kind="plain"``) ----------
 
 def mlp_meta(cfg, d_ff: int | None = None) -> dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp_kind == "plain":
+        return {"wi": P((d, f)), "bi": P((f,), "zeros"),
+                "wo": P((f, d)), "bo": P((d,), "zeros")}
     return {"wg": P((d, f)), "wi": P((d, f)), "wo": P((f, d))}
 
 
 def mlp_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     act = act_fn(cfg.act)
+    if cfg.mlp_kind == "plain":
+        h = act(x @ p["wi"] + p["bi"].to(x.dtype))
+        return h @ p["wo"] + p["bo"].to(x.dtype)
     return (act(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
 
 

@@ -1,5 +1,5 @@
-"""Decoder-only LM: prefill and decode over a stack of blocks (counterpart
-of ``repro.models.transformer``).
+"""Decoder-only LM: training forward and loss, prefill and decode over a
+stack of blocks (counterpart of ``repro.models.transformer``).
 
 The reference stacks each block-pattern position's parameters over
 ``n_repeats`` and runs one ``lax.scan``; here ``params["blocks"]`` is a
@@ -17,8 +17,15 @@ attention with MoE MLPs and shared experts of deepseek-v2-236b; the same
 GQA blocks with MoE MLPs of granite-moe-3b (40 experts top-8, tied
 embeddings); RWKV6 blocks (LayerNorm, time-mix, channel-mix); and the
 hybrid family of jamba, whose pattern mixes Mamba and attention mixers
-with dense and MoE MLPs (RMSNorm, SiLU GLU experts). Encoder-decoders and
-positions other than RoPE (whisper) raise ``NotImplementedError``.
+with dense and MoE MLPs (RMSNorm, SiLU GLU experts). :func:`check_supported`
+hands encoder-decoders (whisper) to :mod:`repro_torch.models.encdec`.
+
+Training (:func:`lm_forward`, :func:`lm_loss`) takes float32 master
+parameters and casts each layer's leaves inside the layer, under
+``torch.utils.checkpoint`` (the reference's per-block remat), so the
+compute-dtype copies of a layer live only while it runs; the loss is the
+reference's chunked cross entropy (chunks of 512 positions, each under
+checkpoint) plus the MoE aux loss.
 
 The decode cache is a flat dict of tensors, one per leaf name, whose
 leading axis runs over the layers that hold the leaf. A leaf is named by
@@ -44,19 +51,20 @@ which one layer would reuse a leaf of another shape.
 from __future__ import annotations
 
 import collections
+import functools
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
+from repro_torch.models import encdec
 from repro_torch.models import moe
 from repro_torch.models import ssm
-from repro_torch.models.layers import (
-    apply_norm, embed_meta, embed_tokens, mlp_apply, mlp_meta, norm_meta,
-    unembed,
+from repro_torch.models.layers import (  # noqa: F401  (DTYPES re-exported)
+    DTYPES, apply_norm, cast_params, embed_meta, embed_tokens, mlp_apply,
+    mlp_meta, norm_meta, unembed,
 )
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "float16": torch.float16}
 
 # cache leaves of each ported layer kind, under the reference's names
 CACHE_LEAVES = {"attn": ("k", "v"), "mamba": ("conv", "h"),
@@ -94,10 +102,11 @@ def cache_leaf_kinds(cfg) -> dict[str, str]:
 
 
 def check_supported(cfg) -> None:
-    """Raise for the model families the port does not run yet."""
+    """Raise for the model families the port does not run; an
+    encoder-decoder is :func:`encdec.check_supported`'s to judge."""
     if cfg.encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
-                                  "not ported yet")
+        encdec.check_supported(cfg)
+        return
     for spec in cfg.block_pattern:
         if spec.moe and cfg.moe is None:
             raise ValueError(f"{cfg.name}: an MoE block needs cfg.moe")
@@ -225,6 +234,94 @@ def _apply_layer_prefill(cfg, spec, lp, x, positions, cache_len):
     x = x + mix
     return x + _mlp_prefill(cfg, spec, lp, apply_norm(cfg, lp["ln2"], x),
                             cache), cache
+
+
+def _apply_layer_train(cfg, spec, lp, x, positions, aux):
+    """One layer of the training forward: (x, aux + the layer's MoE aux)."""
+    h = apply_norm(cfg, lp["ln1"], x)
+    if spec.kind == "attn":
+        mix = attn.attn_apply(cfg, spec, lp["mix"], h, positions)
+    elif spec.kind == "mamba":
+        mix = ssm.mamba_apply(cfg, lp["mix"], h)
+    else:
+        mix = ssm.rwkv_apply(cfg, lp["mix"], h)
+    x = x + mix
+    h = apply_norm(cfg, lp["ln2"], x)
+    if spec.moe:
+        out, a = moe.moe_apply(cfg, lp["mlp"], h)
+        aux = aux + a
+    elif cfg.mlp_kind == "rwkv":
+        out = ssm.rwkv_cm_apply(cfg, lp["mlp"], h)
+    else:
+        out = mlp_apply(cfg, lp["mlp"], h)
+    return x + out, aux
+
+
+def _train_block(cfg, spec, lp, x, positions, aux):
+    """:func:`_apply_layer_train` on the layer's leaves cast to x's dtype
+    (the reference's ``cast_params`` of the stacked tree)."""
+    lp = cast_params(lp, x.dtype, stacked=True)
+    return _apply_layer_train(cfg, spec, lp, x, positions, aux)
+
+
+def lm_forward(cfg, params, tokens: torch.Tensor, *, remat: bool = True):
+    """Training forward: tokens (B, S) -> (hidden (B, S, d) after the final
+    norm, aux loss float32). With ``remat`` (and grad enabled) each layer
+    runs under ``torch.utils.checkpoint(use_reentrant=False)``: only its
+    input is kept, and the backward runs it again."""
+    dtype = DTYPES[cfg.dtype]
+    S = tokens.shape[1]
+    x = embed_tokens(cfg, cast_params(params["embed"], dtype), tokens, dtype)
+    positions = torch.arange(S, device=tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = remat and torch.is_grad_enabled()
+    for spec, lp in zip(layer_specs(cfg), params["blocks"]):
+        fn = functools.partial(_train_block, cfg, spec)
+        x, aux = (checkpoint(fn, lp, x, positions, aux, use_reentrant=False)
+                  if remat else fn(lp, x, positions, aux))
+    return apply_norm(cfg, params["ln_f"], x), aux
+
+
+def lm_logits(cfg, params, hidden: torch.Tensor) -> torch.Tensor:
+    """Logits of ``hidden`` (B, S, d) in the compute dtype."""
+    return unembed(cfg, cast_params(params["embed"], DTYPES[cfg.dtype]),
+                   hidden)
+
+
+def _chunk_loss(cfg, emb, h, lab):
+    """(sum of the chunk's cross entropies over labels >= 0, their count)."""
+    logits = unembed(cfg, emb, h).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lab.long().clamp_min(0)[..., None])[..., 0]
+    valid = (lab >= 0).float()
+    return torch.sum((lse - ll) * valid), valid.sum()
+
+
+def lm_loss(cfg, params, tokens: torch.Tensor, labels: torch.Tensor, *,
+            chunk: int = 512, remat: bool = True) -> torch.Tensor:
+    """Chunked softmax cross entropy (the (B, S, V) logits never exist at
+    once): the sequence in chunks of ``chunk`` positions (labels padded
+    with -1), each chunk's logits in float32 under checkpoint with
+    ``remat``; mean over the labels >= 0, plus the aux loss."""
+    hidden, aux = lm_forward(cfg, params, tokens, remat=remat)
+    emb = cast_params(params["embed"], DTYPES[cfg.dtype])
+    B, S, d = hidden.shape
+    C = min(chunk, S)
+    n = -(-S // C)
+    pad = n * C - S
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    remat = remat and torch.is_grad_enabled()
+    fn = functools.partial(_chunk_loss, cfg, emb)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        h, lab = hidden[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C]
+        t, c = (checkpoint(fn, h, lab, use_reentrant=False) if remat
+                else fn(h, lab))
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp_min(cnt, 1.0) + aux
 
 
 def _apply_layer_decode(cfg, spec, lp, x, cache, cur_len):

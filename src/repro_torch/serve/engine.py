@@ -97,6 +97,12 @@ class ServingEngine:
         self.log = EventLog()
         if scheduler not in ("continuous", "slot"):
             raise ValueError(f"scheduler must be continuous/slot: {scheduler!r}")
+        if model.cfg.encdec and scheduler == "continuous":
+            # as the reference: an encoder-decoder cache is a lock-step
+            # scalar-cur_len tree, the ragged batched layout decoder-only.
+            # Its prefill then needs "frames", which no request carries:
+            # it raises KeyError('frames') in both packages
+            scheduler = "slot"
         self.scheduler = scheduler
         # graceful degradation (duck-typed DegradePolicy): under queue
         # pressure, admitted requests get max_tokens clamped by the

@@ -181,7 +181,118 @@ def test_decode_plain_vs_pallas_and_xla_at_the_zoo_pairs(dtype, G, D):
     _close(got[1:], xla[1:], dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,lens", [(448, [0, 1, 448, 187, 300, 64]),
+                                    (96, [96, 5, 0, 40, 95, 17])])
+def test_decode_plain_vs_pallas_and_xla_at_g1(dtype, L, lens):
+    """whisper's decoder self-attention: an MHA (G = 1) at D = 64, against
+    the Pallas kernel in interpret mode (all rows) and the XLA path (the
+    rows with kv_len > 0)."""
+    B = len(lens)
+    rng = np.random.default_rng(31)
+    q = rng.normal(size=(B, 1, 4, 64)).astype(np.float32)
+    k = rng.normal(size=(B, L, 4, 64)).astype(np.float32)
+    v = rng.normal(size=(B, L, 4, 64)).astype(np.float32)
+    n = np.asarray(lens, np.int32)
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v), dtype)
+    got = ops.decode_attention(tq, tk, tv, kv_len=torch.from_numpy(n))
+    _close(got, jax_da.decode_attention(jq, jk, jv, kv_len=jnp.asarray(n),
+                                        interpret=True), dtype)
+    live = n > 0
+    xla = jax_ops.decode_attention(jq, jk, jv, kv_len=jnp.asarray(n),
+                                   impl="xla")
+    _close(got[torch.from_numpy(live)], np.asarray(
+        xla.astype(jnp.float32))[live], dtype)
+    assert (got[torch.from_numpy(~live)] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,pallas", [(64, 128, True), (128, 64, True),
+                                           (7, 12, False), (1, 12, False),
+                                           (187, 1500, False)])
+def test_flash_plain_non_causal_with_sq_unlike_skv(dtype, Sq, Skv, pallas):
+    """whisper's cross attention (decoder rows against the encoder's
+    frames; one row in decode) and its encoder's bidirectional attention:
+    non-causal, MHA, Sq != Skv. Tile-divisible shapes against the Pallas
+    kernel in interpret mode, ragged ones against the XLA path."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(2, Sq, Skv, 4, 4, 16, seed=6),
+                                       dtype)
+    if pallas:
+        want = jax_fa.flash_attention(jq, jk, jv, causal=False, blk_q=64,
+                                      blk_k=64, interpret=True)
+    else:
+        want = jax_ops.attention(jq, jk, jv, causal=False, impl="xla")
+    _close(ops.attention(tq, tk, tv, causal=False), want, dtype)
+
+
+# (B, Sq, Skv, H, KV, D, kwargs) of the backward's checks: causal, non-causal
+# with Sq != Skv, sliding window, GQA, an offset chunk, a custom scale
+FLASH_BWD = [
+    (2, 16, 16, 4, 2, 16, {"causal": True}),
+    (2, 7, 12, 4, 4, 16, {"causal": False}),
+    (1, 1, 12, 4, 4, 16, {"causal": False}),
+    (1, 24, 24, 8, 2, 16, {"causal": True, "window": 5}),
+    (1, 9, 20, 4, 1, 8, {"causal": True, "q_offset": 11}),
+    (1, 16, 16, 4, 2, 16, {"causal": True, "scale": 0.3}),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,kw", FLASH_BWD)
+def test_flash_bwd_plain_vs_autograd_and_jax_vjp(B, Sq, Skv, H, KV, D, kw):
+    """The backward kernel's formulas in plain PyTorch (float32) against
+    torch autograd of the plain forward, against ``FlashAttentionFn`` on
+    CPU tensors, and against ``jax.vjp`` of the reference's XLA attention
+    (the gradient the JAX package trains with: it has no backward
+    kernel). Tolerance 1e-5 of the largest gradient."""
+    import jax
+    q, k, v = _qkv(B, Sq, Skv, H, KV, D, seed=8)
+    do = np.random.default_rng(9).normal(size=(B, Sq, H, D)).astype(
+        np.float32)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o = fa.flash_attention_plain(tq, tk, tv, **kw)
+    lse = fa.flash_attention_lse_plain(tq, tk, tv, **kw)
+    got = fa.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, **kw)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    auto = torch.autograd.grad(fa.flash_attention_plain(*leaves, **kw),
+                               leaves, tdo)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = fa.FlashAttentionFn.apply(*leaves, kw["causal"], kw.get("window"),
+                                    kw.get("q_offset", 0), kw.get("scale"))
+    through = torch.autograd.grad(out, leaves, tdo)
+    _, vjp = jax.vjp(lambda a, b, c: jax_ops.attention(a, b, c, impl="xla",
+                                                       **kw),
+                     *map(jnp.asarray, (q, k, v)))
+    ref = vjp(jnp.asarray(do))
+    for a, b, c, d in zip(got, auto, through, ref):
+        d = np.asarray(d)
+        tol = 1e-5 * float(np.abs(d).max())
+        for x in (a, b, c):
+            assert float(np.abs(x.detach().numpy() - d).max()) <= tol
+
+
 # ---- dispatch and arguments --------------------------------------------------
+
+@pytest.mark.parametrize("dtype,D,Dv,route", [
+    (torch.bfloat16, 128, 128, "mma"),       # llama3-8b and the GQA archs
+    (torch.bfloat16, 64, 64, "mma"),         # whisper, granite
+    (torch.bfloat16, 16, 16, "mma"),         # the smoke configs
+    (torch.bfloat16, 96, 112, "mma"),
+    (torch.bfloat16, 40, 24, "simt"),        # not multiples of 16
+    (torch.float32, 128, 128, "simt"),
+    (torch.float32, 64, 64, "simt")])
+def test_flash_bwd_route_by_dtype_and_width(dtype, D, Dv, route):
+    assert fa._bwd_route(dtype, D, Dv) == route
+
+
+@pytest.mark.parametrize("dtype,D,Dv", [(torch.bfloat16, 256, 256),
+                                        (torch.bfloat16, 192, 128),
+                                        (torch.float32, 144, 128),
+                                        (torch.float16, 64, 64)])
+def test_flash_bwd_route_raises_where_no_kernel_takes_the_shape(dtype, D, Dv):
+    """gemma3's D = 256 and MLA's 192 | 128 have no backward kernel yet."""
+    with pytest.raises(ValueError):
+        fa._bwd_route(dtype, D, Dv)
+
 
 def _counts():
     return (fa.flash_attention.launches,
@@ -269,12 +380,16 @@ def test_flash_route_raises_where_no_kernel_takes_the_shape(dtype, D, Dv):
     (torch.float32, 4, 128, 128, "simt"),
     (torch.float32, 2, 16, 16, "simt"),
     (torch.bfloat16, 4, 72, 72, "simt"),       # not a multiple of 16
-    (torch.bfloat16, 2, 24, 16, "simt")])
+    (torch.bfloat16, 2, 24, 16, "simt"),
+    (torch.bfloat16, 1, 64, 64, "mma"),        # whisper-large-v3 (MHA)
+    (torch.bfloat16, 1, 16, 16, "mma"),        # its smoke config
+    (torch.float32, 1, 64, 64, "simt")])
 def test_decode_route_by_dtype_and_width(dtype, G, D, Dv, route):
     assert da._route(dtype, G, D, Dv) == route
 
 
 @pytest.mark.parametrize("dtype,G,D,Dv", [(torch.bfloat16, 6, 128, 128),
+                                          (torch.bfloat16, 1, 128, 128),
                                           (torch.bfloat16, 3, 128, 128),
                                           (torch.bfloat16, 2, 272, 272),
                                           (torch.float32, 4, 144, 128),

@@ -371,7 +371,10 @@ DECODE_ROUTES = [(torch.float32, 4, 128, "simt", 2e-5),
                  (torch.float32, 2, 256, "simt", 2e-5),
                  (torch.float32, 3, 64, "simt", 2e-5),
                  (torch.float32, 5, 128, "simt", 2e-5),
-                 (torch.float32, 8, 128, "simt", 2e-5)]
+                 (torch.float32, 8, 128, "simt", 2e-5),
+                 # whisper-large-v3's MHA: G = 1 at D = 64
+                 (torch.bfloat16, 1, 64, "mma", 2e-2),
+                 (torch.float32, 1, 64, "simt", 2e-5)]
 
 
 @pytest.mark.parametrize("dtype,G,D,route,atol", DECODE_ROUTES)
@@ -455,6 +458,100 @@ def test_attention_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         da.decode_attention(q[:, :1].contiguous(), kv, buf[1:1 + kv.numel()]
                             .view(kv.shape), kv_len=torch.ones(1, device=cuda))
+
+
+# the flash backward kernel: (B, Sq, Skv, H, KV, D, Dv, kwargs) at
+# llama3-8b's heads, whisper's (MHA, D = 64, non-causal, Sq != Skv, one row
+# against 1,500 frames), windows, an offset chunk and a ragged width
+FLASH_BWD_CASES = [
+    (2, 256, 256, 32, 8, 128, 128, {"causal": True}),
+    (2, 187, 1500, 20, 20, 64, 64, {"causal": False}),
+    (2, 1, 1500, 20, 20, 64, 64, {"causal": False}),
+    (1, 300, 300, 8, 2, 128, 128, {"causal": True, "window": 100}),
+    (1, 130, 300, 8, 8, 64, 64, {"causal": True, "q_offset": 170}),
+    (1, 77, 77, 4, 2, 48, 32, {"causal": True}),
+    (1, 77, 90, 4, 2, 96, 112, {"causal": False}),
+    (1, 77, 77, 4, 2, 40, 24, {"causal": True}),     # bf16 on the CUDA cores
+]
+# tolerance relative to the largest gradient (bf16 inputs: the forward's
+# P is rounded to bf16, so autograd of the plain version differs more)
+BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,Dv,kw", FLASH_BWD_CASES)
+def test_flash_backward_kernel_vs_plain_and_autograd(cuda, dtype, B, Sq, Skv,
+                                                     H, KV, D, Dv, kw):
+    """dQ, dK, dV of the backward kernel (bf16 at multiples of 16 on
+    mma.sync, the rest on the CUDA cores) against the plain formulas on the
+    same (o, lse) and against autograd of the plain forward, through
+    FlashAttentionFn as a training step calls it; the forward's lse
+    against the plain one."""
+    g = _gen(21)
+    q = torch.randn((B, Sq, H, D), generator=g).to(cuda, dtype)
+    k = torch.randn((B, Skv, KV, D), generator=g).to(cuda, dtype)
+    v = torch.randn((B, Skv, KV, Dv), generator=g).to(cuda, dtype)
+    do = torch.randn((B, Sq, H, Dv), generator=g).to(cuda, dtype)
+    opts = (kw["causal"], kw.get("window"), kw.get("q_offset", 0), None)
+    o, lse = fa._forward(q, k, v, *opts, True)
+    torch.testing.assert_close(lse, fa.flash_attention_lse_plain(q, k, v, **kw),
+                               atol=1e-5, rtol=1e-5)
+    route = fa._bwd_route(dtype, D, Dv)
+    n = fa.flash_attention_bwd.launches_by_route[route]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert fa.flash_attention_bwd.launches_by_route[route] == n + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(fa.flash_attention_plain(*leaves, **kw),
+                               leaves, do.float())
+    qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    through = torch.autograd.grad(fa.flash_attention(qq, kk, vv, **kw),
+                                  (qq, kk, vv), do)
+    for a, b, c, d in zip(got, want, auto, through):
+        scale = c.abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= BWD_RTOL[dtype] * scale
+        assert (a.float() - c).abs().max().item() <= BWD_RTOL[dtype] * scale
+        assert (d.float() - c).abs().max().item() <= BWD_RTOL[dtype] * scale
+
+
+def test_flash_backward_kernel_rejects_what_it_does_not_take(cuda):
+    """D = 256 (gemma3) and MLA's 192 | 128 have no backward kernel yet."""
+    for D, Dv in ((256, 256), (192, 128)):
+        q = torch.zeros((1, 4, 2, D), device=cuda, dtype=torch.bfloat16)
+        v = torch.zeros((1, 4, 2, Dv), device=cuda, dtype=torch.bfloat16)
+        lse = torch.zeros((1, 2, 4), device=cuda)
+        with pytest.raises(ValueError):
+            fa.flash_attention_bwd(q, q, v, v, lse, v)
+
+
+def test_kernels_without_a_backward_refuse_grad(cuda):
+    """Under grad, every CUDA wrapper but flash raises rather than return
+    a tensor with no gradient; under no_grad they run."""
+    q = torch.randn((2, 1, 4, 64), device=cuda, requires_grad=True)
+    kv = torch.randn((2, 8, 4, 64), device=cuda)
+    lens = torch.full((2,), 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        da.decode_attention(q, kv, kv, kv_len=lens)
+    a = torch.randn((4, 16), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mm.matmul(a, torch.randn((16, 8), device=cuda))
+    r, w, k, v, u, h0 = _scan_inputs(1, 8, 2, 64, torch.float32, cuda)
+    r.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ls.rwkv_scan(r, w, k, v, u)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ls.rwkv_decode_step(r[:, 0], w[:, 0], k[:, 0], v[:, 0], u, h0)
+    x = torch.randn((1, 4, 128), device=cuda, requires_grad=True)
+    delta = torch.rand((1, 4, 128), device=cuda)
+    A = -torch.rand((128, 4), device=cuda)
+    Bt = torch.randn((1, 4, 4), device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ls.mamba_scan(delta, A, Bt, Bt, x)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ls.mamba_decode_step(delta[:, 0], A, Bt[:, 0], Bt[:, 0], x[:, 0],
+                             torch.zeros((1, 128, 4), device=cuda))
+    with torch.no_grad():
+        assert da.decode_attention(q, kv, kv, kv_len=lens).shape == q.shape
 
 
 def _scan_inputs(B, S, H, K, dtype, device, seed=9):

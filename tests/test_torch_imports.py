@@ -81,6 +81,15 @@ def test_port_has_the_cluster_slice_modules():
             "repro_torch.cluster.crossval"} <= mods
 
 
+def test_port_has_the_whisper_and_training_slice_modules():
+    mods = set(_port_modules())
+    assert {"repro_torch.configs.whisper_large_v3",
+            "repro_torch.models.encdec", "repro_torch.data.tokens",
+            "repro_torch.train", "repro_torch.train.optimizer",
+            "repro_torch.train.train_step", "repro_torch.train.checkpoint",
+            "repro_torch.train.trainer", "repro_torch.launch.train"} <= mods
+
+
 def test_importing_the_port_loads_no_jax_and_no_repro():
     code = (
         "import importlib, sys\n"

@@ -736,5 +736,6 @@ def test_nvcc_command_targets_sm90a():
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert {"-O3", "-shared", "-fPIC"} <= set(cmd)
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == \
-        ["decode_attention.cu", "flash_attention.cu", "iou.cu",
+        ["decode_attention.cu", "flash_attention.cu",
+         "flash_attention_bwd.cu", "iou.cu",
          "linear_scan.cu", "matmul.cu", "preproc.cu", "resize.cu"]

@@ -131,7 +131,7 @@ def _prompts(cfg, lens, seed):
 # ---- configs ------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-3b", "jamba-v0.1-52b",
-                                  *ZOO])
+                                  *ZOO, "whisper-large-v3"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_copy_equals_reference(smoke, arch):
     ref = jax_get_config(arch, smoke=smoke)
@@ -142,27 +142,27 @@ def test_config_copy_equals_reference(smoke, arch):
 
 
 def test_unported_archs_raise_not_ported_yet():
-    assert configs.list_configs() == [
-        "llama3-8b", "qwen2.5-14b", "gemma3-12b", "qwen1.5-110b",
-        "chameleon-34b", "jamba-v0.1-52b", "rwkv6-3b", "granite-moe-3b-a800m",
-        "deepseek-v2-236b"]
-    assert set(configs.ARCHS) - set(configs.list_configs()) == {
-        "whisper-large-v3"}
-    for name in set(configs.ARCHS) - set(configs.list_configs()):
-        with pytest.raises(KeyError, match="not ported yet"):
-            configs.get_config(name)
+    """Every arch of the reference's registry is ported (whisper-large-v3
+    the last): the registry lists them all, each builds at both sizes, and
+    only an unknown name raises."""
+    assert configs.list_configs() == configs.ARCHS
+    for name in configs.ARCHS:
+        for smoke in (False, True):
+            Model(configs.get_config(name, smoke=smoke), device="cpu")
     with pytest.raises(KeyError, match="unknown"):
         configs.get_config("no-such-model")
 
 
 def test_unported_families_raise():
-    """What no ported config has: positions other than RoPE and
-    encoder-decoders (whisper), LayerNorm or plain MLPs beside attention
-    or Mamba mixers, MLA with a window; and windowed layers of two
+    """What no ported config has: LayerNorm or plain MLPs beside
+    decoder-only attention or Mamba mixers, MLA with a window, an
+    encoder-decoder with RMSNorm or GLU MLPs; and windowed layers of two
     windows, which would share one cache leaf. Sliding windows, GELU,
-    scaled embeddings, MLA and shared experts build (gemma3, deepseek)."""
+    scaled embeddings, MLA and shared experts build (gemma3, deepseek), and
+    so do sinusoidal positions (no RoPE: a decoder-only model without
+    positions, as in the reference) and whisper's encoder-decoder."""
     cfg = configs.get_config("llama3-8b", smoke=True)
-    for variant in ({"pos": "sincos"}, {"frontend": "audio", "encdec": True},
+    for variant in ({"frontend": "audio", "encdec": True},
                     {"norm": "layernorm"}, {"act": "relu"},
                     {"mlp_kind": "plain"},
                     {"mla": configs.MLAConfig(8, 8, 8, 8, 8),
@@ -176,7 +176,11 @@ def test_unported_families_raise():
             configs.LayerSpec(window=8), configs.LayerSpec(window=4))),
               device="cpu")
     moe = configs.MoEConfig(n_experts=4, top_k=2, d_expert=32, n_shared=1)
-    for variant in ({"block_pattern": (configs.LayerSpec(window=8),)},
+    for variant in ({"pos": "sincos"},
+                    {"frontend": "audio", "encdec": True, "norm": "layernorm",
+                     "mlp_kind": "plain", "pos": "sincos", "act": "gelu",
+                     "n_kv_heads": cfg.n_heads},
+                    {"block_pattern": (configs.LayerSpec(window=8),)},
                     {"act": "gelu"}, {"embed_scale": True},
                     {"mla": configs.MLAConfig(8, 8, 8, 8, 8)},
                     {"block_pattern": (configs.LayerSpec(moe=True),),
