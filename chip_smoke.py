@@ -134,7 +134,21 @@ Phases, each fatal on failure:
      for bf16 at multiples of 16, the CUDA cores otherwise) is held against
      its plain formulas and autograd of the plain forward in phase 2 (2e-2
      of the largest gradient in bf16, 1e-4 in fp32) and timed in phase 7
-     beside SDPA's backward.
+     beside SDPA's backward;
+ 12. the cost model and autotune (``--cost`` runs it alone): for every
+     shape of ``kernels.autotune``'s battery, every candidate launch plan
+     of the matmul (skinny cluster and K chunk, tile K splits) and of
+     decode attention (blocks along L) is held against the plain version
+     (matmul at MATMUL_ATOL/RTOL, decode at ATTN_ATOL) and timed in two
+     rounds, forward and reverse; a line a shape prints the formula's
+     plan, the analytic pick the wrappers take and the measured best with
+     their times, and the bound; the measured picks go to an overlay
+     under ``build/``, never to the committed seed. Then
+     ``roofline.analysis.count_step`` counts a llama3-8b decode tick (8
+     slots, cache 2,048) and train step (4 x 1,024 tokens, phase 11's
+     depth) on fake tensors, and its ``Roofline`` is printed beside the
+     tick and step phases 6 and 11 measured ("not measured" alone), with
+     the Amdahl sweep of its stage profile.
 
 Each phase prints the wall seconds it took (each served arch's smoke,
 full-width, profile and float32 steps too).
@@ -159,16 +173,23 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks at a 700 W power limit (NVIDIA data sheet): HBM3 bytes/s,
-# fp32 FLOP/s outside the tensor cores, dense bf16 and tf32 tensor-core
-# FLOP/s; and the SFU's exponentials: 16 a clock an SM for compute
-# capability 9.0 (CUDA programming guide, arithmetic instruction
-# throughput) at 132 SMs and the 1.98 GHz boost clock.
-PEAK_BYTES_S = 3.35e12
-PEAK_FP32_FLOP_S = 67e12
-PEAK_BF16_FLOP_S = 989e12
-PEAK_TF32_FLOP_S = 495e12
-PEAK_SFU_S = 16 * 132 * 1.98e9
+# H100 SXM peaks at a 700 W power limit, the port's one machine model
+# (repro_torch.roofline.hw: NVIDIA's data sheet): HBM3 bytes/s, fp32 FLOP/s
+# outside the tensor cores, dense bf16 and tf32 tensor-core FLOP/s; and the
+# SFU's exponentials: 16 a clock an SM for compute capability 9.0 at 132 SMs
+# and the 1.98 GHz boost clock.
+from repro_torch.roofline.hw import (  # noqa: E402
+    HBM_BW as PEAK_BYTES_S, PEAK_FLOPS_BF16 as PEAK_BF16_FLOP_S,
+    PEAK_FLOPS_FP32 as PEAK_FP32_FLOP_S, PEAK_FLOPS_TF32 as PEAK_TF32_FLOP_S,
+    PEAK_SFU_EXP_S as PEAK_SFU_S,
+)
+# a kernel's device time: ``iters`` calls captured in one CUDA graph, the
+# graph replayed between CUDA events, the median of ``reps`` per-call times
+# (the launch-plan autotuner's timer; replaying leaves out the host's
+# launch overhead, see eager_time_ms)
+from repro_torch.kernels.autotune import (  # noqa: E402
+    device_time_ms as cuda_time_ms,
+)
 
 MATMUL_ATOL, MATMUL_RTOL = 1e-4, 1e-5
 LETTERBOX_ATOL = 1e-3
@@ -333,7 +354,16 @@ CLUSTER_KNEE_COMPRESSION = 1.0
 CLUSTER_ONLY, CLUSTER_TIMEOUT_S = "--cluster", 600
 # the arguments that run phase 10 (whisper) or phase 11 (training) alone,
 # after the build and the kernel checks of their kernels
-WHISPER_ONLY, TRAIN_ONLY = "--whisper", "--train"
+WHISPER_ONLY, TRAIN_ONLY, COST_ONLY = "--whisper", "--train", "--cost"
+# the measured picks of phase 12's sweep (never the committed seed), and the
+# overlay that takes the analytic picks of shapes outside the seed
+MEASURED_PLANS = ROOT / "build" / "autotune_measured.json"
+# every candidate's two timings of phase 12's sweep, the data the analytic
+# model's constants are fitted to
+PLAN_SWEEP = ROOT / "build" / "plan_sweep.json"
+AUTOTUNE_OVERLAY = ROOT / "build" / "autotune_overlay.json"
+# the speed-ups of phase 12's Amdahl sweep
+AMDAHL_SPEEDUPS = (1, 2, 4, 8, 16, 64)
 # card vs CPU identify of the same crops: fp32 throughout, the products'
 # summation order differs
 CLUSTER_SCORE_ATOL = 1e-5
@@ -381,37 +411,6 @@ def bound_ms(nbytes: float, flops: float,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def cuda_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
-    """Device time of one call: ``iters`` calls are captured in one CUDA
-    graph after a warm-up, the graph is replayed between two CUDA events
-    ``reps`` times, and the median per-call time is returned. Replaying
-    leaves out the host's launch overhead (see :func:`eager_time_ms`)."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
-
-
 def cold_time_ms(fn, scratch, iters: int = 20, reps: int = 11) -> float:
     """Device time of one call with a cold L2: ``scratch`` (float32, larger
     than the 50 MB L2) is read through before each call, so the L2 holds
@@ -420,7 +419,7 @@ def cold_time_ms(fn, scratch, iters: int = 20, reps: int = 11) -> float:
     ``iters`` reads alone in another; after a replay of each, the two are
     replayed in turn between CUDA events ``reps`` times, and the median
     of the differences over ``iters`` is returned, so the call's launch is
-    amortised as in :func:`cuda_time_ms` and the reads' time drops out."""
+    amortised as in ``cuda_time_ms`` and the reads' time drops out."""
     import torch
     sink = torch.empty((), dtype=scratch.dtype, device=scratch.device)
 
@@ -1861,7 +1860,8 @@ def serve_full_width(device, arch: str, wrappers) -> dict:
             f"full-width {arch} serve: token out of the vocabulary")
     return {"model": model, "params": params, "launches": launches,
             "routes": routes, "cfg": cfg, "prefills": len(prompts),
-            "prompt_lens": [len(p) for p in prompts], "ticks": ticks}
+            "prompt_lens": [len(p) for p in prompts], "ticks": ticks,
+            "tick_ms": decode_s / ticks * 1e3}
 
 
 def profile_serve(model, params, cfg) -> None:
@@ -2949,6 +2949,18 @@ def train_loader(cfg, device):
                        device=device)
 
 
+def train_depth_first_try(cfg, free: int) -> int:
+    """The most layers of ``cfg`` whose 16 bytes a parameter (float32
+    param, grad, m, v) fit in ``free`` bytes less TRAIN_MARGIN_BYTES, from
+    the shapes alone: where :func:`fit_train_depth` starts."""
+    from repro_torch.models.model import Model
+    n = cfg.n_layers
+    while n > 1 and (16 * Model(cfg.replace(n_layers=n), device="cpu")
+                     .n_params() + TRAIN_MARGIN_BYTES > free):
+        n -= 1
+    return n
+
+
 def fit_train_depth(device, cfg):
     """The most layers of ``cfg`` that one card trains at full width,
     measured: from the largest count whose 16 bytes a parameter (float32
@@ -2965,9 +2977,7 @@ def fit_train_depth(device, cfg):
     def model_at(n):
         return Model(cfg.replace(n_layers=n), device=device)
 
-    n = cfg.n_layers
-    while n > 1 and 16 * model_at(n).n_params() + TRAIN_MARGIN_BYTES > free:
-        n -= 1
+    n = train_depth_first_try(cfg, free)
     print(f"depth train {cfg.name}: {cfg.n_layers} layers need "
           f"{16 * model_at(cfg.n_layers).n_params() / 1e9:.2f} GB at 16 bytes "
           f"a parameter; {free / 1e9:.3f} GB free of {total / 1e9:.3f} GB; "
@@ -3157,7 +3167,7 @@ def run_train(device, kernels) -> dict:
     del model
     torch.cuda.empty_cache()
     check_train_restart(device, cfg.replace(n_layers=TRAIN_CKPT_LAYERS))
-    return launches
+    return {"launches": launches, "step_ms": step_s * 1e3, "n_layers": n_l}
 
 
 def check_train_restart(device, cfg) -> None:
@@ -3223,6 +3233,195 @@ def check_train_restart(device, cfg) -> None:
             "train: the restarted run's steps do not follow on")
 
 
+# --------------------------------------------------------------------------
+# Phase 12: the cost model and autotune
+# --------------------------------------------------------------------------
+
+def time_plans(calls: dict) -> dict:
+    """Device ms of each call of ``calls`` (plan key -> thunk) in two
+    rounds, forward then reverse, in one process: key -> [first, second]."""
+    times = {key: [] for key in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for key in order:
+            times[key].append(cuda_time_ms(calls[key], iters=20))
+    return times
+
+
+def report_plans(label: str, key: str, formula: dict, pick: dict,
+                 times: dict, bound: tuple, cands: list) -> dict:
+    """One line for a battery shape: the formula's plan, the analytic pick
+    the wrappers take and the measured best, each with the mean of its
+    two rounds and their spread, and the bound; returns the record."""
+    def name(plan):
+        return json.dumps(plan, sort_keys=True)
+
+    mean = {k: statistics.mean(v) for k, v in times.items()}
+    best = min(cands, key=lambda p: (mean[name(p)], name(p)))
+    f_ms, p_ms, b_ms = (mean[name(p)] for p in (formula, pick, best))
+    spread = max(abs(times[name(p)][0] - times[name(p)][1])
+                 for p in (formula, pick))
+    print(f"plan {label}: formula {name(formula)} {f_ms:.6f} ms; analytic "
+          f"{name(pick)} {p_ms:.6f} ms; measured best {name(best)} "
+          f"{b_ms:.6f} ms; bound {bound[0]:.6f} ms ({bound[1]}); analytic "
+          f"no slower than the formula beyond the spread {spread:.6f}: "
+          f"{p_ms <= f_ms + spread}")
+    return {"key": key, "label": label, "formula": formula, "pick": pick,
+            "best": best, "best_ms": b_ms, "bound_ms": bound[0],
+            "times": dict(times),
+            "n_candidates": len(cands)}
+
+
+def sweep_matmul_plans(device, n_sm: int) -> list[dict]:
+    """Every candidate plan of every matmul battery shape against the plain
+    version, and timed (phase 12 a)."""
+    import torch
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import matmul as mm
+    epilogues = {(K, N): epi for K, N, epi in MATMUL_SHAPES}
+    out = []
+    for M, K, N in at.MATMUL_BATTERY:
+        epi = epilogues[(K, N)]
+        a, b, _ = matmul_inputs(M, K, N, False, device)
+        want = mm.matmul_plain(a, b, epilogue=epi)
+        cands = at.matmul_candidates(M, K, N, n_sm)
+        calls = {}
+        for plan in cands:
+            got = mm.matmul(a, b, epilogue=epi, plan=plan)
+            require(torch.allclose(got, want, atol=MATMUL_ATOL,
+                                   rtol=MATMUL_RTOL),
+                    f"matmul ({M},{K})@({K},{N}) plan {plan}: "
+                    f"{(got - want).abs().max().item():.3g} off the plain")
+            calls[json.dumps(plan, sort_keys=True)] = (
+                lambda plan=plan: mm.matmul(a, b, epilogue=epi, plan=plan))
+        pick = at.matmul_plan(M, K, N, n_sm)
+        out.append(report_plans(
+            f"matmul ({M},{K})@({K},{N}) {epi} ({mm._route(M)})",
+            at.matmul_key(M, K, N, n_sm), at.matmul_formula(M, K, N, n_sm),
+            pick, time_plans(calls),
+            bound_ms(4 * (M * K + K * N + M * N), 2 * M * N * K), cands))
+    return out
+
+
+def sweep_decode_plans(device, n_sm: int) -> list[dict]:
+    """Every candidate n_split of every decode battery shape against the
+    plain version, and timed, on decode_inputs' ragged rows (0, 1, L and
+    five drawn; phase 12 a)."""
+    import torch
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import decode_attention as da
+    out = []
+    for B, KV, G, D, L in at.DECODE_BATTERY:
+        for dtype in at.DECODE_DTYPES:
+            dt = getattr(torch, dtype)
+            q, k, v, lens = decode_inputs(L, dt, device, B=B,
+                                          heads=(KV * G, KV, D))
+            want = da.decode_attention_plain(q, k, v, kv_len=lens)
+            cands = at.decode_candidates(L)
+            calls = {}
+            for plan in cands:
+                got = da.decode_attention(q, k, v, kv_len=lens, plan=plan)
+                err = (got.float() - want.float()).abs().max().item()
+                require(err <= ATTN_ATOL[dtype],
+                        f"decode G={G} D={D} L={L} {dtype} plan {plan}: "
+                        f"{err:.3g} off the plain")
+                calls[json.dumps(plan, sort_keys=True)] = (
+                    lambda plan=plan: da.decode_attention(
+                        q, k, v, kv_len=lens, plan=plan))
+            valid = int(lens.sum().item())
+            isz = q.element_size()
+            pick = at.decode_plan(B, KV, G, D, D, L, dtype, n_sm)
+            out.append(report_plans(
+                f"decode B={B} KV={KV} G={G} D={D} L={L} {dtype} "
+                f"({da._route(dt, G, D, D)})",
+                at.decode_key(B, KV, G, D, D, L, dtype, n_sm),
+                {"n_split": da.split_l(B, KV, L, n_sm)}, pick,
+                time_plans(calls),
+                bound_ms(isz * (2 * valid * KV * D + 2 * q.numel())
+                         + 4 * B, 4 * D * KV * G * valid,
+                         PEAK_BF16_FLOP_S if dtype == "bfloat16"
+                         else PEAK_FP32_FLOP_S), cands))
+    return out
+
+
+def roofline_of_step(arch: str, n_layers: int, kind: str, batch: int,
+                     seq: int, measured_ms) -> dict:
+    """Count one ``kind`` step of ``arch`` at ``n_layers`` on fake tensors
+    and print its Roofline beside the time a phase measured (phase 12 c)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import acceleration
+    from repro_torch.models.model import Model
+    from repro_torch.roofline import analysis
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    shape = ShapeConfig(f"{kind}_{batch}x{seq}", kind, seq, batch)
+    t0 = time.perf_counter()
+    counted = analysis.count_step(Model(cfg, device="cpu"), None, shape, kind)
+    rl = analysis.from_counted(
+        arch, shape.name, "1", 1, counted.counter, counted.lib_flops, cfg,
+        shape, param_bytes=counted.param_bytes,
+        cache_bytes=counted.cache_bytes)
+    d = rl.to_dict()
+    require(d["hlo_flops"] > 0 and d["hlo_bytes"] > 0
+            and 0 < d["useful_flops_ratio"] <= 1.2
+            and d["flash_bytes"] <= d["hlo_bytes"]
+            and all(math.isfinite(x) for x in d.values()
+                    if isinstance(x, float)),
+            f"roofline {arch} {kind}: {d}")
+    print(f"roofline {arch} {kind} ({n_layers} layers, {batch} x {seq}; "
+          f"counted in {time.perf_counter() - t0:.1f} s): "
+          + json.dumps(d, default=str))
+    if measured_ms is None:
+        print(f"roofline {arch} {kind}: measured not measured (run alone)")
+    else:
+        print(f"roofline {arch} {kind}: measured {measured_ms:.3f} ms; "
+              f"bound {rl.t_bound * 1e3:.3f} ms (plain versions' traffic, "
+              f"{rl.bottleneck}) = {rl.t_bound * 1e3 / measured_ms:.4f} of "
+              f"it; with the kernels' traffic {rl.t_bound_pallas * 1e3:.3f} "
+              f"ms = {rl.t_bound_pallas * 1e3 / measured_ms:.4f}; ideal "
+              f"{rl.t_ideal * 1e3:.3f} ms = "
+              f"{rl.t_ideal * 1e3 / measured_ms:.4f}")
+    sweep = acceleration.roofline_sweep(rl.stage_profile(), AMDAHL_SPEEDUPS)
+    print(f"roofline {arch} {kind} Amdahl (s, speed-up, residual tax) at ai "
+          f"{rl.ai_fraction:.4f}: " + json.dumps(
+              [[s, round(a, 4), round(r, 4)] for s, a, r in sweep]))
+    return d
+
+
+def run_cost_phase(device, tick=None, train=None) -> None:
+    """Phase 12: the plan sweep, its overlay, and the roofline of a
+    llama3-8b decode tick and train step beside phases 6 and 11's times
+    (``tick``, ``train``: their measured ms and depth; None run alone)."""
+    import torch
+    from repro_torch.kernels import autotune as at
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = sweep_matmul_plans(device, n_sm) + sweep_decode_plans(device, n_sm)
+    MEASURED_PLANS.unlink(missing_ok=True)
+    overlay = at.AutotuneCache(path=MEASURED_PLANS, seed_path=None)
+    for r in rows:
+        overlay.store(r["key"], at.TuneResult(
+            r["best"], r["best_ms"] * 1e3, "measured",
+            r["n_candidates"]).to_json())
+    PLAN_SWEEP.write_text(json.dumps(rows, indent=1))
+    print(f"plans: {len(rows)} battery shapes, "
+          f"{sum(r['n_candidates'] for r in rows)} candidate plans held and "
+          f"timed ({PLAN_SWEEP.relative_to(ROOT)}); measured picks in "
+          f"{MEASURED_PLANS.relative_to(ROOT)} "
+          f"(the seed {at.SEED_PATH.relative_to(ROOT)} untouched)")
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    tick_layers = tick["n_layers"] if tick else cfg.n_layers
+    if train:
+        train_layers = train["n_layers"]
+    else:
+        train_layers = train_depth_first_try(
+            cfg, torch.cuda.mem_get_info(device)[0])
+        print(f"roofline {TRAIN_ARCH} train: {train_layers} layers, "
+              "fit_train_depth's first try (no step run alone)")
+    roofline_of_step(TRAIN_ARCH, tick_layers, "decode", SERVE_SLOTS,
+                     SERVE_CACHE_LEN, tick["tick_ms"] if tick else None)
+    roofline_of_step(TRAIN_ARCH, train_layers, "train", TRAIN_B, TRAIN_S,
+                     train["step_ms"] if train else None)
+
+
 def kernel_table():
     """Every ported kernel: its wrapper, source, the TPU kernel it
     replaces, and the path (for serve, the arch) whose run counts its
@@ -3280,10 +3479,11 @@ def kernel_table():
     ]
 
 
-def serve_arch(device, arch: str, kernels, launches: dict) -> None:
+def serve_arch(device, arch: str, kernels, launches: dict) -> dict:
     """Phases 5 and 6 for ``arch``: the smoke-size card-vs-CPU serve and
     the full-width serve with its launch and route gates; the launches of
-    the kernels whose kernels-line arch is ``arch`` go into ``launches``."""
+    the kernels whose kernels-line arch is ``arch`` go into ``launches``.
+    Returns the full-width run's ms a decode tick and depth."""
     import torch
     serve = [k for k in kernels
              if arch in k.get("archs", (k.get("arch"),))]
@@ -3365,12 +3565,14 @@ def serve_arch(device, arch: str, kernels, launches: dict) -> None:
                 f"{k['name']}: {got} on {arch}, want {want} on {route}")
     with phase(f"serve {arch} profile"):
         profile_serve(full["model"], full["params"], full["cfg"])
+    measured = {"tick_ms": full["tick_ms"], "n_layers": full["cfg"].n_layers}
     del full                     # free the weights before the next arch
     torch.cuda.empty_cache()
     if arch in F32_AFTER:
         with phase(f"serve {arch} float32"):
             check_f32_depth(device, arch)
         torch.cuda.empty_cache()
+    return measured
 
 
 def main() -> int:
@@ -3378,14 +3580,29 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.kernels import build
+    from repro_torch.kernels import autotune, build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    # launch plans: the committed seed, and shapes outside it tuned
+    # analytically into an overlay of this checkout's build/ (made afresh)
+    AUTOTUNE_OVERLAY.unlink(missing_ok=True)
+    autotune.set_cache(autotune.AutotuneCache(path=AUTOTUNE_OVERLAY))
 
     if sys.argv[1:] == [CLUSTER_ONLY]:
         build.build_all()
         run_cluster_phase(device)
+        return 0
+    if sys.argv[1:] == [COST_ONLY]:
+        card = card_line()
+        print(f"card: {card}")
+        build.build_all()
+        with phase("cost model and autotune"):
+            run_cost_phase(device)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
         return 0
     if sys.argv[1:] in ([WHISPER_ONLY], [TRAIN_ONLY]):
         print(f"card: {card_line()}")
@@ -3437,9 +3654,10 @@ def main() -> int:
     launches.update(path["launches"])
     with phase("nms"):
         launches["iou_matrix"] = run_nms_path(device)
+    ticks = {}
     for arch in SERVE_ARCHS:
         with phase(f"serve {arch}"):
-            serve_arch(device, arch, kernels, launches)
+            ticks[arch] = serve_arch(device, arch, kernels, launches)
     with phase("times"):
         times = time_kernels(device)
         profile_pipeline(device, n_frames=16, src_hw=(SRC_H, SRC_W))
@@ -3454,8 +3672,11 @@ def main() -> int:
         run_whisper(device, kernels)
     torch.cuda.empty_cache()
     with phase("train"):
-        launches["flash_attention_bwd"] = run_train(
-            device, kernels)["flash_attention_bwd"]
+        train = run_train(device, kernels)
+    launches["flash_attention_bwd"] = train["launches"]["flash_attention_bwd"]
+    torch.cuda.empty_cache()
+    with phase("cost model and autotune"):
+        run_cost_phase(device, ticks[TRAIN_ARCH], train)
 
     rows = []
     for k in kernels:

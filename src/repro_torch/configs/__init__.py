@@ -10,7 +10,8 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401  (re-exported)
-    LayerSpec, MLAConfig, ModelConfig, MoEConfig,
+    LayerSpec, MLAConfig, ModelConfig, MoEConfig, SHAPES, ShapeConfig,
+    supports_shape,
 )
 
 ARCHS = [

@@ -1,4 +1,4 @@
-"""Config schema: model architecture.
+"""Config schema: model architecture + benchmark input shapes.
 
 The port's own copy of ``repro.configs.base`` (the port imports nothing of
 ``repro``); ``tests/test_torch_models.py`` holds the copies equal.
@@ -159,3 +159,24 @@ class ModelConfig:
         per["active"] += embed
         return per
 
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+def supports_shape(cfg: ModelConfig, shape: str) -> bool:
+    if shape == "long_500k":
+        return cfg.supports_long
+    return True

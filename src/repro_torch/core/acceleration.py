@@ -57,10 +57,9 @@ def roofline_sweep(profile: StageProfile, speedups
     """(s, overall Amdahl speedup, residual tax fraction) per point.
 
     ``profile`` may come from the paper's measured constants OR from a
-    measured roofline (:func:`profile_from_roofline`; the reference's
-    ``Roofline.stage_profile()``, which its
-    ``benchmarks/fig_roofline_sweep.py`` feeds in, has no port yet: the
-    cost model is a later slice)."""
+    measured roofline (:func:`profile_from_roofline`, or
+    :meth:`repro_torch.roofline.analysis.Roofline.stage_profile`, which
+    ``chip_smoke.py``'s phase 12 feeds in from the H100's terms)."""
     return [(s, profile.amdahl_speedup(s), residual_tax_fraction(profile, s))
             for s in speedups]
 

@@ -9,9 +9,12 @@ multiples of 16 runs on the tensor cores (mma.sync, the cache staged by
 16-byte cp.async), fp32 and bf16 at other widths on the CUDA cores. The
 cache length L need not be a multiple of any tile. A row with
 ``kv_len = 0`` gives exact zeros, the Pallas kernel's contract (the
-reference's XLA path gives the mean of V there). :func:`decode_attention`
-launches a kernel for a CUDA tensor and takes :func:`decode_attention_plain`
-only for a CPU tensor.
+reference's XLA path gives the mean of V there). The blocks along L
+(``n_split``) are the launch plan: a CUDA call takes it from
+:mod:`repro_torch.kernels.autotune`'s cache (:func:`split_l` is its
+candidates' anchor), or from the caller, and :func:`check_plan` refuses one
+the kernel would not take. :func:`decode_attention` launches a kernel for a
+CUDA tensor and takes :func:`decode_attention_plain` only for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 
 NEG_INF = -1e30
 # query heads per kv head -> widest D, Dv the kernels are built for (the
@@ -101,6 +104,16 @@ def split_l(B: int, KV: int, L: int, n_sm: int) -> int:
     return max(1, min(-(-2 * n_sm // (B * KV)), -(-L // 128)))
 
 
+def check_plan(L: int, plan: dict) -> int:
+    """``plan``'s n_split, 1 to ceil(L / 128) (at least 128 cache entries a
+    block but for one block), or ValueError."""
+    if set(plan) != {"n_split"} or not \
+            1 <= int(plan["n_split"]) <= max(1, -(-L // 128)):
+        raise ValueError(f"decode plan {plan} is not one the kernel takes "
+                         f"at L = {L}")
+    return int(plan["n_split"])
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -108,19 +121,24 @@ def _sm_count(device: torch.device) -> int:
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      kv_len: torch.Tensor, window: int | None = None,
-                     scale: float | None = None) -> torch.Tensor:
+                     scale: float | None = None,
+                     plan: dict | None = None) -> torch.Tensor:
     """One query token per row against a (B, L, KV, ·) cache: q (B, 1, H, D),
     ``kv_len`` (B,) valid entries per row, optional ``window`` over the last
     entries -> (B, 1, H, Dv) in q's dtype.
 
     A CPU tensor goes to :func:`decode_attention_plain`; a CUDA tensor to
     the kernel of its route (:func:`_route`), which takes contiguous q, k, v
-    of one dtype and raises on anything else. ``launches`` counts the
-    launches, ``launches_by_route`` each route's.
+    of one dtype and raises on anything else, launched with ``plan`` or,
+    for None, the autotuned plan of the shape (``last_plan`` keeps the one
+    launched). A plan the kernel does not take raises on either device.
+    ``launches`` counts the launches, ``launches_by_route`` each route's.
     """
     B, H, D, L, KV, Dv = _check_shapes(q, k, v, kv_len)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
+    if plan is not None:
+        check_plan(L, plan)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_len=kv_len, window=window,
                                       scale=scale)
@@ -138,7 +156,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if B == 0:
         return out
     lens = kv_len.to(torch.int32).contiguous()
-    n_split = split_l(B, KV, L, _sm_count(q.device))
+    if plan is None:
+        plan = autotune.decode_plan(B, KV, H // KV, D, Dv, L, str(q.dtype),
+                                    _sm_count(q.device))
+    n_split = check_plan(L, plan)
     part = (torch.empty(B * KV * n_split * (H // KV) * (2 + Dv),
                         dtype=torch.float32, device=q.device)
             if n_split > 1 else None)
@@ -159,8 +180,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                       stream)
     build.check(lib, rc, f"decode_attention ({route})")
     build.count_launch(decode_attention, route)
+    decode_attention.last_plan = plan
     return out
 
 
+decode_attention.last_plan = None
 decode_attention.launches = 0
 decode_attention.launches_by_route = {"mma": 0, "simt": 0}

@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.roofline.op_cost import scan
 
 # head widths (K = V) the RWKV6 kernel is built for: rwkv6-3b 64, its smoke
 # config 16; the chunked route's width, steps a chunk, and the fewest steps
@@ -91,12 +92,13 @@ def mamba_scan_plain(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
          if h0 is None else h0.float())
     df, dx = delta.float(), (delta * x).float()
     Af, Bf, Cf = A.float()[None], Bt.float(), Ct.float()
-    ys = []
-    for t in range(S):
+
+    def step(t, h):
         h = (torch.exp(df[:, t, :, None] * Af) * h
              + dx[:, t, :, None] * Bf[:, t, None, :])
-        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
-    return torch.stack(ys, dim=1).to(x.dtype), h
+        return h, torch.einsum("bdn,bn->bd", h, Cf[:, t])
+    h, ys = scan(step, h, S)
+    return ys.to(x.dtype), h
 
 
 def mamba_decode_step_plain(delta: torch.Tensor, A: torch.Tensor,
@@ -278,12 +280,13 @@ def rwkv_scan_plain(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,
          if h0 is None else h0.float())
     rf, wf, kf, vf = (t.float() for t in (r, w, k, v))
     uf = u.float()[None, :, :, None]
-    outs = []
-    for t in range(S):
+
+    def step(t, h):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
-        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], h + uf * kv))
-        h = wf[:, t, :, :, None] * h + kv
-    return torch.stack(outs, dim=1).to(v.dtype), h
+        o = torch.einsum("bhk,bhkv->bhv", rf[:, t], h + uf * kv)
+        return wf[:, t, :, :, None] * h + kv, o
+    h, outs = scan(step, h, S)
+    return outs.to(v.dtype), h
 
 
 def rwkv_decode_step_plain(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,

@@ -7,8 +7,12 @@ on an H100. Two routes, chosen by the row count (:func:`_route`): the face
 batches (M <= 8) take the skinny kernel, one launch that splits K over a
 thread-block cluster (:func:`skinny_plan`) and sums the splits through
 distributed shared memory; larger M takes the tiled kernel, whose K split
-(:func:`split_k`) sums in a second launch. :func:`matmul` launches a kernel
-for a CUDA tensor and takes :func:`matmul_plain` only for a CPU tensor.
+(:func:`split_k`) sums in a second launch. How K is split is the launch
+plan: a CUDA call takes it from :mod:`repro_torch.kernels.autotune`'s cache
+(the formulas are its candidates' anchors), or from the caller, and
+:func:`check_plan` refuses one the kernel would not take. :func:`matmul`
+launches a kernel for a CUDA tensor and takes :func:`matmul_plain` only for
+a CPU tensor.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 
 EPILOGUES = ("none", "tanh")
 _BM, _BN, _BK = 16, 64, 32        # the tile route's tile (csrc/matmul.cu)
@@ -76,6 +80,29 @@ def split_k(M: int, N: int, K: int, n_sm: int) -> tuple[int, int]:
     return -(-k_tiles // per), per * _BK
 
 
+def check_plan(M: int, K: int, plan: dict) -> tuple[int, int]:
+    """``plan`` as the route of M launches it: skinny (cluster, k_chunk),
+    cluster 1..MAX_CLUSTER and at most ceil(K / 32), no empty rank ((1, 0)
+    at K = 0); tile (splits, k_chunk), k_chunk a multiple of the tile's K
+    step, no empty split. Anything else raises ValueError."""
+    names = ("cluster", "k_chunk") if _route(M) == "skinny" \
+        else ("splits", "k_chunk")
+    if set(plan) != set(names):
+        raise ValueError(f"a {_route(M)} plan has keys {names}, got {plan}")
+    n, chunk = (int(plan[k]) for k in names)
+    if _route(M) == "skinny":
+        most = min(MAX_CLUSTER, max(1, -(-K // _SKINNY_MIN_ROWS)))
+        ok = (n, chunk) == (1, 0) if K == 0 else (
+            1 <= n <= most and (n - 1) * chunk < K <= n * chunk)
+    else:
+        ok = (n >= 1 and chunk > 0 and chunk % _BK == 0
+              and (n - 1) * chunk < max(K, 1) and K <= n * chunk)
+    if not ok:
+        raise ValueError(f"matmul plan {plan} is not one the {_route(M)} "
+                         f"kernel takes at K = {K}")
+    return n, chunk
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -83,14 +110,16 @@ def _sm_count(device: torch.device) -> int:
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *,
            bias: torch.Tensor | None = None,
-           epilogue: str = "none") -> torch.Tensor:
+           epilogue: str = "none", plan: dict | None = None) -> torch.Tensor:
     """a (M, K) @ b (K, N) -> (M, N) float32, with ``bias`` ((N,)) and
     ``epilogue`` (``"none"``/``"tanh"``) applied once to the fp32 sum.
 
     A CPU tensor goes to :func:`matmul_plain`; a CUDA tensor to the kernel
     of its route (:func:`_route`), which takes contiguous float32 operands
-    and raises on anything else. ``launches`` counts the launches,
-    ``launches_by_route`` each route's.
+    and raises on anything else, launched with ``plan`` or, for None, the
+    autotuned plan of the shape (``last_plan`` keeps the one launched). A
+    plan the kernel does not take raises on either device. ``launches``
+    counts the launches, ``launches_by_route`` each route's.
     """
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue must be one of {EPILOGUES}, got {epilogue!r}")
@@ -100,6 +129,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     N = b.shape[1]
     if bias is not None and tuple(bias.shape) != (N,):
         raise ValueError(f"bias shape {tuple(bias.shape)}, want ({N},)")
+    if plan is not None:
+        check_plan(M, K, plan)
     if a.device.type == "cpu":
         return matmul_plain(a, b, bias=bias, epilogue=epilogue)
     build.refuse_grad("matmul", a, b, bias)
@@ -116,25 +147,28 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     route = _route(M)
     bias_ptr = bias.data_ptr() if bias is not None else None
     tanh = int(epilogue == "tanh")
+    if plan is None:
+        plan = autotune.matmul_plan(M, K, N, _sm_count(a.device))
+    n, k_chunk = check_plan(M, K, plan)
     with torch.cuda.device(a.device):
         stream = build.stream_ptr(a.device)
         if route == "skinny":
-            cluster, k_chunk = skinny_plan(N, K, _sm_count(a.device))
             rc = lib.matmul_skinny_f32(a.data_ptr(), b.data_ptr(), bias_ptr,
-                                       out.data_ptr(), M, N, K, cluster,
+                                       out.data_ptr(), M, N, K, n,
                                        k_chunk, tanh, stream)
         else:
-            splits, k_chunk = split_k(M, N, K, _sm_count(a.device))
-            partial = (torch.empty((splits, M, N), dtype=torch.float32,
-                                   device=a.device) if splits > 1 else None)
+            partial = (torch.empty((n, M, N), dtype=torch.float32,
+                                   device=a.device) if n > 1 else None)
             rc = lib.matmul_f32(
                 a.data_ptr(), b.data_ptr(), bias_ptr, out.data_ptr(),
                 partial.data_ptr() if partial is not None else None,
-                M, N, K, splits, k_chunk, tanh, stream)
+                M, N, K, n, k_chunk, tanh, stream)
     build.check(lib, rc, f"matmul ({route})")
     build.count_launch(matmul, route)
+    matmul.last_plan = plan
     return out
 
 
+matmul.last_plan = None
 matmul.launches = 0
 matmul.launches_by_route = {"skinny": 0, "tile": 0}

@@ -69,7 +69,7 @@ class Watchdog:
             if gap > self.timeout:
                 self.hangs.append(gap)
                 # a float slot: a stale read only delays the next report
-                self.last_beat = time.monotonic()
+                self.last_beat = time.monotonic()  # lint: waive race-check -- heartbeat timestamp; atomic slot swap, staleness only delays the next hang report
 
     def stop(self):
         self._stop.set()

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import linear_scan as ls
@@ -41,6 +42,15 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
+
+
+@pytest.fixture(autouse=True)
+def autotune_cache(tmp_path, monkeypatch):
+    """Launch plans from the committed seed, shapes outside it tuned into
+    this test's own overlay (never the user's cache)."""
+    cache = autotune.AutotuneCache(path=tmp_path / "autotune.json")
+    monkeypatch.setattr(autotune, "_CACHE", cache)
+    return cache
 
 
 def _gen(seed):
@@ -913,3 +923,69 @@ def test_real_service_cluster_serves_on_the_card(cuda):
     assert preproc.yuv_to_rgb.launches == n_batches
     tile = sum(1 for n, _ in res.batch_spans if (1 << (n - 1).bit_length()) > 8)
     assert mm.matmul.launches_by_route["tile"] == 2 * tile
+
+
+# battery shapes of kernels.autotune: skinny and tile matmuls, decode on
+# both routes
+PLAN_MM_CASES = [(1, 6912, 256, "tanh"), (8, 256, 128, "none"),
+                 (64, 6912, 256, "tanh"), (16, 3072, 256, "none")]
+PLAN_DECODE_CASES = [(torch.bfloat16, 4, 128, 2048),
+                     (torch.float32, 1, 64, 448)]
+
+
+def _other_plan(cands, formula):
+    """A candidate that is not the formula's, to tell a cached plan apart."""
+    return next(c for c in reversed(cands) if c != formula)
+
+
+@pytest.mark.parametrize("M,K,N,epi", PLAN_MM_CASES)
+def test_every_matmul_plan_vs_plain_and_the_wrapper_takes_the_cache(
+        cuda, autotune_cache, M, K, N, epi):
+    g = _gen(0)
+    a = torch.randn((M, K), generator=g).to(cuda)
+    b = (torch.randn((K, N), generator=g) / K**0.5).to(cuda)
+    want = mm.matmul_plain(a, b, epilogue=epi)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cands = autotune.matmul_candidates(M, K, N, n_sm)
+    for plan in cands:
+        torch.testing.assert_close(mm.matmul(a, b, epilogue=epi, plan=plan),
+                                   want, atol=1e-4, rtol=1e-5)
+        assert mm.matmul.last_plan == plan
+    mm.matmul(a, b, epilogue=epi)
+    assert mm.matmul.last_plan == autotune.matmul_plan(M, K, N, n_sm)
+    other = _other_plan(cands, autotune.matmul_formula(M, K, N, n_sm))
+    autotune_cache.store(autotune.matmul_key(M, K, N, n_sm), autotune.TuneResult(
+        other, 0.0, "measured", len(cands)).to_json())
+    torch.testing.assert_close(mm.matmul(a, b, epilogue=epi), want,
+                               atol=1e-4, rtol=1e-5)
+    assert mm.matmul.last_plan == other
+
+
+@pytest.mark.parametrize("dtype,G,D,L", PLAN_DECODE_CASES)
+def test_every_decode_plan_vs_plain_and_the_wrapper_takes_the_cache(
+        cuda, autotune_cache, dtype, G, D, L):
+    g = _gen(1)
+    B, KV = 8, 8
+    q = torch.randn((B, 1, KV * G, D), generator=g).to(cuda, dtype)
+    k = torch.randn((B, L, KV, D), generator=g).to(cuda, dtype)
+    v = torch.randn((B, L, KV, D), generator=g).to(cuda, dtype)
+    lens = torch.tensor([0, 1, L, L // 3, L // 2, 7, L - 1, 33],
+                        dtype=torch.int32, device=cuda)
+    want = da.decode_attention_plain(q, k, v, kv_len=lens).float()
+    atol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cands = autotune.decode_candidates(L)
+    for plan in cands:
+        got = da.decode_attention(q, k, v, kv_len=lens, plan=plan)
+        torch.testing.assert_close(got.float(), want, atol=atol, rtol=0)
+        assert da.decode_attention.last_plan == plan
+    dt = str(dtype).replace("torch.", "")
+    da.decode_attention(q, k, v, kv_len=lens)
+    assert da.decode_attention.last_plan == autotune.decode_plan(
+        B, KV, G, D, D, L, dt, n_sm)
+    other = _other_plan(cands, {"n_split": da.split_l(B, KV, L, n_sm)})
+    autotune_cache.store(autotune.decode_key(B, KV, G, D, D, L, dt, n_sm),
+                         autotune.TuneResult(other, 0.0, "measured",
+                                             len(cands)).to_json())
+    da.decode_attention(q, k, v, kv_len=lens)
+    assert da.decode_attention.last_plan == other

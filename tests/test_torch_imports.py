@@ -90,6 +90,15 @@ def test_port_has_the_whisper_and_training_slice_modules():
             "repro_torch.train.trainer", "repro_torch.launch.train"} <= mods
 
 
+def test_port_has_the_cost_model_and_autotune_slice_modules():
+    mods = set(_port_modules())
+    assert {"repro_torch.roofline", "repro_torch.roofline.hw",
+            "repro_torch.roofline.op_cost", "repro_torch.roofline.analysis",
+            "repro_torch.roofline.calibrate",
+            "repro_torch.kernels.autotune"} <= mods
+    assert (PORT / "kernels" / "tilings.json").is_file()
+
+
 def test_importing_the_port_loads_no_jax_and_no_repro():
     code = (
         "import importlib, sys\n"
