@@ -148,7 +148,26 @@ Phases, each fatal on failure:
      slots, cache 2,048) and train step (4 x 1,024 tokens, phase 11's
      depth) on fake tensors, and its ``Roofline`` is printed beside the
      tick and step phases 6 and 11 measured ("not measured" alone), with
-     the Amdahl sweep of its stage profile.
+     the Amdahl sweep of its stage profile;
+ 13. sharding (``--shard`` runs it alone): on ``launch.mesh.make_host_mesh()``
+     (a world of one over the card, ``nccl``) (a) llama3-8b at full width
+     and ``fit_depth`` depth in bf16 serves 8 prompts of 512 tokens and 16
+     greedy steps through ``serve_step.make_prefill`` and
+     ``make_decode_step``: the tokens must equal bit for bit those of
+     ``Model.prefill`` / ``decode_step`` called directly, and the counts
+     set to 0 just before the serve-step run and read after require flash
+     on wgmma once a layer and decode on mma once a layer a step;
+     (b) one step of ``make_train_step(sh=make_train_shardings(...))`` at
+     two layers (4 x 1,024 tokens, float32 masters): its loss must equal
+     the unsharded step's and flash's backward kernel must run; (c) the
+     dry run, ``python -m repro_torch.launch.dryrun --arch llama3-8b
+     --shape S`` for S in train_4k, prefill_32k and decode_32k, each in a
+     child process on the host (a fake group of 512 ranks, the pod16x16
+     mesh), started first so that it overlaps (a) and (b): each cell must
+     report ``status`` ok, 256 chips, a per-device peak within the card's
+     80 GB and collective bytes above 0; its Roofline and count seconds are
+     printed (a count against ``roofline.hw``'s data sheet, not a
+     measurement).
 
 Each phase prints the wall seconds it took (each served arch's smoke,
 full-width, profile and float32 steps too).
@@ -342,8 +361,8 @@ CLUSTER_S = 4.0
 CLUSTER_PLACEMENTS = ("device", "host")
 CLUSTER_BRACKET = (0.65, 1.4)
 # the bracket and the knee probe up to 2x the knee, where the four producer
-# threads, encoding crops on the host beside eight replica threads, fall
-# behind their schedule (on the card at compression 2, 0.65x the knee
+# threads, beside eight replica threads on the host, fall behind their
+# schedule (on the card at compression 2, 0.65x the knee
 # produced 5,016 of 5,954 messages and diverged by producer lag); at 1 the
 # same model-time load takes a quarter of the default's wall rate. The
 # closed form does not see the compression; a real-service batch's model
@@ -355,6 +374,14 @@ CLUSTER_ONLY, CLUSTER_TIMEOUT_S = "--cluster", 600
 # the arguments that run phase 10 (whisper) or phase 11 (training) alone,
 # after the build and the kernel checks of their kernels
 WHISPER_ONLY, TRAIN_ONLY, COST_ONLY = "--whisper", "--train", "--cost"
+SHARD_ONLY = "--shard"
+# phase 13 (sharding): the serve-step run's prompts, prompt length and
+# greedy steps, the sharded train step's depth, and the dry-run cells
+SHARD_PROMPTS, SHARD_PROMPT_LEN, SHARD_STEPS = 8, 512, 16
+SHARD_TRAIN_LAYERS = 2
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_OUT = ROOT / "build" / "dryrun"
+DRYRUN_TIMEOUT_S = 600
 # the measured picks of phase 12's sweep (never the committed seed), and the
 # overlay that takes the analytic picks of shapes outside the seed
 MEASURED_PLANS = ROOT / "build" / "autotune_measured.json"
@@ -3422,6 +3449,163 @@ def run_cost_phase(device, tick=None, train=None) -> None:
                      train["step_ms"] if train else None)
 
 
+def start_dryrun() -> dict:
+    """Phase 13 (c): one child process a dry-run cell of TRAIN_ARCH on the
+    pod16x16 mesh, started now; :func:`check_dryrun` waits for them."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for shape in DRYRUN_SHAPES:
+        procs[shape] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             TRAIN_ARCH, "--shape", shape, "--out", str(DRYRUN_OUT)],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+def check_dryrun(procs: dict) -> None:
+    """Wait for :func:`start_dryrun`'s cells and hold each one's record."""
+    from repro_torch.roofline.hw import HBM_BYTES
+    for shape, proc in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+                p.communicate()
+            raise SmokeFailure(f"dry run {shape}: over {DRYRUN_TIMEOUT_S} s")
+        path = DRYRUN_OUT / "pod16x16" / f"{TRAIN_ARCH}__{shape}.json"
+        tail = "\n".join(out.splitlines()[-12:])
+        require(proc.returncode == 0 and path.exists(),
+                f"dry run {shape}: exit {proc.returncode}\n{tail}")
+        rec = json.loads(path.read_text())
+        require(rec["status"] == "ok", f"dry run {shape}: {rec}")
+        keys = ("chips", "hlo_flops", "hlo_bytes", "coll_bytes",
+                "coll_breakdown", "bytes_per_device", "t_compute",
+                "t_memory", "t_collective", "bottleneck", "t_bound",
+                "t_ideal", "roofline_fraction", "model_flops", "t_count_s")
+        print(f"dryrun {TRAIN_ARCH} {shape} pod16x16: "
+              + json.dumps({k: rec[k] for k in keys}))
+        require(rec["chips"] == 256, f"dry run {shape}: {rec['chips']} chips")
+        require(rec["bytes_per_device"] <= HBM_BYTES,
+                f"dry run {shape}: {rec['bytes_per_device']} bytes a device")
+        require(rec["coll_bytes"] > 0, f"dry run {shape}: no collective")
+
+
+def shard_serve(device, mesh) -> dict:
+    """Phase 13 (a): greedy tokens of the serve steps on ``mesh`` against
+    the model's own prefill and decode, and the kernels' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve import serve_step
+    cfg, model, params = fit_depth(device, get_config(TRAIN_ARCH))
+    cache_len = SHARD_PROMPT_LEN + SHARD_STEPS
+    rng = np.random.default_rng(13)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SHARD_PROMPTS, SHARD_PROMPT_LEN))
+        .astype(np.int32)).to(device)
+
+    def greedy(prefill, decode):
+        with torch.inference_mode():
+            logits, cache = prefill(params, {"tokens": prompts})
+            toks = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+            for _ in range(SHARD_STEPS):
+                logits, cache = decode(params, cache, toks[-1])
+                toks.append(torch.argmax(logits, -1).to(torch.int32)[:, None])
+        torch.cuda.synchronize()
+        return torch.cat(toks, 1)
+
+    direct = greedy(lambda p, b: model.prefill(p, b, cache_len=cache_len),
+                    model.decode_step)
+    sh = serve_step.make_serve_shardings(model, mesh, SHARD_PROMPTS,
+                                         cache_len)
+    for w in (fa.flash_attention, da.decode_attention):
+        build.zero_launches(w)
+    t0 = time.perf_counter()
+    sharded = greedy(serve_step.make_prefill(model, sh, cache_len),
+                     serve_step.make_decode_step(model, sh))
+    ms = (time.perf_counter() - t0) * 1e3
+    routes = {"flash_attention": dict(fa.flash_attention.launches_by_route),
+              "decode_attention": dict(da.decode_attention.launches_by_route)}
+    same = bool(torch.equal(direct, sharded))
+    print(f"shard serve {cfg.name} {cfg.n_layers} layers: {SHARD_PROMPTS} x "
+          f"{SHARD_PROMPT_LEN} prompts, {SHARD_STEPS} steps through "
+          f"serve_step on {tuple(mesh.shape)} {mesh.device_type} mesh in "
+          f"{ms:.1f} ms; tokens bit-equal to Model.prefill/decode_step: "
+          f"{same}; launches {routes}")
+    require(same, "shard serve: serve_step tokens differ from the model's")
+    n = cfg.n_layers
+    require(routes["flash_attention"]["wgmma"] == n,
+            f"shard serve: flash wgmma launches {routes['flash_attention']}")
+    require(routes["decode_attention"]["mma"] == n * SHARD_STEPS,
+            f"shard serve: decode mma launches {routes['decode_attention']}")
+    return {"n_layers": n, "ms": ms, "routes": routes}
+
+
+def shard_train(device, mesh) -> dict:
+    """Phase 13 (b): one sharded train step on ``mesh`` against the
+    unsharded step's loss, and flash's backward launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import Model
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import init_opt_state
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=SHARD_TRAIN_LAYERS)
+    model = Model(cfg, device=device)
+    params = model.init(seed=0, masters=True)
+    batch = train_loader(cfg, device).next_batch()
+    loss_u, grads = ts.make_train_step(model, train_hp()).grads(params, batch)
+    loss_u = float(loss_u)
+    del grads
+    sh = ts.make_train_shardings(model, mesh)
+    build.zero_launches(fa.flash_attention_bwd)
+    t0 = time.perf_counter()
+    params, opt, metrics = ts.make_train_step(model, train_hp(), sh)(
+        params, init_opt_state(params), batch)
+    loss = float(metrics["loss"])
+    ms = (time.perf_counter() - t0) * 1e3
+    bwd = dict(fa.flash_attention_bwd.launches_by_route)
+    print(f"shard train {cfg.name} {cfg.n_layers} layers: loss {loss!r} "
+          f"(unsharded {loss_u!r}), grad norm {float(metrics['grad_norm']):.4f}, "
+          f"{ms:.1f} ms; flash backward launches {bwd}")
+    require(loss == loss_u, f"shard train: loss {loss} != unsharded {loss_u}")
+    require(sum(bwd.values()) >= cfg.n_layers,
+            f"shard train: flash backward launches {bwd}")
+    require(opt.count == 1, "shard train: no update")
+    return {"loss": loss, "ms": ms}
+
+
+def run_shard_phase(device) -> dict:
+    """Phase 13: the serve and train steps under shardings on a mesh of
+    one over the card, and the dry run's llama3-8b cells."""
+    import torch
+    from repro_torch.launch.mesh import destroy, make_host_mesh
+    procs = start_dryrun()
+    try:
+        mesh = make_host_mesh(device=device)
+        try:
+            serve = shard_serve(device, mesh)
+            torch.cuda.empty_cache()
+            train = shard_train(device, mesh)
+            torch.cuda.empty_cache()
+        finally:
+            destroy()
+        check_dryrun(procs)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return {"serve": serve, "train": train}
+
+
 def kernel_table():
     """Every ported kernel: its wrapper, source, the TPU kernel it
     replaces, and the path (for serve, the arch) whose run counts its
@@ -3604,6 +3788,18 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if sys.argv[1:] == [SHARD_ONLY]:
+        card = card_line()
+        print(f"card: {card}")
+        print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+        build.build_all()
+        with phase("sharding"):
+            run_shard_phase(device)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] in ([WHISPER_ONLY], [TRAIN_ONLY]):
         print(f"card: {card_line()}")
         build.build_all()
@@ -3677,6 +3873,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("cost model and autotune"):
         run_cost_phase(device, ticks[TRAIN_ARCH], train)
+    torch.cuda.empty_cache()
+    with phase("sharding"):
+        run_shard_phase(device)
 
     rows = []
     for k in kernels:

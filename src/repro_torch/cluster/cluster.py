@@ -255,6 +255,44 @@ class _ReplicaState:
         self.batch_spans: list[tuple[int, float]] = []  # real mode
 
 
+class WireCrops:
+    """One feeder thread's messages' crops in the wire format: its
+    generator's (48, 48, 3) uint8 draws through the camera's encoder
+    (``preprocess.host.rgb_to_yuv``, planar YUV), one a message.
+
+    The first ``ahead`` are drawn and encoded in bulk when this is made,
+    which an open-loop producer does before the run's clock starts: in
+    the deployment the cameras are other hosts, and encoding on the
+    clock put their codec's work on the cluster's own host, where it
+    delayed the producers' schedule and the replicas. The crops are the
+    same, byte for byte, as drawing and encoding one a call.
+    """
+
+    CHUNK = 256                      # crops a bulk encode (bounds its temp)
+
+    def __init__(self, rng, ahead: int = 0):
+        import numpy as np
+        self._rng = rng
+        self._ahead = np.empty((ahead, 3, 48, 48), np.uint8)
+        for j in range(0, ahead, self.CHUNK):
+            n = min(self.CHUNK, ahead - j)
+            self._ahead[j:j + n] = self._encode((n, 48, 48, 3))
+        self._i = 0
+
+    def _encode(self, shape):
+        import numpy as np
+        from repro_torch.preprocess import host as pre_host
+        return pre_host.rgb_to_yuv(
+            self._rng.integers(0, 256, shape, dtype=np.uint8))
+
+    def next(self):
+        """The next message's (3, 48, 48) uint8 wire crop."""
+        if self._i < len(self._ahead):
+            self._i += 1
+            return self._ahead[self._i - 1]
+        return self._encode((48, 48, 3))
+
+
 class ServingCluster:
     def __init__(self, spec: ClusterSpec, slo: TailSLO | None = None):
         self.spec = spec
@@ -347,6 +385,16 @@ class ServingCluster:
     def start(self) -> None:
         sp = self.spec
         self.warm()
+        trace = sp.resolve_trace()
+        feeds = []
+        if trace is None and sp.loop != "closed":
+            # open-loop producers: each one's schedule, and in real mode
+            # its crops encoded ahead, before the clock starts
+            gen = OpenLoopLoadGen(sp.n_producers, sp.period_s,
+                                  process=sp.arrival, seed=sp.seed)
+            for i in range(gen.n_producers):
+                schedule = gen.schedule(i, sp.sim_time)
+                feeds.append((schedule, self._wire_crops(i, len(schedule))))
         self.t0 = time.perf_counter()
         self.wall_deadline = self.t0 + sp.sim_time / sp.time_compression
         self.topic = LiveTopic("faces", sp.partitions, sp.scaled_broker(),
@@ -364,7 +412,6 @@ class ServingCluster:
             rt.start()
         for _ in range(sp.n_replicas):
             self.add_replica()
-        trace = sp.resolve_trace()
         if trace is not None:
             # trace replay owns the arrival process (loadgen idle): one
             # producer thread paces the recorded timeline with the
@@ -382,12 +429,9 @@ class ServingCluster:
                 self._feeder_threads.append(t)
                 t.start()
         else:
-            gen = OpenLoopLoadGen(sp.n_producers, sp.period_s,
-                                  process=sp.arrival, seed=sp.seed)
-            for i in range(gen.n_producers):
-                t = threading.Thread(
-                    target=self._producer, daemon=True,
-                    args=(i, gen.schedule(i, sp.sim_time)))
+            for i, (schedule, crops) in enumerate(feeds):
+                t = threading.Thread(target=self._producer, daemon=True,
+                                     args=(i, schedule, crops))
                 self._feeder_threads.append(t)
                 t.start()
         mon = threading.Thread(target=self._monitor, daemon=True)
@@ -531,8 +575,15 @@ class ServingCluster:
         import numpy as np
         return np.random.default_rng(self.spec.seed * 7919 + stream)
 
+    def _wire_crops(self, stream: int, ahead: int = 0):
+        """Feeder ``stream``'s wire-format crops (real mode; None in
+        paced mode), the next ``ahead`` of them encoded now."""
+        if self.spec.service != "real":
+            return None
+        return WireCrops(self._crop_rng(stream), ahead)
+
     def _produce_one(self, rid: int, scheduled_model: float,
-                     crop_rng=None, part=None, size=None) -> bool:
+                     crops=None, part=None, size=None) -> bool:
         """Admit + publish one message; False if dropped/rejected.
 
         ``part``/``size`` carry a trace event's pinned partition (keyed
@@ -541,7 +592,7 @@ class ServingCluster:
         """
         sp = self.spec
         if self._rel_routed:
-            return self._produce_rel(rid, scheduled_model, crop_rng,
+            return self._produce_rel(rid, scheduled_model, crops,
                                      part=part, size=size)
         if part is None:
             part = self.topic.pick_partition()
@@ -571,13 +622,8 @@ class ServingCluster:
                       t_produced=now)
         msg.meta["scheduled"] = scheduled_model
         if sp.service == "real":
-            import numpy as np
-            from repro_torch.preprocess import host as pre_host
-            crop = crop_rng.integers(0, 256, (48, 48, 3), dtype=np.uint8)
-            # the wire format: codec-encoded planar YUV (the encode
-            # stands for the camera/codec, like the pipeline's ingest)
-            msg.meta["crop_yuv"] = pre_host.rgb_to_yuv(crop)
-            msg.size = float(crop.nbytes)
+            msg.meta["crop_yuv"] = crops.next()
+            msg.size = float(msg.meta["crop_yuv"].nbytes)
         with self._lock:
             self._lag_sum += max(0.0, now - scheduled_model)
         self.topic.publish(msg, part)
@@ -586,7 +632,7 @@ class ServingCluster:
     # ---- reliability lifecycle (mirrors the DES rel_send/rcheck path) -----
 
     def _produce_rel(self, rid: int, scheduled_model: float,
-                     crop_rng=None, part=None, size=None) -> bool:
+                     crops=None, part=None, size=None) -> bool:
         """Register one request and issue its first attempt.
 
         The reliability path replaces bounded admission with breaker
@@ -602,11 +648,8 @@ class ServingCluster:
         size = sp.wl.face_bytes if size is None else size
         crop_yuv = None
         if sp.service == "real":
-            import numpy as np
-            from repro_torch.preprocess import host as pre_host
-            crop = crop_rng.integers(0, 256, (48, 48, 3), dtype=np.uint8)
-            crop_yuv = pre_host.rgb_to_yuv(crop)
-            size = float(crop.nbytes)
+            crop_yuv = crops.next()
+            size = float(crop_yuv.nbytes)
         with self._lock:
             # attempt ledger: retries re-publish from this template so a
             # re-sent message carries the ORIGINAL payload + t_produced
@@ -791,13 +834,13 @@ class ServingCluster:
         """
         from repro_torch.cluster.trace import TraceReplayProducer
         sp = self.spec
-        rng = self._crop_rng(0) if sp.service == "real" else None
+        crops = self._wire_crops(0)
         rp = TraceReplayProducer(trace)
 
         def publish(ev, t_rep):
             part = (self.topic.partitions[ev.partition_key % sp.partitions]
                     if ev.partition_key is not None else None)
-            self._produce_one(ev.rid, t_rep, rng, part=part,
+            self._produce_one(ev.rid, t_rep, crops, part=part,
                               size=float(ev.payload_bytes))
 
         def heartbeat(k, t_mark):
@@ -807,9 +850,8 @@ class ServingCluster:
         rp.run_live(self.t0, self.wall_deadline, sp.time_compression,
                     publish, heartbeat)
 
-    def _producer(self, i: int, schedule: list[float]) -> None:
+    def _producer(self, i: int, schedule: list[float], crops) -> None:
         sp = self.spec
-        rng = self._crop_rng(i) if sp.service == "real" else None
         for k, arrival in enumerate(schedule):
             wall = self.t0 + arrival / sp.time_compression
             delay = wall - time.perf_counter()
@@ -817,13 +859,13 @@ class ServingCluster:
                 time.sleep(delay)
             if time.perf_counter() >= self.wall_deadline:
                 return
-            self._produce_one(i + k * sp.n_producers, arrival, rng)
+            self._produce_one(i + k * sp.n_producers, arrival, crops)
 
     # ---- clients (closed loop) --------------------------------------------
 
     def _client(self, i: int, think) -> None:
         sp = self.spec
-        rng = self._crop_rng(i) if sp.service == "real" else None
+        crops = self._wire_crops(i)
         k = 0
         while time.perf_counter() < self.wall_deadline:
             rid = i + k * sp.n_clients
@@ -833,7 +875,7 @@ class ServingCluster:
             # replica side reads through dict.get on a different key
             # space per client, and CPython dict setitem is atomic
             self._done_events[rid] = evt  # lint: waive race-check -- per-client key space, atomic dict setitem, reader uses .get
-            if self._produce_one(rid, self._now_model(), rng):
+            if self._produce_one(rid, self._now_model(), crops):
                 evt.wait(timeout=max(
                     0.0, self.wall_deadline - time.perf_counter()))
             self._done_events.pop(rid, None)

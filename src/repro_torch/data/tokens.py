@@ -8,7 +8,8 @@ seed and step: each row ``base + r`` of a step is its own
 local_batch``. The loader is seekable by step (the trainer seeks after a
 restore), materializes only its host's rows, and produces the next-token
 labels itself. Batches are torch tensors on the loader's device (the card
-unless the caller passes ``device="cpu"``); there is no sharding.
+unless the caller passes ``device="cpu"``), laid out by ``sharding`` (a
+:class:`~repro_torch.distributed.sharding.NamedSharding`) when one is given.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import sharding as shd
 
 
 class SyntheticLM:
@@ -53,7 +55,7 @@ class TokenLoader:
 
     def __init__(self, vocab_size: int, batch: int, seq_len: int,
                  seed: int = 0, host_index: int = 0, host_count: int = 1,
-                 device="cuda"):
+                 sharding=None, device="cuda"):
         assert batch % host_count == 0
         self.src = SyntheticLM(vocab_size, seed)
         self.batch = batch
@@ -61,6 +63,7 @@ class TokenLoader:
         self.seq_len = seq_len
         self.host_index = host_index
         self.host_count = host_count
+        self.sharding = sharding
         self.device = resolve_device(device)
         self._step = 0
 
@@ -74,5 +77,8 @@ class TokenLoader:
             rows.append(self.src.sequence(self.seq_len, seed=base + r))
         self._step += 1
         arr = torch.from_numpy(np.stack(rows))
-        return {"tokens": arr[:, :-1].contiguous().to(self.device),
-                "labels": arr[:, 1:].contiguous().to(self.device)}
+        out = {"tokens": arr[:, :-1].contiguous().to(self.device),
+               "labels": arr[:, 1:].contiguous().to(self.device)}
+        if self.sharding is not None:
+            out = {k: shd.lay_out(t, self.sharding) for k, t in out.items()}
+        return out

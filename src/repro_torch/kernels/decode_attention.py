@@ -23,6 +23,7 @@ import functools
 
 import torch
 
+from repro_torch.distributed.sharding import shard, sharded_context
 from repro_torch.kernels import autotune, build
 
 NEG_INF = -1e30
@@ -83,6 +84,11 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, D, L, KV, Dv = _check_shapes(q, k, v, kv_len)
     G = H // KV
     scale = (1.0 / D**0.5) if scale is None else scale
+    if sharded_context():
+        # on a mesh the query's heads may be split where its (KV, G)
+        # grouping does not divide (8 kv heads on a 16-way axis), which
+        # DTensor cannot reshape: the one query token takes every head
+        q = shard(q, "batch", None, None, None)
     qf = (q[:, 0].float() * scale).reshape(B, KV, G, D)
     s = torch.einsum("bkgd,bskd->bkgs", qf, k.float())
     pos = torch.arange(L, device=q.device)[None, :]

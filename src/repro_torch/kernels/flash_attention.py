@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from repro_torch.distributed.sharding import sharded_context
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
@@ -120,10 +121,53 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     computes it: fp32 scores of ``q * scale`` against the kv heads of each
     group, the masks as NEG_INF, softmax, fp32 P @ V, cast to q's type."""
     B, Sq, H, D, Skv, KV, Dv = _check_shapes(q, k, v)
+    if sharded_context():
+        return _plain_by_heads(q, k, v, causal, window, q_offset, scale)
     s, _ = _plain_scores(q, k, v, causal, window, q_offset, scale)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+def _plain_by_heads(q, k, v, causal, window, q_offset, scale):
+    """The plain version in the reference's sharded layout (its XLA
+    attention block, ``repro.kernels.ops._attn_block``), taken under a
+    sharding context on a mesh of more than one device: the kv heads
+    expanded to H, so that the (B, H, Sq, Skv) float32 scores shard over
+    the batch and the heads even where KV does not divide the model axis,
+    or, where H does not either, over the query rows (``attn_q``).
+
+    q, k and v are laid out so (the scores' spec, ``("batch", "heads",
+    "attn_q", None)``), and each rank then runs the grouped plain version
+    on its own shards, as a kernel would on its device: its rows of the
+    batch, its heads and its query rows (offset by where they start), all
+    of the keys. No collective runs inside; autograd goes through the
+    shards. The same numbers as the grouped layout on one device."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as shd
+    B, Sq, H, D, Skv, KV, Dv = _check_shapes(q, k, v)
+    G = H // KV
+    if G > 1:
+        k = k[:, :, :, None].expand(B, Skv, KV, G, D).reshape(B, Skv, H, D)
+        v = v[:, :, :, None].expand(B, Skv, KV, G, Dv).reshape(B, Skv, H, Dv)
+    mesh, rules = shd.active()
+    sb, sh, sq = (shd.spec_for(("batch", "heads", "attn_q", None),
+                               (B, H, Sq, Skv), mesh, rules)
+                  + (None,) * 3)[:3]
+    q = shd.lay_out(q, shd.NamedSharding(mesh, (sb, sq, sh)))
+    k = shd.lay_out(k, shd.NamedSharding(mesh, (sb, None, sh)))
+    v = shd.lay_out(v, shd.NamedSharding(mesh, (sb, None, sh)))
+    _, offset = shd.local_box(q.shape, mesh, q.placements)
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    s, _ = _plain_scores(ql, kl, vl, causal, window, q_offset + offset[1],
+                         scale)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, vl.float())
+    o = o.reshape(*ql.shape[:3], Dv).to(ql.dtype).contiguous()
+    return DTensor.from_local(o, mesh, q.placements, run_check=False,
+                              shape=torch.Size((B, Sq, H, Dv)),
+                              stride=(Sq * H * Dv, H * Dv, Dv, 1))
 
 
 def flash_attention_lse_plain(q, k, v, *, causal=True, window=None,

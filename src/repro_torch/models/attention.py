@@ -41,7 +41,14 @@ any Pallas kernel, so there is no kernel of it to port.
 The reference's decode returns a new cache (JAX donates the old one);
 here the new token's entries are written into the cache tensors in place
 (``index_put_`` for the ragged per-row insert) and the same tensors are
-returned.
+returned. A cache laid out on a mesh (a DTensor, sequence-sharded under
+the serve rules) is written shard by shard: each rank writes the
+positions it holds (:func:`repro_torch.distributed.sharding.write_at`).
+
+The ``shard()`` constraints sit where the reference's do (q and k after
+the projection, the prefill cache, the decode cache after its update,
+MLA's expanded q and k and its latent cache); outside a sharding context
+or on a mesh of one device each returns its argument.
 
 :func:`attn_apply` is the training forward: :func:`attn_prefill` without
 the cache.
@@ -50,6 +57,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import (
+    merge_last, shard, split_last, write_at,
+)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import P, apply_norm, norm_meta, rope
 
@@ -67,19 +77,23 @@ def attn_meta(cfg) -> dict:
     d, H, KV, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if cfg.mla is not None:
         m = cfg.mla
-        return {"wq_a": P((d, m.q_lora)),
+        return {"wq_a": P((d, m.q_lora), ("embed", "lora")),
                 "q_norm": norm_meta(cfg, m.q_lora),
-                "wq_b": P((m.q_lora, H * (m.qk_nope + m.qk_rope))),
-                "wkv_a": P((d, m.kv_lora + m.qk_rope)),
+                "wq_b": P((m.q_lora, H * (m.qk_nope + m.qk_rope)),
+                          ("lora", "heads")),
+                "wkv_a": P((d, m.kv_lora + m.qk_rope), ("embed", None)),
                 "kv_norm": norm_meta(cfg, m.kv_lora),
-                "wkv_b": P((m.kv_lora, H * (m.qk_nope + m.v_head))),
-                "wo": P((H * m.v_head, d))}
-    meta = {"wq": P((d, H * D)), "wk": P((d, KV * D)), "wv": P((d, KV * D)),
-            "wo": P((H * D, d))}
+                "wkv_b": P((m.kv_lora, H * (m.qk_nope + m.v_head)),
+                           ("lora", "heads")),
+                "wo": P((H * m.v_head, d), ("heads", "embed"))}
+    meta = {"wq": P((d, H * D), ("embed", "heads")),
+            "wk": P((d, KV * D), ("embed", "kv_heads")),
+            "wv": P((d, KV * D), ("embed", "kv_heads")),
+            "wo": P((H * D, d), ("heads", "embed"))}
     if cfg.qkv_bias:
-        meta["bq"] = P((H * D,), "zeros")
-        meta["bk"] = P((KV * D,), "zeros")
-        meta["bv"] = P((KV * D,), "zeros")
+        meta["bq"] = P((H * D,), ("heads",), "zeros")
+        meta["bk"] = P((KV * D,), ("kv_heads",), "zeros")
+        meta["bv"] = P((KV * D,), ("kv_heads",), "zeros")
     if cfg.qk_norm:
         meta["qn"] = norm_meta(cfg, D)
         meta["kn"] = norm_meta(cfg, D)
@@ -88,18 +102,19 @@ def attn_meta(cfg) -> dict:
 
 def attn_cache_meta(cfg, spec, batch: int, cache_len: int) -> dict:
     """One attention layer's cache leaves, under the reference's names:
-    name -> (shape, dtype; None for the compute dtype)."""
+    name -> (shape, dtype (None for the compute dtype), logical axes)."""
     if cfg.mla is not None:
         m = cfg.mla
-        return {"ckv": ((batch, cache_len, m.kv_lora), None),
-                "kr": ((batch, cache_len, m.qk_rope), None)}
+        axes = ("batch", "kv_seq", None)
+        return {"ckv": ((batch, cache_len, m.kv_lora), None, axes),
+                "kr": ((batch, cache_len, m.qk_rope), None, axes)}
     L = min(spec.window, cache_len) if spec.window else cache_len
     shape = (batch, L, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": (shape, None), "v": (shape, None)}
+    axes = ("batch", "kv_seq", "kv_heads", None)
+    return {"k": (shape, None, axes), "v": (shape, None, axes)}
 
 
 def _project_qkv(cfg, p, x, positions):
-    B, S, _ = x.shape
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ p["wq"]
     k = x @ p["wk"]
@@ -108,9 +123,7 @@ def _project_qkv(cfg, p, x, positions):
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    q = q.reshape(B, S, H, D)
-    k = k.reshape(B, S, KV, D)
-    v = v.reshape(B, S, KV, D)
+    q, k, v = split_last(q, H, D), split_last(k, KV, D), split_last(v, KV, D)
     if cfg.qk_norm:
         q = apply_norm(cfg, p["qn"], q)
         k = apply_norm(cfg, p["kn"], k)
@@ -158,7 +171,9 @@ def _positions(cur_len, B: int, device):
 
 def _insert(cache: torch.Tensor, new: torch.Tensor, slot, ragged: bool):
     """Write ``new`` (B, ...) at ``slot`` (an int, or one per row) of a
-    (B, L, ...) cache, in place."""
+    (B, L, ...) cache, in place (shard by shard for a DTensor cache)."""
+    if write_at(cache, new, slot, ragged):
+        return
     if ragged:
         rows = torch.arange(cache.shape[0], device=cache.device)
         cache.index_put_((rows, slot), new)
@@ -171,9 +186,10 @@ def attn_apply(cfg, spec, p, x, positions):
     if cfg.mla is not None:
         return _mla_apply(cfg, p, x, positions)[0]
     q, k, v = _project_qkv(cfg, p, x, positions)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
     o = ops.attention(q, k, v, causal=True, window=spec.window)
-    B, S = x.shape[:2]
-    return o.reshape(B, S, -1) @ p["wo"]
+    return merge_last(o) @ p["wo"]
 
 
 def attn_prefill(cfg, spec, p, x, positions, cache_len: int):
@@ -181,16 +197,20 @@ def attn_prefill(cfg, spec, p, x, positions, cache_len: int):
     min(W, cache_len) for a window of W)."""
     if cfg.mla is not None:
         y, (ckv, kr) = _mla_apply(cfg, p, x, positions)
-        return y, {"ckv": _fit(ckv, cache_len), "kr": _fit(kr, cache_len)}
+        return y, {n: shard(_fit(c, cache_len), "batch", "kv_seq", None)
+                   for n, c in (("ckv", ckv), ("kr", kr))}
     q, k, v = _project_qkv(cfg, p, x, positions)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
     o = ops.attention(q, k, v, causal=True, window=spec.window)
-    B, S = x.shape[:2]
-    y = o.reshape(B, S, -1) @ p["wo"]
+    y = merge_last(o) @ p["wo"]
     if spec.window and cache_len >= spec.window:
         cache = {"k": _roll_window(k, spec.window),
                  "v": _roll_window(v, spec.window)}
     else:
         cache = {"k": _fit(k, cache_len), "v": _fit(v, cache_len)}
+    cache = {n: shard(c, "batch", "kv_seq", "kv_heads", None)
+             for n, c in cache.items()}
     return y, cache
 
 
@@ -208,7 +228,6 @@ def attn_decode(cfg, spec, p, x, cache, cur_len):
     if cfg.mla is not None:
         return _mla_decode(cfg, p, x, cache, cur_len)
     B = x.shape[0]
-    H, D = cfg.n_heads, cfg.head_dim
     ragged, cur, pos = _positions(cur_len, B, x.device)
     q, k, v = _project_qkv(cfg, p, x, pos)
     ck, cv = cache["k"], cache["v"]
@@ -216,13 +235,15 @@ def attn_decode(cfg, spec, p, x, cache, cur_len):
     slot = cur % L if spec.window else cur
     _insert(ck, k[:, 0], slot, ragged)
     _insert(cv, v[:, 0], slot, ragged)
+    ck = shard(ck, "batch", "kv_seq", "kv_heads", None)
+    cv = shard(cv, "batch", "kv_seq", "kv_heads", None)
     n = cur + 1
     if spec.window:
         n = torch.clamp(n, max=L) if ragged else min(n, L)
     kv_len = (n.to(torch.int32) if ragged else
               torch.full((B,), n, dtype=torch.int32, device=x.device))
     o = ops.decode_attention(q, ck, cv, kv_len=kv_len)
-    y = o.reshape(B, 1, H * D) @ p["wo"]
+    y = merge_last(o) @ p["wo"]
     return y, cache
 
 
@@ -232,10 +253,9 @@ def attn_decode(cfg, spec, p, x, cache, cur_len):
 
 def _mla_project(cfg, p, x, positions):
     m = cfg.mla
-    B, S, _ = x.shape
     H = cfg.n_heads
     cq = apply_norm(cfg, p["q_norm"], x @ p["wq_a"])
-    q = (cq @ p["wq_b"]).reshape(B, S, H, m.qk_nope + m.qk_rope)
+    q = split_last(cq @ p["wq_b"], H, m.qk_nope + m.qk_rope)
     q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
     kv = x @ p["wkv_a"]
@@ -252,14 +272,16 @@ def _mla_apply(cfg, p, x, positions):
     B, S, _ = x.shape
     H = cfg.n_heads
     q_nope, q_rope, ckv, kr = _mla_project(cfg, p, x, positions)
-    kvb = (ckv @ p["wkv_b"]).reshape(B, S, H, m.qk_nope + m.v_head)
+    kvb = split_last(ckv @ p["wkv_b"], H, m.qk_nope + m.v_head)
     k_nope, v = kvb[..., :m.qk_nope], kvb[..., m.qk_nope:].contiguous()
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, kr[:, :, None].expand(B, S, H, m.qk_rope)],
                   dim=-1)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "heads", None)
     scale = (m.qk_nope + m.qk_rope) ** -0.5
     o = ops.attention(q, k, v, causal=True, scale=scale)
-    y = o.reshape(B, S, H * m.v_head) @ p["wo"]
+    y = merge_last(o) @ p["wo"]
     return y, (ckv, kr)
 
 
@@ -276,7 +298,9 @@ def _mla_decode(cfg, p, x, cache, cur_len):
     ckv, kr = cache["ckv"], cache["kr"]
     _insert(ckv, ckv_t[:, 0], cur, ragged)
     _insert(kr, kr_t[:, 0], cur, ragged)
-    wkv_b = p["wkv_b"].reshape(m.kv_lora, H, m.qk_nope + m.v_head)
+    ckv = shard(ckv, "batch", "kv_seq", None)
+    kr = shard(kr, "batch", "kv_seq", None)
+    wkv_b = split_last(p["wkv_b"], H, m.qk_nope + m.v_head)
     wk = wkv_b[..., :m.qk_nope]            # (lora, H, nope)
     wv = wkv_b[..., m.qk_nope:]            # (lora, H, v)
     q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0], wk)
@@ -291,5 +315,5 @@ def _mla_decode(cfg, p, x, cache, cur_len):
     pr = torch.softmax(s, dim=-1)
     o_lat = torch.einsum("bhs,bsl->bhl", pr, ckv_f)
     o = torch.einsum("bhl,lhv->bhv", o_lat.to(x.dtype), wv)
-    y = o.reshape(B, 1, H * m.v_head) @ p["wo"]
+    y = merge_last(o[:, None]) @ p["wo"]
     return y, cache

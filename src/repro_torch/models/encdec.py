@@ -44,6 +44,9 @@ import functools
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import (
+    merge_last, shard, split_last, write_at,
+)
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
@@ -70,8 +73,10 @@ def check_supported(cfg) -> None:
 
 def _xattn_meta(cfg) -> dict:
     d, H, D = cfg.d_model, cfg.n_heads, cfg.head_dim
-    return {"wq": P((d, H * D)), "wk": P((d, H * D)), "wv": P((d, H * D)),
-            "wo": P((H * D, d))}
+    return {"wq": P((d, H * D), ("embed", "heads")),
+            "wk": P((d, H * D), ("embed", "heads")),
+            "wv": P((d, H * D), ("embed", "heads")),
+            "wo": P((H * D, d), ("heads", "embed"))}
 
 
 def encdec_meta(cfg) -> dict:
@@ -81,7 +86,7 @@ def encdec_meta(cfg) -> dict:
                  "lnx": norm_meta(cfg), "xattn": _xattn_meta(cfg),
                  "ln2": norm_meta(cfg), "mlp": mlp_meta(cfg)}
     return {"embed": embed_meta(cfg),
-            "enc_in": P((cfg.d_model, cfg.d_model)),   # frontend stub proj
+            "enc_in": P((cfg.d_model, cfg.d_model), ("embed", None)),
             "enc": [enc_layer] * cfg.n_enc_layers,
             "ln_enc": norm_meta(cfg),
             "dec": [dec_layer] * cfg.n_layers,
@@ -97,6 +102,14 @@ def encdec_cache_meta(cfg, batch: int, cache_len: int) -> dict:
             "xv": (n, batch, cfg.cross_seq, H, D)}
 
 
+def encdec_cache_axes(cfg) -> dict:
+    """The logical axes of :func:`encdec_cache_meta`'s leaves, the leading
+    layer axis None (the reference's stacked leaves)."""
+    self_kv = (None, "batch", "kv_seq", "heads", None)
+    cross_kv = (None, "batch", None, "heads", None)
+    return {"k": self_kv, "v": self_kv, "xk": cross_kv, "xv": cross_kv}
+
+
 def _layers(fn, x, layers, remat: bool):
     """``x = fn(layer, x)`` over ``layers``, each under
     ``torch.utils.checkpoint`` when ``remat`` and grad is enabled."""
@@ -109,13 +122,13 @@ def _layers(fn, x, layers, remat: bool):
 
 def _enc_block(cfg, lp, x):
     lp = cast_params(lp, x.dtype, stacked=True)
-    B, S, _ = x.shape
+    x = shard(x, "batch", "seq", None)
     h = apply_norm(cfg, lp["ln1"], x)
     q, k, v = attn._project_qkv(cfg, lp["attn"], h, None)
     o = ops.attention(q, k, v, causal=False)
-    x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"]
+    x = x + merge_last(o) @ lp["attn"]["wo"]
     h = apply_norm(cfg, lp["ln2"], x)
-    return x + mlp_apply(cfg, lp["mlp"], h)
+    return shard(x + mlp_apply(cfg, lp["mlp"], h), "batch", "seq_block", None)
 
 
 def encode(cfg, params, frames: torch.Tensor, *,
@@ -126,43 +139,43 @@ def encode(cfg, params, frames: torch.Tensor, *,
     B, S, d = frames.shape
     x = frames.to(dtype) @ params["enc_in"].to(dtype)
     x = x + sincos_positions(S, d, device=x.device).to(dtype)[None]
+    x = shard(x, "batch", "seq", None)
     x = _layers(functools.partial(_enc_block, cfg), x, params["enc"], remat)
-    return apply_norm(cfg, params["ln_enc"], x)
+    return apply_norm(cfg, params["ln_enc"], shard(x, "batch", "seq", None))
 
 
 def _cross_kv(cfg, lp, enc):
-    B, Sx, _ = enc.shape
     H, D = cfg.n_heads, cfg.head_dim
-    k = (enc @ lp["xattn"]["wk"]).reshape(B, Sx, H, D)
-    v = (enc @ lp["xattn"]["wv"]).reshape(B, Sx, H, D)
+    k = split_last(enc @ lp["xattn"]["wk"], H, D)
+    v = split_last(enc @ lp["xattn"]["wv"], H, D)
     return k, v
 
 
 def _cross(cfg, lp, x, xk, xv):
     """The decoder layer's cross attention and MLP on x (B, S, d)."""
-    B, S, _ = x.shape
     h = apply_norm(cfg, lp["lnx"], x)
-    q = (h @ lp["xattn"]["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    q = split_last(h @ lp["xattn"]["wq"], cfg.n_heads, cfg.head_dim)
     o = ops.attention(q, xk, xv, causal=False)
-    x = x + o.reshape(B, S, -1) @ lp["xattn"]["wo"]
+    x = x + merge_last(o) @ lp["xattn"]["wo"]
     h = apply_norm(cfg, lp["ln2"], x)
-    return x + mlp_apply(cfg, lp["mlp"], h)
+    return shard(x + mlp_apply(cfg, lp["mlp"], h), "batch", "seq", None)
 
 
 def _dec_prefill_layer(cfg, lp, x, enc):
     """One decoder layer over the whole sequence: (x, (k, v, xk, xv))."""
-    B, S, _ = x.shape
     xk, xv = _cross_kv(cfg, lp, enc)
     h = apply_norm(cfg, lp["ln1"], x)
     q, k, v = attn._project_qkv(cfg, lp["attn"], h, None)
     o = ops.attention(q, k, v, causal=True)
-    x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"]
+    x = x + merge_last(o) @ lp["attn"]["wo"]
     return _cross(cfg, lp, x, xk, xv), (k, v, xk, xv)
 
 
 def _dec_train_block(cfg, lp, x, enc):
     lp = cast_params(lp, x.dtype, stacked=True)
-    return _dec_prefill_layer(cfg, lp, x, enc)[0]
+    x = shard(x, "batch", "seq", None)
+    return shard(_dec_prefill_layer(cfg, lp, x, enc)[0],
+                 "batch", "seq_block", None)
 
 
 def _embed_dec(cfg, params, tokens, offset: int = 0):
@@ -182,7 +195,7 @@ def encdec_forward(cfg, params, frames, tokens, *, remat: bool = True):
     def block(lp, x):
         return _dec_train_block(cfg, lp, x, enc)
 
-    x = _layers(block, x, params["dec"], remat)
+    x = shard(_layers(block, x, params["dec"], remat), "batch", "seq", None)
     return (apply_norm(cfg, params["ln_f"], x),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -211,7 +224,6 @@ def encdec_decode_step(cfg, params, cache, tokens):
     cur_len = int(cache["cur_len"])
     x = _embed_dec(cfg, params, tokens, offset=cur_len)
     B = tokens.shape[0]
-    H, D = cfg.n_heads, cfg.head_dim
     c = cache["dec"]
     kv_len = torch.full((B,), cur_len + 1, dtype=torch.int32, device=x.device)
     for i, lp in enumerate(params["dec"]):
@@ -219,10 +231,13 @@ def encdec_decode_step(cfg, params, cache, tokens):
         h = apply_norm(cfg, lp["ln1"], x)
         q, k, v = attn._project_qkv(cfg, lp["attn"], h, None)
         ck, cv = c["k"][i], c["v"][i]
-        ck[:, cur_len] = k[:, 0]
-        cv[:, cur_len] = v[:, 0]
+        for cache, new in ((ck, k[:, 0]), (cv, v[:, 0])):
+            if not write_at(cache, new, cur_len, False):
+                cache[:, cur_len] = new
+        ck = shard(ck, "batch", "kv_seq", "heads", None)
+        cv = shard(cv, "batch", "kv_seq", "heads", None)
         o = ops.decode_attention(q, ck, cv, kv_len=kv_len)
-        x = x + o.reshape(B, 1, H * D) @ lp["attn"]["wo"]
+        x = x + merge_last(o) @ lp["attn"]["wo"]
         x = _cross(cfg, lp, x, c["xk"][i], c["xv"][i])
     x = apply_norm(cfg, params["ln_f"], x)
     logits = unembed(cfg, params["embed"], x[:, -1:])[:, 0]

@@ -20,6 +20,10 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (
+    reduce_partial, shard, sharded_context,
+)
+
 
 # the configs' compute dtypes
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -28,10 +32,16 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 @dataclass(frozen=True)
 class P:
-    """Parameter metadata: shape and initializer."""
+    """Parameter metadata: shape, the logical axis of each dim (the
+    reference's names, :mod:`repro_torch.distributed.sharding`) and
+    initializer."""
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
     init: str = "normal"          # normal | zeros | ones
     scale: float | None = None    # stddev; default fan_in**-0.5
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
 def map_tree(fn, tree):
@@ -47,6 +57,11 @@ def tree_leaves(tree) -> list:
     out = []
     map_tree(out.append, tree)
     return out
+
+
+def meta_axes(tree):
+    """Tree of logical-axes tuples, same structure as the parameters."""
+    return map_tree(lambda p: p.axes, tree)
 
 
 def cast_leaf(t: torch.Tensor, dtype: torch.dtype,
@@ -140,8 +155,9 @@ def groupnorm_heads(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def norm_meta(cfg, d: int | None = None) -> dict:
     d = d or cfg.d_model
     if cfg.norm == "layernorm":
-        return {"w": P((d,), "ones"), "b": P((d,), "zeros")}
-    return {"w": P((d,), "ones")}
+        return {"w": P((d,), (None,), "ones"),
+                "b": P((d,), (None,), "zeros")}
+    return {"w": P((d,), (None,), "ones")}
 
 
 def apply_norm(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -200,9 +216,13 @@ def act_fn(name: str):
 def mlp_meta(cfg, d_ff: int | None = None) -> dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff
     if cfg.mlp_kind == "plain":
-        return {"wi": P((d, f)), "bi": P((f,), "zeros"),
-                "wo": P((f, d)), "bo": P((d,), "zeros")}
-    return {"wg": P((d, f)), "wi": P((d, f)), "wo": P((f, d))}
+        return {"wi": P((d, f), ("embed", "mlp")),
+                "bi": P((f,), ("mlp",), "zeros"),
+                "wo": P((f, d), ("mlp", "embed")),
+                "bo": P((d,), (None,), "zeros")}
+    return {"wg": P((d, f), ("embed", "mlp")),
+            "wi": P((d, f), ("embed", "mlp")),
+            "wo": P((f, d), ("mlp", "embed"))}
 
 
 def mlp_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -216,9 +236,10 @@ def mlp_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
 # ---- embeddings (untied, or tied to the token table) ---------------------
 
 def embed_meta(cfg) -> dict:
-    m = {"tok": P((cfg.vocab_size, cfg.d_model), scale=1.0)}
+    m = {"tok": P((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                  scale=1.0)}
     if not cfg.tie_embeddings:
-        m["head"] = P((cfg.d_model, cfg.vocab_size))
+        m["head"] = P((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
     return m
 
 
@@ -226,8 +247,15 @@ def embed_tokens(cfg, p: dict, tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
     """Token rows in ``dtype``; with ``cfg.embed_scale`` times sqrt(d_model)
     rounded to ``dtype`` first, as the reference's ``jnp.asarray(d ** 0.5,
-    dtype)`` (sqrt(3840) = 61.97 is 62.0 in bf16)."""
-    x = p["tok"].to(dtype)[tokens.long()]
+    dtype)`` (sqrt(3840) = 61.97 is 62.0 in bf16). On a mesh the lookup is
+    ``F.embedding`` of replicated ids (the same rows), which DTensor takes
+    on a vocab-split table forward and backward in every torch version, as
+    it does not the indexing of hybrid-sharded ids."""
+    if sharded_context():
+        x = F.embedding(shard(tokens.long(), None, None), p["tok"].to(dtype))
+        x = shard(reduce_partial(x), "batch", "seq", None)
+    else:
+        x = p["tok"].to(dtype)[tokens.long()]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=x.device)
     return x

@@ -30,7 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (
-    cast_leaf, cast_params, init_params, map_tree, tree_leaves,
+    P, cast_leaf, cast_params, init_params, map_tree, meta_axes, tree_leaves,
 )
 
 # the parts of a parameter tree that hold one dict per layer, which the
@@ -72,6 +72,22 @@ class Model:
         return _by_part(lambda meta, stacked: init_params(
             meta, generator, dtype, stacked=stacked), self.param_meta())
 
+    def param_axes(self):
+        """Tree of the parameters' logical-axes tuples (one per layer in
+        the per-layer lists, without the reference's leading stack None)."""
+        return meta_axes(self.param_meta())
+
+    def abstract_params(self, dtype: torch.dtype | None = None):
+        """Meta tensors shaped as :meth:`init`'s leaves, nothing drawn:
+        float32 masters for ``dtype=None``, else each leaf as
+        :func:`~repro_torch.models.layers.cast_leaf` casts it to
+        ``dtype``."""
+        def part(meta, stacked):
+            return map_tree(lambda p: cast_leaf(
+                torch.empty(p.shape, device="meta"), dtype or torch.float32,
+                stacked), meta)
+        return _by_part(part, self.param_meta())
+
     def n_params(self) -> int:
         return sum(math.prod(p.shape) for p in tree_leaves(self.param_meta()))
 
@@ -91,6 +107,30 @@ class Model:
         return sum(t.nbytes for t in leaves.values())
 
     # ---- caches ----
+    def _cache_part(self) -> str:
+        return "dec" if self.cfg.encdec else "blocks"
+
+    def cache_axes(self) -> dict:
+        """Logical axes of the cache tree (``cur_len`` replicated)."""
+        axes = (ed.encdec_cache_axes(self.cfg) if self.cfg.encdec
+                else tf.cache_axes(self.cfg))
+        return {self._cache_part(): axes, "cur_len": ()}
+
+    def cache_meta(self, batch: int, cache_len: int) -> dict:
+        """The cache leaves as :class:`~repro_torch.models.layers.P`
+        (shape, logical axes, zeros), ``cur_len`` left out."""
+        axes = self.cache_axes()[self._cache_part()]
+        leaves = self._cache_leaves(batch, cache_len, "meta")
+        return {self._cache_part(): {
+            n: P(tuple(t.shape), axes[n], "zeros") for n, t in leaves.items()}}
+
+    def abstract_cache(self, batch: int, cache_len: int) -> dict:
+        """Meta tensors shaped as :meth:`init_cache`'s leaves, and a meta
+        int32 ``cur_len``."""
+        return {self._cache_part(): self._cache_leaves(batch, cache_len,
+                                                       "meta"),
+                "cur_len": torch.empty((), dtype=torch.int32, device="meta")}
+
     def _cache_leaves(self, batch: int, cache_len: int, device) -> dict:
         if self.cfg.encdec:
             return {name: torch.zeros(shape, dtype=self.dtype, device=device)
@@ -105,8 +145,8 @@ class Model:
         ``cache_len`` sizes the attention leaves only, min(W, cache_len) for
         a window of W), or an encoder-decoder's ``dec`` leaves
         (:func:`encdec.encdec_cache_meta`)."""
-        part = "dec" if self.cfg.encdec else "blocks"
-        return {part: self._cache_leaves(batch, cache_len, self.device),
+        return {self._cache_part(): self._cache_leaves(batch, cache_len,
+                                                       self.device),
                 "cur_len": 0}
 
     # ---- entry points ----
@@ -167,13 +207,42 @@ class Model:
         return blocks
 
 
+    # ---- dry-run stand-ins ----
+    def input_specs(self, shape) -> dict:
+        """Meta tensors standing in for every model input of ``shape`` (a
+        ``configs.ShapeConfig``), as the reference's ``input_specs``: an
+        encoder-decoder's batches carry ``seq_len`` frames and
+        max(seq_len // dec_ratio, 8) tokens; decode is one token a row."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def tok(*s):
+            return torch.empty(s, dtype=torch.int32, device="meta")
+
+        def emb(*s):
+            return torch.empty(s, dtype=self.dtype, device="meta")
+        if shape.kind == "decode":
+            return {"tokens": tok(B, 1)}
+        if cfg.encdec:
+            Sd = max(S // cfg.dec_ratio, 8)
+            out = {"frames": emb(B, S, cfg.d_model), "tokens": tok(B, Sd)}
+        else:
+            out = {"tokens": tok(B, S)}
+        if shape.kind == "train":
+            out["labels"] = tok(*out["tokens"].shape)
+        return out
+
+
+def build_model(cfg: ModelConfig, device="cuda") -> Model:
+    return Model(cfg, device)
+
+
 def _hidden_loss(cfg, params, hidden, labels):
     """Cross entropy of the logits of ``hidden`` over the labels >= 0, in
     one piece (the reference's ``_hidden_loss``)."""
     logits = tf.lm_logits(cfg, params, hidden).float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1,
-                      labels.long().clamp_min(0)[..., None])[..., 0]
+    ll = tf.label_logits(logits, labels)
     valid = (labels >= 0).float()
     return torch.sum((lse - ll) * valid) / torch.clamp_min(valid.sum(), 1.0)
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import merge_last, shard, split_last
 from repro_torch.kernels import ops
 from repro_torch.models.layers import P, groupnorm_heads
 
@@ -44,25 +45,25 @@ def mamba_meta(cfg) -> dict:
     d = cfg.d_model
     di, dtr, N, K = _mamba_dims(cfg)
     return {
-        "in_proj": P((d, 2 * di)),
-        "conv_w": P((K, di), scale=K**-0.5),
-        "conv_b": P((di,), "zeros"),
-        "x_proj": P((di, dtr + 2 * N)),
-        "dt_w": P((dtr, di)),
-        "dt_bias": P((di,), "ones"),
-        "A_log": P((di, N), "zeros"),
-        "D": P((di,), "ones"),
-        "out_proj": P((di, d)),
+        "in_proj": P((d, 2 * di), ("embed", "inner")),
+        "conv_w": P((K, di), (None, "inner"), scale=K**-0.5),
+        "conv_b": P((di,), ("inner",), "zeros"),
+        "x_proj": P((di, dtr + 2 * N), ("inner", None)),
+        "dt_w": P((dtr, di), (None, "inner")),
+        "dt_bias": P((di,), ("inner",), "ones"),
+        "A_log": P((di, N), ("inner", None), "zeros"),
+        "D": P((di,), ("inner",), "ones"),
+        "out_proj": P((di, d), ("inner", "embed")),
     }
 
 
 def mamba_cache_meta(cfg, batch: int) -> dict:
-    """One layer's decode state, name -> (shape, dtype): ``conv``
-    (B, K - 1, Di) in the compute dtype (None), ``h`` (B, Di, N) in
-    float32."""
+    """One layer's decode state, name -> (shape, dtype, logical axes):
+    ``conv`` (B, K - 1, Di) in the compute dtype (None), ``h`` (B, Di, N)
+    in float32."""
     di, dtr, N, K = _mamba_dims(cfg)
-    return {"conv": ((batch, K - 1, di), None),
-            "h": ((batch, di, N), torch.float32)}
+    return {"conv": ((batch, K - 1, di), None, ("batch", None, "inner")),
+            "h": ((batch, di, N), torch.float32, ("batch", "inner", None))}
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -107,7 +108,7 @@ def mamba_apply(cfg, p, x, h0=None, conv_tail=None, return_cache=False):
     with ``return_cache``."""
     B = x.shape[0]
     di, dtr, N, K = _mamba_dims(cfg)
-    xz = x @ p["in_proj"]
+    xz = shard(x @ p["in_proj"], "batch", "seq", "inner")
     if conv_tail is None:
         conv_tail = xz.new_zeros((B, K - 1, di))
     delta, Bt, Ct, xc, z, x_in = _mamba_pre(cfg, p, xz, conv_tail)
@@ -148,37 +149,39 @@ def rwkv_meta(cfg) -> dict:
     da = H * K
     lora = 64
     return {
-        "mu": P((5, d), "zeros"),          # r, w, k, v, g token-shift mixes
-        "wr": P((d, da)),
-        "wk": P((d, da)),
-        "wv": P((d, da)),
-        "wg": P((d, da)),
-        "w0": P((da,), "zeros"),
-        "w1": P((d, lora)),
-        "w2": P((lora, da), scale=0.01),
-        "u": P((H, K), "zeros"),
-        "gn_w": P((da,), "ones"),
-        "gn_b": P((da,), "zeros"),
-        "wo": P((da, d)),
+        "mu": P((5, d), (None, "embed"), "zeros"),   # r, w, k, v, g mixes
+        "wr": P((d, da), ("embed", "inner")),
+        "wk": P((d, da), ("embed", "inner")),
+        "wv": P((d, da), ("embed", "inner")),
+        "wg": P((d, da), ("embed", "inner")),
+        "w0": P((da,), ("inner",), "zeros"),
+        "w1": P((d, lora), ("embed", None)),
+        "w2": P((lora, da), (None, "inner"), scale=0.01),
+        "u": P((H, K), (None, None), "zeros"),
+        "gn_w": P((da,), ("inner",), "ones"),
+        "gn_b": P((da,), ("inner",), "zeros"),
+        "wo": P((da, d), ("inner", "embed")),
     }
 
 
 def rwkv_cm_meta(cfg) -> dict:
     d, f = cfg.d_model, cfg.d_ff
-    return {"mu": P((2, d), "zeros"),      # k, r mixes
-            "wk": P((d, f)),
-            "wv": P((f, d)),
-            "wr": P((d, d))}
+    return {"mu": P((2, d), (None, "embed"), "zeros"),   # k, r mixes
+            "wk": P((d, f), ("embed", "mlp")),
+            "wv": P((f, d), ("mlp", "embed")),
+            "wr": P((d, d), ("embed", None))}
 
 
 def rwkv_cache_meta(cfg, batch: int) -> dict:
-    """One layer's decode state, name -> (shape, dtype): ``x_tm`` and
-    ``x_cm`` (B, d) in the compute dtype (None), ``h`` (B, H, K, K) in
-    float32."""
+    """One layer's decode state, name -> (shape, dtype, logical axes):
+    ``x_tm`` and ``x_cm`` (B, d) in the compute dtype (None), ``h``
+    (B, H, K, K) in float32."""
     H, K = _rwkv_dims(cfg)
     d = cfg.d_model
-    return {"x_tm": ((batch, d), None), "x_cm": ((batch, d), None),
-            "h": ((batch, H, K, K), torch.float32)}
+    return {"x_tm": ((batch, d), None, ("batch", "embed")),
+            "x_cm": ((batch, d), None, ("batch", "embed")),
+            "h": ((batch, H, K, K), torch.float32,
+                  ("batch", None, None, None))}
 
 
 def _shift(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
@@ -191,7 +194,6 @@ def _lerp(x: torch.Tensor, xp: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
 
 
 def _rwkv_project(cfg, p, x, xp):
-    B, S, d = x.shape
     H, K = _rwkv_dims(cfg)
     mu = p["mu"]
     r = _lerp(x, xp, mu[0]) @ p["wr"]
@@ -201,17 +203,16 @@ def _rwkv_project(cfg, p, x, xp):
     g = F.silu(_lerp(x, xp, mu[4]) @ p["wg"])
     w = torch.exp(-torch.exp(
         p["w0"] + (torch.tanh(xw @ p["w1"]) @ p["w2"]).float()))
-    shp = (B, S, H, K)
-    return (r.reshape(shp), w.reshape(shp), k.reshape(shp), v.reshape(shp),
-            g)
+    return (split_last(r, H, K), split_last(w, H, K), split_last(k, H, K),
+            split_last(v, H, K), g)
 
 
 def _rwkv_out(cfg, p, o, g):
     """Per-head groupnorm, gate, output projection: o (B, S, H, K)."""
-    B, S = o.shape[:2]
     H, K = _rwkv_dims(cfg)
-    o = groupnorm_heads(o, p["gn_w"].reshape(H, K), p["gn_b"].reshape(H, K))
-    return (o.reshape(B, S, H * K) * g) @ p["wo"]
+    o = groupnorm_heads(o, split_last(p["gn_w"], H, K),
+                        split_last(p["gn_b"], H, K))
+    return (merge_last(o) * g) @ p["wo"]
 
 
 def rwkv_apply(cfg, p, x, h0=None, x_prev=None, return_cache=False):

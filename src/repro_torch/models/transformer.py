@@ -56,6 +56,9 @@ import functools
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import (
+    is_dtensor, pick_last, shard, sharded_context,
+)
 from repro_torch.models import attention as attn
 from repro_torch.models import encdec
 from repro_torch.models import moe
@@ -183,12 +186,24 @@ def lm_meta(cfg) -> dict:
 
 def _layer_cache_meta(cfg, spec, batch: int, cache_len: int) -> dict:
     """One layer's cache leaves under the reference's names, name ->
-    (shape, dtype; None for the compute dtype)."""
+    (shape, dtype (None for the compute dtype), logical axes)."""
     if spec.kind == "attn":
         return attn.attn_cache_meta(cfg, spec, batch, cache_len)
     if spec.kind == "mamba":
         return ssm.mamba_cache_meta(cfg, batch)
     return ssm.rwkv_cache_meta(cfg, batch)
+
+
+def cache_axes(cfg) -> dict:
+    """The logical axes of each block-cache leaf, (None, *the layer's
+    axes): the leading axis runs over the layers that hold the leaf, as
+    the reference's stacked leaves carry a leading None."""
+    out = {}
+    for spec in layer_specs(cfg):
+        meta = _layer_cache_meta(cfg, spec, 2, 8)
+        for ref, leaf in cache_names(cfg, spec).items():
+            out[leaf] = (None, *meta[ref][2])
+    return out
 
 
 def init_cache_blocks(cfg, batch: int, cache_len: int, dtype: torch.dtype,
@@ -206,8 +221,8 @@ def init_cache_blocks(cfg, batch: int, cache_len: int, dtype: torch.dtype,
         if names and next(iter(names.values())) in blocks:
             continue
         n = counts[tuple(names.values())]
-        for ref, (shape, dt) in _layer_cache_meta(cfg, spec, batch,
-                                                  cache_len).items():
+        for ref, (shape, dt, _) in _layer_cache_meta(cfg, spec, batch,
+                                                     cache_len).items():
             blocks[names[ref]] = torch.zeros((n, *shape), dtype=dt or dtype,
                                              device=device)
     return blocks
@@ -245,7 +260,7 @@ def _apply_layer_train(cfg, spec, lp, x, positions, aux):
         mix = ssm.mamba_apply(cfg, lp["mix"], h)
     else:
         mix = ssm.rwkv_apply(cfg, lp["mix"], h)
-    x = x + mix
+    x = shard(x + mix, "batch", "seq", None)
     h = apply_norm(cfg, lp["ln2"], x)
     if spec.moe:
         out, a = moe.moe_apply(cfg, lp["mlp"], h)
@@ -254,13 +269,17 @@ def _apply_layer_train(cfg, spec, lp, x, positions, aux):
         out = ssm.rwkv_cm_apply(cfg, lp["mlp"], h)
     else:
         out = mlp_apply(cfg, lp["mlp"], h)
-    return x + out, aux
+    return shard(x + out, "batch", "seq", None), aux
 
 
 def _train_block(cfg, spec, lp, x, positions, aux):
     """:func:`_apply_layer_train` on the layer's leaves cast to x's dtype
-    (the reference's ``cast_params`` of the stacked tree)."""
+    (the reference's ``cast_params`` of the stacked tree). On a mesh the
+    residual saved at the layer boundary (sequence-sharded under the train
+    rules) is gathered first, as the reference's remat'd block recovers
+    it."""
     lp = cast_params(lp, x.dtype, stacked=True)
+    x = shard(x, "batch", "seq", None)
     return _apply_layer_train(cfg, spec, lp, x, positions, aux)
 
 
@@ -272,6 +291,7 @@ def lm_forward(cfg, params, tokens: torch.Tensor, *, remat: bool = True):
     dtype = DTYPES[cfg.dtype]
     S = tokens.shape[1]
     x = embed_tokens(cfg, cast_params(params["embed"], dtype), tokens, dtype)
+    x = shard(x, "batch", "seq", None)
     positions = torch.arange(S, device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = remat and torch.is_grad_enabled()
@@ -279,6 +299,10 @@ def lm_forward(cfg, params, tokens: torch.Tensor, *, remat: bool = True):
         fn = functools.partial(_train_block, cfg, spec)
         x, aux = (checkpoint(fn, lp, x, positions, aux, use_reentrant=False)
                   if remat else fn(lp, x, positions, aux))
+        # sequence-parallel layer boundary: the residual saved for the
+        # backward is sharded over the model axis under the train rules
+        x = shard(x, "batch", "seq_block", None)
+    x = shard(x, "batch", "seq", None)
     return apply_norm(cfg, params["ln_f"], x), aux
 
 
@@ -288,11 +312,23 @@ def lm_logits(cfg, params, hidden: torch.Tensor) -> torch.Tensor:
                    hidden)
 
 
+def label_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each row's logit at its label (labels < 0 read index 0). Under a
+    sharding context on a mesh the logits' vocab dim may be sharded, which
+    DTensor's gather does not take in every torch version; there each rank
+    picks from its own block of the vocab
+    (:func:`repro_torch.distributed.sharding.pick_last`)."""
+    idx = labels.long().clamp_min(0)
+    if sharded_context() and is_dtensor(logits):
+        return pick_last(logits, idx)
+    return torch.gather(logits, -1, idx[..., None])[..., 0]
+
+
 def _chunk_loss(cfg, emb, h, lab):
     """(sum of the chunk's cross entropies over labels >= 0, their count)."""
-    logits = unembed(cfg, emb, h).float()
+    logits = shard(unembed(cfg, emb, h).float(), "batch", "seq", "vocab")
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lab.long().clamp_min(0)[..., None])[..., 0]
+    ll = label_logits(logits, lab)
     valid = (lab >= 0).float()
     return torch.sum((lse - ll) * valid), valid.sum()
 

@@ -270,7 +270,8 @@ def _fake_params(model, params, masters: bool):
         model.param_meta())
 
 
-def count_step(model, params, shape_like, kind: str) -> StepCount:
+def count_step(model, params, shape_like, kind: str, *, mesh=None,
+               rules=None) -> StepCount:
     """Count one step of ``model`` (a ``repro_torch.models.model.Model``)
     on fake tensors: ``kind`` ``"prefill"`` (``shape_like.global_batch``
     prompts of ``shape_like.seq_len`` tokens), ``"decode"`` (one
@@ -283,7 +284,16 @@ def count_step(model, params, shape_like, kind: str) -> StepCount:
     ``seq_len`` frames and ``seq_len // dec_ratio`` tokens. ``params``
     gives the leaves' shapes and dtypes (None: the model's metadata), and
     is never read or written; the step runs on the CPU whatever the
-    model's device, so every kernel wrapper takes its plain version."""
+    model's device, so every kernel wrapper takes its plain version.
+
+    With ``mesh`` (a DeviceMesh of more than one rank, e.g. the dry run's
+    fake production mesh) and ``rules`` (the train or serve rules by
+    default) the step runs as one rank of that mesh
+    (:func:`_count_on_mesh`): the count is that rank's, and so are the
+    peak bytes; ``params`` is not used."""
+    from repro_torch.distributed import sharding as shd
+    if mesh is not None and shd.is_distributed(mesh):
+        return _count_on_mesh(model, shape_like, kind, mesh, rules)
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.models.layers import tree_leaves
@@ -328,4 +338,82 @@ def count_step(model, params, shape_like, kind: str) -> StepCount:
                         p, cache["blocks"], one,
                         torch.full((B,), S - 1, dtype=torch.long))
     return StepCount(counter, float(lib.get_total_flops()), param_bytes,
+                     cache_bytes)
+
+
+def _count_on_mesh(model, shape_like, kind: str, mesh, rules) -> StepCount:
+    """:func:`count_step` as one rank of ``mesh``: the parameters (float32
+    masters for training, else as :meth:`Model.init` holds them), the
+    optimizer state, the batch (the reference's ``input_specs``) and the
+    decode cache are DTensors of fake shards laid out by the train or
+    serve shardings, made shard by shard (nothing global is allocated);
+    the step runs under ``use_sharding(mesh, rules)``, through
+    ``train_step.make_train_step(sh=...)``, ``serve_step.make_prefill``
+    or ``serve_step.placed_decode_step`` (lock step at position
+    ``seq_len - 1``, as the reference's dry run decodes). Every op that
+    runs is a local op on a shard or a collective, so the counter books
+    one rank's FLOPs and bytes and the collectives' bytes by kind.
+    ``param_bytes`` and ``cache_bytes`` are global, as the reference's."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.serve import serve_step
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    if kind not in ("prefill", "decode", "train"):
+        raise ValueError(f"kind must be prefill, decode or train, got {kind!r}")
+    cfg = model.cfg
+    B, S = shape_like.global_batch, shape_like.seq_len
+    model = type(model)(cfg, device="cpu")
+    specs = model.input_specs(ShapeConfig("count", kind, S, B))
+
+    def laid_out(meta_tree, shardings):
+        return shd.map_trees(
+            lambda m, s: shd.empty_laid_out(tuple(m.shape), m.dtype, s),
+            meta_tree, shardings,
+            is_leaf=lambda t: isinstance(t, torch.Tensor))
+
+    def nbytes(tree):
+        return float(sum(t.nbytes for t in tree_leaves(tree)
+                         if isinstance(t, torch.Tensor)))
+
+    from repro_torch.models.layers import tree_leaves
+    # shardings and shapes first, outside the fake mode and the counter:
+    # their meta tensors are neither the step's work nor its memory
+    if kind == "train":
+        sh = ts.make_train_shardings(model, mesh, rules, batch_specs=specs)
+        aparams, psh, bsh = model.abstract_params(), sh.params, sh.batch
+    else:
+        cache_len = specs["tokens"].shape[1] if kind == "prefill" else S
+        ssh = serve_step.make_serve_shardings(model, mesh, B, cache_len,
+                                              rules)
+        aparams, psh = model.abstract_params(model.dtype), ssh.params
+        bsh = ts.batch_shardings(model, specs, mesh, ssh.rules)
+        part = model._cache_part()
+        acache = model.abstract_cache(B, S)
+    lib = FlopCounterMode(display=False)
+    cache_bytes = 0.0
+    with op_cost.counting(lib) as counter:
+        p = laid_out(aparams, psh)
+        batch = laid_out(specs, bsh)
+        if kind == "train":
+            opt = init_opt_state(p)
+            step = ts.make_train_step(model, AdamWConfig(), sh)
+            counter.reset()
+            step(p, opt, batch)
+        elif kind == "prefill":
+            fn = serve_step.make_prefill(model, ssh, cache_len)
+            counter.reset()
+            with torch.no_grad():
+                fn(p, batch)
+        else:
+            cache_bytes = nbytes(acache)
+            cache = {part: laid_out(acache[part], ssh.cache[part]),
+                     "cur_len": S - 1}
+            fn = serve_step.placed_decode_step(model, ssh, B)
+            counter.reset()
+            with torch.no_grad():
+                fn(p, cache, batch["tokens"])
+    return StepCount(counter, float(lib.get_total_flops()), nbytes(aparams),
                      cache_bytes)

@@ -26,6 +26,15 @@ Cost rules (the reference's, for eager PyTorch on one card):
     gathered shape for all-gather and all-reduce, the larger side for
     reduce-scatter and all-to-all).
 
+On a mesh (DTensors) the counter passes each DTensor op on to DTensor,
+and counts the local ops on the rank's shards and the functional
+collectives that DTensor dispatches for it: one rank's count. DTensor
+also works out each new op's layout (its sharding propagator: strategies,
+redistribution costs, and the op run once on fake tensors of the global
+shapes for its output's shape); :func:`counting` pauses the counter there
+and lifts the fake mode, since that is bookkeeping on small host tensors,
+not the step's work.
+
 Kernel regions: :func:`region` tags the plain versions of the hand-written
 kernels (``kernels.ops`` enters one around attention, decode attention and
 the two scans, as the reference's ``flashable_*`` scopes tag its XLA
@@ -57,6 +66,8 @@ from torch.utils._python_dispatch import (
 )
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode, flop_registry
+
+from repro_torch.distributed.sharding import dtensor_type
 
 _COLL_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -203,6 +214,7 @@ class OpCounter(TorchDispatchMode):
         # trip of n (mult n) or a region (mult 1, tagged): their backward
         # ops are counted as the forward ones were
         self._spans: list[tuple[int, int, float, bool]] = []
+        self._paused = 0
 
     @contextlib.contextmanager
     def _span(self, mult: float, tagged: bool):
@@ -246,7 +258,13 @@ class OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, dtensor_type()) for t in types):
+            # a DTensor op: DTensor turns it into local ops on each rank's
+            # shard and collectives, which come back here and are counted
+            return NotImplemented
         out = func(*args, **kwargs)
+        if self._paused:
+            return out
         if not isinstance(func, torch._ops.OpOverload):
             return out
         self._track(func, out)
@@ -311,10 +329,57 @@ def scan(body, carry, n: int, dim: int = 1):
     return carry, one.new_empty(shape)
 
 
+# DTensor's bookkeeping on host tensors: (module, class, method)
+_DTENSOR_BOOKKEEPING = (
+    ("torch.distributed.tensor._sharding_prop", "ShardingPropagator",
+     "propagate_op_sharding_non_cached"),
+    ("torch.distributed.tensor._sharding_prop", "ShardingPropagator",
+     "_propagate_tensor_meta_non_cached"),
+    ("torch.distributed.tensor.placement_types", "_StridedShard",
+     "local_shard_size_and_offset"),
+)
+
+
+@contextlib.contextmanager
+def _paused_in_dtensor_propagation(counter: OpCounter):
+    """Pause ``counter``, and lift the fake mode, while DTensor works out an
+    op's layout (its sharding propagator computes shard offsets with host
+    tensors, which a fake mode cannot give values for, and runs the op on
+    global-shape fake tensors of a fake mode of its own)."""
+    import importlib
+
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    saved = []
+    for module, cls_name, name in _DTENSOR_BOOKKEEPING:
+        try:
+            cls = getattr(importlib.import_module(module), cls_name)
+        except (ImportError, AttributeError):
+            continue
+        orig = cls.__dict__.get(name)
+        if orig is None:
+            continue
+
+        def paused(self, *args, _orig=orig, **kwargs):
+            counter._paused += 1
+            try:
+                with unset_fake_temporarily():
+                    return _orig(self, *args, **kwargs)
+            finally:
+                counter._paused -= 1
+        saved.append((cls, name, orig))
+        setattr(cls, name, paused)
+    try:
+        yield
+    finally:
+        for cls, name, orig in saved:
+            setattr(cls, name, orig)
+
+
 @contextlib.contextmanager
 def counting(flop_counter: FlopCounterMode | None = None):
     """Fake tensors and an :class:`OpCounter` (under ``flop_counter`` too,
     when given, which then sees the same run): yields the counter."""
     with FakeTensorMode(), OpCounter() as counter, \
+            _paused_in_dtensor_propagation(counter), \
             (flop_counter or contextlib.nullcontext()):
         yield counter

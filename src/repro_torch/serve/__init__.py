@@ -1,3 +1,3 @@
 """LM serving of the port (counterpart of ``repro.serve``): the
-continuous-batching engine. ``serve_step`` (mesh shardings) is not ported
-yet."""
+continuous-batching engine, and the prefill and decode steps under mesh
+shardings (``serve_step``)."""

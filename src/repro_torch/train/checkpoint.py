@@ -1,6 +1,5 @@
-"""Asynchronous, atomic checkpoints with retention (counterpart of
-``repro.train.checkpoint``, without its elastic re-shard, which waits for
-the port of ``repro.distributed``).
+"""Asynchronous, atomic checkpoints with retention and elastic re-shard
+(counterpart of ``repro.train.checkpoint``).
 
 Design, as the reference's:
   * one ``.npy`` file per leaf, named by the leaf's path in the tree
@@ -13,7 +12,12 @@ Design, as the reference's:
     partial checkpoint is never visible;
   * retention: the last ``keep`` checkpoints;
   * :meth:`Checkpointer.restore` raises ``KeyError`` for a leaf missing
-    from the checkpoint and ``ValueError`` for a shape mismatch.
+    from the checkpoint and ``ValueError`` for a shape mismatch;
+  * elastic re-shard: a checkpoint holds global arrays (a DTensor leaf is
+    gathered before it is written, and only rank 0 writes), and
+    ``restore(shardings=...)`` lays each one out onto the CURRENT mesh
+    (``distribute_tensor``: each rank keeps the shard it owns there),
+    whatever mesh wrote it.
 
 A tree is nested dicts, lists, tuples and NamedTuples (``OptState``) of
 tensors and Python numbers (the optimizer's count). Restore copies each
@@ -31,6 +35,8 @@ import time
 
 import numpy as np
 import torch
+
+from repro_torch.distributed import sharding as shd
 
 
 def _walk(tree, path: str = ""):
@@ -62,10 +68,16 @@ def _rebuild(tree, leaves):
 
 def _to_host(leaf) -> np.ndarray:
     """A host copy of ``leaf`` (a copy even of a CPU tensor, which the
-    caller goes on to update)."""
+    caller goes on to update); a DTensor's global value."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        return shd.full(leaf.detach()).to("cpu", copy=True).numpy()
     return np.array(leaf)
+
+
+def _writer() -> bool:
+    """This process writes checkpoints: rank 0, or the only process."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class Checkpointer:
@@ -82,6 +94,8 @@ class Checkpointer:
         then write on a background thread (or here, with ``blocking``)."""
         self.wait()
         host = [(name, _to_host(leaf)) for name, leaf in _walk(tree)]
+        if not _writer():
+            return
         self._thread = threading.Thread(target=self._write, args=(step, host),
                                         daemon=True)
         self._thread.start()
@@ -125,10 +139,15 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, tree_like, step: int | None = None):
+    def restore(self, tree_like, step: int | None = None, shardings=None):
         """Restore the checkpoint of ``step`` (the latest by default) into
         ``tree_like``: each tensor leaf overwritten in place, each number
-        leaf replaced. Returns (tree, step)."""
+        leaf replaced. Returns (tree, step).
+
+        ``shardings``: a matching tree of :class:`~repro_torch.distributed.
+        sharding.NamedSharding` for the CURRENT mesh, the elastic-rescale
+        path: each global array is laid out onto it (a new tensor, in the
+        dtype of ``tree_like``'s leaf) instead of copied in place."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -136,7 +155,10 @@ class Checkpointer:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         out = []
+        sflat = (None if shardings is None
+                 else iter([s for _, s in _walk(shardings)]))
         for name, like in _walk(tree_like):
+            sharding = None if sflat is None else next(sflat)
             info = manifest["leaves"].get(name)
             if info is None:
                 raise KeyError(f"leaf {name!r} missing from checkpoint")
@@ -145,7 +167,10 @@ class Checkpointer:
                 raise ValueError(f"{name}: checkpoint shape "
                                  f"{tuple(info['shape'])} != {shape}")
             arr = np.load(os.path.join(d, info["file"]))
-            if isinstance(like, torch.Tensor):
+            if isinstance(like, torch.Tensor) and sharding is not None:
+                out.append(shd.lay_out(
+                    torch.from_numpy(arr).to(like.dtype), sharding))
+            elif isinstance(like, torch.Tensor):
                 with torch.no_grad():
                     like.copy_(torch.from_numpy(arr))
                 out.append(like)

@@ -46,9 +46,11 @@ class OptState(NamedTuple):
 
 
 def init_opt_state(params) -> OptState:
-    """Zero float32 moments shaped like ``params``, count 0."""
+    """Zero float32 moments shaped (and, on a mesh, laid out) like
+    ``params``, count 0."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
     return OptState(m=map_tree(zeros, params), v=map_tree(zeros, params),
                     count=0)
 

@@ -30,6 +30,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.train.checkpoint import Checkpointer
 from repro_torch.train.optimizer import global_norm, init_opt_state
 
@@ -79,14 +80,17 @@ class Trainer:
     """Runs ``train_step`` (a :class:`~repro_torch.train.train_step.TrainStep`)
     over ``loader`` for ``tc.steps`` steps. ``init_params_fn`` makes the
     initial float32 master parameters (default: ``model.init(seed=0,
-    masters=True)``)."""
+    masters=True)``). With ``shardings`` (a :class:`~repro_torch.train.
+    train_step.TrainShardings`) the initial state is laid out on its mesh
+    and a restore lays the checkpoint out onto it (elastic re-shard)."""
 
     def __init__(self, model, train_step, loader, tc: TrainerConfig,
-                 init_params_fn=None):
+                 shardings=None, init_params_fn=None):
         self.model = model
         self.train_step = train_step
         self.loader = loader
         self.tc = tc
+        self.shardings = shardings
         self.init_params_fn = init_params_fn or (
             lambda: model.init(seed=0, masters=True))
         self.ckpt = (None if tc.ckpt_dir is None
@@ -96,10 +100,15 @@ class Trainer:
     def restore_or_init(self):
         """Returns (params, opt_state, start_step)."""
         params = self.init_params_fn()
+        sh = None
+        if self.shardings is not None:
+            params = shd.lay_out_tree(params, self.shardings.params)
+            sh = {"params": self.shardings.params, "opt": self.shardings.opt}
         opt = init_opt_state(params)
         if self.ckpt is None or self.ckpt.latest_step() is None:
             return params, opt, 0
-        state, step = self.ckpt.restore({"params": params, "opt": opt})
+        state, step = self.ckpt.restore({"params": params, "opt": opt},
+                                        shardings=sh)
         return state["params"], state["opt"], step
 
     def run(self):

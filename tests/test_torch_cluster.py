@@ -274,6 +274,20 @@ def test_wire_crops_are_byte_equal_to_the_reference():
         assert a.tobytes() == b.tobytes()
 
 
+@pytest.mark.parametrize("ahead", [0, 3, 300])
+def test_wire_crops_encoded_ahead_equal_one_a_call(ahead):
+    """An open-loop producer's crops, encoded in bulk before the clock
+    starts, are the reference's one-a-call crops byte for byte, also
+    past the bulk."""
+    spec = port.ClusterSpec(seed=5, service="real", device="cpu")
+    crops = port.ServingCluster(spec)._wire_crops(2, ahead)
+    got = np.stack([crops.next() for _ in range(ahead + 7)])
+    want = _wire_crops(ref, jax_host, ref.ClusterSpec(seed=5), ahead + 7, 2)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+    assert port.ServingCluster(port.ClusterSpec())._wire_crops(0, 9) is None
+
+
 @pytest.mark.parametrize("placement", ["host", "device"])
 def test_replica_decode_identify_equals_the_reference(placement,
                                                       monkeypatch):

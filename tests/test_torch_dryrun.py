@@ -1,0 +1,146 @@
+"""The port's dry run (repro_torch.launch.dryrun) on the CPU, in
+subprocesses (a fake process group is process-global).
+
+  * A cell of the llama3-8b smoke config on a fake (2, 4) ("data",
+    "model") mesh of 8 ranks counts one rank's step for train, prefill and
+    decode: ``chips`` 8, collective bytes > 0 split by kind, a per-device
+    peak, and every parameter's local shard has the shape its spec gives.
+  * The CLI records a cell that raises with ``status: "error"`` and its
+    message, and exits 1; the fake group is created by ``main``, never at
+    import.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from repro_torch.launch import dryrun
+
+ROOT = Path(__file__).resolve().parents[1]
+
+SMALL_CELLS = """
+import json, math, sys
+import torch, torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import dryrun
+from repro_torch.models.model import Model
+from repro_torch.train.train_step import make_train_shardings
+
+assert not dist.is_initialized()
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+cfg = get_config("llama3-8b", smoke=True)
+out = {}
+for kind, S, B in (("train", 32, 4), ("prefill", 32, 4), ("decode", 32, 8)):
+    roof, meta = dryrun.lower_cell("llama3-8b", "smoke_" + kind,
+                                   multi_pod=False, mesh=mesh, cfg=cfg,
+                                   shape=ShapeConfig("smoke_" + kind, kind,
+                                                     S, B))
+    d = roof.to_dict()
+    out[kind] = {k: d[k] for k in ("chips", "mesh", "hlo_flops", "hlo_bytes",
+                                   "coll_bytes", "coll_breakdown",
+                                   "bytes_per_device", "peak_memory_ok",
+                                   "bottleneck")}
+    out[kind]["t_count_s"] = meta["t_count_s"]
+model = Model(cfg, device="cpu")
+sh = make_train_shardings(model, mesh)
+bad = []
+def check(meta, s, path=""):
+    if isinstance(meta, dict):
+        for k in meta:
+            check(meta[k], s[k], path + "/" + k)
+    elif isinstance(meta, list):
+        for i, (m, t) in enumerate(zip(meta, s)):
+            check(m, t, path + "/" + str(i))
+    else:
+        t = shd.empty_laid_out(tuple(meta.shape), meta.dtype, s)
+        want = list(meta.shape)
+        for d, e in enumerate(s.spec):
+            for ax in ((e,) if isinstance(e, str) else (e or ())):
+                want[d] //= shd.mesh_shape(mesh)[ax]
+        if list(t.to_local().shape) != want:
+            bad.append((path, list(t.to_local().shape), want))
+check(model.abstract_params(), sh.params)
+out["bad_local_shapes"] = bad
+print("RESULT " + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def small_cells():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", SMALL_CELLS], env=env,
+                          capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("RESULT ")]
+    assert lines, proc.stdout[-3000:] + proc.stderr[-6000:]
+    return json.loads(lines[-1][len("RESULT "):])
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_smoke_cell_on_a_fake_eight_rank_mesh(small_cells, kind):
+    r = small_cells[kind]
+    assert r["chips"] == 8 and r["mesh"] == "data2xmodel4"
+    assert r["hlo_flops"] > 0 and r["hlo_bytes"] > 0
+    assert r["coll_bytes"] > 0
+    split = {k: v for k, v in r["coll_breakdown"].items() if k != "total"}
+    assert sum(split.values()) == r["coll_breakdown"]["total"] \
+        == r["coll_bytes"]
+    assert 0 < r["bytes_per_device"] and r["peak_memory_ok"]
+
+
+def test_every_local_shard_has_its_specs_shape(small_cells):
+    assert small_cells["bad_local_shapes"] == []
+
+
+def test_train_cell_counts_one_ranks_share(small_cells):
+    # a quarter of the model axis and half the batch: far below the
+    # unsharded step's FLOPs on the same shapes
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models.model import Model
+    from repro_torch.roofline import analysis
+    cfg = get_config("llama3-8b", smoke=True)
+    whole = analysis.count_step(Model(cfg, device="cpu"), None,
+                                ShapeConfig("t", "train", 32, 4), "train")
+    assert small_cells["train"]["hlo_flops"] < 0.5 * whole.counter.cost.flops
+
+
+def test_mesh_names():
+    class M:
+        def __init__(self, names, sizes):
+            self.mesh_dim_names, self.shape = names, sizes
+    assert dryrun.mesh_name_of(M(("data", "model"), (16, 16))) == "pod16x16"
+    assert dryrun.mesh_name_of(M(("pod", "data", "model"), (2, 16, 16))) \
+        == "pod2x16x16"
+    assert dryrun.mesh_name_of(M(("data", "model"), (2, 4))) == \
+        "data2xmodel4"
+
+
+def test_run_cell_records_an_error(tmp_path):
+    ok = dryrun.run_cell("no-such-arch", "train_4k", False, "baseline",
+                         str(tmp_path))
+    assert not ok
+    rec = json.loads((tmp_path / "pod16x16" /
+                      "no-such-arch__train_4k.json").read_text())
+    assert rec["status"] == "error" and rec["error"].startswith("KeyError")
+    assert rec["mesh"] == "pod16x16" and rec["variant"] == "baseline"
+
+
+def test_cli_exits_one_for_a_failing_cell(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "no-such-arch", "--shape", "decode_32k", "--multi-pod", "--out",
+         str(tmp_path)], env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 1
+    assert "dry-run: 0/1 cells passed" in proc.stdout
+    rec = json.loads((tmp_path / "pod2x16x16" /
+                      "no-such-arch__decode_32k.json").read_text())
+    assert rec["status"] == "error"

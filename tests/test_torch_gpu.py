@@ -989,3 +989,62 @@ def test_every_decode_plan_vs_plain_and_the_wrapper_takes_the_cache(
                                              len(cands)).to_json())
     da.decode_attention(q, k, v, kv_len=lens)
     assert da.decode_attention.last_plan == other
+
+
+@pytest.fixture
+def host_mesh(cuda):
+    """A world of one over the card (``launch.mesh.make_host_mesh``),
+    destroyed after the test."""
+    from repro_torch.launch.mesh import destroy, make_host_mesh
+    destroy()
+    mesh = make_host_mesh(device=cuda)
+    yield mesh
+    destroy()
+
+
+def test_host_mesh_is_a_world_of_one_over_the_card(host_mesh):
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    assert dist.get_world_size() == 1 and dist.get_backend() == "nccl"
+    assert host_mesh.device_type == "cuda" and host_mesh.size() == 1
+    assert host_mesh.mesh_dim_names == ("data", "model")
+    x = torch.ones((4, 4), device="cuda")
+    with shd.use_sharding(host_mesh, shd.SERVE_RULES):
+        assert shd.shard(x, "batch", "embed") is x
+        assert not shd.sharded_context()
+
+
+def test_serve_step_on_the_card_equals_the_direct_path(host_mesh):
+    """A two-layer llama3-8b at full width in bf16: prefill and 4 greedy
+    decode steps through serve_step on the mesh of one, bit for bit the
+    model's own, through the flash and decode kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.model import Model
+    from repro_torch.serve import serve_step
+    cfg = get_config("llama3-8b").replace(n_layers=2)
+    model = Model(cfg, device="cuda")
+    params = model.init(seed=0)
+    g = _gen(4)
+    tok = torch.randint(0, cfg.vocab_size, (4, 64), generator=g).to("cuda")
+    sh = serve_step.make_serve_shardings(model, host_mesh, 4, 72)
+
+    def greedy(prefill, decode):
+        with torch.inference_mode():
+            logits, cache = prefill(params, {"tokens": tok})
+            out = [logits]
+            for _ in range(4):
+                nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+                logits, cache = decode(params, cache, nxt)
+                out.append(logits)
+        return torch.stack(out)
+
+    direct = greedy(lambda p, b: model.prefill(p, b, cache_len=72),
+                    model.decode_step)
+    for w in (fa.flash_attention, da.decode_attention):
+        build.zero_launches(w)
+    got = greedy(serve_step.make_prefill(model, sh, 72),
+                 serve_step.make_decode_step(model, sh))
+    assert torch.equal(got, direct)
+    assert fa.flash_attention.launches == 2
+    assert da.decode_attention.launches == 2 * 4

@@ -99,6 +99,31 @@ def test_port_has_the_cost_model_and_autotune_slice_modules():
     assert (PORT / "kernels" / "tilings.json").is_file()
 
 
+def test_port_has_the_sharding_and_launch_slice_modules():
+    mods = set(_port_modules())
+    assert {"repro_torch.distributed", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.collectives",
+            "repro_torch.launch.mesh", "repro_torch.launch.variants",
+            "repro_torch.launch.dryrun",
+            "repro_torch.serve.serve_step"} <= mods
+
+
+def test_importing_the_port_creates_no_process_group():
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "importlib.import_module('chip_smoke')\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+        "print('NO_GROUP_OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert "NO_GROUP_OK" in proc.stdout, proc.stderr
+
+
 def test_importing_the_port_loads_no_jax_and_no_repro():
     code = (
         "import importlib, sys\n"
