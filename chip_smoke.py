@@ -65,8 +65,8 @@ Phases, each fatal on failure:
      through the continuous-batching engine (counters zeroed just before
      the run; the attention kernels must take their tensor-core routes
      once an attention layer for every prefill and every tick, but
-     deepseek-v2-236b's flash its CUDA-core route and its decode kernel
-     no launch at all, the RWKV6
+     deepseek-v2-236b's decode kernel no launch at all (its flash at
+     D = 192, Dv = 128 on the tensor-core route too), the RWKV6
      scan its chunked route once a layer for every prefill of
      CHUNK_MIN_S steps or more and its serial route once a layer for
      every shorter prefill and every tick, the Mamba scan its segmented
@@ -125,16 +125,17 @@ Phases, each fatal on failure:
      sets it) at the depth ``fit_train_depth`` measures: step 1 against the
      plain-ops step (loss 1e-3, grad norm 1e-2 relative), every gradient
      leaf finite and non-zero, 20 Trainer steps whose loss must fall by 0.1,
-     flash forward and backward launches counted (2 on wgmma and 1 on mma
-     a layer a step);
+     flash forward and backward launches counted (2 forward and 1
+     backward on wgmma a layer a step);
      then a checkpoint at step 10 restored bit-exactly and a restarted
      Trainer resuming at step 11, at one layer (at the fitted depth two
      checkpoints would write ~104 GB to disk); and an RWKV6 scan under grad must
-     raise (``--train`` runs it alone). The flash backward kernel (mma.sync
-     for bf16 at multiples of 16, the CUDA cores otherwise) is held against
+     raise (``--train`` runs it alone). The flash backward kernel (wgmma
+     for bf16 at D = Dv in {64, 128}, mma.sync at other multiples of 16,
+     the CUDA cores otherwise) is held against
      its plain formulas and autograd of the plain forward in phase 2 (2e-2
      of the largest gradient in bf16, 1e-4 in fp32) and timed in phase 7
-     beside SDPA's backward;
+     beside SDPA's backward and its earlier mma.sync route;
  12. the cost model and autotune (``--cost`` runs it alone): for every
      shape of ``kernels.autotune``'s battery, every candidate launch plan
      of the matmul (skinny cluster and K chunk, tile K splits) and of
@@ -159,7 +160,8 @@ Phases, each fatal on failure:
      on wgmma once a layer and decode on mma once a layer a step;
      (b) one step of ``make_train_step(sh=make_train_shardings(...))`` at
      two layers (4 x 1,024 tokens, float32 masters): its loss must equal
-     the unsharded step's and flash's backward kernel must run; (c) the
+     the unsharded step's and flash's backward kernel must run, every
+     launch on its wgmma route; (c) the
      dry run, ``python -m repro_torch.launch.dryrun --arch llama3-8b
      --shape S`` for S in train_4k, prefill_32k and decode_32k, each in a
      child process on the host (a fake group of 512 ranks, the pod16x16
@@ -303,15 +305,19 @@ TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
 # the full-width serve path: one launch an attention layer for every
 # prefill (flash) and every decode tick (decode)
 TC_SASS = {"flash_attention": "HGMMA", "decode_attention": "HMMA",
-           "linear_scan": "HMMA", "flash_attention_bwd": "HMMA"}
+           "linear_scan": "HMMA", "flash_attention_bwd": "HGMMA"}
 TC_GATES = {"flash_attention": ("wgmma", "prefills"),
             "decode_attention": ("mma", "ticks")}
 # an MLA arch (deepseek-v2-236b): flash at D = 192 != Dv = 128 takes the
-# CUDA-core route; its decode is the absorbed-matrix attention over the
-# latent, plain einsums in both packages (the reference has no kernel of
-# it), so the decode kernel must launch no time on its path
-MLA_GATES = {"flash_attention": ("simt", "prefills"),
+# tensor-core route too; its decode is the absorbed-matrix attention over
+# the latent, plain einsums in both packages (the reference has no kernel
+# of it), so the decode kernel must launch no time on its path
+MLA_GATES = {"flash_attention": ("wgmma", "prefills"),
              "decode_attention": (None, "ticks")}
+# kernel instantiations whose ptxas report must show no spill: the MLA
+# forward at (192, 128) and the wgmma backward at both widths
+NO_SPILL = ("flash_wgmma_kernelILi192ELi128E", "flash_bwd_wgmma_kernelILi64E",
+            "flash_bwd_wgmma_kernelILi128E")
 SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_MAX_TOKENS = 8, 2048, 16, 32
 # bytes read between calls to time a kernel with a cold (50 MB) L2
 L2_FLUSH_BYTES = 128 << 20
@@ -855,10 +861,13 @@ def check_serve_kernels(device) -> dict[str, float]:
                       (LONG_PROMPT, {"window": GEMMA_W})):
             q, k, v = attn_inputs(S, S, dtype, device, heads=GEMMA_HEADS)
             worst = max(worst, _check_flash(fa, q, k, v, name, kw))
-        q, k, v = attn_inputs(1024, 1024, dtype, device,
-                              heads=(MLA_H, MLA_H, MLA_D), Dv=MLA_DV)
-        worst = max(worst, _check_flash(fa, q, k, v, name,
-                                        {"scale": MLA_SCALE}))
+        # (the MLA route at every prompt length of the checks, ragged
+        # ones included: the tensor-core route in bf16)
+        for S in FLASH_SEQS + FLASH_RAGGED:
+            q, k, v = attn_inputs(S, S, dtype, device,
+                                  heads=(MLA_H, MLA_H, MLA_D), Dv=MLA_DV)
+            worst = max(worst, _check_flash(fa, q, k, v, name,
+                                            {"scale": MLA_SCALE}))
         # whisper's: the encoder's 8 x 1,500 frames (non-causal, a
         # 1,500-key ragged tail), the decoder's cross attention of the
         # 187-token prompt and of one decode row against them, and its
@@ -974,8 +983,9 @@ def check_flash_bwd(device) -> float:
     import torch
     from repro_torch.kernels import flash_attention as fa
     worst = 0.0
-    # (label, B, S, heads, causal, Dv, kwargs): widths no multiple of 16
-    # take the CUDA-core route in bf16 too; D != Dv on both routes
+    # (label, B, S, heads, causal, Dv, kwargs): in bf16 D = Dv = 64 or 128
+    # take the wgmma route, other multiples of 16 the mma.sync one, and
+    # widths no multiple of 16 the CUDA-core route; D != Dv on the last two
     extra = (("window", 1, 300, (LLAMA_H, LLAMA_KV, LLAMA_D), True, None,
               {"window": 100}),
              ("offset chunk", 1, 130, WHISPER_HEADS, True, None,
@@ -1923,6 +1933,18 @@ def profile_serve(model, params, cfg) -> None:
 # Phase 7: times
 # --------------------------------------------------------------------------
 
+def forced_route_ms(fa, chooser: str, route: str, call, iters: int) -> float:
+    """Device ms of ``call`` with flash's route chooser (``"_route"`` or
+    ``"_bwd_route"``) answering ``route`` whatever the shape: a shape's
+    earlier route, timed beside its new one on the same card."""
+    old = getattr(fa, chooser)
+    setattr(fa, chooser, lambda *args: route)
+    try:
+        return cuda_time_ms(call, iters=iters)
+    finally:
+        setattr(fa, chooser, old)
+
+
 def sdpa_call(q, k, v, *, causal: bool, mask=None):
     """PyTorch's fused attention on the kernels' inputs (B, S, heads, D),
     as a timing yardstick only: the port never calls it. Where this PyTorch
@@ -2125,7 +2147,8 @@ def time_kernels(device) -> dict[str, dict]:
     # gemma3-12b's windowed layers at its window W (at S = 1024 every key
     # is in it; at 1536 the rows past W skip the tiles left of their
     # window), against SDPA with the same mask; deepseek-v2's MLA prefill
-    # (D = 192, Dv = 128) on the CUDA-core route
+    # (D = 192, Dv = 128) on the tensor-core route, and on its earlier
+    # CUDA-core one
     H, KV, D = GEMMA_HEADS
     for S in (1024, LONG_PROMPT):
         q, k, v = attn_inputs(S, S, torch.bfloat16, device, heads=GEMMA_HEADS)
@@ -2153,6 +2176,11 @@ def time_kernels(device) -> dict[str, dict]:
            2 * (q.numel() + k.numel() + 2 * v.numel()),
            2 * (MLA_D + MLA_DV) * pairs, iters=10,
            peak_flop_s=PEAK_BF16_FLOP_S)
+    t = forced_route_ms(fa, "_route", "simt",
+                        lambda: fa.flash_attention(q, k, v, scale=MLA_SCALE),
+                        iters=10)
+    print(f"time flash_attention yardstick deepseek-v2-236b MLA bf16 S={S} "
+          f"on the CUDA-core route (its earlier route): {t:.6f} ms")
 
     # whisper's: the encoder's bidirectional attention over 8 x 1,500
     # frames, the decoder's cross attention of its 187-token prompts and of
@@ -2200,6 +2228,14 @@ def time_kernels(device) -> dict[str, dict]:
             print(f"time flash_attention_bwd yardstick SDPA backward "
                   f"(autograd, eager) {label} {str(dtype).split('.')[1]}: "
                   f"{t['library_ms']:.6f} ms")
+            if dtype == torch.bfloat16:
+                old = forced_route_ms(
+                    fa, "_bwd_route", "mma",
+                    lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                   causal=causal), iters=3)
+                print(f"time flash_attention_bwd yardstick {label} bf16 on "
+                      f"the mma.sync route (its earlier route): "
+                      f"{old:.6f} ms")
             out.setdefault("flash_attention_bwd", t)
             del q, k, v, o, lse, do
             torch.cuda.empty_cache()
@@ -3167,10 +3203,11 @@ def run_train(device, kernels) -> dict:
     require(all(math.isfinite(x) for x in losses), "train: a loss not finite")
     require(last <= first - 0.1, f"train: loss fell {first - last:.4f} < 0.1")
     # flash: forward once a layer a step and again in the rematerialised
-    # backward, on wgmma; backward once a layer a step, on mma
+    # backward, on wgmma; backward once a layer a step, on wgmma too
     n_l = cfg.n_layers
     want = {"flash_attention": {"wgmma": 2 * n_l * TRAIN_STEPS, "simt": 0},
-            "flash_attention_bwd": {"mma": n_l * TRAIN_STEPS, "simt": 0}}
+            "flash_attention_bwd": {"wgmma": n_l * TRAIN_STEPS, "mma": 0,
+                                    "simt": 0}}
     print(f"train launches by route: {routes}; want {want}: "
           f"{routes == want}")
     require(routes == want and launches == {
@@ -3576,8 +3613,9 @@ def shard_train(device, mesh) -> dict:
           f"(unsharded {loss_u!r}), grad norm {float(metrics['grad_norm']):.4f}, "
           f"{ms:.1f} ms; flash backward launches {bwd}")
     require(loss == loss_u, f"shard train: loss {loss} != unsharded {loss_u}")
-    require(sum(bwd.values()) >= cfg.n_layers,
-            f"shard train: flash backward launches {bwd}")
+    require(bwd["wgmma"] == sum(bwd.values()) >= cfg.n_layers,
+            f"shard train: flash backward launches {bwd}, want every one on "
+            f"the wgmma route")
     require(opt.count == 1, "shard train: no update")
     return {"loss": loss, "ms": ms}
 
@@ -3831,6 +3869,10 @@ def main() -> int:
                 entry = line.split("'")[1]     # the mangled kernel name
             if "Used" in line or "spill" in line:
                 print(f"ptxas {stem} {entry}: {line.strip()}")
+            if "spill" in line and any(k in entry for k in NO_SPILL):
+                require(" 0 bytes spill stores" in line
+                        and " 0 bytes spill loads" in line,
+                        f"ptxas: {entry} spills: {line.strip()}")
     for stem, op in TC_SASS.items():
         n = build.sass(stem).count(op)
         print(f"sass {stem}: {n} {op} instructions (tensor cores)")

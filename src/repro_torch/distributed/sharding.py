@@ -210,11 +210,29 @@ def _as_dtensor(x: torch.Tensor, mesh):
                               run_check=False)
 
 
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``pls``, and its gradient too: the
+    counterpart of ``with_sharding_constraint``, whose transpose constrains
+    the cotangent to the same sharding. DTensor's own ``redistribute``
+    sends the gradient back in the input's placements, which torch
+    versions choose differently (a residual's gradient left partial over
+    the model axis, so that the next product gathers its weight)."""
+
+    @staticmethod
+    def forward(ctx, x, pls):
+        ctx.pls = pls
+        return x.redistribute(x.device_mesh, pls)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(grad.device_mesh, ctx.pls), None
+
+
 def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
-    """Constrain ``x`` to the sharding implied by logical ``axes``: ``x``
-    itself outside a context or on a mesh of one device, else a DTensor
-    redistributed to :func:`spec_for`'s layout (a plain tensor counts as
-    replicated first)."""
+    """Constrain ``x`` (and, under autograd, its gradient) to the sharding
+    implied by logical ``axes``: ``x`` itself outside a context or on a
+    mesh of one device, else a DTensor redistributed to :func:`spec_for`'s
+    layout (a plain tensor counts as replicated first)."""
     ctx = _CTX.get()
     if ctx is None:
         return x
@@ -222,8 +240,8 @@ def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
     if not is_distributed(mesh):
         return x
     spec = spec_for(axes, x.shape, mesh, rules)
-    return _as_dtensor(x, mesh).redistribute(
-        mesh, placements(spec, x.ndim, mesh))
+    return _Constrain.apply(_as_dtensor(x, mesh),
+                            placements(spec, x.ndim, mesh))
 
 
 def split_last(x: torch.Tensor, *sizes: int) -> torch.Tensor:

@@ -15,19 +15,28 @@
 // / 2 FLOP against 2 * S * (H * (D + Dv) + 2 * KV * D) bytes (bf16): at
 // S = 1024, H = 32 that is 8.6 GFLOP against 10.5 MB, ~500 FLOP a byte, so
 // only the tensor cores (989 TFLOP/s bf16, against 67 fp32) can approach it.
+// deepseek-v2's MLA prefill, (1, 1024, 128 heads, 192 | 128) with as many kv
+// heads as query heads, moves more bytes a FLOP: 42.9 GFLOP against 168 MB,
+// bound by the bytes (0.050 ms at 3.35 TB/s, 0.043 ms of tensor-core
+// operations); on the CUDA cores its floor was 0.64 ms.
 //
 // Two routes, chosen by shape in the Python wrapper (`_route`):
 //
-// flash_attention_wgmma (bf16, D = Dv in {64, 128, 256}): one block of two
+// flash_attention_wgmma (bf16, D = Dv in {64, 128, 256}, and MLA's D = 192,
+// Dv = 128: the kernel is a template on the pair (D, DV)): one block of two
 // consumer warpgroups and one producer warpgroup per (128 q rows, head,
 // batch), heaviest causal tiles launched first; each consumer warpgroup owns
 // 64 rows (one wgmma M tile). One thread of the producer loads the Q tile
 // once and K/V tiles of 64 keys into a ring by TMA, completed on "full" mbarriers;
 // consumers release a stage on an "empty" mbarrier, so the two warpgroups
 // never wait for each other (no block barrier in the loop). The ring has 3
-// stages up to D = 128; at D = 256 (gemma3) Q is 64 KB and a K + V stage
-// 64 KB, so three stages (~257 KB) exceed the 227 KB a block may use and the
-// ring has two (~193 KB). There each consumer thread holds O as 128 fp32
+// stages where they fit: up to D = 128, and at (192, 128), where Q takes
+// 48 KB (three 64-wide boxes a row) and a K + V stage 40 KB (K three boxes,
+// V two), ~169 KB in all, and each consumer thread holds O as 64 fp32
+// registers, as at D = 128 (no spill). At D = 256 (gemma3) Q is 64 KB and
+// a K + V stage 64 KB, so three stages (~257 KB) exceed the 227 KB a block
+// may use and the ring has two (~193 KB). There each consumer thread holds
+// O as 128 fp32
 // registers beside the 32 of its score tile and 16 of P, more than the 168
 // a thread ptxas gives this kernel, with 384 threads as with 288. The
 // producer warpgroup lowers itself to 56 registers and the consumers raise
@@ -284,21 +293,24 @@ constexpr int BOX = 64;            // bf16 elements in one 128-byte swizzled row
 constexpr int ROW = 128;           // bytes of that row
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
-template <int D>
+template <int D, int DV>
 struct Smem {
-  static constexpr int STAGES = D > 128 ? 2 : 3;      // K/V ring (see the note)
-  static constexpr int HALVES = D / BOX;              // 64-wide boxes a row
+  static constexpr int HALVES = D / BOX;              // 64-wide boxes a q or k row
+  static constexpr int V_HALVES = DV / BOX;           // ... a v or o row
   static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int T_BYTES = BK * D * 2;          // one K or V tile
-  static constexpr int STAGE_BYTES = 2 * T_BYTES;
+  static constexpr int K_BYTES = BK * D * 2;          // one K tile
+  static constexpr int V_BYTES = BK * DV * 2;         // one V tile
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
+  // the K/V ring (see the note): three stages where they fit beside Q
+  static constexpr int STAGES = Q_BYTES + 3 * STAGE_BYTES <= 200 * 1024 ? 3 : 2;
   static constexpr int BYTES = 1024 + Q_BYTES + STAGES * STAGE_BYTES;  // + alignment
 };
 
 // Shared memory, every tile 1024-aligned (the swizzle atom): Q as HALVES
-// boxes of [BQ rows][64], then per stage K and V as HALVES boxes of
-// [BK keys][64] each. A 64-wide box row is 128 bytes, its 16-byte chunks
+// boxes of [BQ rows][64], then per stage K as HALVES and V as V_HALVES
+// boxes of [BK keys][64]. A 64-wide box row is 128 bytes, its 16-byte chunks
 // permuted by TMA as chunk ^ (row % 8); wgmma undoes it from the address.
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -306,8 +318,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
                    int Skv, int H, int KV, float scale_log2, int causal, int window,
                    int q_offset) {
-  using S = Smem<D>;
-  constexpr int HALVES = S::HALVES, STAGES = S::STAGES;
+  using S = Smem<D, DV>;
+  constexpr int HALVES = S::HALVES, V_HALVES = S::V_HALVES, STAGES = S::STAGES;
   extern __shared__ uint8_t smem_raw[];
   // full[s]: stage s loaded (TMA bytes); empty[s]: every consumer thread
   // is done with it; qbar: the Q tile loaded
@@ -339,13 +351,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   auto load_kv = [&](int j) {                  // tile j of the range into its stage
     const int s = j % STAGES;
     const uint32_t bar = smem_addr(&full[s]);
-    const uint32_t kd = skv + s * S::STAGE_BYTES, vd = kd + S::T_BYTES;
+    const uint32_t kd = skv + s * S::STAGE_BYTES, vd = kd + S::K_BYTES;
     const int k0 = (kt_begin + j) * BK;
     mbar_arrive_expect_tx(bar, S::STAGE_BYTES);
-    for (int hf = 0; hf < HALVES; ++hf) {
+    for (int hf = 0; hf < HALVES; ++hf)
       tma_load_4d(kd + hf * BK * ROW, &kmap, bar, hf * BOX, kvh, k0, b);
+    for (int hf = 0; hf < V_HALVES; ++hf)
       tma_load_4d(vd + hf * BK * ROW, &vmap, bar, hf * BOX, kvh, k0, b);
-    }
   };
 
   const uint32_t qbar = smem_addr(&qbar_mem);
@@ -380,9 +392,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int qpos = q0 + row + q_offset;
   const int col = 2 * (lane % 4);
   const uint32_t q_wg = sq + wg * 64 * ROW;
-  float acc[HALVES][32];
+  float acc[V_HALVES][32];
 #pragma unroll
-  for (int hf = 0; hf < HALVES; ++hf)
+  for (int hf = 0; hf < V_HALVES; ++hf)
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[hf][e] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -391,7 +403,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % STAGES;
     const int k0 = (kt_begin + j) * BK;
-    const uint32_t kd = skv + s * S::STAGE_BYTES, vd = kd + S::T_BYTES;
+    const uint32_t kd = skv + s * S::STAGE_BYTES, vd = kd + S::K_BYTES;
     mbar_wait(smem_addr(&full[s]), (j / STAGES) & 1);
 
     // S = Q K^T: k steps of 16 walk 32 bytes along a 128-byte box row
@@ -457,7 +469,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(p2, p3);
     }
 #pragma unroll
-    for (int hf = 0; hf < HALVES; ++hf)
+    for (int hf = 0; hf < V_HALVES; ++hf)
 #pragma unroll
       for (int e = 0; e < 32; ++e) acc[hf][e] *= alpha[(e >> 1) & 1];
 
@@ -466,13 +478,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int kb = 0; kb < BK / 16; ++kb)
 #pragma unroll
-      for (int hf = 0; hf < HALVES; ++hf)
+      for (int hf = 0; hf < V_HALVES; ++hf)
         wgmma_rs_mn(acc[hf], pa[kb],
                     wgmma_desc(vd + hf * BK * ROW + kb * 16 * ROW, 1024, 1024));
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
-    for (int hf = 0; hf < HALVES; ++hf)
+    for (int hf = 0; hf < V_HALVES; ++hf)
 #pragma unroll
       for (int e = 0; e < 32; ++e) reg_fence(acc[hf][e]);
 #pragma unroll
@@ -494,9 +506,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const float denom = fmaxf(l[i], 1e-30f);
     if (lse != nullptr && (lane & 3) == 0)     // m is in log2 units here
       lse[((long long)b * H + h) * Sq + r] = (m[i] + log2f(l[i])) * LN2;
-    __nv_bfloat16* orow = o + ((long long)(b * Sq + r) * H + h) * D + col;
+    __nv_bfloat16* orow = o + ((long long)(b * Sq + r) * H + h) * DV + col;
 #pragma unroll
-    for (int hf = 0; hf < HALVES; ++hf)
+    for (int hf = 0; hf < V_HALVES; ++hf)
 #pragma unroll
       for (int n = 0; n < 8; ++n)
         *reinterpret_cast<__nv_bfloat162*>(orow + hf * BOX + n * 8) =
@@ -505,70 +517,25 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time by its entry point (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// the rank-4 map (D, heads, S, B) of a contiguous (B, S, heads, D) bf16
-// tensor, boxes of (64, 1, rows, 1), 128-byte swizzle, zero fill outside
-int encode(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B,
-           int rows) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {BOX, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                         const_cast<void*>(ptr), dims, strides, box, elem,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
            int Sq, int Skv, int H, int KV, float scale, int causal, int window,
            int q_offset, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   int rc = encode(&qm, q, D, H, Sq, B, BQ);
   if (rc == 0) rc = encode(&km, k, D, KV, Skv, B, BK);
-  if (rc == 0) rc = encode(&vm, v, D, KV, Skv, B, BK);
+  if (rc == 0) rc = encode(&vm, v, DV, KV, Skv, B, BK);
   if (rc != 0) return rc;
   static bool opted_in = false;                // shared-memory opt-in, once
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Smem<D>::BYTES);
+        flash_wgmma_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Smem<D, DV>::BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_wgmma_kernel<D><<<grid, THREADS, Smem<D>::BYTES, stream>>>(
+  flash_wgmma_kernel<D, DV><<<grid, THREADS, Smem<D, DV>::BYTES, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, H, KV,
       scale * LOG2E, causal, window, q_offset);
   return launch_status();
@@ -596,25 +563,28 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                           window, q_offset, s);
 }
 
-// bf16 only; D = Dv in {64, 128, 256}; 16-byte aligned contiguous q, k, v;
-// H % KV == 0, B * Sq > 0, Skv > 0; window <= 0 means no window; lse
-// (B, H, Sq) fp32 or null. Returns a cudaError_t (cudaErrorNotSupported: no
-// cuTensorMapEncodeTiled entry point).
+// bf16 only; (D, Dv) in {(64, 64), (128, 128), (256, 256), (192, 128)};
+// 16-byte aligned contiguous q, k, v; H % KV == 0, B * Sq > 0, Skv > 0;
+// window <= 0 means no window; lse (B, H, Sq) fp32 or null. Returns a
+// cudaError_t (cudaErrorNotSupported: no cuTensorMapEncodeTiled entry point).
 extern "C" int flash_attention_wgmma(const void* q, const void* k, const void* v,
                                      void* o, void* lse, int B, int Sq, int Skv, int H,
-                                     int KV, int D, float scale, int causal, int window,
-                                     int q_offset, void* stream) {
+                                     int KV, int D, int Dv, float scale, int causal,
+                                     int window, int q_offset, void* stream) {
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (D == 64)
-    return tc::launch<64>(q, k, v, o, l, B, Sq, Skv, H, KV, scale, causal, window,
-                          q_offset, s);
-  if (D == 128)
-    return tc::launch<128>(q, k, v, o, l, B, Sq, Skv, H, KV, scale, causal, window,
-                           q_offset, s);
-  if (D == 256)
-    return tc::launch<256>(q, k, v, o, l, B, Sq, Skv, H, KV, scale, causal, window,
-                           q_offset, s);
+  if (D == 64 && Dv == 64)
+    return tc::launch<64, 64>(q, k, v, o, l, B, Sq, Skv, H, KV, scale, causal, window,
+                              q_offset, s);
+  if (D == 128 && Dv == 128)
+    return tc::launch<128, 128>(q, k, v, o, l, B, Sq, Skv, H, KV, scale, causal,
+                                window, q_offset, s);
+  if (D == 256 && Dv == 256)
+    return tc::launch<256, 256>(q, k, v, o, l, B, Sq, Skv, H, KV, scale, causal,
+                                window, q_offset, s);
+  if (D == 192 && Dv == 128)                   // MLA: nope 128 + rope 64 | v 128
+    return tc::launch<192, 128>(q, k, v, o, l, B, Sq, Skv, H, KV, scale, causal,
+                                window, q_offset, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

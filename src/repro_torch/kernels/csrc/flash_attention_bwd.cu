@@ -18,24 +18,32 @@
 // Bound: operations. Each visible (q, k) pair takes 2 (3 D + 2 Dv) FLOP (S,
 // dP, dV, dK, dQ) against one read of q, k, v, o, do and one write of
 // dq, dk, dv; at llama3-8b's (4, 1024, 32 | 8, 128) causal that is 86 GFLOP
-// against 0.1 GB in bf16, 0.087 ms at 989 TFLOP/s.
+// against 0.1 GB in bf16, 0.087 ms at 989 TFLOP/s; at whisper's encoder
+// (8, 1500, 20, 64), non-causal, 230 GFLOP, 0.233 ms.
 //
-// Both routes launch three kernels on the caller's stream: flash_bwd_delta
-// (one warp a row of (b, i, h): Delta), the route's kernel, and, for bf16,
-// flash_bwd_cast (the fp32 dQ buffer rounded into dq). Each kernel is one
-// block per (K/V tile of 64 keys, kv head, batch row), low key tiles first
-// (in a causal run they see the most q tiles): it keeps the tile's dK, dV
-// in registers over the G query heads of its kv head (GQA sums without
-// atomics) and every q tile of 64 rows that sees one of its keys, and adds
-// dS K into an fp32 dQ buffer with atomicAdd (a q tile's rows are shared by
-// every key tile, so dQ is the one sum that crosses blocks). Rows past Sq and
-// keys past Skv are masked (P = 0) and not stored. Two routes, chosen by
-// shape in the Python wrapper (`_bwd_route`):
+// Every route launches three kernels on the caller's stream: a row pass
+// (one warp a row of (b, i, h): Delta, and on the wgmma route lse log2 e
+// too), the route's kernel, and, for bf16, a cast (the fp32 dQ buffer
+// rounded into dq). Each kernel is one block per (key tile, kv head, batch
+// row), low key tiles first (in a causal run they see the most q tiles): it
+// keeps the tile's dK, dV in registers over the G query heads of its kv head
+// (GQA sums without atomics) and every q tile of 64 rows that sees one of
+// its keys, and adds dS K into an fp32 dQ buffer (a q tile's rows are shared
+// by every key tile, so dQ is the one sum that crosses blocks; its order
+// across blocks is not fixed). Rows past Sq and keys past Skv are masked
+// (P = 0) and not stored. Three routes, chosen by shape in the Python
+// wrapper (`_bwd_route`):
 //
-// flash_attention_bwd_mma (bf16, D and Dv multiples of 16): tc::
-// flash_bwd_mma_kernel below, 4 warps, mma.sync m16n8k16 for the five
-// products (P and dS rounded to bf16, as the forward rounds P); ~72 KB of
-// shared memory at 128.
+// flash_attention_bwd_wgmma (bf16, D = Dv in {64, 128}: whisper's and the
+// llama family's heads): tma_route::flash_bwd_wgmma_kernel below, two or
+// three warpgroups of 64 keys, Q, dO and the rows' statistics in a 2-stage
+// TMA ring, the five products on wgmma, dQ added a 64 x 64 fp32 tile at a
+// time by one bulk reduce-add (its note below).
+//
+// flash_attention_bwd_mma (bf16, other D and Dv multiples of 16): tc::
+// flash_bwd_mma_kernel below, 4 warps of 16 keys, mma.sync m16n8k16 for the
+// five products (P and dS rounded to bf16, as the forward rounds P), dQ by
+// per-element atomicAdd; ~72 KB of shared memory at 128.
 //
 // flash_attention_bwd (fp32, and bf16 at other widths): flash_bwd_kernel,
 // 256 threads on the CUDA cores. It holds K and V transposed in shared
@@ -58,29 +66,37 @@ constexpr int RPT = BQ / TY;              // 4 rows (or keys) a thread
 constexpr int CPT = BK / TX;              // 4 columns a thread
 constexpr int PAD = 65;                   // row stride of a transposed tile
 constexpr int MAX_W = 128;                // widest D, Dv
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-// Delta[b, h, i] = sum_e dO[b, i, h, e] O[b, i, h, e]: one warp a row
+// Delta[b, h, i] = sum_e dO[b, i, h, e] O[b, i, h, e] into delta (B, H, Sp),
+// one warp a row, zeros for the rows i in [Sq, Sp) (Sp >= Sq rounds Sq up to
+// a tile where a route reads whole tiles of rows); with a non-null lse2 also
+// lse2[b, h, i] = lse[b, h, i] log2 e (zeros past Sq), the exp2 form the
+// wgmma route reads
 template <typename T>
 __global__ void flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
-                                float* __restrict__ delta, int Sq, int H, int Dv,
-                                long long rows) {
-  const long long row = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+                                const float* __restrict__ lse, float* __restrict__ lse2,
+                                float* __restrict__ delta, int Sq, int Sp, int H,
+                                int Dv, long long rows) {
+  const long long r = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (row >= rows) return;                   // row = (b * Sq + i) * H + h
-  const T* a = o + row * Dv;
-  const T* g = dout + row * Dv;
+  if (r >= rows) return;                     // r = (b * H + h) * Sp + i
+  const long long i = r % Sp, bh = r / Sp, h = bh % H, b = bh / H;
   float s = 0.f;
-  for (int e = lane; e < Dv; e += 32) s = fmaf(to_f(a[e]), to_f(g[e]), s);
+  if (i < Sq) {
+    const long long at = ((b * Sq + i) * H + h) * Dv;
+    for (int e = lane; e < Dv; e += 32) s = fmaf(to_f(o[at + e]), to_f(dout[at + e]), s);
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) {
-    const long long h = row % H, bi = row / H, i = bi % Sq, b = bi / Sq;
-    delta[(b * H + h) * Sq + i] = s;
+    delta[r] = s;
+    if (lse2 != nullptr) lse2[r] = i < Sq ? lse[bh * Sq + i] * LOG2E : 0.f;
   }
 }
 
@@ -289,7 +305,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = (long long)B * Sq * H;
   flash_bwd_delta<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, Sq, H, Dv, rows);
+      static_cast<const T*>(o), static_cast<const T*>(dout), nullptr, nullptr, delta,
+      Sq, Sq, H, Dv, rows);
   int rc = launch_status();
   if (rc != 0) return rc;
   const size_t smem = sizeof(float) * ((size_t)(2 * D + 2 * Dv) * PAD +
@@ -335,7 +352,6 @@ using namespace tensor_core;
 
 constexpr int BQ = 64, BK = 64;           // q rows and keys a tile
 constexpr int WARPS = 4;                  // a warp owns 16 keys of the tile
-constexpr float LOG2E = 1.4426950408889634f;
 
 // A [rows][DMAX] bf16 tile in shared memory, its 16-byte chunk c of row r
 // stored at chunk c ^ (r & 7), so that ldmatrix's eight rows hit distinct
@@ -601,7 +617,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = (long long)B * Sq * H;
   flash_bwd_delta<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, Sq, H, Dv, rows);
+      static_cast<const T*>(o), static_cast<const T*>(dout), nullptr, nullptr, delta,
+      Sq, Sq, H, Dv, rows);
   int rc = launch_status();
   if (rc != 0) return rc;
   static bool opted_in = false;               // shared-memory opt-in, once
@@ -625,6 +642,430 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }
 
 }  // namespace tc
+
+// ---- wgmma route: bf16, D = Dv in {64, 128} --------------------------------
+
+namespace tma_route {
+
+using namespace tensor_core;
+
+constexpr int BQ = 64;                    // q rows a tile of the ring
+constexpr int STAGES = 2;                 // the Q / dO / row-statistics ring
+constexpr int ROW = 128;                  // bytes of a 64-wide bf16 box row
+constexpr int TILE = 64 * ROW;            // one [64 rows][64] bf16 box
+constexpr int DQ_TILE = BQ * 64 * 4;      // one [64 q][64] fp32 dQ chunk
+
+// Shared memory, every bf16 tile 1024-aligned (the 128-byte swizzle atom):
+// K and V of the block (a warpgroup's 64 keys as HALVES boxes each), the
+// ring's stages (Q, then dO, HALVES boxes each), dS^T of the last two q
+// tiles (one [64 keys][64 q] tile a warpgroup each), one fp32 dQ chunk a
+// warpgroup, and the ring's row statistics (lse log2 e, Delta: 64 floats
+// each a stage).
+template <int D>
+struct Smem {
+  // warpgroups a block, 64 keys each, and no producer warps (see below)
+  static constexpr int CONSUMERS = D <= 64 ? 3 : 2;
+  static constexpr int HALVES = D / 64;
+  static constexpr int KV_TILE = HALVES * TILE;          // a warpgroup's K or V
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = K_OFF + CONSUMERS * KV_TILE;
+  static constexpr int STAGE = 2 * HALVES * TILE;        // Q and dO
+  static constexpr int Q_OFF = V_OFF + CONSUMERS * KV_TILE;
+  static constexpr int DS_OFF = Q_OFF + STAGES * STAGE;
+  static constexpr int DQ_OFF = DS_OFF + 2 * CONSUMERS * TILE;
+  static constexpr int ROWS_OFF = DQ_OFF + CONSUMERS * DQ_TILE;
+  static constexpr int ROWS = 2 * BQ * 4;                // a stage's statistics
+  static constexpr int BYTES = 1024 + ROWS_OFF + STAGES * ROWS;   // + alignment
+};
+
+// One block per (key tile, kv head, batch row), the key tiles slowest so
+// that a causal run's heaviest blocks (the low key tiles see the most q
+// tiles) start first; a key tile is 64 keys a warpgroup, with two
+// warpgroups at D = 128 and three at D = 64 (whose registers allow a third,
+// below). Warpgroup w owns keys 64 w .. 64 w + 63 of the tile
+// and keeps their dK, dV in fp32 registers over the block's (G head, q
+// tile) iterations. Thread 0 loads K and V once and keeps the iterations'
+// Q, dO, lse and Delta tiles in flight in a 2-stage ring (TMA and bulk
+// copies on "full" mbarriers): it refills a stage with iteration j + 2 as
+// soon as the warpgroups' barrier of iteration j shows every thread done
+// with it, so the loads run under the rest of iteration j and all of
+// j + 1. Per iteration each warpgroup, on its 64 keys x 64 q rows:
+//   S^T = K Q^T: wgmma, both operands K-major in shared memory;
+//   P^T = exp2(S^T scale log2 e - lse log2 e) on the visible pairs, 0
+//   elsewhere, on the fragments, rounded to bf16;
+//   dP^T = V dO^T into the same accumulators, in one group with dV += P^T dO
+//   (wgmma with A from registers, the accumulators repacked as bf16
+//   fragments, and dO read MN-major through the transpose bit);
+//   dS^T = P^T o (dP^T - Delta), rounded to bf16 into shared memory (for
+//   dQ), then dK += dS^T Q (A from registers, Q MN-major);
+//   after a barrier of the warpgroups (every dS^T in place), dQ's
+//   64-column chunk c by warpgroup (c - j) mod n (n warpgroups, j the
+//   iteration, so that at D = 64, one chunk, they take turns) of the q tile
+//   over all the block's keys: dQ = dS K, wgmma with dS^T and K both MN-major,
+//   scaled into the warpgroup's fp32 chunk in shared memory and added to
+//   the (B, H, Sp / 64, D / 64, 64, 64) fp32 dQ buffer by one bulk
+//   reduce-add of the 16 KB chunk.
+// A warpgroup whose keys no row of the q tile sees (causality, the window,
+// keys past Skv) skips its products, and dQ skips its dS^T. dS^T is double
+// buffered, so one barrier an iteration keeps a warpgroup from overwriting
+// a tile the other still reads. P and dS are rounded to bf16 for the
+// products, as the forward rounds P, and dS is computed from the rounded P,
+// so that a thread holds dK and dV (2 x D / 2 fp32), one 32-float
+// accumulator tile and P's 16 fragment registers. Registers set the block's
+// shape: ptxas gives a block of more than 256 threads 168 registers a
+// thread, whatever setmaxnreg asks for (a producer warpgroup with 40 | 232
+// or 24 | 240, or one producer warp, all spilled at D = 128 on the
+// H100's nvcc), and dK, dV alone take 128 of them at D = 128; so the block
+// is its consumer warpgroups alone: two at D = 128 (255 registers a
+// thread), three at D = 64 (168, of which it needs ~150).
+template <int D>
+__global__ void __launch_bounds__(128 * Smem<D>::CONSUMERS, 1)
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __grid_constant__ CUtensorMap domap,
+                       const float* __restrict__ rows, float* __restrict__ dq,
+                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                       int Sq, int Sp, int Skv, int H, int KV, float scale,
+                       int causal, int window, int q_offset) {
+  using S = Smem<D>;
+  constexpr int HALVES = S::HALVES, CONSUMERS = S::CONSUMERS, BK = 64 * CONSUMERS;
+  extern __shared__ uint8_t smem_raw[];
+  // full[s]: stage s loaded (TMA and bulk bytes); kvbar: K and V loaded
+  __shared__ uint64_t full[STAGES], kvbar_mem;
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);    // the same bytes, generic
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int kvh = blockIdx.x % KV, b = blockIdx.x / KV, kt = blockIdx.y;
+  const int B = gridDim.x / KV, G = H / KV;
+  const int k0 = kt * BK;
+  const int k_last = min(k0 + BK, Skv) - 1;
+
+  // the q rows that see a key of this tile (as the other routes')
+  int i_begin = 0, i_end = Sq;
+  if (causal) i_begin = max(0, k0 - q_offset);
+  if (window > 0) i_end = min(Sq, k_last + window - q_offset);
+  const int qt_begin = i_begin / BQ;
+  const int n_qt = i_end > i_begin ? (i_end + BQ - 1) / BQ - qt_begin : 0;
+  const int n_iter = G * n_qt;
+
+  // iteration jj's Q, dO, lse and Delta tiles into its stage (thread 0)
+  auto load_stage = [&](int jj) {
+    const int s = jj % STAGES;
+    const int h = kvh * G + jj / n_qt, q0 = (qt_begin + jj % n_qt) * BQ;
+    const uint32_t bar = smem_addr(&full[s]);
+    const uint32_t st = base + S::Q_OFF + s * S::STAGE;
+    const uint32_t rs = base + S::ROWS_OFF + s * S::ROWS;
+    const long long at = ((long long)b * H + h) * Sp + q0;
+    mbar_arrive_expect_tx(bar, S::STAGE + S::ROWS);
+    for (int hf = 0; hf < HALVES; ++hf) {
+      tma_load_4d(st + hf * TILE, &qmap, bar, hf * 64, h, q0, b);
+      tma_load_4d(st + (HALVES + hf) * TILE, &domap, bar, hf * 64, h, q0, b);
+    }
+    bulk_load(rs, rows + at, BQ * 4, bar);
+    bulk_load(rs + BQ * 4, rows + (long long)B * H * Sp + at, BQ * 4, bar);
+  };
+
+  const uint32_t kvbar = smem_addr(&kvbar_mem);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(smem_addr(&full[s]), 1);
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(kvbar, 2 * CONSUMERS * S::KV_TILE);
+    for (int w = 0; w < CONSUMERS; ++w)
+      for (int hf = 0; hf < HALVES; ++hf) {
+        const uint32_t at = w * S::KV_TILE + hf * TILE;
+        tma_load_4d(base + S::K_OFF + at, &kmap, kvbar, hf * 64, kvh, k0 + 64 * w, b);
+        tma_load_4d(base + S::V_OFF + at, &vmap, kvbar, hf * 64, kvh, k0 + 64 * w, b);
+      }
+    for (int jj = 0; jj < min(STAGES, n_iter); ++jj) load_stage(jj);
+  }
+
+  // this lane's keys: row (accumulator entries 4 n + {0, 1}) and row + 8
+  // (4 n + {2, 3}) of the warpgroup's 64; columns 8 n + col + {0, 1}
+  const int row = warp * 16 + lane / 4, col = 2 * (lane % 4);
+  const int kw0 = k0 + 64 * wg;                // the warpgroup's first key
+  const int kpos = kw0 + row;
+  const int tw = tid % 128;                    // thread within the warpgroup
+  const uint32_t kw = base + S::K_OFF + wg * S::KV_TILE;
+  const uint32_t vw = base + S::V_OFF + wg * S::KV_TILE;
+  const float scale_log2 = scale * LOG2E;
+  float* const dq_s = reinterpret_cast<float*>(gbase + S::DQ_OFF + wg * DQ_TILE);
+  const uint32_t dq_a = base + S::DQ_OFF + wg * DQ_TILE;
+
+  // does any row of the q tile at q0 see a key of warpgroup t's 64?
+  auto live = [&](int t, int q0) {
+    const int first = k0 + 64 * t, last = min(first + 63, Skv - 1);
+    const int qp0 = q0 + q_offset, qp1 = min(q0 + BQ, Sq) - 1 + q_offset;
+    bool ok = first < Skv;
+    if (causal) ok = ok && first <= qp1;
+    if (window > 0) ok = ok && last > qp0 - window;
+    return ok;
+  };
+
+  float dka[HALVES][32], dva[HALVES][32];
+#pragma unroll
+  for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dka[hf][e] = dva[hf][e] = 0.f;
+
+  mbar_wait(kvbar, 0);
+  for (int j = 0; j < n_iter; ++j) {
+    const int s = j % STAGES;
+    const int h = kvh * G + j / n_qt, qt = qt_begin + j % n_qt, q0 = qt * BQ;
+    const uint32_t qs = base + S::Q_OFF + s * S::STAGE, dos = qs + HALVES * TILE;
+    const float* lse2 = reinterpret_cast<const float*>(gbase + S::ROWS_OFF + s * S::ROWS);
+    const float* dlt = lse2 + BQ;
+    const uint32_t ds_own = base + S::DS_OFF + ((j & 1) * CONSUMERS + wg) * TILE;
+    mbar_wait(smem_addr(&full[s]), (j / STAGES) & 1);
+
+    if (live(wg, q0)) {
+      // S^T = K Q^T: k steps of 16 walk 32 bytes along a 128-byte box row
+      float acc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * TILE + (kk % 4) * 32;
+        wgmma_ss(acc, wgmma_desc(kw + off, 16, 1024), wgmma_desc(qs + off, 16, 1024),
+                 kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) reg_fence(acc[e]);
+
+      // P^T as bf16 A fragments: entry e of block n is key kpos + 8 (e / 2),
+      // q row 8 n + col + e % 2 of the tile; 0 where the pair is masked,
+      // which only a tile that crosses Sq, Skv, the diagonal or the
+      // window's edge has to test
+      const int qp0 = q0 + q_offset;             // the tile's first position
+      const bool edge = q0 + BQ > Sq || kw0 + 64 > Skv ||
+                        (causal && kw0 + 63 > qp0) ||
+                        (window > 0 && kw0 <= qp0 + BQ - 1 - window);
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 8 * n + col + (e & 1);
+          p[e] = exp2f(fmaf(acc[n * 4 + e], scale_log2, -lse2[r]));
+          if (edge) {
+            const int kp = kpos + 8 * (e >> 1), qp = qp0 + r;
+            bool ok = q0 + r < Sq && kp < Skv;
+            if (causal) ok = ok && kp <= qp;
+            if (window > 0) ok = ok && kp > qp - window;
+            if (!ok) p[e] = 0.f;
+          }
+        }
+        pa[n / 2][(n % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
+        pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+      }
+
+      // dP^T = V dO^T into the same accumulators, and dV += P^T dO (16 q
+      // rows a k step, 2048 bytes down a box), one group
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * TILE + (kk % 4) * 32;
+        wgmma_ss(acc, wgmma_desc(vw + off, 16, 1024), wgmma_desc(dos + off, 16, 1024),
+                 kk > 0);
+      }
+#pragma unroll
+      for (int kb = 0; kb < BQ / 16; ++kb)
+#pragma unroll
+        for (int hf = 0; hf < HALVES; ++hf)
+          wgmma_rs_mn(dva[hf], pa[kb],
+                      wgmma_desc(dos + hf * TILE + kb * 16 * ROW, 1024, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) reg_fence(acc[e]);
+#pragma unroll
+      for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) reg_fence(dva[hf][e]);
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) reg_fence(pa[kb][e]);
+
+      // dS^T = P^T o (dP^T - Delta), from P^T as rounded to bf16 (0 where
+      // masked), as bf16 A fragments and into this warpgroup's dS^T tile,
+      // [key][q] with the 128-byte swizzle (16-byte chunk n of row r at
+      // chunk n ^ (r % 8); rows row and row + 8 share r % 8)
+      uint32_t da[4][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t pp = pa[n / 2][(n % 2) * 2 + i];
+          const float2 p = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&pp));
+          const int r = 8 * n + col;
+          da[n / 2][(n % 2) * 2 + i] =
+              pack_bf16(p.x * (acc[n * 4 + 2 * i] - dlt[r]),
+                        p.y * (acc[n * 4 + 2 * i + 1] - dlt[r + 1]));
+        }
+        const uint32_t at = ds_own + row * ROW + ((n ^ (row & 7)) << 4) + 2 * col;
+        asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(at), "r"(da[n / 2][(n % 2) * 2]));
+        asm volatile("st.shared.b32 [%0], %1;\n"
+                     :: "r"(at + 8 * ROW), "r"(da[n / 2][(n % 2) * 2 + 1]));
+      }
+      fence_proxy_async();
+
+      // dK += dS^T Q
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < BQ / 16; ++kb)
+#pragma unroll
+        for (int hf = 0; hf < HALVES; ++hf)
+          wgmma_rs_mn(dka[hf], da[kb],
+                      wgmma_desc(qs + hf * TILE + kb * 16 * ROW, 1024, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) reg_fence(dka[hf][e]);
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) reg_fence(da[kb][e]);
+    }
+    // every live dS^T is in place, and every thread is done with stage s:
+    // thread 0 refills it with iteration j + STAGES
+    named_barrier(1, CONSUMERS * 128);
+    if (tid == 0 && j + STAGES < n_iter) load_stage(j + STAGES);
+
+    // dQ chunk c = dS K over the block's keys (the live warpgroups' tiles)
+    // (the chunks rotate over the warpgroups from one iteration to the
+    // next, so that at D = 64, one chunk, each takes its turn)
+    for (int c = (wg + j) % CONSUMERS; c < HALVES; c += CONSUMERS) {
+      float dqa[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dqa[e] = 0.f;
+      bool any = false;
+      wgmma_fence();
+      for (int t = 0; t < CONSUMERS; ++t) {
+        if (!live(t, q0)) continue;
+        const uint32_t dst = base + S::DS_OFF + ((j & 1) * CONSUMERS + t) * TILE;
+        const uint32_t kt_c = base + S::K_OFF + t * S::KV_TILE + c * TILE;
+#pragma unroll
+        for (int kb = 0; kb < 4; ++kb)
+          wgmma_ss_mn(dqa, wgmma_desc(dst + kb * 16 * ROW, 1024, 1024),
+                      wgmma_desc(kt_c + kb * 16 * ROW, 1024, 1024), any || kb > 0);
+        any = true;
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) reg_fence(dqa[e]);
+      if (!any) continue;
+      if (tw == 0) bulk_wait_read();           // the last chunk's add has read it
+      named_barrier(2 + wg, 128);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        *reinterpret_cast<float2*>(dq_s + row * 64 + 8 * n + col) =
+            make_float2(dqa[n * 4] * scale, dqa[n * 4 + 1] * scale);
+        *reinterpret_cast<float2*>(dq_s + (row + 8) * 64 + 8 * n + col) =
+            make_float2(dqa[n * 4 + 2] * scale, dqa[n * 4 + 3] * scale);
+      }
+      fence_proxy_async();
+      named_barrier(2 + wg, 128);
+      if (tw == 0)
+        bulk_reduce_add_f32(
+            dq + ((((long long)b * H + h) * (Sp / BQ) + qt) * HALVES + c) * (BQ * 64),
+            dq_a, DQ_TILE);
+    }
+  }
+  if (tw == 0) bulk_wait();                    // the adds are done with shared memory
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kpos + 8 * i;
+    if (key >= Skv) continue;
+    __nv_bfloat16* krw = dk + ((long long)(b * Skv + key) * KV + kvh) * D + col;
+    __nv_bfloat16* vrw = dv + ((long long)(b * Skv + key) * KV + kvh) * D + col;
+#pragma unroll
+    for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(krw + hf * 64 + n * 8) = __floats2bfloat162_rn(
+            dka[hf][n * 4 + 2 * i] * scale, dka[hf][n * 4 + 2 * i + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(vrw + hf * 64 + n * 8) = __floats2bfloat162_rn(
+            dva[hf][n * 4 + 2 * i], dva[hf][n * 4 + 2 * i + 1]);
+      }
+  }
+}
+
+// dq (B, Sq, H, D) bf16 from the tiled fp32 buffer (B, H, Sp / 64, D / 64,
+// 64, 64); one thread an output pair
+__global__ void flash_bwd_cast_tiles(const float* __restrict__ acc,
+                                     __nv_bfloat16* __restrict__ dq, int Sq, int Sp,
+                                     int H, int D, long long n_pairs) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_pairs) return;
+  const long long e = 2 * p;                   // e = ((b * Sq + i) * H + h) * D + d
+  const int d = e % D;
+  const long long bih = e / D, h = bih % H, bi = bih / H, i = bi % Sq, b = bi / Sq;
+  const float* t = acc + (((b * H + h) * (Sp / BQ) + i / BQ) * (D / 64) + d / 64) * (BQ * 64)
+                   + (i % BQ) * 64 + d % 64;
+  *reinterpret_cast<__nv_bfloat162*>(dq + e) = __floats2bfloat162_rn(t[0], t[1]);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* dq_acc, float* rows, void* dq,
+           void* dk, void* dv, int B, int Sq, int Skv, int H, int KV, float scale,
+           int causal, int window, int q_offset, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  const int Sp = (Sq + BQ - 1) / BQ * BQ;
+  CUtensorMap qm, km, vm, dom;
+  int rc = encode(&qm, q, D, H, Sq, B, BQ);
+  if (rc == 0) rc = encode(&km, k, D, KV, Skv, B, 64);
+  if (rc == 0) rc = encode(&vm, v, D, KV, Skv, B, 64);
+  if (rc == 0) rc = encode(&dom, dout, D, H, Sq, B, BQ);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaMemsetAsync(dq_acc, 0, sizeof(float) * B * H * Sp * D, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the row statistics the kernel reads, (2, B, H, Sp): lse log2 e, Delta
+  const long long n_rows = (long long)B * H * Sp;
+  flash_bwd_delta<T><<<(unsigned)((n_rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, rows, rows + n_rows,
+      Sq, Sp, H, D, n_rows);
+  rc = launch_status();
+  if (rc != 0) return rc;
+  static bool opted_in = false;                // shared-memory opt-in, once
+  if (!opted_in) {
+    err = cudaFuncSetAttribute(flash_bwd_wgmma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Smem<D>::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  constexpr int BK = 64 * Smem<D>::CONSUMERS;
+  const dim3 grid(KV * B, (Skv + BK - 1) / BK);
+  flash_bwd_wgmma_kernel<D><<<grid, 128 * Smem<D>::CONSUMERS, Smem<D>::BYTES, stream>>>(
+      qm, km, vm, dom, rows, dq_acc, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sp,
+      Skv, H, KV, scale, causal, window, q_offset);
+  rc = launch_status();
+  if (rc != 0) return rc;
+  const long long n_pairs = (long long)B * Sq * H * D / 2;
+  flash_bwd_cast_tiles<<<(unsigned)((n_pairs + 255) / 256), 256, 0, stream>>>(
+      dq_acc, static_cast<T*>(dq), Sq, Sp, H, D, n_pairs);
+  return launch_status();
+}
+
+}  // namespace tma_route
 }  // namespace
 
 // dtype 0: fp32, 1: bf16. H % KV == 0, 0 < D, Dv <= 128, B * Sq > 0, Skv > 0;
@@ -671,4 +1112,30 @@ extern "C" int flash_attention_bwd_mma(const void* q, const void* k, const void*
                           Dv, scale, causal, window, q_offset, s);
   return tc::launch<128>(q, k, v, o, dout, l, acc, dl, dq, dk, dv, B, Sq, Skv, H, KV, D,
                          Dv, scale, causal, window, q_offset, s);
+}
+
+// bf16 only: D = Dv in {64, 128}; 16-byte aligned contiguous q, k, v, o,
+// dout, dk, dv; dq_acc (B, H, Sp, D) and rows (2, B, H, Sp) fp32
+// workspaces, Sp = Sq rounded up to 64; otherwise as flash_attention_bwd
+// (dq is the bf16 output). Returns a cudaError_t (cudaErrorNotSupported: no
+// cuTensorMapEncodeTiled entry point).
+extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
+                                         const void* o, const void* dout,
+                                         const void* lse, void* dq_acc, void* rows,
+                                         void* dq, void* dk, void* dv, int B, int Sq,
+                                         int Skv, int H, int KV, int D, float scale,
+                                         int causal, int window, int q_offset,
+                                         void* stream) {
+  if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* acc = static_cast<float*>(dq_acc);
+  float* rs = static_cast<float*>(rows);
+  if (D == 64)
+    return tma_route::launch<64>(q, k, v, o, dout, l, acc, rs, dq, dk, dv, B, Sq, Skv, H, KV,
+                          scale, causal, window, q_offset, s);
+  if (D == 128)
+    return tma_route::launch<128>(q, k, v, o, dout, l, acc, rs, dq, dk, dv, B, Sq, Skv, H, KV,
+                           scale, causal, window, q_offset, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,7 +7,10 @@
 //  * mma.sync m16n8k8 tf32 -> fp32, the fp32 -> tf32 rounding and its
 //    hi + lo split (linear_scan.cu's chunked RWKV6 scan);
 //  * wgmma m64n64k16 bf16 -> fp32 with shared-memory descriptors, mbarriers,
-//    TMA tile loads and setmaxnreg (flash_attention.cu).
+//    TMA tile loads, setmaxnreg and the rank-4 tensor maps they read
+//    (flash_attention.cu, flash_attention_bwd.cu); bulk copies, the bulk
+//    fp32 reduce-add into device memory, proxy fences and named barriers
+//    (flash_attention_bwd.cu).
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
 // "wgmma register fragments"): lane l of a warp holds accumulator rows
@@ -20,7 +23,9 @@
 // holds rows 16 w .. 16 w + 15.
 #pragma once
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 namespace tensor_core {
 
@@ -162,6 +167,48 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of device
+// memory into shared memory, completion counted on `bar` in bytes
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// dst[i] += src[i] for `bytes` / 4 floats, shared memory into device memory
+// (the add done at the memory, atomically a float), as one bulk group of
+// the issuing thread
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, uint32_t src,
+                                                    uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+      :: "l"(dst), "r"(src), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// the issuing thread's bulk groups have read their shared memory (it may
+// be written again) / have completed
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// make this thread's ordinary shared-memory writes visible to the async
+// proxy (wgmma operands, bulk copies) before a barrier hands them on
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a barrier of `threads` threads (a multiple of 32) on hardware barrier
+// `id` (1..15; 0 is __syncthreads')
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 // ---- wgmma -------------------------------------------------------------
 
 // Shared-memory matrix descriptor with the 128-byte swizzle: start address,
@@ -239,7 +286,66 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64x64 fp32) = or += A (64x16, shared, MN-major) @ B (16x64, shared,
+// MN-major): both read through their transpose bits
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t desc_a,
+                                            uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_REGS32
+      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : TC_ACC32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 #undef TC_ACC32
 #undef TC_REGS32
+
+// ---- tensor maps -------------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up at run time by its entry point (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the rank-4 map (D, heads, S, B) of a contiguous (B, S, heads, D) bf16
+// tensor, boxes of (64, 1, rows, 1), 128-byte swizzle, zero fill outside
+inline int encode(CUtensorMap* map, const void* ptr, int D, int heads, int S,
+                  int B, int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(ptr), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
 
 }  // namespace tensor_core

@@ -3,9 +3,9 @@
 Counterpart of ``repro.kernels.flash_attention`` (the Pallas TPU kernel).
 The kernels are in ``csrc/flash_attention.cu``; its source note says what
 bounds them on an H100 and how their tiles are laid out. Two routes, chosen
-by shape (:func:`_route`): bf16 at D = Dv in :data:`TC_WIDTHS` runs on the
-tensor cores (wgmma, K/V staged by TMA), fp32 and bf16 at other widths on
-the CUDA cores. Unlike the Pallas kernel, which asserts that Sq and Skv
+by shape (:func:`_route`): bf16 at (D, Dv) in :data:`TC_WIDTHS` (MLA's
+192 | 128 among them) runs on the tensor cores (wgmma, K/V staged by TMA),
+fp32 and bf16 at other widths on the CUDA cores. Unlike the Pallas kernel, which asserts that Sq and Skv
 divide its tiles, both mask ragged tiles themselves, so a prompt of any
 length goes straight in. :func:`flash_attention` launches a kernel for a
 CUDA tensor and takes :func:`flash_attention_plain` only for a CPU tensor.
@@ -14,8 +14,9 @@ Training: where grad is enabled and q, k or v requires it, a CUDA call goes
 through :class:`FlashAttentionFn`, whose forward is the same kernel asked
 also for each row's log-sum-exp, and whose backward is the hand-written
 kernel of ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`:
-dQ, dK, dV for D, Dv <= :data:`BWD_MAX_D`, on ``mma.sync`` in bf16 at
-multiples of 16, on the CUDA cores otherwise).
+dQ, dK, dV for D, Dv <= :data:`BWD_MAX_D`, on wgmma in bf16 at D = Dv in
+:data:`BWD_TC_WIDTHS`, on ``mma.sync`` at other bf16 multiples of 16, on
+the CUDA cores otherwise).
 :func:`flash_attention_bwd_plain` computes the same formulas in plain
 PyTorch. The JAX package has no backward kernel: its gradient is XLA's
 autodiff of its XLA attention, which autograd of
@@ -32,19 +33,26 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 MAX_D, MAX_DV = 256, 256          # head widths the CUDA-core kernel takes
-# D = Dv the tensor-core kernel is built for: granite's 64, 128 (llama3-8b
-# and the other GQA archs), gemma3's 256
-TC_WIDTHS = frozenset({64, 128, 256})
+# (D, Dv) the tensor-core kernel is built for: granite's 64, 128 (llama3-8b
+# and the other GQA archs), gemma3's 256, and deepseek-v2's MLA (192 | 128)
+TC_WIDTHS = frozenset({(64, 64), (128, 128), (256, 256), (192, 128)})
 BWD_MAX_D = 128                   # widest D, Dv the backward kernel takes
+# D = Dv the backward's wgmma kernel is built for: whisper's 64, the llama
+# family's 128
+BWD_TC_WIDTHS = frozenset({64, 128})
+BWD_TILE = 64                     # q rows a tile of the wgmma backward
+Q_CHUNK = 1024                    # query rows a chunk of the plain version
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _I, _I, _I, _P],
                "flash_attention_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                         _I, _I, _F, _I, _I, _I, _P]}
+                                         _I, _I, _I, _F, _I, _I, _I, _P]}
 _BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 11 + [_I] * 8
                    + [_F, _I, _I, _I, _P],
                    "flash_attention_bwd_mma": [_P] * 11 + [_I] * 7
+                   + [_F, _I, _I, _I, _P],
+                   "flash_attention_bwd_wgmma": [_P] * 11 + [_I] * 6
                    + [_F, _I, _I, _I, _P]}
 
 
@@ -63,12 +71,12 @@ def _check_shapes(q, k, v) -> tuple[int, ...]:
 
 def _route(dtype: torch.dtype, D: int, Dv: int) -> str:
     """The kernel that takes a CUDA call: ``"wgmma"`` (tensor cores) for
-    bfloat16 at D = Dv in :data:`TC_WIDTHS`, ``"simt"`` (CUDA cores) for
+    bfloat16 at (D, Dv) in :data:`TC_WIDTHS`, ``"simt"`` (CUDA cores) for
     float32 and for bfloat16 at other widths up to MAX_D, MAX_DV. A choice
     by shape, not a fallback: what neither takes raises ValueError."""
     if dtype not in _DTYPES:
         raise ValueError(f"flash kernel takes bfloat16 or float32, got {dtype}")
-    if dtype == torch.bfloat16 and D == Dv and D in TC_WIDTHS:
+    if dtype == torch.bfloat16 and (D, Dv) in TC_WIDTHS:
         return "wgmma"
     if 0 < D <= MAX_D and 0 < Dv <= MAX_DV:
         return "simt"
@@ -100,17 +108,68 @@ def _plain_scores(q, k, v, causal, window, q_offset, scale):
 
 
 def _bwd_route(dtype: torch.dtype, D: int, Dv: int) -> str:
-    """The backward kernel that takes a CUDA call: ``"mma"`` (tensor cores,
-    ``mma.sync``) for bfloat16 with D, Dv multiples of 16, ``"simt"`` (CUDA
-    cores) for float32 and other bfloat16 widths; both for D, Dv up to
-    :data:`BWD_MAX_D`. What neither takes raises ValueError."""
+    """The backward kernel that takes a CUDA call: ``"wgmma"`` (tensor
+    cores, warpgroup products fed by TMA) for bfloat16 at D = Dv in
+    :data:`BWD_TC_WIDTHS`, ``"mma"`` (tensor cores, ``mma.sync``) for other
+    bfloat16 widths that are multiples of 16, ``"simt"`` (CUDA cores) for
+    float32 and the remaining bfloat16 widths; all for D, Dv up to
+    :data:`BWD_MAX_D`. What none takes raises ValueError."""
     if dtype not in _DTYPES or not (0 < D <= BWD_MAX_D and 0 < Dv <= BWD_MAX_D):
         raise ValueError(f"flash backward kernel takes bfloat16 or float32 "
                          f"with D, Dv <= {BWD_MAX_D}; got {dtype}, D={D}, "
                          f"Dv={Dv}")
+    if dtype == torch.bfloat16 and D == Dv and D in BWD_TC_WIDTHS:
+        return "wgmma"
     if dtype == torch.bfloat16 and D % 16 == 0 and Dv % 16 == 0:
         return "mma"
     return "simt"
+
+
+def _chunks(Sq: int, Skv: int, window, q_offset: int):
+    """The query chunks of the plain version, as the reference's XLA
+    attention scans them (``repro.kernels.ops._xla_attention``): rows in
+    chunks of :data:`Q_CHUNK`, and with a window, where Skv exceeds
+    ``Q_CHUNK + window``, each chunk's key band of ``Q_CHUNK + window``
+    keys (padded to a multiple of 128) that holds every key its rows see.
+    One (row start, row stop, key start, key stop, q_offset of the chunk
+    against its band) a chunk; one chunk of everything for Sq <=
+    :data:`Q_CHUNK`."""
+    if Sq <= Q_CHUNK:
+        return [(0, Sq, 0, Skv, q_offset)]
+    band = Skv
+    banded = window is not None and Skv > Q_CHUNK + window
+    if banded:
+        band = Q_CHUNK + window
+        band = min(band + (-band) % 128, Skv)
+    out = []
+    for r0 in range(0, Sq, Q_CHUNK):
+        off = q_offset + r0
+        k0 = min(max(off - window + 1, 0), Skv - band) if banded else 0
+        out.append((r0, min(r0 + Q_CHUNK, Sq), k0, k0 + band, off - k0))
+    return out
+
+
+def _plain_chunked(q, k, v, causal, window, q_offset, scale, lse: bool):
+    """The plain version on plain tensors, query chunk by query chunk
+    (:func:`_chunks`): the float32 scores of one chunk against its keys
+    live at a time, (B, KV, G, Q_CHUNK, band), as in the reference, never
+    the whole (Sq, Skv) square. Returns o (B, Sq, H, Dv) in q's dtype, or
+    with ``lse`` each row's log-sum-exp (B, H, Sq) float32. Autograd goes
+    through the chunks."""
+    B, Sq, H, D, Skv, KV, Dv = _check_shapes(q, k, v)
+    parts = []
+    for r0, r1, k0, k1, off in _chunks(Sq, Skv, window, q_offset):
+        qc, kc, vc = q[:, r0:r1], k[:, k0:k1], v[:, k0:k1]
+        s, _ = _plain_scores(qc, kc, vc, causal, window, off, scale)
+        if lse:
+            parts.append(torch.logsumexp(s, dim=-1).reshape(B, H, r1 - r0))
+            continue
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqs,bskd->bqkgd", p, vc.float())
+        parts.append(o.reshape(B, r1 - r0, H, Dv).to(q.dtype))
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat(parts, dim=2 if lse else 1)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -119,14 +178,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float | None = None) -> torch.Tensor:
     """The same function in plain PyTorch, as the reference's XLA path
     computes it: fp32 scores of ``q * scale`` against the kv heads of each
-    group, the masks as NEG_INF, softmax, fp32 P @ V, cast to q's type."""
-    B, Sq, H, D, Skv, KV, Dv = _check_shapes(q, k, v)
+    group, the masks as NEG_INF, softmax, fp32 P @ V, cast to q's type,
+    over query chunks of :data:`Q_CHUNK` (:func:`_plain_chunked`)."""
+    _check_shapes(q, k, v)
     if sharded_context():
         return _plain_by_heads(q, k, v, causal, window, q_offset, scale)
-    s, _ = _plain_scores(q, k, v, causal, window, q_offset, scale)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, Sq, H, Dv).to(q.dtype)
+    return _plain_chunked(q, k, v, causal, window, q_offset, scale, False)
 
 
 def _plain_by_heads(q, k, v, causal, window, q_offset, scale):
@@ -141,8 +198,9 @@ def _plain_by_heads(q, k, v, causal, window, q_offset, scale):
     "attn_q", None)``), and each rank then runs the grouped plain version
     on its own shards, as a kernel would on its device: its rows of the
     batch, its heads and its query rows (offset by where they start), all
-    of the keys. No collective runs inside; autograd goes through the
-    shards. The same numbers as the grouped layout on one device."""
+    of the keys, in query chunks (:func:`_plain_chunked`). No collective
+    runs inside; autograd goes through the shards. The same numbers as the
+    grouped layout on one device."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.distributed import sharding as shd
@@ -160,11 +218,8 @@ def _plain_by_heads(q, k, v, causal, window, q_offset, scale):
     v = shd.lay_out(v, shd.NamedSharding(mesh, (sb, None, sh)))
     _, offset = shd.local_box(q.shape, mesh, q.placements)
     ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
-    s, _ = _plain_scores(ql, kl, vl, causal, window, q_offset + offset[1],
-                         scale)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, vl.float())
-    o = o.reshape(*ql.shape[:3], Dv).to(ql.dtype).contiguous()
+    o = _plain_chunked(ql, kl, vl, causal, window, q_offset + offset[1],
+                       scale, False).contiguous()
     return DTensor.from_local(o, mesh, q.placements, run_check=False,
                               shape=torch.Size((B, Sq, H, Dv)),
                               stride=(Sq * H * Dv, H * Dv, Dv, 1))
@@ -173,10 +228,9 @@ def _plain_by_heads(q, k, v, causal, window, q_offset, scale):
 def flash_attention_lse_plain(q, k, v, *, causal=True, window=None,
                               q_offset=0, scale=None) -> torch.Tensor:
     """Each row's log-sum-exp of its scaled, masked scores, (B, H, Sq)
-    float32: what the kernels write beside o for the backward."""
-    B, Sq, H, D, Skv, KV, Dv = _check_shapes(q, k, v)
-    s, _ = _plain_scores(q, k, v, causal, window, q_offset, scale)
-    return torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    float32: what the kernels write beside o for the backward, over the
+    same query chunks as :func:`flash_attention_plain`."""
+    return _plain_chunked(q, k, v, causal, window, q_offset, scale, True)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True,
@@ -263,7 +317,7 @@ def _forward(q, k, v, causal, window, q_offset, scale, want_lse: bool):
         stream = build.stream_ptr(q.device)
         if route == "wgmma":
             rc = lib.flash_attention_wgmma(
-                *ptrs, B, Sq, Skv, H, KV, D, float(scale), int(causal),
+                *ptrs, B, Sq, Skv, H, KV, D, Dv, float(scale), int(causal),
                 window, int(q_offset), stream)
         else:
             rc = lib.flash_attention(
@@ -310,10 +364,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     A CPU tensor goes to :func:`flash_attention_bwd_plain`; a CUDA tensor to
     the kernel of its route (:func:`_bwd_route`) in
     ``csrc/flash_attention_bwd.cu``, which takes contiguous q, k, v, o, do
-    of one dtype (16-byte aligned on the mma route) and raises ValueError
-    on anything else (gemma3's D = 256 and MLA's D = 192 among them).
-    ``launches`` counts its calls, ``launches_by_route`` each route's (each
-    call launches the Delta pass, the kernel and, in bf16, dQ's cast).
+    of one dtype (16-byte aligned on the tensor-core routes) and raises
+    ValueError on anything else (gemma3's D = 256 and MLA's D = 192 among
+    them). ``launches`` counts its calls, ``launches_by_route`` each
+    route's (each call launches the row-statistics pass, the kernel and,
+    in bf16, dQ's cast).
     """
     B, Sq, H, D, Skv, KV, Dv = _check_shapes(q, k, v)
     if tuple(o.shape) != (B, Sq, H, Dv) or tuple(do.shape) != (B, Sq, H, Dv) \
@@ -328,17 +383,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device != q.device or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError("flash backward kernel takes contiguous q, k, v, "
                              "o, do of one dtype on one device")
-        if route == "mma" and t.data_ptr() % 16:
-            raise ValueError("the backward's mma route takes 16-byte aligned "
-                             "q, k, v, o, do")
+        if route != "simt" and t.data_ptr() % 16:
+            raise ValueError(f"the backward's {route} route takes 16-byte "
+                             f"aligned q, k, v, o, do")
     if lse.dtype != torch.float32 or not lse.is_contiguous() \
             or lse.device != q.device:
         raise ValueError("lse must be a contiguous float32 tensor on q's device")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    dq_acc = torch.empty((B, Sq, H, D), dtype=torch.float32, device=q.device)
+    # the wgmma route's dQ buffer is tiled (B, H, Sp / 64, D / 64, 64, 64)
+    # and its row statistics (lse log2 e, Delta) padded to Sp, Sq rounded
+    # up to its 64-row tile
+    Sp = -(-Sq // BWD_TILE) * BWD_TILE if route == "wgmma" else Sq
+    dq_acc = torch.empty((B, Sp, H, D), dtype=torch.float32, device=q.device)
     dq = dq_acc if q.dtype == torch.float32 else torch.empty_like(q)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty((2 if route == "wgmma" else 1, B, H, Sp),
+                        dtype=torch.float32, device=q.device)
     if B * Sq == 0 or Skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     scale = (1.0 / D**0.5) if scale is None else scale
@@ -350,7 +410,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
         opts = (float(scale), int(causal), window, int(q_offset),
                 build.stream_ptr(q.device))
-        if route == "mma":
+        if route == "wgmma":
+            rc = lib.flash_attention_bwd_wgmma(*ptrs, B, Sq, Skv, H, KV, D,
+                                               *opts)
+        elif route == "mma":
             rc = lib.flash_attention_bwd_mma(*ptrs, B, Sq, Skv, H, KV, D, Dv,
                                              *opts)
         else:
@@ -362,4 +425,4 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_by_route = {"mma": 0, "simt": 0}
+flash_attention_bwd.launches_by_route = {"wgmma": 0, "mma": 0, "simt": 0}

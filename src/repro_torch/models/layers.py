@@ -248,11 +248,15 @@ def embed_tokens(cfg, p: dict, tokens: torch.Tensor,
     """Token rows in ``dtype``; with ``cfg.embed_scale`` times sqrt(d_model)
     rounded to ``dtype`` first, as the reference's ``jnp.asarray(d ** 0.5,
     dtype)`` (sqrt(3840) = 61.97 is 62.0 in bf16). On a mesh the lookup is
-    ``F.embedding`` of replicated ids (the same rows), which DTensor takes
-    on a vocab-split table forward and backward in every torch version, as
-    it does not the indexing of hybrid-sharded ids."""
+    ``F.embedding`` of ids split over the batch against the table split over
+    the vocab alone (its embed dim gathered first), which DTensor takes
+    forward and backward, as it does not the indexing of hybrid-sharded
+    ids: each rank looks up its own rows, never the whole batch (replicated
+    ids against the FSDP-split table gave every rank all the rows, whose
+    gather over the batch took 8.6 GB a rank at llama3-8b's prefill_32k)."""
     if sharded_context():
-        x = F.embedding(shard(tokens.long(), None, None), p["tok"].to(dtype))
+        table = shard(p["tok"].to(dtype), "vocab", None)
+        x = F.embedding(shard(tokens.long(), "batch", None), table)
         x = shard(reduce_partial(x), "batch", "seq", None)
     else:
         x = p["tok"].to(dtype)[tokens.long()]

@@ -246,9 +246,9 @@ def _apply_layer_prefill(cfg, spec, lp, x, positions, cache_len):
         mix, cache = ssm.mamba_apply(cfg, lp["mix"], h, return_cache=True)
     else:
         mix, cache = ssm.rwkv_apply(cfg, lp["mix"], h, return_cache=True)
-    x = x + mix
-    return x + _mlp_prefill(cfg, spec, lp, apply_norm(cfg, lp["ln2"], x),
-                            cache), cache
+    x = shard(x + mix, "batch", "seq", None)
+    out = _mlp_prefill(cfg, spec, lp, apply_norm(cfg, lp["ln2"], x), cache)
+    return shard(x + out, "batch", "seq", None), cache
 
 
 def _apply_layer_train(cfg, spec, lp, x, positions, aux):
@@ -370,7 +370,7 @@ def _apply_layer_decode(cfg, spec, lp, x, cache, cur_len):
         mix, _ = ssm.mamba_decode(cfg, lp["mix"], h, cache)
     else:
         mix, _ = ssm.rwkv_decode(cfg, lp["mix"], h, cache)
-    x = x + mix
+    x = shard(x + mix, "batch", "seq", None)
     h = apply_norm(cfg, lp["ln2"], x)
     if spec.moe:
         out, _ = moe.moe_apply(cfg, lp["mlp"], h)
@@ -379,7 +379,7 @@ def _apply_layer_decode(cfg, spec, lp, x, cache, cur_len):
         cache["x_cm"].copy_(h[:, 0])
     else:
         out = mlp_apply(cfg, lp["mlp"], h)
-    return x + out
+    return shard(x + out, "batch", "seq", None)
 
 
 def lm_prefill(cfg, params, tokens: torch.Tensor, *,

@@ -273,9 +273,11 @@ def test_flash_bwd_plain_vs_autograd_and_jax_vjp(B, Sq, Skv, H, KV, D, kw):
 # ---- dispatch and arguments --------------------------------------------------
 
 @pytest.mark.parametrize("dtype,D,Dv,route", [
-    (torch.bfloat16, 128, 128, "mma"),       # llama3-8b and the GQA archs
-    (torch.bfloat16, 64, 64, "mma"),         # whisper, granite
+    (torch.bfloat16, 128, 128, "wgmma"),     # llama3-8b and the GQA archs
+    (torch.bfloat16, 64, 64, "wgmma"),       # whisper, granite
     (torch.bfloat16, 16, 16, "mma"),         # the smoke configs
+    (torch.bfloat16, 32, 32, "mma"),         # D = Dv off the wgmma widths
+    (torch.bfloat16, 128, 64, "mma"),        # D != Dv
     (torch.bfloat16, 96, 112, "mma"),
     (torch.bfloat16, 40, 24, "simt"),        # not multiples of 16
     (torch.float32, 128, 128, "simt"),
@@ -343,7 +345,9 @@ def test_decode_split_fills_the_card_without_empty_tiny_splits():
     (torch.float32, 128, 128, "simt"),
     (torch.float32, 64, 64, "simt"),
     (torch.bfloat16, 16, 16, "simt"),          # the smoke configs
-    (torch.bfloat16, 192, 128, "simt"),        # MLA's widths
+    (torch.bfloat16, 192, 128, "wgmma"),       # MLA's widths (deepseek-v2)
+    (torch.float32, 192, 128, "simt"),
+    (torch.bfloat16, 128, 192, "simt"),
     (torch.bfloat16, 128, 64, "simt"),
     (torch.float32, 256, 128, "simt"),
     (torch.bfloat16, 256, 256, "wgmma"),       # gemma3-12b
@@ -647,3 +651,85 @@ def test_mla_absorbed_decode_equals_the_reference(cur_len):
     _rel(ty, jy)
     _rel(tc["ckv"], jc["ckv"])
     _rel(tc["kr"], jc["kr"])
+
+
+# ---- the plain version's query chunks ----------------------------------------
+
+# (Sq, kwargs), GQA 4 | 2 heads; with q_offset the keys run Sq + offset long
+CHUNK_CASES = [(Sq, kw) for Sq in (1024, 1025, 2500)
+               for kw in ({"causal": True}, {"causal": True, "window": 300},
+                          {"causal": True, "q_offset": 77},
+                          {"causal": False})]
+
+
+@pytest.mark.parametrize("Sq,kw", CHUNK_CASES)
+def test_chunked_plain_equals_one_block(monkeypatch, Sq, kw):
+    """The plain version over query chunks of 1,024 (with the window's key
+    band) against the same function as one block of every row, float32,
+    o and each row's log-sum-exp within 1e-6."""
+    Skv = Sq + kw.get("q_offset", 0)
+    q, k, v = map(torch.from_numpy, _qkv(1, Sq, Skv, 4, 2, 16, seed=31))
+    got = fa.flash_attention_plain(q, k, v, **kw)
+    got_lse = fa.flash_attention_lse_plain(q, k, v, **kw)
+    monkeypatch.setattr(fa, "Q_CHUNK", 1 << 30)
+    assert len(fa._chunks(Sq, Skv, kw.get("window"), 0)) == 1
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    want_lse = fa.flash_attention_lse_plain(q, k, v, **kw)
+    assert float((got - want).abs().max()) <= 1e-6
+    assert float((got_lse - want_lse).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("Sq,Skv,window,q_offset,want", [
+    (1024, 1024, None, 0, [(0, 1024, 0, 1024, 0)]),
+    (1025, 1025, None, 5, [(0, 1024, 0, 1025, 5), (1024, 1025, 0, 1025, 1029)]),
+    # band 1024 + 300 padded to 1408, clipped into [0, Skv - band]
+    (2500, 2500, 300, 0, [(0, 1024, 0, 1408, 0), (1024, 2048, 725, 2133, 299),
+                          (2048, 2500, 1092, 2500, 956)]),
+    # no band where the keys are not longer than it
+    (2048, 1300, 300, 0, [(0, 1024, 0, 1300, 0), (1024, 2048, 0, 1300, 1024)]),
+])
+def test_chunks_follow_the_reference_scan(Sq, Skv, window, q_offset, want):
+    """Row chunks of 1,024 and, with a window, the reference's key band:
+    start = clip(offset - window + 1, 0, Skv - band)."""
+    assert fa._chunks(Sq, Skv, window, q_offset) == want
+
+
+@pytest.mark.parametrize("kw", [{"causal": True, "window": 300},
+                                {"causal": True}])
+def test_chunked_plain_vs_jax_xla_attention_past_one_chunk(kw):
+    """Past one chunk (Sq = 2,500) the port's plain version against the
+    reference's chunked XLA attention, float32."""
+    q, k, v = _qkv(1, 2500, 2500, 4, 2, 16, seed=32)
+    want = jax_ops.attention(*map(jnp.asarray, (q, k, v)), impl="xla", **kw)
+    got = ops.attention(*map(torch.from_numpy, (q, k, v)), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+
+
+def test_chunked_plain_under_a_two_by_four_mesh(tmp_path):
+    """On an 8-rank gloo (2, 4) mesh (``tests/torch_mesh_worker.py``), each
+    rank's shard of the batch and the heads in query chunks, gathered,
+    against the one-block plain version on one device, within 1e-6."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    arrays = {}
+    for i, (Sq, kw) in enumerate(CHUNK_CASES):
+        if Sq == 1024:
+            continue
+        Skv = Sq + kw.get("q_offset", 0)
+        q, k, v = _qkv(2, Sq, Skv, 4, 2, 16, seed=40 + i)
+        arrays.update({f"c{i}/q": q, f"c{i}/k": k, f"c{i}/v": v,
+                       f"c{i}/kw": np.array(json.dumps(kw))})
+    np.savez(tmp_path / "inputs.npz", **arrays)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run(
+        [sys.executable, str(root / "tests" / "torch_mesh_worker.py"),
+         "--world", "8", str(tmp_path), "attention"], env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-6000:]
+    errs = json.loads((tmp_path / "result.json").read_text())["attention"]
+    assert len(errs) == len(arrays) // 4 and max(errs.values()) <= 1e-6, errs

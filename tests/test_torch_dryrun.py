@@ -8,6 +8,13 @@ subprocesses (a fake process group is process-global).
   * The CLI records a cell that raises with ``status: "error"`` and its
     message, and exits 1; the fake group is created by ``main``, never at
     import.
+  * The count of a smoke cell agrees with the reference's compiled count
+    of the same cell (each package in its own subprocess): the layouts
+    that ``shard()`` pins, forward and backward, keep every rank's share
+    of the products what GSPMD gives the reference, whatever layout this
+    torch's DTensor would pick by itself.
+  * Query chunks bound the plain attention's scores: a long prefill's
+    peak falls with them.
 """
 import json
 import os
@@ -144,3 +151,102 @@ def test_cli_exits_one_for_a_failing_cell(tmp_path):
     rec = json.loads((tmp_path / "pod2x16x16" /
                       "no-such-arch__decode_32k.json").read_text())
     assert rec["status"] == "error"
+
+
+# the reference's count of llama3-8b smoke cells on a (2, 4) mesh of 8 host
+# devices: its dry run's lower_cell with the smoke config, the small mesh
+# and the cell's shape (its hlo_flops: hlo_cost of the compiled module)
+REF_CELLS = """
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax
+jax.devices()
+from repro.configs import get_config
+from repro.configs.base import ShapeConfig
+from repro.launch import mesh as rmesh
+import repro.launch.dryrun as rd
+rd.make_production_mesh = lambda multi_pod=False: rmesh.make_host_mesh((2, 4))
+rd.get_config = lambda arch: get_config(arch, smoke=True)
+out = {}
+for kind, S, B in json.loads(sys.argv[1]):
+    name = "smoke_" + kind
+    rd.SHAPES = {name: ShapeConfig(name, kind, S, B)}
+    _, _, roof, _ = rd.lower_cell("llama3-8b", name, multi_pod=False)
+    out[f"{kind}_{S}"] = roof.hlo_flops
+print("RESULT " + json.dumps(out))
+"""
+
+# the port's count of the same cells, as SMALL_CELLS counts them
+PORT_CELLS = """
+import json, sys
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.launch import dryrun
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+cfg = get_config("llama3-8b", smoke=True)
+out = {}
+for kind, S, B in json.loads(sys.argv[1]):
+    roof, _ = dryrun.lower_cell("llama3-8b", "smoke_" + kind,
+                                multi_pod=False, mesh=mesh, cfg=cfg,
+                                shape=ShapeConfig("smoke_" + kind, kind, S, B))
+    out[f"{kind}_{S}"] = roof.hlo_flops
+print("RESULT " + json.dumps(out))
+"""
+
+# (kind, S, B): a prefill, whose residual the port's DTensor would leave
+# partial over the model axis (its MLP then gathers the weights whole),
+# and a training step, whose residual's gradient it would leave partial.
+# At S = 32 the prefill's count is 2.1% over the reference's, from the
+# two counters' conventions for elementwise ops alone (the products agree
+# exactly), which a longer prompt dilutes
+FLOP_CELLS = [["prefill", 128, 4], ["train", 32, 4]]
+
+
+def _result(script: str, env: dict) -> dict:
+    proc = subprocess.run([sys.executable, "-c", script,
+                           json.dumps(FLOP_CELLS)], env=env,
+                          capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("RESULT ")]
+    assert lines, proc.stdout[-3000:] + proc.stderr[-6000:]
+    return json.loads(lines[-1][len("RESULT "):])
+
+
+@pytest.fixture(scope="module")
+def flop_pair():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    return _result(PORT_CELLS, env), _result(REF_CELLS, env)
+
+
+@pytest.mark.parametrize("cell", [f"{k}_{s}" for k, s, _ in FLOP_CELLS])
+def test_smoke_cell_counts_the_references_flops(flop_pair, cell):
+    """One rank's FLOPs within 2% of the reference's compiled count."""
+    port, ref = flop_pair
+    assert abs(port[cell] / ref[cell] - 1) <= 0.02, (port[cell], ref[cell])
+
+
+def test_query_chunks_lower_a_long_prefills_peak(monkeypatch):
+    """A fake-tensor count of the llama3-8b smoke prefill at S = 4,096:
+    the peak of live bytes with the plain attention in query chunks of
+    1,024 against the same count as one block, and the FLOPs unchanged
+    but for the chunks' own masks."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import Model
+    from repro_torch.roofline import analysis
+    cfg = get_config("llama3-8b", smoke=True)
+    shape = ShapeConfig("p", "prefill", 4096, 1)
+
+    def count():
+        c = analysis.count_step(Model(cfg, device="cpu"), None, shape,
+                                "prefill").counter
+        return c.peak_bytes, c.cost.dot_flops
+
+    chunked = count()
+    monkeypatch.setattr(fa, "Q_CHUNK", 1 << 30)
+    whole = count()
+    assert chunked[0] < 0.5 * whole[0], (chunked, whole)
+    assert chunked[1] == whole[1]

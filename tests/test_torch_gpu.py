@@ -344,20 +344,21 @@ def test_flash_kernel_vs_plain_at_the_zoo_heads(cuda, H, KV, D, S, kw):
         atol=2e-2, rtol=0)
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
-                                        (torch.float32, 2e-5)])
-@pytest.mark.parametrize("S", [37, 1024])
-def test_flash_kernel_vs_plain_at_the_mla_widths(cuda, dtype, atol, S):
+@pytest.mark.parametrize("dtype,atol,route", [(torch.bfloat16, 2e-2, "wgmma"),
+                                              (torch.float32, 2e-5, "simt")])
+@pytest.mark.parametrize("S", [16, 37, 512, 1024, 130, 1000])
+def test_flash_kernel_vs_plain_at_the_mla_widths(cuda, dtype, atol, route, S):
     """deepseek-v2's prefill: 128 heads, D = 192 (nope + rope), Dv = 128,
-    its explicit scale, on the CUDA-core route."""
+    its explicit scale, on the tensor-core route in bf16 (ragged S too)
+    and the CUDA-core route in fp32."""
     g = _gen(12)
     q = torch.randn((1, S, 128, 192), generator=g).to(cuda, dtype)
     k = torch.randn((1, S, 128, 192), generator=g).to(cuda, dtype)
     v = torch.randn((1, S, 128, 128), generator=g).to(cuda, dtype)
-    assert fa._route(dtype, 192, 128) == "simt"
-    n, n_route = _launches(fa.flash_attention, "simt")
+    assert fa._route(dtype, 192, 128) == route
+    n, n_route = _launches(fa.flash_attention, route)
     got = fa.flash_attention(q, k, v, causal=True, scale=192 ** -0.5)
-    assert _launches(fa.flash_attention, "simt") == (n + 1, n_route + 1)
+    assert _launches(fa.flash_attention, route) == (n + 1, n_route + 1)
     torch.testing.assert_close(
         got.float(), fa.flash_attention_plain(q, k, v, causal=True,
                                               scale=192 ** -0.5).float(),
@@ -471,16 +472,22 @@ def test_attention_kernels_reject_what_they_do_not_take(cuda):
 
 
 # the flash backward kernel: (B, Sq, Skv, H, KV, D, Dv, kwargs) at
-# llama3-8b's heads, whisper's (MHA, D = 64, non-causal, Sq != Skv, one row
-# against 1,500 frames), windows, an offset chunk and a ragged width
+# llama3-8b's training shape and heads, whisper's encoder (MHA, D = 64,
+# non-causal, a ragged 1,500) and its cross attention (Sq != Skv, one row
+# against 1,500 frames), windows (one ragged), an offset chunk, on the
+# wgmma route in bf16; ragged widths on the mma and CUDA-core routes
 FLASH_BWD_CASES = [
+    (4, 1024, 1024, 32, 8, 128, 128, {"causal": True}),
+    (8, 1500, 1500, 20, 20, 64, 64, {"causal": False}),
     (2, 256, 256, 32, 8, 128, 128, {"causal": True}),
     (2, 187, 1500, 20, 20, 64, 64, {"causal": False}),
     (2, 1, 1500, 20, 20, 64, 64, {"causal": False}),
     (1, 300, 300, 8, 2, 128, 128, {"causal": True, "window": 100}),
+    (1, 1000, 1000, 8, 2, 128, 128, {"causal": True, "window": 300}),
     (1, 130, 300, 8, 8, 64, 64, {"causal": True, "q_offset": 170}),
     (1, 77, 77, 4, 2, 48, 32, {"causal": True}),
     (1, 77, 90, 4, 2, 96, 112, {"causal": False}),
+    (1, 77, 77, 4, 2, 32, 32, {"causal": True}),     # bf16 on mma.sync
     (1, 77, 77, 4, 2, 40, 24, {"causal": True}),     # bf16 on the CUDA cores
 ]
 # tolerance relative to the largest gradient (bf16 inputs: the forward's
@@ -492,8 +499,9 @@ BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,D,Dv,kw", FLASH_BWD_CASES)
 def test_flash_backward_kernel_vs_plain_and_autograd(cuda, dtype, B, Sq, Skv,
                                                      H, KV, D, Dv, kw):
-    """dQ, dK, dV of the backward kernel (bf16 at multiples of 16 on
-    mma.sync, the rest on the CUDA cores) against the plain formulas on the
+    """dQ, dK, dV of the backward kernel (bf16 at D = Dv in {64, 128} on
+    wgmma, at other multiples of 16 on mma.sync, the rest on the CUDA
+    cores) against the plain formulas on the
     same (o, lse) and against autograd of the plain forward, through
     FlashAttentionFn as a training step calls it; the forward's lse
     against the plain one."""
@@ -522,6 +530,61 @@ def test_flash_backward_kernel_vs_plain_and_autograd(cuda, dtype, B, Sq, Skv,
         assert (a.float() - b.float()).abs().max().item() <= BWD_RTOL[dtype] * scale
         assert (a.float() - c).abs().max().item() <= BWD_RTOL[dtype] * scale
         assert (d.float() - c).abs().max().item() <= BWD_RTOL[dtype] * scale
+
+
+def test_mla_and_backward_routes_replay_in_a_cuda_graph(cuda):
+    """The MLA forward (D = 192, Dv = 128) and the wgmma backward captured
+    in one CUDA graph (tensor maps and workspaces made at capture) give,
+    replayed, the bits of an eager call. With one key tile (Skv <= 128)
+    each dQ element takes one bulk add into the zeroed buffer, so dQ is
+    bit-exact too; with several, the fp32 adds of the key tiles land in no
+    fixed order, so an element of dQ may round to the neighbouring bf16
+    value (held to one bf16 step of itself), while dK and dV (summed in
+    registers) stay bit-exact."""
+    g = _gen(13)
+    mq = torch.randn((1, 300, 128, 192), generator=g).to(cuda, torch.bfloat16)
+    mk = torch.randn((1, 300, 128, 192), generator=g).to(cuda, torch.bfloat16)
+    mv = torch.randn((1, 300, 128, 128), generator=g).to(cuda, torch.bfloat16)
+    bwd = []
+    for Sq, Skv, causal in ((300, 120, False), (700, 700, True)):
+        q = torch.randn((2, Sq, 32, 128), generator=g).to(cuda, torch.bfloat16)
+        k = torch.randn((2, Skv, 8, 128), generator=g).to(cuda, torch.bfloat16)
+        v = torch.randn((2, Skv, 8, 128), generator=g).to(cuda, torch.bfloat16)
+        do = torch.randn((2, Sq, 32, 128), generator=g).to(cuda, torch.bfloat16)
+        o, lse = fa._forward(q, k, v, causal, None, 0, None, True)
+        bwd.append((q, k, v, o, lse, do, causal))
+    assert fa._route(torch.bfloat16, 192, 128) == "wgmma"
+    assert fa._bwd_route(torch.bfloat16, 128, 128) == "wgmma"
+
+    def calls():
+        out = [fa.flash_attention(mq, mk, mv, causal=True)]
+        for q, k, v, o, lse, do, causal in bwd:
+            out.extend(fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=causal))
+        return out
+
+    eager = calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n = (fa.flash_attention.launches_by_route["wgmma"],
+         fa.flash_attention_bwd.launches_by_route["wgmma"])
+    with torch.cuda.graph(graph):
+        captured = calls()
+    assert (fa.flash_attention.launches_by_route["wgmma"],
+            fa.flash_attention_bwd.launches_by_route["wgmma"]) == (n[0] + 1,
+                                                                 n[1] + 2)
+    graph.replay()
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(zip(captured, eager)):
+        if i == 4:                     # dQ of the 700-key case
+            step = want.float().abs() * 2.0 ** -7
+            assert bool(((got.float() - want.float()).abs() <= step).all())
+        else:
+            assert torch.equal(got, want), i
 
 
 def test_flash_backward_kernel_rejects_what_it_does_not_take(cuda):

@@ -1,13 +1,14 @@
 """Multi-process checks of the port's sharding on a 4-rank gloo (2, 2)
-mesh, run by the ``tests/test_torch_*.py`` files in a subprocess (a
-process group is process-global state, which pytest workers must not
-hold):
+mesh (or, with ``--world 8``, an 8-rank (2, 4) one), run by the
+``tests/test_torch_*.py`` files in a subprocess (a process group is
+process-global state, which pytest workers must not hold):
 
-    python tests/torch_mesh_worker.py OUT_DIR CHECK [CHECK ...]
+    python tests/torch_mesh_worker.py [--world N] OUT_DIR CHECK [CHECK ...]
 
-Four ranks are spawned (``torch.multiprocessing``, a ``file://`` rendezvous
-in OUT_DIR); each runs the named checks at smoke size in float32, and rank
-0 writes ``OUT_DIR/result.json``, one entry a check. Inputs that come from
+N (4 by default) ranks are spawned (``torch.multiprocessing``, a
+``file://`` rendezvous in OUT_DIR) on a (2, N / 2) ("data", "model") mesh;
+each runs the named checks at smoke size in float32, and rank 0 writes
+``OUT_DIR/result.json``, one entry a check. Inputs that come from
 the JAX package (the reference's parameters, its one-step result) are read
 from ``OUT_DIR/inputs.npz``, written by the test beforehand: this file
 imports nothing of JAX.
@@ -188,18 +189,41 @@ def check_psum(mesh, npz) -> dict:
             "err_w": err["w"].tolist()}
 
 
+def check_attention(mesh, npz) -> dict:
+    """The plain attention under the mesh (each rank's shard of the batch
+    and the heads, in query chunks) against the one-block plain version on
+    one device, for each case ``NAME/{q,k,v,kw}`` of the inputs: the
+    largest absolute difference of o, on rank 0."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import flash_attention as fa
+    out = {}
+    for name in sorted({k.split("/")[0] for k in npz.files}):
+        q, k, v = (torch.from_numpy(npz[f"{name}/{t}"]) for t in "qkv")
+        kw = json.loads(str(npz[f"{name}/kw"]))
+        with shd.use_sharding(mesh, shd.TRAIN_RULES):
+            got = shd.full(fa.flash_attention_plain(q, k, v, **kw))
+        if dist.get_rank() == 0:
+            chunk, fa.Q_CHUNK = fa.Q_CHUNK, 1 << 30
+            want = fa.flash_attention_plain(q, k, v, **kw)
+            fa.Q_CHUNK = chunk
+            out[name] = float((got - want).abs().max())
+    return out
+
+
 CHECKS = {"train": check_train, "serve": check_serve, "order": check_order,
-          "psum": check_psum}
+          "psum": check_psum, "attention": check_attention}
 
 
-def run(rank: int, out_dir: str, checks: list[str]) -> None:
+def run(rank: int, world: int, out_dir: str, checks: list[str]) -> None:
+    global WORLD
+    WORLD = world
     dist.init_process_group(
         "gloo", init_method="file://" + os.path.abspath(
             os.path.join(out_dir, "rendezvous")),
         rank=rank, world_size=WORLD)
     torch.manual_seed(0)
     from repro_torch.launch.mesh import make_host_mesh
-    mesh = make_host_mesh((2, 2), device="cpu")
+    mesh = make_host_mesh((2, WORLD // 2), device="cpu")
     path = os.path.join(out_dir, "inputs.npz")
     npz = np.load(path) if os.path.exists(path) else None
     result = {}
@@ -217,4 +241,7 @@ def run(rank: int, out_dir: str, checks: list[str]) -> None:
 
 if __name__ == "__main__":
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
-    mp.spawn(run, args=(sys.argv[1], sys.argv[2:]), nprocs=WORLD)
+    args, world = sys.argv[1:], WORLD
+    if args[0] == "--world":
+        world, args = int(args[1]), args[2:]
+    mp.spawn(run, args=(world, args[0], args[1:]), nprocs=world)
