@@ -28,7 +28,15 @@ Phases, each fatal on failure:
      steps on and the lane-split step for S = 1 at N = 16, with steps
      that drive exp(delta A) to 0 and denormals, the serial kernel for
      the rest; the flash backward at llama3-8b's training shape and
-     whisper's encoder; decode at G = 1);
+     whisper's encoder; decode at G = 1); the two scan backward kernels
+     (``csrc/linear_scan_bwd.cu``) under autograd of the forward wrappers
+     against their plain formulas and autograd of the plain forward, bf16
+     and fp32, at rwkv6-3b's and jamba's training shapes (4 x 1,024), a
+     ragged S, each forward route, a non-zero h0 with a final-state
+     gradient, hard decays and the smoke widths (2e-2 of the largest
+     gradient in bf16, 1e-4 in fp32), and a CUDA-graph replay of each
+     bit-equal; RMSNorm and LayerNorm bit-equal to the expressions they
+     replace;
   3. run the face-recognition StreamingPipeline on the card at the paper's
      1080p source, fused and unfused identify, with every launch counter
      set to 0 just before each run and read just after (every matmul
@@ -78,7 +86,7 @@ Phases, each fatal on failure:
      call with CUDA events, beside the least time the card could take
      (decode attention, matmul, the YUV decode, the IoU and the Mamba scan
      also with a cold L2; each two-route scan's kernels side by side by
-     S), and profile the
+     S; the scan backwards at the training shapes), and profile the
      device's busy share of a pipeline run (which must launch no second
      matmul pass) and of each arch's serve run; the matmul also at the
      cluster's replica batches (16, 32, 64 rows: the tile route);
@@ -120,17 +128,29 @@ Phases, each fatal on failure:
      ms, decode tokens/s and ms a step against the step's floor (decoder
      weights and caches over 3.35 TB/s), peak memory and the device busy
      share (``--whisper`` runs it alone);
- 11. train llama3-8b at full width on the card (bf16 compute on float32
-     masters, 4 x 1,024-token TokenLoader batches, AdamW as launch/train.py
-     sets it) at the depth ``fit_train_depth`` measures: step 1 against the
-     plain-ops step (loss 1e-3, grad norm 1e-2 relative), every gradient
-     leaf finite and non-zero, 20 Trainer steps whose loss must fall by 0.1,
-     flash forward and backward launches counted (2 forward and 1
-     backward on wgmma a layer a step);
-     then a checkpoint at step 10 restored bit-exactly and a restarted
+ 11. train llama3-8b, rwkv6-3b and jamba-v0.1-52b at full width on the
+     card (bf16 compute on float32 masters, 4 x 1,024-token TokenLoader
+     batches, AdamW as launch/train.py sets it) at the depth
+     ``fit_train_depth`` measures (jamba's a prefix of its 8-layer
+     pattern): step 1 against the plain-ops step (loss 1e-3, grad norm 1e-2
+     relative; at a smaller depth, printed as ``reduced:``, where the plain
+     step does not fit; for the scan archs also every scan layer's backward
+     kernel on its own inputs and incoming gradient against the plain
+     formulas, and the grad norm held at TRAIN_GNORM_LAYERS where that is
+     shallower, once the plain step is shown conditioned there,
+     ``check_step1_at_fitting_depth``),
+     every gradient leaf finite and non-zero, 20 Trainer steps whose loss
+     must fall by 0.1, the forward and backward
+     launches counted (each attention or scan layer's forward twice a step,
+     on flash's wgmma, the chunked RWKV6 or the segmented Mamba route, and
+     its backward once), ms a step, tokens/s, model FLOP/s, peak memory
+     and the device's busy share over two profiled steps; then llama3-8b's
+     checkpoint at step 10 restored bit-exactly and a restarted
      Trainer resuming at step 11, at one layer (at the fitted depth two
-     checkpoints would write ~104 GB to disk); and an RWKV6 scan under grad must
-     raise (``--train`` runs it alone). The flash backward kernel (wgmma
+     checkpoints would write ~104 GB to disk); the scans' decode steps under
+     grad must raise, and flash's backward at D = 256 (``--train`` runs
+     the phase alone, after the attention and scan-backward checks). The
+     flash backward kernel (wgmma
      for bf16 at D = Dv in {64, 128}, mma.sync at other multiples of 16,
      the CUDA cores otherwise) is held against
      its plain formulas and autograd of the plain forward in phase 2 (2e-2
@@ -285,6 +305,10 @@ WHISPER_HEADS = (20, 20, 64)
 # script may write in one run (45 GiB); at one layer they write 30.5 GB
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT = (
     "llama3-8b", 4, 1024, 20, 10)
+# the archs phase 11 trains the same way: llama3-8b (flash and its
+# backward), rwkv6-3b and jamba-v0.1-52b (the scans and their backwards;
+# jamba's fitted depth a prefix of its 8-layer pattern)
+TRAIN_ARCHS = (TRAIN_ARCH, "rwkv6-3b", "jamba-v0.1-52b")
 TRAIN_CKPT_LAYERS = 1
 # card memory a training depth needs beyond 16 bytes a parameter (float32
 # param, grad, m, v): the chunked loss's float32 logits (4 x 512 x 128,256,
@@ -294,6 +318,15 @@ TRAIN_CKPT_LAYERS = 1
 TRAIN_MARGIN_BYTES = 12 << 30
 # step 1 through the kernels against the same step with the plain versions
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-3, 1e-2
+# the relative change of the token embedding that probes whether a scan
+# arch's plain grad norm is conditioned (grad_norm_moves)
+TRAIN_PROBE_EPS = 1e-6
+# the depth at which a scan arch's step-1 grad norm is held to the plain
+# step's, where shallower than the fitted one (others: the fitted depth):
+# random-init rwkv6-3b's plain grad norm moves 4.8 at 32 layers, 0.47 at
+# 16, 0.035 at 8 and 4, and 8.5e-4 at 2 under a 1e-6 change of the
+# embedding (grad_norm_moves, PERF.md section 6)
+TRAIN_GNORM_LAYERS = {"rwkv6-3b": 2}
 # flash backward vs its plain formulas and autograd of the plain forward,
 # relative to the largest gradient: fp32 differs in summation order (and
 # dQ's atomic order); bf16 inputs see the forward's P rounded to bf16
@@ -1197,6 +1230,206 @@ def check_mamba_kernel(device) -> dict[str, float]:
             worst = max(worst, e)
     torch.cuda.synchronize()
     return {"mamba_scan": worst}
+
+
+# the scan backwards' checks (phase 2): rwkv6-3b's and jamba's training
+# shapes, a ragged S, S on each forward route, a non-zero h0 with a
+# final-state gradient, hard decays and the smoke widths; (label, B, S,
+# (H, K) or (Di, N), h0 and a final-state gradient, hard decays)
+RWKV_BWD_CASES = (
+    ("rwkv6-3b training", TRAIN_B, TRAIN_S, (RWKV_H, RWKV_K), False, False),
+    ("ragged", 2, 37, (RWKV_H, RWKV_K), True, False),
+    ("serial-route length", 2, 32, (RWKV_H, RWKV_K), True, False),
+    ("w with 0, denormals, 1", 1, 130, (RWKV_H, RWKV_K), True, True),
+    ("smoke width", 2, 45, (4, 16), True, False))
+MAMBA_BWD_CASES = (
+    ("jamba training", TRAIN_B, TRAIN_S, (MAMBA_DI, MAMBA_N), False, False),
+    ("ragged", 2, 37, (MAMBA_DI, MAMBA_N), True, False),
+    ("serial-route length", 2, 5, (MAMBA_DI, MAMBA_N), True, False),
+    ("one step", 2, 1, (MAMBA_DI, MAMBA_N), True, False),
+    ("delta |A| ~100 in 5%", 1, 130, (MAMBA_DI, MAMBA_N), True, True),
+    ("smoke width", 2, 45, (128, 4), True, False))
+
+
+def scan_bwd_inputs(kind: str, B, S, dims, dtype, device, with_h0, hard):
+    """(the scan's inputs as the model feeds it, the forward wrapper, its
+    route) for a case of RWKV_BWD_CASES or MAMBA_BWD_CASES."""
+    from repro_torch.kernels import linear_scan as ls
+    if kind == "rwkv":
+        H, K = dims
+        r, w, k, v, u, h0 = scan_inputs(B, S, dtype, device, seed=S, H=H,
+                                        K=K)
+        if hard:
+            w = hard_decays(w, seed=S)
+        return ([r, w, k, v, u, h0 if with_h0 else None], ls.rwkv_scan,
+                ls._route(dtype, K, K, S))
+    Di, N = dims
+    delta, A, Bt, Ct, x, h0 = mamba_inputs(B, S, dtype, device, seed=S,
+                                           Di=Di, N=N)
+    if hard:
+        delta = hard_steps(delta, seed=S)
+    return ([delta, A, Bt, Ct, x, h0 if with_h0 else None], ls.mamba_scan,
+            ls._mamba_route(dtype, N, S))
+
+
+def check_scan_bwd(device) -> dict[str, float]:
+    """The two scan backward kernels, bf16 and fp32, at RWKV_BWD_CASES and
+    MAMBA_BWD_CASES: the forward wrapper under grad (its route, with
+    checkpoints) and autograd through its Function, whose backward launches
+    the kernel, against the plain formulas (``*_bwd_plain``) on the same
+    inputs and against autograd of the plain forward with float32 leaves,
+    each gradient within BWD_RTOL of its largest; then a CUDA-graph replay
+    of each backward bit-equal to the eager call. Returns each kernel's
+    largest absolute difference from the plain formulas."""
+    import torch
+    from repro_torch.kernels import linear_scan as ls
+    worst = {"rwkv_scan_bwd": 0.0, "mamba_scan_bwd": 0.0}
+    names = {"rwkv": ("r", "w", "k", "v", "u", "h0"),
+             "mamba": ("delta", "A", "Bt", "Ct", "x", "h0")}
+    plain = {"rwkv": (ls.rwkv_scan_plain, ls.rwkv_scan_bwd_plain),
+             "mamba": (ls.mamba_scan_plain, ls.mamba_scan_bwd_plain)}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for kind, cases in (("rwkv", RWKV_BWD_CASES),
+                            ("mamba", MAMBA_BWD_CASES)):
+            bwd = getattr(ls, f"{kind}_scan_bwd")
+            for label, B, S, dims, with_h0, hard in cases:
+                ins, fwd, route = scan_bwd_inputs(kind, B, S, dims, dtype,
+                                                  device, with_h0, hard)
+                leaves = [None if t is None else t.detach().requires_grad_()
+                          for t in ins]
+                n_f, n_b = fwd.launches_by_route[route], bwd.launches
+                y, h = fwd(*leaves)
+                g = _gen(S + 7)
+                dy = torch.randn(y.shape, generator=g).to(device, dtype)
+                dh = (torch.randn(h.shape, generator=g).to(device)
+                      if with_h0 else None)
+                live = [(n, t) for n, t in zip(names[kind], leaves)
+                        if t is not None]
+                outs, gouts = ((y, h), (dy, dh)) if with_h0 else ((y,), (dy,))
+                got = torch.autograd.grad(outs, [t for _, t in live], gouts)
+                require(fwd.launches_by_route[route] == n_f + 1
+                        and bwd.launches == n_b + 1,
+                        f"{kind}_scan_bwd {name} {label}: the {route} "
+                        "forward or the backward kernel did not launch")
+                want = [t for t in plain[kind][1](*ins, dy, dh)
+                        if t is not None]
+                l32 = [None if t is None else t.detach().float()
+                       .requires_grad_() for t in ins]
+                y32, h32 = plain[kind][0](*l32)
+                auto = torch.autograd.grad(
+                    (y32, h32) if with_h0 else (y32,),
+                    [t for t in l32 if t is not None],
+                    (dy.float(), dh) if with_h0 else (dy.float(),))
+                errs = []
+                for (gname, _), a, b, c in zip(live, got, want, auto):
+                    top = c.abs().max().item()
+                    e_plain = (a.float() - b.float()).abs().max().item()
+                    e_auto = (a.float() - c).abs().max().item()
+                    finite = bool(torch.isfinite(a.float()).all())
+                    errs.append(f"d{gname} {e_plain:.3e} / {e_auto:.3e} of "
+                                f"{top:.3e}")
+                    worst[f"{kind}_scan_bwd"] = max(
+                        worst[f"{kind}_scan_bwd"], e_plain)
+                    require(finite and e_plain <= BWD_RTOL[name] * top
+                            and e_auto <= BWD_RTOL[name] * top,
+                            f"{kind}_scan_bwd {name} {label} d{gname}: "
+                            f"{e_plain:.3e} (formulas), {e_auto:.3e} "
+                            f"(autograd) against the largest gradient "
+                            f"{top:.3e}; finite: {finite}")
+                print(f"check {kind}_scan_bwd {name} ({route} forward) "
+                      f"{label} {tuple(ins[0].shape)} dims {dims}"
+                      f"{', h0 and dh' if with_h0 else ''}: max_abs_err vs "
+                      f"formulas / vs autograd of the plain forward: "
+                      f"{'; '.join(errs)} (tolerance {BWD_RTOL[name]} of "
+                      "the largest)")
+                del ins, leaves, y, h, got, want, l32, y32, h32, auto
+                torch.cuda.empty_cache()
+    # each backward replayed in a CUDA graph: the same bits (no atomics)
+    for kind, (label, B, S, dims, _, hard) in (("rwkv", RWKV_BWD_CASES[1]),
+                                                ("mamba", MAMBA_BWD_CASES[1])):
+        ins, fwd, route = scan_bwd_inputs(kind, B, S, dims, torch.bfloat16,
+                                          device, True, hard)
+        call = scan_bwd_call(kind, ins, route)
+        # flip the sign of r or x (a flipped delta would grow the state
+        # past float32's range, and NaN equals nothing)
+        same = replays_equal(call, lambda: ins[0 if kind == "rwkv" else 4]
+                             .mul_(-1.0))
+        print(f"check {kind}_scan_bwd bf16 {label} {tuple(ins[0].shape)}, 3 "
+              f"CUDA-graph replays: bit-equal to the eager calls: {same}")
+        require(same, f"{kind}_scan_bwd: a CUDA-graph replay differs")
+    torch.cuda.synchronize()
+    return worst
+
+
+def scan_bwd_call(kind: str, ins: list, route: str):
+    """A thunk of the ``kind`` scan's backward kernel on ``ins`` (h0 given):
+    the forward of ``route`` is launched once for its checkpoints, dO and
+    the final state's gradient drawn; the thunk returns every gradient
+    flattened into one float32 tensor."""
+    import torch
+    from repro_torch.kernels import linear_scan as ls
+    g = _gen(11)
+    if kind == "rwkv":
+        r, w, k, v, u, h0 = ins
+        uf = u.float().contiguous()
+        state = torch.empty_like(h0)
+        o, ckpt = ls._launch(route, r, w, k, v, uf, h0, state, True)
+        do = torch.randn(o.shape, generator=g).to(o.device, o.dtype)
+        dh = torch.randn(state.shape, generator=g).to(o.device)
+
+        def call():
+            return ls.rwkv_scan_bwd(r, w, k, v, uf, h0, do, dh, ckpt=ckpt)
+    else:
+        delta, A, Bt, Ct, x, h0 = ins
+        B, S, Di = delta.shape
+        state = torch.empty_like(h0)
+        ckpt = torch.empty((B, -(-S // ls.CHUNK), Di, A.shape[1]),
+                           dtype=torch.float32, device=x.device)
+        y = ls._launch_mamba(route, delta, x, A, Bt, Ct, h0, state, ckpt)
+        dy = torch.randn(y.shape, generator=g).to(y.device, y.dtype)
+        dh = torch.randn(state.shape, generator=g).to(y.device)
+
+        def call():
+            return ls.mamba_scan_bwd(delta, A, Bt, Ct, x, h0, dy, dh,
+                                     ckpt=ckpt)
+    return lambda: torch.cat([t.float().reshape(-1) for t in call()
+                              if t is not None])
+
+
+def check_norms(device) -> None:
+    """RMSNorm and LayerNorm (one float32 copy of x in place) bit-equal on
+    the card to the expressions they replace, at llama3-8b's and
+    rwkv6-3b's widths, bf16 and fp32."""
+    import torch
+    from repro_torch.models import layers
+
+    def rms_expr(x, w, eps=1e-6):
+        xf = x.float()
+        n = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+        return (n * w.float()).to(x.dtype)
+
+    def ln_expr(x, w, b, eps=1e-5):
+        xf = x.float()
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+        return ((xf - mu) * torch.rsqrt(var + eps) * w.float()
+                + b.float()).to(x.dtype)
+
+    g = _gen(13)
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in ((TRAIN_B, TRAIN_S, 4096), (TRAIN_B, TRAIN_S, 2560),
+                      (2, 37, RWKV_H, RWKV_K)):
+            x = (torch.randn(shape, generator=g) * 3 + 1).to(device, dtype)
+            w = torch.randn(shape[-1:] if len(shape) == 3 else shape[-2:],
+                            generator=g).to(device, dtype)
+            b = torch.randn(w.shape, generator=g).to(device, dtype)
+            same = (torch.equal(layers.rmsnorm(x, w), rms_expr(x, w))
+                    and torch.equal(layers.layernorm(x, w, b),
+                                    ln_expr(x, w, b)))
+            print(f"check rmsnorm, layernorm {str(dtype).split('.')[1]} "
+                  f"x{shape}: bit-equal to the expressions: {same}")
+            require(same, f"norms x{shape} {dtype}: not bit-equal")
 
 
 # --------------------------------------------------------------------------
@@ -2362,6 +2595,7 @@ def time_kernels(device) -> dict[str, dict]:
 
     out["mamba_scan"] = time_mamba(device, scratch)
     del scratch
+    out.update(time_scan_bwd(device))
     return out
 
 
@@ -2386,6 +2620,78 @@ def time_cluster_matmul(device, scratch) -> None:
             print(f"time matmul L2-cold ({L2_FLUSH_BYTES >> 20} MiB read "
                   f"before each call) cluster batch ({M},{K})@({K},{N}) "
                   f"{epi}: " + json.dumps(cold))
+
+
+def time_scan_bwd(device) -> dict:
+    """Both scan backwards at the training shapes, bf16 (4 x 1,024 tokens:
+    rwkv6-3b's 40 heads of 64, the chunked forward's checkpoints; jamba's
+    Di 8,192, N 16, the segmented forward's), zero initial state and no
+    final-state gradient, as the training step calls them; and in fp32.
+    Bound: the function's bytes (each input, the checkpoints included,
+    read once, each gradient written once) against its operations: RWKV6
+    12 FLOP a state element a step (S_{t-1} do, G v, G o S_{t-1}, G^T k,
+    the adjoint's fma and the state's), Mamba 18 and one exponential (the
+    state, the adjoint and the five gradients' terms); no library call
+    computes either. Returns each kernel's bf16 times."""
+    import torch
+    from repro_torch.kernels import linear_scan as ls
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for kind, cases in (("rwkv", RWKV_BWD_CASES),
+                            ("mamba", MAMBA_BWD_CASES)):
+            label, B, S, dims, _, _ = cases[0]
+            ins, fwd, route = scan_bwd_inputs(kind, B, S, dims, dtype,
+                                              device, False, False)
+            size = dtype.itemsize
+            g = _gen(17)
+            if kind == "rwkv":
+                r, w, k, v, u, _ = ins
+                uf = u.float().contiguous()
+                state = torch.empty((B, RWKV_H, RWKV_K, RWKV_K),
+                                    dtype=torch.float32, device=device)
+                o, ckpt = ls._launch(route, r, w, k, v, uf, None, state, True)
+                do = torch.randn(o.shape, generator=g).to(device, dtype)
+                kernel = lambda: ls.rwkv_scan_bwd(r, w, k, v, uf, None, do,
+                                                  ckpt=ckpt)
+                plain = lambda: ls.rwkv_scan_bwd_plain(r, w, k, v, uf, None,
+                                                       do)
+                n = r.numel()
+                nbytes = (7 * n * size + 8 * n + 8 * uf.numel()
+                          + 4 * ckpt.numel())
+                elems = n * RWKV_K
+                flops, exps = 12 * elems, 0
+            else:
+                delta, A, Bt, Ct, x, _ = ins
+                state = torch.empty((B, MAMBA_DI, MAMBA_N),
+                                    dtype=torch.float32, device=device)
+                ckpt = torch.empty((B, -(-S // ls.CHUNK), MAMBA_DI, MAMBA_N),
+                                   dtype=torch.float32, device=device)
+                y = ls._launch_mamba(route, delta, x, A, Bt, Ct, None, state,
+                                     ckpt)
+                dy = torch.randn(y.shape, generator=g).to(device, dtype)
+                kernel = lambda: ls.mamba_scan_bwd(delta, A, Bt, Ct, x, None,
+                                                   dy, ckpt=ckpt)
+                plain = lambda: ls.mamba_scan_bwd_plain(delta, A, Bt, Ct, x,
+                                                        None, dy)
+                n = delta.numel()
+                nbytes = (5 * n * size + 4 * Bt.numel() * size
+                          + 8 * A.numel() + 4 * ckpt.numel())
+                elems = n * MAMBA_N
+                flops, exps = 18 * elems, elems
+            t = {"ms": cuda_time_ms(kernel, iters=5),
+                 "plain_ms": cuda_time_ms(plain, iters=1),
+                 "library_ms": None}
+            t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops,
+                                                    exps=exps)
+            t["eager_ms"] = eager_time_ms(kernel, iters=20)
+            print(f"time {kind}_scan_bwd {label} {name} "
+                  f"{tuple(ins[0].shape)} dims {dims} ({route} forward's "
+                  f"checkpoints): " + json.dumps(t))
+            out.setdefault(f"{kind}_scan_bwd", t)
+            del ins, ckpt, kernel, plain
+            torch.cuda.empty_cache()
+    return out
 
 
 def time_mamba(device, scratch) -> dict:
@@ -3013,15 +3319,17 @@ def train_loader(cfg, device):
 
 
 def train_depth_first_try(cfg, free: int) -> int:
-    """The most layers of ``cfg`` whose 16 bytes a parameter (float32
-    param, grad, m, v) fit in ``free`` bytes less TRAIN_MARGIN_BYTES, from
-    the shapes alone: where :func:`fit_train_depth` starts."""
+    """The most layers of ``cfg`` (of :func:`train_depths`) whose 16 bytes a
+    parameter (float32 param, grad, m, v) fit in ``free`` bytes less
+    TRAIN_MARGIN_BYTES, from the shapes alone: where
+    :func:`fit_train_depth` starts."""
     from repro_torch.models.model import Model
-    n = cfg.n_layers
-    while n > 1 and (16 * Model(cfg.replace(n_layers=n), device="cpu")
-                     .n_params() + TRAIN_MARGIN_BYTES > free):
-        n -= 1
-    return n
+    depths = train_depths(cfg)
+    for n in depths:
+        if (16 * Model(train_cfg(cfg, n), device="cpu").n_params()
+                + TRAIN_MARGIN_BYTES <= free):
+            return n
+    return depths[-1]
 
 
 def fit_train_depth(device, cfg):
@@ -3030,7 +3338,8 @@ def fit_train_depth(device, cfg):
     param, grad, m, v) fit in the free memory less TRAIN_MARGIN_BYTES,
     down, draw the float32 masters and run one training step (loss,
     gradients, AdamW) on a TokenLoader batch; a count that runs out of
-    memory is freed and the next one tried. Returns the model."""
+    memory is freed and the next one tried (:func:`train_depths`: whole
+    repeats of the block pattern, or a prefix of one). Returns the model."""
     import torch
     from repro_torch.models.model import Model
     from repro_torch.train.optimizer import init_opt_state
@@ -3038,7 +3347,7 @@ def fit_train_depth(device, cfg):
     free, total = torch.cuda.mem_get_info(device)
 
     def model_at(n):
-        return Model(cfg.replace(n_layers=n), device=device)
+        return Model(train_cfg(cfg, n), device=device)
 
     n = train_depth_first_try(cfg, free)
     print(f"depth train {cfg.name}: {cfg.n_layers} layers need "
@@ -3046,7 +3355,7 @@ def fit_train_depth(device, cfg):
           f"a parameter; {free / 1e9:.3f} GB free of {total / 1e9:.3f} GB; "
           f"first try {n} layers")
     batch = train_loader(cfg, device).next_batch()
-    while n > 0:
+    for n in [d for d in train_depths(cfg) if d <= n]:
         model = model_at(n)
         torch.cuda.reset_peak_memory_stats(device)
         try:
@@ -3059,7 +3368,6 @@ def fit_train_depth(device, cfg):
                   f"({str(err).splitlines()[0]})")
             params = opt = None
             torch.cuda.empty_cache()
-            n -= 1
             continue
         peak = torch.cuda.max_memory_allocated(device)
         del params, opt
@@ -3073,17 +3381,25 @@ def fit_train_depth(device, cfg):
     raise SmokeFailure(f"{cfg.name}: not one layer trains on the card")
 
 
-def check_train_step1(model, batch) -> None:
+def check_train_step1(model, batch, scan_layers: bool = False,
+                      gate_gnorm: bool = True) -> None:
     """Step 1's loss and gradient norm through the kernels against the same
-    step with the plain versions (to TRAIN_LOSS_RTOL and TRAIN_GNORM_RTOL
-    relative), and every gradient leaf finite and not all zero (a cut
-    graph leaves a leaf without a gradient)."""
+    step with the plain versions (to TRAIN_LOSS_RTOL and, with
+    ``gate_gnorm``, TRAIN_GNORM_RTOL relative), and every gradient leaf
+    finite and not all zero (a cut graph leaves a leaf without a
+    gradient). With ``scan_layers``, each scan layer's backward kernel is
+    also held against the plain formulas on that layer's own inputs and
+    incoming gradient, recorded during the kernel step
+    (:func:`check_recorded_scan_bwd`)."""
     import torch
     from repro_torch.train.optimizer import global_norm
     from repro_torch.train.train_step import make_train_step
     step = make_train_step(model, train_hp())
     params = model.init(seed=0, masters=True)
-    loss, grads = step.grads(params, batch)
+    calls = []
+    with (recorded_scan_calls(calls) if scan_layers
+          else contextlib.nullcontext()):
+        loss, grads = step.grads(params, batch)
     gnorm = float(global_norm(grads))
     named = _named_leaves(grads)
     bad = [n for n, g in named
@@ -3092,6 +3408,9 @@ def check_train_step1(model, batch) -> None:
           f"{len(named) - len(bad)} finite and non-zero")
     require(not bad, f"train: gradient leaves zero or not finite: {bad[:5]}")
     del grads
+    if scan_layers:
+        check_recorded_scan_bwd(model.cfg.name, calls)
+    del calls
     with plain_ops():
         ploss, pgrads = step.grads(params, batch)
     pnorm = float(global_norm(pgrads))
@@ -3099,13 +3418,123 @@ def check_train_step1(model, batch) -> None:
     torch.cuda.empty_cache()
     rel_l = abs(float(loss) - float(ploss)) / abs(float(ploss))
     rel_g = abs(gnorm - pnorm) / pnorm
-    print(f"check train {model.cfg.name} step 1 kernels vs plain versions: "
-          f"loss {float(loss):.6f} vs {float(ploss):.6f} (relative "
-          f"{rel_l:.3e}, tolerance {TRAIN_LOSS_RTOL}); grad norm {gnorm:.6f} "
-          f"vs {pnorm:.6f} (relative {rel_g:.3e}, tolerance "
-          f"{TRAIN_GNORM_RTOL})")
-    require(rel_l <= TRAIN_LOSS_RTOL and rel_g <= TRAIN_GNORM_RTOL,
+    print(f"check train {model.cfg.name} step 1 kernels vs plain versions "
+          f"({model.cfg.n_layers} layers): loss {float(loss):.6f} vs "
+          f"{float(ploss):.6f} (relative {rel_l:.3e}, tolerance "
+          f"{TRAIN_LOSS_RTOL}); grad norm {gnorm:.6f} vs {pnorm:.6f} "
+          f"(relative {rel_g:.3e}, tolerance {TRAIN_GNORM_RTOL}"
+          f"{'' if gate_gnorm else ', held at TRAIN_GNORM_LAYERS'})")
+    require(rel_l <= TRAIN_LOSS_RTOL and (not gate_gnorm
+                                          or rel_g <= TRAIN_GNORM_RTOL),
             "train step 1: kernels and plain versions differ")
+
+
+def grad_norm_moves(model, batch) -> float:
+    """How far step 1's grad norm through the plain versions moves,
+    relative, when the token embedding is scaled by 1 + TRAIN_PROBE_EPS:
+    whether a comparison of grad norms at TRAIN_GNORM_RTOL can mean
+    anything at this depth. The probe runs none of the kernels under test,
+    so no kernel fault can choose the depth its own check runs at."""
+    import torch
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import make_train_step
+    step = make_train_step(model, train_hp())
+    params = model.init(seed=0, masters=True)
+    norms = []
+    for scale in (1.0, 1 + TRAIN_PROBE_EPS):
+        with torch.no_grad():
+            params["embed"]["tok"].mul_(scale)
+        with plain_ops():
+            _, grads = step.grads(params, batch)
+        norms.append(float(global_norm(grads)))
+        del grads
+    del params
+    torch.cuda.empty_cache()
+    moved = abs(norms[1] - norms[0]) / norms[0]
+    print(f"check train {model.cfg.name} ({model.cfg.n_layers} layers): step "
+          f"1's plain grad norm {norms[0]:.6f}, with the embedding scaled by 1 + "
+          f"{TRAIN_PROBE_EPS} {norms[1]:.6f}: moves {moved:.3e} "
+          f"({'conditioned' if moved <= TRAIN_GNORM_RTOL / 2 else 'not conditioned'}"
+          f" at half the tolerance {TRAIN_GNORM_RTOL})")
+    return moved
+
+
+@contextlib.contextmanager
+def recorded_scan_calls(calls: list):
+    """The models' scan ops, each call under grad also recorded: its
+    inputs (copies) and, once the backward reaches it, the gradient of its
+    output (a hook). A rematerialised layer's second forward gets no
+    gradient and is dropped by :func:`check_recorded_scan_bwd`."""
+    from repro_torch.kernels import ops
+
+    def recording(op):
+        kernel = getattr(ops, op)
+
+        def scan(*args):
+            y, h = kernel(*args)
+            if y.requires_grad:
+                call = {"op": op, "ins": [None if t is None
+                                          else t.detach().clone()
+                                          for t in args]}
+                y.register_hook(lambda g, c=call: c.__setitem__(
+                    "dy", g.detach().clone()))
+                calls.append(call)
+            return y, h
+        return scan
+    with swapped_ops({op: recording(op)
+                      for op in ("rwkv_scan", "mamba_scan")}):
+        yield
+
+
+def check_recorded_scan_bwd(name: str, calls: list) -> None:
+    """Each recorded scan layer of a training step: the backward kernel
+    (from the forward kernel's checkpoints) against the plain formulas on
+    the layer's own inputs and incoming gradient, each gradient within
+    BWD_RTOL of its largest. A whole step's grad norm can be ill
+    conditioned; a layer's gradients given its inputs are not."""
+    import torch
+    from repro_torch.kernels import linear_scan as ls
+    done = [c for c in calls if "dy" in c]
+    worst = 0.0
+    for i, call in enumerate(done):
+        ins, dy = call["ins"], call["dy"].contiguous()
+        if call["op"] == "rwkv_scan":
+            r, w, k, v, u, h0 = ins
+            uf = u.float().contiguous()
+            route = ls._route(r.dtype, r.shape[-1], v.shape[-1], r.shape[1])
+            state = torch.empty((r.shape[0], r.shape[2], r.shape[3],
+                                 v.shape[3]), device=r.device)
+            _, ckpt = ls._launch(route, r, w, k, v, uf, h0, state, True)
+            got = ls.rwkv_scan_bwd(r, w, k, v, uf, h0, dy, ckpt=ckpt)
+            want = ls.rwkv_scan_bwd_plain(r, w, k, v, uf, h0, dy)
+        else:
+            delta, A, Bt, Ct, x, h0 = ins
+            Af = A.float().contiguous()
+            B, S, Di = delta.shape
+            route = ls._mamba_route(x.dtype, Af.shape[1], S)
+            state = torch.empty((B, Di, Af.shape[1]), device=x.device)
+            ckpt = torch.empty((B, -(-S // ls.CHUNK), Di, Af.shape[1]),
+                               device=x.device)
+            ls._launch_mamba(route, delta, x, Af, Bt, Ct, h0, state, ckpt)
+            got = ls.mamba_scan_bwd(delta, Af, Bt, Ct, x, h0, dy, ckpt=ckpt)
+            want = ls.mamba_scan_bwd_plain(delta, Af, Bt, Ct, x, h0, dy)
+        tol = BWD_RTOL[str(dy.dtype).split(".")[1]]
+        for a, b in zip(got, want):
+            if a is None:
+                continue
+            top = b.float().abs().max().item()
+            e = (a.float() - b.float()).abs().max().item() / max(top, 1e-30)
+            worst = max(worst, e)
+            require(bool(torch.isfinite(a.float()).all()) and e <= tol,
+                    f"train {name}: {call['op']} layer {i}'s backward "
+                    f"kernel {e:.3e} of the largest gradient from the plain "
+                    f"formulas (tolerance {tol})")
+        del ckpt, got, want
+    print(f"check train {name}: {len(done)} scan layers' backward kernels "
+          f"on their own inputs and incoming gradients against the plain "
+          f"formulas: largest error {worst:.3e} of the largest gradient "
+          f"(tolerance {BWD_RTOL['bfloat16']} bf16)")
+    require(done, f"train {name}: no scan layer recorded")
 
 
 def _named_leaves(tree, path=""):
@@ -3140,59 +3569,238 @@ def fingerprint(tree) -> list:
 
 
 def run_train(device, kernels) -> dict:
-    """llama3-8b at full width trained on the card: at the depth
+    """Phase 11: each of TRAIN_ARCHS trained on the card at full width
+    (:func:`train_arch`), after the checks that what has no backward still
+    refuses; then llama3-8b's checkpoint cycle at TRAIN_CKPT_LAYERS
+    (:func:`check_train_restart`). Returns llama3-8b's run ({"launches",
+    "step_ms", "n_layers"}) with every arch's launches under
+    ``"launches_by_arch"``."""
+    from repro_torch.configs import get_config
+    check_train_refusals(device)
+    runs = {arch: train_arch(device, kernels, arch) for arch in TRAIN_ARCHS}
+    check_train_restart(device, get_config(TRAIN_ARCH).replace(
+        n_layers=TRAIN_CKPT_LAYERS))
+    return {**runs[TRAIN_ARCH],
+            "launches_by_arch": {a: r["launches"] for a, r in runs.items()}}
+
+
+def check_train_refusals(device) -> None:
+    """What has no backward kernel refuses a call autograd would have to
+    differentiate: the scans' decode steps (RuntimeError) and the flash
+    backward at gemma3's D = 256 (ValueError, from the backward's shape
+    check)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def raised(fn, kind) -> str:
+        try:
+            fn()
+        except kind as err:
+            return str(err)
+        return ""
+
+    B, H, K, Di, N = 2, RWKV_H, RWKV_K, MAMBA_DI, MAMBA_N
+    r = torch.randn((B, H, K), device=device, generator=g,
+                    requires_grad=True)
+    w = torch.rand((B, H, K), device=device, generator=g)
+    u = torch.randn((H, K), device=device, generator=g)
+    hr = torch.zeros((B, H, K, K), device=device)
+    delta = torch.rand((B, Di), device=device, generator=g,
+                       requires_grad=True)
+    A = -torch.rand((Di, N), device=device, generator=g)
+    bc = torch.randn((B, N), device=device, generator=g)
+    hm = torch.zeros((B, Di, N), device=device)
+    q = torch.randn((1, 64, 2, 256), device=device, generator=g,
+                    dtype=torch.bfloat16, requires_grad=True)
+    kv = torch.randn((1, 64, 1, 256), device=device, generator=g,
+                     dtype=torch.bfloat16)
+    for name, fn, kind, want in (
+            ("rwkv_decode_step",
+             lambda: ls.rwkv_decode_step(r, w, r.detach(), r.detach(), u,
+                                         hr), RuntimeError, "no backward"),
+            ("mamba_decode_step",
+             lambda: ls.mamba_decode_step(delta, A, bc, bc, delta.detach(),
+                                          hm), RuntimeError, "no backward"),
+            ("flash_attention backward at D = 256",
+             lambda: fa.flash_attention(q, kv, kv).float().sum().backward(),
+             ValueError, "")):
+        text = raised(fn, kind)
+        print(f"check train: {name} on the card under grad raises "
+              f"{kind.__name__}: {bool(text)} ({text})")
+        require(bool(text) and want in text,
+                f"{name} under grad did not raise {kind.__name__}")
+
+
+def train_cfg(cfg, n: int):
+    """``cfg`` cut to its first ``n`` layers: whole repeats of its block
+    pattern, or, below one repeat, the pattern's first ``n`` layers (a
+    jamba-v0.1-52b layer with a MoE MLP alone holds ~2.8 B parameters)."""
+    n_pat = len(cfg.block_pattern)
+    if n % n_pat == 0:
+        return cfg.replace(n_layers=n)
+    if n > n_pat:
+        raise ValueError(f"{cfg.name}: {n} layers are not whole repeats of "
+                         f"its {n_pat}-layer pattern")
+    return cfg.replace(n_layers=n, block_pattern=cfg.block_pattern[:n])
+
+
+def train_depths(cfg) -> list[int]:
+    """The depths :func:`train_cfg` can cut ``cfg`` to, deepest first."""
+    n_pat = len(cfg.block_pattern)
+    return [n for n in range(cfg.n_layers, 0, -1)
+            if n % n_pat == 0 or n < n_pat]
+
+
+def train_want(cfg) -> dict:
+    """{kernel: {route: launches}} a TRAIN_STEPS run of ``cfg`` must count:
+    each scan and attention layer's forward twice a step (the layer is
+    rematerialised in the backward), on the chunked RWKV6 route, the
+    segmented Mamba route and flash's wgmma route at 4 x 1,024 tokens, and
+    its backward once a step."""
+    kinds = [s.kind for s in cfg.block_pattern] * cfg.n_repeats
+    n = {kind: kinds.count(kind) * TRAIN_STEPS
+         for kind in ("attn", "rwkv", "mamba")}
+    want = {}
+    if n["attn"]:
+        want["flash_attention"] = {"wgmma": 2 * n["attn"], "simt": 0}
+        want["flash_attention_bwd"] = {"wgmma": n["attn"], "mma": 0,
+                                       "simt": 0}
+    if n["rwkv"]:
+        want["rwkv_scan"] = {"chunk": 2 * n["rwkv"], "serial": 0}
+        want["rwkv_scan_bwd"] = {None: n["rwkv"]}
+    if n["mamba"]:
+        want["mamba_scan"] = {"segmented": 2 * n["mamba"], "step": 0,
+                              "serial": 0}
+        want["mamba_scan_bwd"] = {None: n["mamba"]}
+    return want
+
+
+def train_flops(model) -> float:
+    """Model FLOPs of one step: 6 a token per active parameter of a
+    product (the token embedding is a gather; of a MoE layer's experts the
+    top k), and causal attention's 6 S d a layer a token (QK^T and PV,
+    forward and backward, halved by the mask). The scans' own work is left
+    out (~0.3% of rwkv6-3b's)."""
+    cfg = model.cfg
+    n_mat = model.n_params() - cfg.vocab_size * cfg.d_model
+    specs = list(cfg.block_pattern) * cfg.n_repeats
+    if cfg.moe is not None:
+        idle = cfg.moe.n_experts - cfg.moe.top_k
+        n_mat -= sum(s.moe for s in specs) * idle * 3 * cfg.d_model \
+            * cfg.moe.d_expert
+    n_attn = sum(s.kind == "attn" for s in specs)
+    tokens = TRAIN_B * TRAIN_S
+    return tokens * (6 * n_mat + 6 * n_attn * TRAIN_S * cfg.d_model)
+
+
+def check_step1_at_fitting_depth(device, model) -> None:
+    """:func:`check_train_step1` at the model's depth or, where the plain
+    step (which keeps every step's tensors of each scan) runs out of
+    memory, at the next depth down, printed as a ``reduced:`` line.
+
+    A scan arch's step 1 is checked at that depth for its loss, its leaves
+    and each scan layer's backward kernel; its grad norm against the plain
+    step's is held there too, or at TRAIN_GNORM_LAYERS where that is
+    shallower (printed as ``reduced:``), once the plain step, which runs
+    none of the kernels under test, is shown conditioned there
+    (:func:`grad_norm_moves`)."""
+    import torch
+    from repro_torch.models.model import Model
+    cfg = model.cfg
+    scan = any(s.kind in ("rwkv", "mamba") for s in cfg.block_pattern)
+    depths = train_depths(cfg)
+    batch = train_loader(cfg, device).next_batch()
+    n, m = cfg.n_layers, model
+    n_g = min(n, TRAIN_GNORM_LAYERS.get(cfg.name, n))
+    while True:
+        try:
+            check_train_step1(m, batch, scan_layers=scan,
+                              gate_gnorm=n_g == n)
+            break
+        except torch.cuda.OutOfMemoryError as err:
+            print(f"check train {cfg.name} step 1 at {n} layers ran out of "
+                  f"memory ({str(err).splitlines()[0]})")
+        torch.cuda.empty_cache()
+        lower = [d for d in depths if d < n]
+        if not lower:
+            raise SmokeFailure(f"{cfg.name}: the step-1 check fits at no "
+                               "depth")
+        print(f"reduced: train step-1 check {cfg.name} n_layers {n} → "
+              f"{lower[0]} (the plain step at {n} does not fit the card)")
+        n = lower[0]
+        n_g = min(n, n_g)
+        m = Model(train_cfg(cfg, n), device=device)
+    if n_g == n:
+        return
+    print(f"reduced: train step-1 grad-norm check {cfg.name} n_layers {n} → "
+          f"{n_g} (TRAIN_GNORM_LAYERS: the plain step's grad norm deeper is "
+          "not conditioned, PERF.md section 6)")
+    m = Model(train_cfg(cfg, n_g), device=device)
+    require(grad_norm_moves(m, batch) <= TRAIN_GNORM_RTOL / 2,
+            f"train {cfg.name}: the plain step's grad norm at {n_g} layers is "
+            "not conditioned, so a comparison of grad norms means nothing")
+    check_train_step1(m, batch)
+
+
+def train_arch(device, kernels, arch: str) -> dict:
+    """``arch`` at full width trained on the card: at the depth
     fit_train_depth measures, step 1 against the plain versions, then
     TRAIN_STEPS steps through a Trainer without checkpoints, every launch
-    count set to 0 just before it and read just after, the loss required
-    to fall; then the checkpoint cycle at TRAIN_CKPT_LAYERS
-    (:func:`check_train_restart`). Returns {kernel name: launches}."""
+    count set to 0 just before it and read just after (:func:`train_want`),
+    the loss required to fall by 0.1; its ms a step, tokens/s, model FLOP/s,
+    peak memory and the device's busy share over two profiled steps.
+    Returns {"launches": {kernel: n}, "step_ms", "n_layers"}."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.kernels import linear_scan as ls
     from repro_torch.train.train_step import make_train_step
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    # a scan kernel has no backward: under grad it must refuse
-    r = torch.randn((1, 4, RWKV_H, RWKV_K), device=device, requires_grad=True)
-    w = torch.rand((1, 4, RWKV_H, RWKV_K), device=device)
-    u = torch.randn((RWKV_H, RWKV_K), device=device)
-    try:
-        ls.rwkv_scan(r, w, r.detach(), r.detach(), u)
-        raised = ""
-    except RuntimeError as err:
-        raised = str(err)
-    print(f"check train: rwkv_scan on the card under grad raises: "
-          f"{bool(raised)} ({raised})")
-    require("no backward" in raised, "rwkv_scan under grad did not raise")
-
-    cfg = get_config(TRAIN_ARCH)
-    model = fit_train_depth(device, cfg)
+    model = fit_train_depth(device, get_config(arch))
     cfg = model.cfg
-    check_train_step1(model, train_loader(cfg, device).next_batch())
-
-    wrappers = [k["wrapper"] for k in kernels
-                if k["name"] in ("flash_attention", "flash_attention_bwd")]
+    check_step1_at_fitting_depth(device, model)
+    want = train_want(cfg)
+    wrappers = {k["name"]: k["wrapper"] for k in kernels
+                if k["name"] in want}
     tc = TrainerConfig(steps=TRAIN_STEPS, ckpt_dir=None, log_every=5)
-    trainer = Trainer(model, make_train_step(model, train_hp()),
-                      train_loader(cfg, device), tc)
+    step = make_train_step(model, train_hp())
+    trainer = Trainer(model, step, train_loader(cfg, device), tc)
     torch.cuda.reset_peak_memory_stats(device)
-    for wr in wrappers:
+    for wr in wrappers.values():
         build.zero_launches(wr)
     t0 = time.perf_counter()
     params, opt, hist = trainer.run()
     wall = time.perf_counter() - t0
-    launches = {wr.__name__: wr.launches for wr in wrappers}
-    routes = {wr.__name__: dict(wr.launches_by_route) for wr in wrappers}
+    routes = {name: dict(getattr(wr, "launches_by_route",
+                                 {None: wr.launches}))
+              for name, wr in wrappers.items()}
+    launches = {name: wr.launches for name, wr in wrappers.items()}
     peak = torch.cuda.max_memory_allocated(device)
     count = opt.count
-    del params, opt, trainer
+    # where the time goes: the device's busy share of two more steps
+    batch = train_loader(cfg, device).next_batch()
+    step(params, opt, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(2):
+            step(params, opt, batch)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    kerns = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kerns)
+    del params, opt, trainer, step
     torch.cuda.empty_cache()
 
     require([h["step"] for h in hist] == list(range(1, TRAIN_STEPS + 1)),
-            "train: steps missing from the history")
+            f"train {arch}: steps missing from the history")
     require(count == TRAIN_STEPS - sum(h["skipped"] for h in hist),
-            f"train: optimizer count {count}")
+            f"train {arch}: optimizer count {count}")
     losses = [h["loss"] for h in hist]
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     print(f"train {cfg.name} losses: " + json.dumps(
@@ -3200,38 +3808,35 @@ def run_train(device, kernels) -> dict:
         [round(h["grad_norm"], 3) for h in hist]) + f"; skipped "
         f"{sum(h['skipped'] for h in hist)}; mean of the first 5 "
         f"{first:.4f}, of the last 5 {last:.4f}")
-    require(all(math.isfinite(x) for x in losses), "train: a loss not finite")
-    require(last <= first - 0.1, f"train: loss fell {first - last:.4f} < 0.1")
-    # flash: forward once a layer a step and again in the rematerialised
-    # backward, on wgmma; backward once a layer a step, on wgmma too
-    n_l = cfg.n_layers
-    want = {"flash_attention": {"wgmma": 2 * n_l * TRAIN_STEPS, "simt": 0},
-            "flash_attention_bwd": {"wgmma": n_l * TRAIN_STEPS, "mma": 0,
-                                    "simt": 0}}
-    print(f"train launches by route: {routes}; want {want}: "
+    require(all(math.isfinite(x) for x in losses),
+            f"train {arch}: a loss not finite")
+    require(last <= first - 0.1,
+            f"train {arch}: loss fell {first - last:.4f} < 0.1")
+    print(f"train {cfg.name} launches by route: {routes}; want {want}: "
           f"{routes == want}")
     require(routes == want and launches == {
         n: sum(r.values()) for n, r in want.items()},
-        f"train launches {launches} {routes}, want {want}")
+        f"train {arch} launches {launches} {routes}, want {want}")
     step_s = statistics.median(h["dt"] for h in hist[1:])
-    tokens = TRAIN_B * TRAIN_S
-    n_par = model.n_params()
-    # model FLOPs: 6 a token per parameter of a product (the token
-    # embedding is a gather), and causal attention's 6 * S * d a layer a
-    # token (QK^T and PV, forward and backward, halved by the mask)
-    n_mat = n_par - cfg.vocab_size * cfg.d_model
-    flops = tokens * (6 * n_mat + 6 * n_l * TRAIN_S * cfg.d_model)
-    print(f"train {cfg.name} ({n_l} layers, {n_par:,} parameters, "
-          f"{TRAIN_B} x {TRAIN_S} tokens a step): median step "
-          f"{step_s * 1e3:.1f} ms (step 1 left out), {tokens / step_s:.0f} "
-          f"tokens/s, model {flops / step_s / 1e12:.1f} TFLOP/s = "
+    flops = train_flops(model)
+    print(f"train {cfg.name} ({cfg.n_layers} layers, {model.n_params():,} "
+          f"parameters, {TRAIN_B} x {TRAIN_S} tokens a step): median step "
+          f"{step_s * 1e3:.1f} ms (step 1 left out), "
+          f"{TRAIN_B * TRAIN_S / step_s:.0f} tokens/s, model "
+          f"{flops / step_s / 1e12:.1f} TFLOP/s = "
           f"{flops / step_s / PEAK_BF16_FLOP_S:.4f} of "
           f"{PEAK_BF16_FLOP_S / 1e12:.0f}; peak memory {peak / 1e9:.2f} GB; "
-          f"{TRAIN_STEPS} steps in {wall:.1f} s")
+          f"{TRAIN_STEPS} steps in {wall:.1f} s; device busy "
+          f"{busy_us / 1e3:.3f} ms of 2 profiled steps' {prof_wall:.3f} s = "
+          f"{busy_us / 1e6 / prof_wall:.5f} of the wall")
+    for e in sorted(kerns, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"profile train {cfg.name} device time "
+              f"{e.self_device_time_total / 1e3:.3f} ms x{e.count}: "
+              f"{e.key[:90]}")
     del model
     torch.cuda.empty_cache()
-    check_train_restart(device, cfg.replace(n_layers=TRAIN_CKPT_LAYERS))
-    return {"launches": launches, "step_ms": step_s * 1e3, "n_layers": n_l}
+    return {"launches": launches, "step_ms": step_s * 1e3,
+            "n_layers": cfg.n_layers}
 
 
 def check_train_restart(device, cfg) -> None:
@@ -3698,6 +4303,17 @@ def kernel_table():
          "source": csrc + "linear_scan.cu",
          "replaces": "src/repro/kernels/linear_scan.py:74",
          "path": "serve", "arch": "jamba-v0.1-52b"},
+        # the scans' gradients: the TPU package has no backward kernel (XLA
+        # differentiates its scans), so each stands beside its forward's
+        # pallas_call; their launches are the training runs' of their arch
+        {"name": "rwkv_scan_bwd", "wrapper": ls.rwkv_scan_bwd,
+         "source": csrc + "linear_scan_bwd.cu",
+         "replaces": "src/repro/kernels/linear_scan.py:147",
+         "path": "train", "arch": "rwkv6-3b"},
+        {"name": "mamba_scan_bwd", "wrapper": ls.mamba_scan_bwd,
+         "source": csrc + "linear_scan_bwd.cu",
+         "replaces": "src/repro/kernels/linear_scan.py:74",
+         "path": "train", "arch": "jamba-v0.1-52b"},
     ]
 
 
@@ -3707,8 +4323,8 @@ def serve_arch(device, arch: str, kernels, launches: dict) -> dict:
     the kernels whose kernels-line arch is ``arch`` go into ``launches``.
     Returns the full-width run's ms a decode tick and depth."""
     import torch
-    serve = [k for k in kernels
-             if arch in k.get("archs", (k.get("arch"),))]
+    serve = [k for k in kernels if k["path"] == "serve"
+             and arch in k.get("archs", (k.get("arch"),))]
     wrappers = [k["wrapper"] for k in serve]
     with phase(f"serve {arch} smoke"):
         smoke = check_serve_smoke(device, arch, wrappers)
@@ -3844,6 +4460,9 @@ def main() -> int:
         kernels = kernel_table()
         with phase("kernel checks (attention)"):
             check_serve_kernels(device)
+        if sys.argv[1] == TRAIN_ONLY:
+            with phase("kernel checks (scan backwards)"):
+                check_scan_bwd(device)
         if sys.argv[1] == WHISPER_ONLY:
             with phase("whisper"):
                 run_whisper(device, kernels)
@@ -3884,6 +4503,8 @@ def main() -> int:
         errors.update(check_serve_kernels(device))
         errors.update(check_scan_kernel(device))
         errors.update(check_mamba_kernel(device))
+        errors.update(check_scan_bwd(device))
+        check_norms(device)
     launches = {}
     with phase("pipeline"):
         path = check_pipeline(
@@ -3912,6 +4533,10 @@ def main() -> int:
     with phase("train"):
         train = run_train(device, kernels)
     launches["flash_attention_bwd"] = train["launches"]["flash_attention_bwd"]
+    for k in kernels:
+        if k["path"] == "train" and k["name"] != "flash_attention_bwd":
+            launches[k["name"]] = train["launches_by_arch"][k["arch"]][
+                k["name"]]
     torch.cuda.empty_cache()
     with phase("cost model and autotune"):
         run_cost_phase(device, ticks[TRAIN_ARCH], train)

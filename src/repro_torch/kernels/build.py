@@ -14,7 +14,7 @@ launches on PyTorch's current stream without synchronising, and returns
 exception. Wrappers count their launches with :func:`count_launch`;
 :func:`sass` disassembles a built library. A kernel without a backward
 refuses a call that autograd would have to differentiate
-(:func:`refuse_grad`): only flash attention has one.
+(:func:`refuse_grad`): flash attention and the two scans have one.
 """
 from __future__ import annotations
 

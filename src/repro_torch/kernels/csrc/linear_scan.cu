@@ -93,6 +93,16 @@
 // once per channel or row (one transaction a warp). hout may alias h0: each
 // lane reads and writes only its own 16 bytes.
 //
+// Checkpoints for the backward (csrc/linear_scan_bwd.cu). Given a ckpt pointer
+// (null when serving: nothing else changes), each route also writes the state
+// every channel holds before steps 0, CK, 2 CK, ... (CK = 64, the wrapper's
+// CHUNK) into ckpt (B, ceil(S / CK), Di, N) fp32: the serial route at the
+// start of each of its MTILE = CK step tiles, the segmented route from its
+// replay (phase (c); a second instantiation, so that the serving kernel keeps
+// its code and registers: the check in its inner loop cost it 10% and four
+// more bytes of spill), the step route its incoming state. 34 MB at jamba's
+// training shape (4, 1024, 8192), N = 16.
+//
 // ---------------------------------------------------------------------------
 // RWKV6 scan.
 //
@@ -152,6 +162,12 @@
 // prefix product over a chunk underflows and a quotient of two would be
 // 0 / 0. The state keeps fp32's accuracy (the decayed k as tf32 hi + lo);
 // each term of the output takes one tf32 rounding.
+//
+// Checkpoints for the backward: the chunked route's carry already leaves
+// the state each chunk starts from in its workspace U (B, H, ceil(S / 64),
+// K, V), which the wrapper keeps; given a ckpt pointer the serial route
+// writes the same states (before steps 0, CK, 2 CK, ...) into ckpt of that
+// shape. 42 MB at rwkv6-3b's training shape (4, 1024, 40, 64).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include "common.cuh"
@@ -173,6 +189,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2
 
 constexpr int MCOLS = 32;  // channels (threads) a block
 constexpr int MTILE = 64;  // time steps staged at a time
+constexpr int CK = 64;     // steps between checkpoints (linear_scan.py CHUNK)
+static_assert(MTILE == CK && TILE * 2 == CK, "a checkpoint opens a tile");
 
 // x rounded to the type that the tag pointer points to
 __device__ __forceinline__ float round_to(float x, const float*) { return x; }
@@ -185,10 +203,11 @@ __global__ void __launch_bounds__(MCOLS)
 mamba_kernel(const T* __restrict__ delta, const T* __restrict__ x,
              const float* __restrict__ A, const T* __restrict__ Bt,
              const T* __restrict__ Ct, const float* h0, T* __restrict__ y,
-             float* hout, int S, int Di) {
+             float* hout, float* __restrict__ ckpt, int S, int Di) {
   const int b = blockIdx.y;
   const int tid = threadIdx.x, c = blockIdx.x * MCOLS + tid;
   const bool active = c < Di;
+  const int NC = (S + CK - 1) / CK;
   __shared__ __align__(16) float bs[MTILE * N];
   __shared__ __align__(16) float cs[MTILE * N];
   __shared__ float ds[MTILE][MCOLS];
@@ -206,6 +225,11 @@ mamba_kernel(const T* __restrict__ delta, const T* __restrict__ x,
 
   for (int t0 = 0; t0 < S; t0 += MTILE) {
     const int steps = min(MTILE, S - t0);
+    if (ckpt != nullptr && active) {
+      float* ck = ckpt + (((long long)b * NC + t0 / CK) * Di + c) * N;
+#pragma unroll
+      for (int n = 0; n < N; ++n) ck[n] = h[n];
+    }
     __syncthreads();               // the previous tile is consumed
     for (int idx = tid; idx < steps * N; idx += MCOLS) {
       bs[idx] = to_f(Bt[nbase + (long long)t0 * N + idx]);
@@ -245,7 +269,7 @@ mamba_kernel(const T* __restrict__ delta, const T* __restrict__ x,
 template <typename T>
 int launch_mamba(int N, const void* delta, const void* x, const float* A,
                  const void* Bt, const void* Ct, const float* h0, void* y,
-                 float* hout, int B, int S, int Di, cudaStream_t stream) {
+                 float* hout, float* ckpt, int B, int S, int Di, cudaStream_t stream) {
   const dim3 grid((Di + MCOLS - 1) / MCOLS, B);
   const T* dt = static_cast<const T*>(delta);
   const T* xt = static_cast<const T*>(x);
@@ -253,9 +277,11 @@ int launch_mamba(int N, const void* delta, const void* x, const float* A,
   const T* ct = static_cast<const T*>(Ct);
   T* yt = static_cast<T*>(y);
   if (N == 16)
-    mamba_kernel<T, 16><<<grid, MCOLS, 0, stream>>>(dt, xt, A, bt, ct, h0, yt, hout, S, Di);
+    mamba_kernel<T, 16><<<grid, MCOLS, 0, stream>>>(dt, xt, A, bt, ct, h0, yt, hout, ckpt, S,
+                                                    Di);
   else if (N == 4)
-    mamba_kernel<T, 4><<<grid, MCOLS, 0, stream>>>(dt, xt, A, bt, ct, h0, yt, hout, S, Di);
+    mamba_kernel<T, 4><<<grid, MCOLS, 0, stream>>>(dt, xt, A, bt, ct, h0, yt, hout, ckpt, S,
+                                                   Di);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_status();
@@ -362,13 +388,17 @@ __device__ __forceinline__ void stage_tile(SegTile<T>& tile, const T* delta, con
 // One warp walks its segment's `steps` steps from t_begin, lane = channel
 // c0 + lane, state h in registers, a tile staged ahead of the one in use.
 // The scan (REPLAY false) also sums delta; the replay (REPLAY true) writes y
-// with the serial kernel's arithmetic and summation order.
-template <bool REPLAY, typename T>
+// with the serial kernel's arithmetic and summation order and, with CKPT and
+// where ck (this lane's channel of its row's checkpoints, stride Di SN) is not
+// null, the state before every step t with t % CK == 0. CKPT is a template
+// argument so that the serving kernel (CKPT false) is the code it was, with
+// its registers.
+template <bool REPLAY, bool CKPT, typename T>
 __device__ __forceinline__ void walk_segment(SegTile<T> (&tiles)[2], const T* delta,
                                              const T* x, const T* Bt, const T* Ct, T* y,
                                              long long row0, int t_begin, int steps, int c0,
                                              int Di, int lane, const float (&a)[SN],
-                                             float (&h)[SN], float& sumd) {
+                                             float (&h)[SN], float& sumd, float* ck) {
   const int c = c0 + lane;
   if (steps > 0)
     stage_tile(tiles[0], delta, x, Bt, Ct, row0, t_begin, min(STILE, steps), c0, Di,
@@ -401,6 +431,13 @@ __device__ __forceinline__ void walk_segment(SegTile<T> (&tiles)[2], const T* de
       const float d = to_f(tile.d[j][lane]);
       const float dx = round_to(d * to_f(tile.x[j][lane]), x);
       if (!REPLAY) sumd += d;
+      const int t = t_begin + k * STILE + j;
+      if (CKPT && REPLAY && ck != nullptr && t % CK == 0) {
+        float4* out = reinterpret_cast<float4*>(ck + (long long)(t / CK) * Di * SN);
+#pragma unroll
+        for (int q = 0; q < SN / 4; ++q)
+          out[q] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
+      }
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int i = 0; i < SN / 8; ++i) {
@@ -423,12 +460,12 @@ __device__ __forceinline__ void walk_segment(SegTile<T> (&tiles)[2], const T* de
   tc::cp_async_wait<0>();
 }
 
-template <typename T>
+template <typename T, bool CKPT>
 __global__ void __launch_bounds__(SEG_THREADS, 2)
 mamba_segmented_kernel(const T* __restrict__ delta, const T* __restrict__ x,
                        const float* __restrict__ A, const T* __restrict__ Bt,
                        const T* __restrict__ Ct, const float* h0, T* __restrict__ y,
-                       float* hout, int S, int Di) {
+                       float* hout, float* __restrict__ ckpt, int S, int Di) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   SegSmem<T>& sm = *reinterpret_cast<SegSmem<T>*>(smem_raw);
   const int b = blockIdx.y, c0 = blockIdx.x * SCH;
@@ -439,6 +476,8 @@ mamba_segmented_kernel(const T* __restrict__ delta, const T* __restrict__ x,
   const int t_begin = seg * len;
   const int steps = max(0, min(S, t_begin + len) - t_begin);
   const long long row0 = (long long)b * S;
+  float* ck = (ckpt != nullptr && active)
+                  ? ckpt + ((long long)b * ((S + CK - 1) / CK) * Di + c) * SN : nullptr;
 
   float a[SN], h[SN];
 #pragma unroll
@@ -452,8 +491,8 @@ mamba_segmented_kernel(const T* __restrict__ delta, const T* __restrict__ x,
 #pragma unroll
   for (int n = 0; n < SN; ++n) h[n] = 0.f;
   float sumd = 0.f;
-  walk_segment<false>(sm.tile[seg], delta, x, Bt, Ct, y, row0, t_begin, steps, c0, Di,
-                      lane, a, h, sumd);
+  walk_segment<false, false>(sm.tile[seg], delta, x, Bt, Ct, y, row0, t_begin, steps, c0, Di,
+                      lane, a, h, sumd, nullptr);
   __syncthreads();                     // every warp is done with its tiles
   if (seg < nseg) {
 #pragma unroll
@@ -488,8 +527,8 @@ mamba_segmented_kernel(const T* __restrict__ delta, const T* __restrict__ x,
   }
   __syncthreads();                     // the incoming states are read before the tiles
   // (c) the replay from the incoming state: y, and the final state
-  walk_segment<true>(sm.tile[seg], delta, x, Bt, Ct, y, row0, t_begin, steps, c0, Di,
-                     lane, a, h, sumd);
+  walk_segment<true, CKPT>(sm.tile[seg], delta, x, Bt, Ct, y, row0, t_begin, steps, c0, Di,
+                     lane, a, h, sumd, ck);
   if (seg == nseg - 1 && active) {
     float4* out = reinterpret_cast<float4*>(hout + ((long long)b * Di + c) * SN);
 #pragma unroll
@@ -498,27 +537,40 @@ mamba_segmented_kernel(const T* __restrict__ delta, const T* __restrict__ x,
   }
 }
 
-template <typename T>
-int launch_mamba_segmented(const void* delta, const void* x, const float* A,
+template <typename T, bool CKPT>
+int launch_mamba_segmented_as(const void* delta, const void* x, const float* A,
                            const void* Bt, const void* Ct, const float* h0, void* y,
-                           float* hout, int B, int S, int Di, cudaStream_t stream) {
-  static bool opted_in = false;        // shared-memory opt-in, once a type
+                           float* hout, float* ckpt, int B, int S, int Di,
+                           cudaStream_t stream) {
+  static bool opted_in = false;        // shared-memory opt-in, once an instance
   if (!opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(mamba_segmented_kernel<T>,
+    cudaError_t err = cudaFuncSetAttribute(mamba_segmented_kernel<T, CKPT>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(sizeof(SegSmem<T>)));
     if (err == cudaSuccess)            // two blocks an SM need the largest carveout
-      err = cudaFuncSetAttribute(mamba_segmented_kernel<T>,
+      err = cudaFuncSetAttribute(mamba_segmented_kernel<T, CKPT>,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
   const dim3 grid((Di + SCH - 1) / SCH, B);
-  mamba_segmented_kernel<T><<<grid, SEG_THREADS, sizeof(SegSmem<T>), stream>>>(
+  mamba_segmented_kernel<T, CKPT><<<grid, SEG_THREADS, sizeof(SegSmem<T>), stream>>>(
       static_cast<const T*>(delta), static_cast<const T*>(x), A, static_cast<const T*>(Bt),
-      static_cast<const T*>(Ct), h0, static_cast<T*>(y), hout, S, Di);
+      static_cast<const T*>(Ct), h0, static_cast<T*>(y), hout, ckpt, S, Di);
   return launch_status();
+}
+
+template <typename T>
+int launch_mamba_segmented(const void* delta, const void* x, const float* A,
+                           const void* Bt, const void* Ct, const float* h0, void* y,
+                           float* hout, float* ckpt, int B, int S, int Di,
+                           cudaStream_t stream) {
+  if (ckpt != nullptr)
+    return launch_mamba_segmented_as<T, true>(delta, x, A, Bt, Ct, h0, y, hout, ckpt, B, S,
+                                              Di, stream);
+  return launch_mamba_segmented_as<T, false>(delta, x, A, Bt, Ct, h0, y, hout, ckpt, B, S,
+                                             Di, stream);
 }
 
 // ---- Mamba, step route ----------------------------------------------------------
@@ -531,7 +583,7 @@ __global__ void __launch_bounds__(STEP_THREADS)
 mamba_step_kernel(const T* __restrict__ delta, const T* __restrict__ x,
                   const float* __restrict__ A, const T* __restrict__ Bt,
                   const T* __restrict__ Ct, const float* h0, T* __restrict__ y,
-                  float* hout, int Di) {
+                  float* hout, float* __restrict__ ckpt, int Di) {
   const int b = blockIdx.y, q = threadIdx.x % 4, n0 = 4 * q;
   const int c = blockIdx.x * STEP_CH + threadIdx.x / 4;
   const bool active = c < Di;          // every lane takes part in the shuffles
@@ -543,6 +595,7 @@ mamba_step_kernel(const T* __restrict__ delta, const T* __restrict__ x,
     dx = round_to(d * to_f(x[off]), x);
     a = *reinterpret_cast<const float4*>(A + (long long)c * SN + n0);
     if (h0 != nullptr) h = *reinterpret_cast<const float4*>(h0 + off * SN + n0);
+    if (ckpt != nullptr) *reinterpret_cast<float4*>(ckpt + off * SN + n0) = h;
   }
   const T* bt = Bt + (long long)b * SN + n0;
   const T* ct = Ct + (long long)b * SN + n0;
@@ -563,12 +616,12 @@ mamba_step_kernel(const T* __restrict__ delta, const T* __restrict__ x,
 
 template <typename T>
 int launch_mamba_step(const void* delta, const void* x, const float* A, const void* Bt,
-                      const void* Ct, const float* h0, void* y, float* hout, int B,
-                      int Di, cudaStream_t stream) {
+                      const void* Ct, const float* h0, void* y, float* hout,
+                      float* ckpt, int B, int Di, cudaStream_t stream) {
   const dim3 grid((Di + STEP_CH - 1) / STEP_CH, B);
   mamba_step_kernel<T><<<grid, STEP_THREADS, 0, stream>>>(
       static_cast<const T*>(delta), static_cast<const T*>(x), A, static_cast<const T*>(Bt),
-      static_cast<const T*>(Ct), h0, static_cast<T*>(y), hout, Di);
+      static_cast<const T*>(Ct), h0, static_cast<T*>(y), hout, ckpt, Di);
   return launch_status();
 }
 
@@ -587,7 +640,7 @@ __global__ void __launch_bounds__(COLS)
 rwkv_kernel(const T* __restrict__ r, const float* __restrict__ w,
             const T* __restrict__ k, const T* __restrict__ v,
             const float* __restrict__ u, const float* h0, T* __restrict__ o,
-            float* hout, int S, int H, int V) {
+            float* hout, float* __restrict__ ckpt, int S, int H, int V) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, col = blockIdx.x * COLS + tid;
   const bool active = col < V;
@@ -611,6 +664,12 @@ rwkv_kernel(const T* __restrict__ r, const float* __restrict__ w,
 
   for (int t0 = 0; t0 < S; t0 += TILE) {
     const int n = min(TILE, S - t0);
+    if (ckpt != nullptr && active && t0 % CK == 0) {
+      const int NC = (S + CK - 1) / CK;
+      float* ck = ckpt + ((((long long)b * H + h) * NC + t0 / CK) * K) * V + col;
+#pragma unroll
+      for (int i = 0; i < K; ++i) ck[(long long)i * V] = st[i];
+    }
     __syncthreads();               // the previous tile is consumed (and us is written)
     for (int idx = tid; idx < n * K; idx += COLS) {
       const int j = idx / K, i = idx % K;
@@ -649,17 +708,19 @@ rwkv_kernel(const T* __restrict__ r, const float* __restrict__ w,
 
 template <typename T>
 int launch(int K, const void* r, const float* w, const void* k, const void* v,
-           const float* u, const float* h0, void* o, float* hout, int B, int S, int H,
-           int V, cudaStream_t stream) {
+           const float* u, const float* h0, void* o, float* hout, float* ckpt, int B,
+           int S, int H, int V, cudaStream_t stream) {
   const dim3 grid((V + COLS - 1) / COLS, H, B);
   const T* rt = static_cast<const T*>(r);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(o);
   if (K == 64)
-    rwkv_kernel<T, 64><<<grid, COLS, 0, stream>>>(rt, w, kt, vt, u, h0, ot, hout, S, H, V);
+    rwkv_kernel<T, 64><<<grid, COLS, 0, stream>>>(rt, w, kt, vt, u, h0, ot, hout, ckpt, S, H,
+                                                  V);
   else if (K == 16)
-    rwkv_kernel<T, 16><<<grid, COLS, 0, stream>>>(rt, w, kt, vt, u, h0, ot, hout, S, H, V);
+    rwkv_kernel<T, 16><<<grid, COLS, 0, stream>>>(rt, w, kt, vt, u, h0, ot, hout, ckpt, S, H,
+                                                  V);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_status();
@@ -1105,10 +1166,11 @@ extern "C" int rwkv_scan_chunk(const void* r, const void* w, const void* k, cons
 // dtype 0: fp32, 1: bf16 (r, k, v and o). K (the head width of r, w, k, u and
 // of the state's rows) is 16 or 64, the ported configs' widths (rwkv6-3b and
 // its smoke config); B, S, H, V > 0; h0 may be null (a zero state) and may
-// equal hout. Returns a cudaError_t.
+// equal hout; ckpt null, or (B, H, ceil(S / 64), K, V) fp32 for the backward's
+// checkpoints. Returns a cudaError_t.
 extern "C" int rwkv_scan(const void* r, const void* w, const void* k, const void* v,
                          const void* u, const void* h0, void* o, void* hout, int dtype,
-                         int B, int S, int H, int K, int V, void* stream) {
+                         int B, int S, int H, int K, int V, void* ckpt, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || V <= 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1116,28 +1178,31 @@ extern "C" int rwkv_scan(const void* r, const void* w, const void* k, const void
   const float* uf = static_cast<const float*>(u);
   const float* h0f = static_cast<const float*>(h0);
   float* hf = static_cast<float*>(hout);
+  float* ck = static_cast<float*>(ckpt);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(K, r, wf, k, v, uf, h0f, o, hf, B, S, H, V, s);
-  return launch<float>(K, r, wf, k, v, uf, h0f, o, hf, B, S, H, V, s);
+    return launch<__nv_bfloat16>(K, r, wf, k, v, uf, h0f, o, hf, ck, B, S, H, V, s);
+  return launch<float>(K, r, wf, k, v, uf, h0f, o, hf, ck, B, S, H, V, s);
 }
 
 // dtype 0: fp32, 1: bf16 (delta, x, Bt, Ct and y). N (the state size of A's
 // rows and of the state) is 4 or 16, the ported configs' sizes (jamba-v0.1-52b's
 // smoke config and jamba-v0.1-52b); B, S, Di > 0; h0 may be null (a zero state)
-// and may equal hout. The serial route. Returns a cudaError_t.
+// and may equal hout; ckpt null, or (B, ceil(S / 64), Di, N) fp32 for the
+// backward's checkpoints. The serial route. Returns a cudaError_t.
 extern "C" int mamba_scan(const void* delta, const void* x, const void* A,
                           const void* Bt, const void* Ct, const void* h0, void* y,
                           void* hout, int dtype, int B, int S, int Di, int N,
-                          void* stream) {
+                          void* ckpt, void* stream) {
   if (B <= 0 || S <= 0 || Di <= 0 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* af = static_cast<const float*>(A);
   const float* h0f = static_cast<const float*>(h0);
   float* hf = static_cast<float*>(hout);
+  float* ck = static_cast<float*>(ckpt);
   if (dtype == 1)
-    return launch_mamba<__nv_bfloat16>(N, delta, x, af, Bt, Ct, h0f, y, hf, B, S, Di, s);
-  return launch_mamba<float>(N, delta, x, af, Bt, Ct, h0f, y, hf, B, S, Di, s);
+    return launch_mamba<__nv_bfloat16>(N, delta, x, af, Bt, Ct, h0f, y, hf, ck, B, S, Di, s);
+  return launch_mamba<float>(N, delta, x, af, Bt, Ct, h0f, y, hf, ck, B, S, Di, s);
 }
 
 // The segmented route: the arguments of mamba_scan with N = 16, Di a multiple
@@ -1145,32 +1210,34 @@ extern "C" int mamba_scan(const void* delta, const void* x, const void* A,
 extern "C" int mamba_scan_segmented(const void* delta, const void* x, const void* A,
                                     const void* Bt, const void* Ct, const void* h0,
                                     void* y, void* hout, int dtype, int B, int S, int Di,
-                                    int N, void* stream) {
+                                    int N, void* ckpt, void* stream) {
   if (B <= 0 || S <= 0 || Di <= 0 || B > 65535 || N != SN || Di % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* af = static_cast<const float*>(A);
   const float* h0f = static_cast<const float*>(h0);
   float* hf = static_cast<float*>(hout);
+  float* ck = static_cast<float*>(ckpt);
   if (dtype == 1)
-    return launch_mamba_segmented<__nv_bfloat16>(delta, x, af, Bt, Ct, h0f, y, hf, B, S,
+    return launch_mamba_segmented<__nv_bfloat16>(delta, x, af, Bt, Ct, h0f, y, hf, ck, B, S,
                                                  Di, s);
-  return launch_mamba_segmented<float>(delta, x, af, Bt, Ct, h0f, y, hf, B, S, Di, s);
+  return launch_mamba_segmented<float>(delta, x, af, Bt, Ct, h0f, y, hf, ck, B, S, Di, s);
 }
 
-// The step route: the arguments of mamba_scan with S = 1, N = 16 and A, h0 and
-// hout 16-byte aligned. One launch. Returns a cudaError_t.
+// The step route: the arguments of mamba_scan with S = 1, N = 16 and A, h0,
+// hout and ckpt 16-byte aligned. One launch. Returns a cudaError_t.
 extern "C" int mamba_scan_step(const void* delta, const void* x, const void* A,
                                const void* Bt, const void* Ct, const void* h0, void* y,
                                void* hout, int dtype, int B, int S, int Di, int N,
-                               void* stream) {
+                               void* ckpt, void* stream) {
   if (B <= 0 || S != 1 || Di <= 0 || B > 65535 || N != SN)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* af = static_cast<const float*>(A);
   const float* h0f = static_cast<const float*>(h0);
   float* hf = static_cast<float*>(hout);
+  float* ck = static_cast<float*>(ckpt);
   if (dtype == 1)
-    return launch_mamba_step<__nv_bfloat16>(delta, x, af, Bt, Ct, h0f, y, hf, B, Di, s);
-  return launch_mamba_step<float>(delta, x, af, Bt, Ct, h0f, y, hf, B, Di, s);
+    return launch_mamba_step<__nv_bfloat16>(delta, x, af, Bt, Ct, h0f, y, hf, ck, B, Di, s);
+  return launch_mamba_step<float>(delta, x, af, Bt, Ct, h0f, y, hf, ck, B, Di, s);
 }

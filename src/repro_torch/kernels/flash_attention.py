@@ -104,7 +104,9 @@ def _plain_scores(q, k, v, causal, window, q_offset, scale):
     qf = (q.float() * scale).reshape(B, Sq, KV, H // KV, D)
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
     mask = _mask(Sq, Skv, causal, window, q_offset, q.device)
-    return s.masked_fill(~mask, NEG_INF), mask
+    # in place: the product's buffer takes the mask (its backward needs
+    # only q and k), not a second float32 copy of the scores
+    return s.masked_fill_(~mask, NEG_INF), mask
 
 
 def _bwd_route(dtype: torch.dtype, D: int, Dv: int) -> str:
@@ -163,10 +165,12 @@ def _plain_chunked(q, k, v, causal, window, q_offset, scale, lse: bool):
         s, _ = _plain_scores(qc, kc, vc, causal, window, off, scale)
         if lse:
             parts.append(torch.logsumexp(s, dim=-1).reshape(B, H, r1 - r0))
-            continue
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgqs,bskd->bqkgd", p, vc.float())
-        parts.append(o.reshape(B, r1 - r0, H, Dv).to(q.dtype))
+        else:
+            o = torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, dim=-1),
+                             vc.float())
+            parts.append(o.reshape(B, r1 - r0, H, Dv).to(q.dtype))
+        # this chunk's scores go before the next chunk's are made
+        del s
     if len(parts) == 1:
         return parts[0]
     return torch.cat(parts, dim=2 if lse else 1)

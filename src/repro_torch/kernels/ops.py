@@ -10,10 +10,13 @@ their own tiles.
 
 Under autograd (grad enabled, an input requiring it) :func:`attention`
 runs flash attention's forward and backward kernels
-(:class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`); every
-other op raises ``RuntimeError`` on a CUDA tensor there, since its kernel
-has no backward yet. On the CPU all of them are plain PyTorch, which
-autograd differentiates.
+(:class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`), and
+:func:`rwkv_scan` and :func:`mamba_scan` theirs
+(:class:`~repro_torch.kernels.linear_scan.RwkvScanFn`,
+:class:`~repro_torch.kernels.linear_scan.MambaScanFn`); the other ops
+raise ``RuntimeError`` on a CUDA tensor there, since their kernels have
+no backward. On the CPU all of them are plain PyTorch, which autograd
+differentiates.
 
 On a mesh of more than one device the models hand these ops DTensors,
 which only the plain versions take (on CPU meshes: the tests and the dry

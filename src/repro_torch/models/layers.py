@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (
-    reduce_partial, shard, sharded_context,
+    is_dtensor, reduce_partial, shard, sharded_context,
 )
 
 
@@ -131,19 +131,63 @@ def init_params(tree, generator: torch.Generator, dtype: torch.dtype, *,
 # primitive layers
 # --------------------------------------------------------------------------
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def _rms_expr(x, w, eps):
     xf = x.float()
     n = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (n * w.float()).to(x.dtype)
 
 
-def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-              eps: float = 1e-5) -> torch.Tensor:
+def _ln_expr(x, w, b, eps):
     xf = x.float()
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
     n = (xf - mu) * torch.rsqrt(var + eps)
     return (n * w.float() + b.float()).to(x.dtype)
+
+
+def _rms_in_place(x, w, eps):
+    t = x.to(torch.float32, copy=True)
+    r = torch.rsqrt(torch.mean(t.mul_(t), dim=-1, keepdim=True) + eps)
+    return t.copy_(x).mul_(r).mul_(w.float()).to(x.dtype)
+
+
+def _ln_in_place(x, w, b, eps):
+    # the squared deviations for the variance overwrite the copy, and it is
+    # refilled from x
+    t = x.to(torch.float32, copy=True)
+    mu = torch.mean(t, dim=-1, keepdim=True)
+    r = torch.rsqrt(torch.mean(t.sub_(mu).pow_(2), dim=-1, keepdim=True)
+                    + eps)
+    return t.copy_(x).sub_(mu).mul_(r).mul_(w.float()).add_(
+        b.float()).to(x.dtype)
+
+
+def _in_place(x: torch.Tensor, *params) -> bool:
+    """Whether a norm takes the in-place ops on one float32 copy of x
+    (:func:`_rms_in_place`, :func:`_ln_in_place`: the same bits as the
+    expressions written out, which eagerly keep three such copies; XLA
+    fuses them away): where nothing will differentiate it and x has no
+    pending sums (in-place ops cannot reduce them; the expression's
+    nonlinear ops do, as the reference's do). Under grad every device and
+    mesh takes the expression, so autograd and the dry run's counts see
+    the same ops."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, *params)):
+        return False
+    return not (is_dtensor(x) and any(p.is_partial() for p in x.placements))
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    if _in_place(x, w):
+        return _rms_in_place(x, w, eps)
+    return _rms_expr(x, w, eps)
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    if _in_place(x, w, b):
+        return _ln_in_place(x, w, b, eps)
+    return _ln_expr(x, w, b, eps)
 
 
 def groupnorm_heads(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -117,7 +117,10 @@ def mamba_apply(cfg, p, x, h0=None, conv_tail=None, return_cache=False):
     out = _mamba_out(p, y, xc, z)
     if not return_cache:
         return out
-    tail = torch.cat([conv_tail, x_in], dim=1)[:, -(K - 1):]
+    # the last K - 1 conv inputs, from the last K - 1 rows of x_in alone: a
+    # slice of the whole concatenation would keep all S rows alive in the
+    # cache (XLA keeps only the slice)
+    tail = torch.cat([conv_tail, x_in[:, -(K - 1):]], dim=1)[:, -(K - 1):]
     return out, {"conv": tail, "h": h}
 
 

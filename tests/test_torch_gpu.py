@@ -598,8 +598,9 @@ def test_flash_backward_kernel_rejects_what_it_does_not_take(cuda):
 
 
 def test_kernels_without_a_backward_refuse_grad(cuda):
-    """Under grad, every CUDA wrapper but flash raises rather than return
-    a tensor with no gradient; under no_grad they run."""
+    """Under grad, every CUDA wrapper without a backward kernel (decode
+    attention, the matmul and the scans' decode steps) raises rather than
+    return a tensor with no gradient; under no_grad they run."""
     q = torch.randn((2, 1, 4, 64), device=cuda, requires_grad=True)
     kv = torch.randn((2, 8, 4, 64), device=cuda)
     lens = torch.full((2,), 8, dtype=torch.int32, device=cuda)
@@ -611,15 +612,11 @@ def test_kernels_without_a_backward_refuse_grad(cuda):
     r, w, k, v, u, h0 = _scan_inputs(1, 8, 2, 64, torch.float32, cuda)
     r.requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
-        ls.rwkv_scan(r, w, k, v, u)
-    with pytest.raises(RuntimeError, match="no backward"):
         ls.rwkv_decode_step(r[:, 0], w[:, 0], k[:, 0], v[:, 0], u, h0)
     x = torch.randn((1, 4, 128), device=cuda, requires_grad=True)
     delta = torch.rand((1, 4, 128), device=cuda)
     A = -torch.rand((128, 4), device=cuda)
     Bt = torch.randn((1, 4, 4), device=cuda)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ls.mamba_scan(delta, A, Bt, Bt, x)
     with pytest.raises(RuntimeError, match="no backward"):
         ls.mamba_decode_step(delta[:, 0], A, Bt[:, 0], Bt[:, 0], x[:, 0],
                              torch.zeros((1, 128, 4), device=cuda))
@@ -957,6 +954,107 @@ def test_mamba_scan_kernel_rejects_what_it_does_not_take(cuda):
     buf = torch.zeros(1 + x.numel(), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         ls.mamba_scan(delta, A, Bt, Ct, buf[1:].view(x.shape), h0)
+
+
+# the scan backward kernels: (kind, B, S, (H, K) or (Di, N), dtype, the
+# forward route whose checkpoints they read)
+SCAN_BWD_CASES = [("rwkv", 1, 130, (40, 64), torch.bfloat16, "chunk"),
+                  ("rwkv", 2, 37, (4, 16), torch.bfloat16, "serial"),
+                  ("rwkv", 2, 70, (8, 64), torch.float32, "serial"),
+                  ("mamba", 2, 130, (256, 16), torch.bfloat16, "segmented"),
+                  ("mamba", 2, 5, (256, 16), torch.float32, "serial"),
+                  ("mamba", 3, 1, (256, 16), torch.bfloat16, "step"),
+                  ("mamba", 2, 45, (128, 4), torch.float32, "serial")]
+# relative to the largest gradient, as flash's backward is held
+BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _scan_bwd_inputs(kind, B, S, dims, dtype, device):
+    if kind == "rwkv":
+        return list(_scan_inputs(B, S, *dims, dtype, device))
+    return list(_mamba_inputs(B, S, *dims, dtype, device))
+
+
+@pytest.mark.parametrize("kind,B,S,dims,dtype,route", SCAN_BWD_CASES)
+def test_scan_backward_kernels_vs_plain_formulas(cuda, kind, B, S, dims,
+                                                 dtype, route):
+    """Autograd through the forward wrapper (its route, asked for the
+    checkpoints) launches the backward kernel once; its gradients, with a
+    non-zero h0 and a final-state gradient, within BWD_RTOL of the plain
+    formulas' on the same inputs."""
+    ins = _scan_bwd_inputs(kind, B, S, dims, dtype, cuda)
+    fwd, bwd = ((ls.rwkv_scan, ls.rwkv_scan_bwd) if kind == "rwkv"
+                else (ls.mamba_scan, ls.mamba_scan_bwd))
+    plain = (ls.rwkv_scan_bwd_plain if kind == "rwkv"
+             else ls.mamba_scan_bwd_plain)
+    leaves = [t.detach().requires_grad_() for t in ins]
+    n_f, n_b = fwd.launches_by_route[route], bwd.launches
+    y, h = fwd(*leaves)
+    g = _gen(5)
+    dy = torch.randn(y.shape, generator=g).to(cuda, dtype)
+    dh = torch.randn(h.shape, generator=g).to(cuda)
+    got = torch.autograd.grad((y, h), leaves, (dy, dh))
+    assert fwd.launches_by_route[route] == n_f + 1
+    assert bwd.launches == n_b + 1
+    want = plain(*ins, dy, dh)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.isfinite(a.float()).all()
+        top = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() \
+            <= BWD_RTOL[dtype] * top
+
+
+@pytest.mark.parametrize("kind", ["rwkv", "mamba"])
+def test_scan_backwards_replay_in_a_cuda_graph_bit_exactly(cuda, kind):
+    """Each backward captured in a CUDA graph (workspaces made at capture)
+    gives, replayed, the bits of the eager call: its sums over blocks are
+    partials added in a fixed order, no atomics."""
+    if kind == "rwkv":
+        r, w, k, v, u, h0 = _scan_inputs(2, 100, 40, 64, torch.bfloat16, cuda)
+        uf, state = u.float(), torch.empty_like(h0)
+        o, ckpt = ls._launch("chunk", r, w, k, v, uf, h0, state, True)
+        do = torch.randn(o.shape, generator=_gen(3)).to(cuda, o.dtype)
+
+        def call():
+            return ls.rwkv_scan_bwd(r, w, k, v, uf, h0, do, state, ckpt=ckpt)
+    else:
+        delta, A, Bt, Ct, x, h0 = _mamba_inputs(2, 100, 512, 16,
+                                                torch.bfloat16, cuda)
+        state = torch.empty_like(h0)
+        ckpt = torch.empty((2, 2, 512, 16), device=cuda)
+        y = ls._launch_mamba("segmented", delta, x, A, Bt, Ct, h0, state,
+                             ckpt)
+        dy = torch.randn(y.shape, generator=_gen(3)).to(cuda, y.dtype)
+
+        def call():
+            return ls.mamba_scan_bwd(delta, A, Bt, Ct, x, h0, dy, state,
+                                     ckpt=ckpt)
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(c, e) for c, e in zip(captured, eager))
+
+
+def test_scan_backwards_reject_what_they_do_not_take(cuda):
+    """The backward kernels need the forward's checkpoints; a scan under
+    grad takes no state_out."""
+    r, w, k, v, u, h0 = _scan_inputs(1, 8, 2, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="checkpoints"):
+        ls.rwkv_scan_bwd(r, w, k, v, u.float(), h0, v)
+    delta, A, Bt, Ct, x, h0 = _mamba_inputs(1, 8, 64, 4, torch.float32, cuda)
+    with pytest.raises(ValueError, match="checkpoints"):
+        ls.mamba_scan_bwd(delta, A, Bt, Ct, x, h0, x)
+    with pytest.raises(ValueError, match="state_out"):
+        ls.mamba_scan(delta, A, Bt, Ct, x.requires_grad_(), h0,
+                      state_out=torch.empty_like(h0))
 
 
 def test_real_service_cluster_serves_on_the_card(cuda):

@@ -738,4 +738,5 @@ def test_nvcc_command_targets_sm90a():
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == \
         ["decode_attention.cu", "flash_attention.cu",
          "flash_attention_bwd.cu", "iou.cu",
-         "linear_scan.cu", "matmul.cu", "preproc.cu", "resize.cu"]
+         "linear_scan.cu", "linear_scan_bwd.cu", "matmul.cu", "preproc.cu",
+         "resize.cu"]

@@ -210,8 +210,43 @@ def check_attention(mesh, npz) -> dict:
     return out
 
 
+def check_mamba_scan(mesh, npz) -> dict:
+    """The plain Mamba scan under the mesh (each rank's shard of the batch
+    and the inner dim, the inputs laid out as the model lays them out)
+    against the whole scan on one device, with autograd through both: the
+    largest differences of y, the final state and each input's gradient,
+    relative to the largest value of each, on rank 0."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import linear_scan as ls
+    names = ("delta", "A", "Bt", "Ct", "x", "h0")
+    specs = (("data", None, "model"), ("model",), ("data", "model"),
+             ("data", "model"), ("data", None, "model"), ("data", "model"))
+    arrs = [torch.from_numpy(npz[f"mamba/{n}"]) for n in names]
+    dy, dh = (torch.from_numpy(npz[f"mamba/{n}"]) for n in ("dy", "dh"))
+    with shd.use_sharding(mesh, shd.TRAIN_RULES):
+        leaves = [shd.lay_out(t, shd.NamedSharding(mesh, s)).detach()
+                  .requires_grad_() for t, s in zip(arrs, specs)]
+        y, h = ls.mamba_scan_plain(*leaves)
+        placements = [str(p) for p in y.placements]
+        loss = shd.full((y * dy).sum() + (h * dh).sum())
+        got = [shd.full(t) for t in
+               (y, h, *torch.autograd.grad(loss, leaves))]
+    out = {}
+    if dist.get_rank() == 0:
+        whole = [t.clone().requires_grad_() for t in arrs]
+        y, h = ls.mamba_scan_plain(*whole)
+        want = [y, h, *torch.autograd.grad(
+            (y * dy).sum() + (h * dh).sum(), whole)]
+        for name, a, b in zip(("y", "h") + names, got, want):
+            out[name] = float((a.detach() - b.detach()).abs().max()
+                              / b.detach().abs().max())
+        out["y_placements"] = placements
+    return out
+
+
 CHECKS = {"train": check_train, "serve": check_serve, "order": check_order,
-          "psum": check_psum, "attention": check_attention}
+          "psum": check_psum, "attention": check_attention,
+          "mamba_scan": check_mamba_scan}
 
 
 def run(rank: int, world: int, out_dir: str, checks: list[str]) -> None:
