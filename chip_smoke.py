@@ -28,7 +28,10 @@ Phases, each fatal on failure:
      steps on and the lane-split step for S = 1 at N = 16, with steps
      that drive exp(delta A) to 0 and denormals, the serial kernel for
      the rest; the flash backward at llama3-8b's training shape and
-     whisper's encoder; decode at G = 1); the two scan backward kernels
+     whisper's encoder, and its split route at gemma3-12b's and
+     deepseek-v2-236b's training shapes, past gemma3's window at S = 2,048,
+     ragged and offset, each a CUDA-graph replay bit-equal; decode at
+     G = 1); the two scan backward kernels
      (``csrc/linear_scan_bwd.cu``) under autograd of the forward wrappers
      against their plain formulas and autograd of the plain forward, bf16
      and fp32, at rwkv6-3b's and jamba's training shapes (4 x 1,024), a
@@ -128,11 +131,13 @@ Phases, each fatal on failure:
      ms, decode tokens/s and ms a step against the step's floor (decoder
      weights and caches over 3.35 TB/s), peak memory and the device busy
      share (``--whisper`` runs it alone);
- 11. train llama3-8b, rwkv6-3b and jamba-v0.1-52b at full width on the
-     card (bf16 compute on float32 masters, 4 x 1,024-token TokenLoader
-     batches, AdamW as launch/train.py sets it) at the depth
-     ``fit_train_depth`` measures (jamba's a prefix of its 8-layer
-     pattern): step 1 against the plain-ops step (loss 1e-3, grad norm 1e-2
+ 11. train llama3-8b, rwkv6-3b, jamba-v0.1-52b, gemma3-12b and
+     deepseek-v2-236b at full width on the card (bf16 compute on float32
+     masters, 4 x 1,024-token TokenLoader batches, AdamW as launch/train.py
+     sets it) at the depth ``fit_train_depth`` measures (jamba's a prefix
+     of its 8-layer pattern; deepseek-v2-236b one layer with its routed
+     experts cut to the most that train, printed as ``reduced:``): step 1
+     against the plain-ops step (loss 1e-3, grad norm 1e-2
      relative; at a smaller depth, printed as ``reduced:``, where the plain
      step does not fit; for the scan archs also every scan layer's backward
      kernel on its own inputs and incoming gradient against the plain
@@ -143,19 +148,21 @@ Phases, each fatal on failure:
      must fall by 0.1, the forward and backward
      launches counted (each attention or scan layer's forward twice a step,
      on flash's wgmma, the chunked RWKV6 or the segmented Mamba route, and
-     its backward once), ms a step, tokens/s, model FLOP/s, peak memory
-     and the device's busy share over two profiled steps; then llama3-8b's
-     checkpoint at step 10 restored bit-exactly and a restarted
+     its backward once, flash's on the route of the arch's head widths),
+     ms a step, tokens/s, model FLOP/s (attention counted by head widths),
+     peak memory and the device's busy share over two profiled steps; then
+     llama3-8b's checkpoint at step 10 restored bit-exactly and a restarted
      Trainer resuming at step 11, at one layer (at the fitted depth two
-     checkpoints would write ~104 GB to disk); the scans' decode steps under
-     grad must raise, and flash's backward at D = 256 (``--train`` runs
-     the phase alone, after the attention and scan-backward checks). The
-     flash backward kernel (wgmma
-     for bf16 at D = Dv in {64, 128}, mma.sync at other multiples of 16,
-     the CUDA cores otherwise) is held against
-     its plain formulas and autograd of the plain forward in phase 2 (2e-2
-     of the largest gradient in bf16, 1e-4 in fp32) and timed in phase 7
-     beside SDPA's backward and its earlier mma.sync route;
+     checkpoints would write ~104 GB to disk); the scans' decode steps
+     under grad must raise, and flash's backward in float32 at D = 256 and
+     at bf16 widths no route takes (``--train`` runs the phase alone, after
+     the attention and scan-backward checks). The flash backward kernel
+     (wgmma for bf16 at D = Dv in {64, 128}, the split wgmma kernel for
+     bf16 at (256, 256) and (192, 128), mma.sync at other multiples of 16
+     up to 128, the CUDA cores otherwise) is held against its plain
+     formulas and autograd of the plain forward in phase 2 (2e-2 of the
+     largest gradient in bf16, 1e-4 in fp32) and timed in phase 7 beside
+     SDPA's backward (and the earlier mma.sync route where one exists);
  12. the cost model and autotune (``--cost`` runs it alone): for every
      shape of ``kernels.autotune``'s battery, every candidate launch plan
      of the matmul (skinny cluster and K chunk, tile K splits) and of
@@ -288,6 +295,7 @@ LONG_PROMPT = 1536
 # against Dv = v_head = 128, scaled by 192 ** -0.5 (an MHA: KV = H)
 MLA_H, MLA_D, MLA_DV = 128, 192, 128
 MLA_SCALE = MLA_D ** -0.5
+MLA_HEADS = (MLA_H, MLA_H, MLA_D)
 # whisper-large-v3 served in lock step (phase 10): 8 rows of 1,500 stub
 # frames, prompts of 1500 / dec_ratio = 187 tokens (the reference's own
 # prefill shape, Model.input_specs), whisper's 448-token decoder context,
@@ -307,14 +315,30 @@ TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT = (
     "llama3-8b", 4, 1024, 20, 10)
 # the archs phase 11 trains the same way: llama3-8b (flash and its
 # backward), rwkv6-3b and jamba-v0.1-52b (the scans and their backwards;
-# jamba's fitted depth a prefix of its 8-layer pattern)
-TRAIN_ARCHS = (TRAIN_ARCH, "rwkv6-3b", "jamba-v0.1-52b")
+# jamba's fitted depth a prefix of its 8-layer pattern), gemma3-12b (flash
+# and its split backward at D = 256, sliding windows) and deepseek-v2-236b
+# (MLA's (192 | 128) on the same split backward; one layer, its routed
+# experts cut to what the card trains, fit_train_depth)
+TRAIN_ARCHS = (TRAIN_ARCH, "rwkv6-3b", "jamba-v0.1-52b", "gemma3-12b",
+               "deepseek-v2-236b")
+# routed experts fit_train_depth steps down by where not one layer with all
+# of them trains on the card (deepseek-v2-236b's 160 at 23.6 M parameters
+# each: one layer holds 5.02 B, 80.3 GB at 16 bytes a parameter)
+TRAIN_EXPERT_STEP = 16
+# card memory a fitted step's peak must leave unallocated for the Trainer's
+# run: at 135 of deepseek-v2-236b's experts one step peaked at 83.70 GB of
+# 85.02 and the Trainer's next step ran out of memory at an AdamW
+# temporary of one expert stack (4.25 GB) with 1.5 GB reserved but
+# unallocated; llama3-8b's and jamba's fitted steps leave 9.3-9.5 GB
+TRAIN_PEAK_HEADROOM_BYTES = 6 << 30
 TRAIN_CKPT_LAYERS = 1
 # card memory a training depth needs beyond 16 bytes a parameter (float32
 # param, grad, m, v): the chunked loss's float32 logits (4 x 512 x 128,256,
 # 1.05 GB, and their softmax), the bf16 embedding and head (1.05 GB each),
 # one layer's rematerialised activations and AdamW's temporaries on the
-# 2.1 GB embedding leaves
+# 2.1 GB embedding leaves (llama3-8b's 15 layers peak 7.5 GB above their
+# 16 bytes a parameter; gemma3-12b's 262,144-row tied embedding makes its
+# logits chunk 2.1 GB, and its 12 layers peak 9.4 GB above)
 TRAIN_MARGIN_BYTES = 12 << 30
 # step 1 through the kernels against the same step with the plain versions
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-3, 1e-2
@@ -348,9 +372,12 @@ TC_GATES = {"flash_attention": ("wgmma", "prefills"),
 MLA_GATES = {"flash_attention": ("wgmma", "prefills"),
              "decode_attention": (None, "ticks")}
 # kernel instantiations whose ptxas report must show no spill: the MLA
-# forward at (192, 128) and the wgmma backward at both widths
+# forward at (192, 128), the wgmma backward at both widths and the split
+# backward at gemma3's and MLA's
 NO_SPILL = ("flash_wgmma_kernelILi192ELi128E", "flash_bwd_wgmma_kernelILi64E",
-            "flash_bwd_wgmma_kernelILi128E")
+            "flash_bwd_wgmma_kernelILi128E",
+            "flash_bwd_split_kernelILi256ELi256E",
+            "flash_bwd_split_kernelILi192ELi128E")
 SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_MAX_TOKENS = 8, 2048, 16, 32
 # bytes read between calls to time a kernel with a cold (50 MB) L2
 L2_FLUSH_BYTES = 128 << 20
@@ -945,7 +972,7 @@ def check_serve_kernels(device) -> dict[str, float]:
                                           heads=WHISPER_HEADS)
             worst = max(worst, _check_decode(da, q, k, v, lens, name, None))
     err["decode_attention"] = worst
-    err["flash_attention_bwd"] = check_flash_bwd(device)
+    err.update(check_flash_bwd(device))
     torch.cuda.synchronize()
     return err
 
@@ -1006,15 +1033,104 @@ def bwd_inputs(B, S, heads, causal, dtype, device, seed=3):
     return q, k, v, o, lse, do
 
 
-def check_flash_bwd(device) -> float:
-    """The flash backward kernel at llama3-8b's training shape (causal) and
-    whisper's encoder (non-causal), bf16 and fp32, plus a window, an offset
-    chunk and a ragged width: dQ, dK, dV against the plain formulas on the
-    same (o, lse) and against autograd of the plain forward, within
-    BWD_RTOL of the largest gradient; the forward's lse against the plain
-    one. Returns the largest absolute difference from the plain formulas."""
+# the split backward's checks, bf16 only (label, B, Sq, Skv, (H, KV, D), Dv,
+# kwargs): gemma3's training shape (G = 2), S = 2,048 past its window of
+# 1,024 and a small window (tiles cross the window's edge; at S = 1,024 the
+# window masks nothing), a ragged Sq, an offset chunk with Skv > Sq; MLA's
+# training shape at its scale and a ragged S = 37
+BWD_SPLIT_CASES = (
+    ("gemma3-12b", TRAIN_B, TRAIN_S, TRAIN_S, GEMMA_HEADS, None,
+     {"causal": True}),
+    ("gemma3 S = 2048, window 1024", 1, 2 * TRAIN_S, 2 * TRAIN_S,
+     GEMMA_HEADS, None, {"causal": True, "window": GEMMA_W}),
+    ("gemma3 S = 2048, window 100", 1, 2 * TRAIN_S, 2 * TRAIN_S,
+     GEMMA_HEADS, None, {"causal": True, "window": 100}),
+    ("gemma3 Sq = 1000", 1, 1000, 1000, GEMMA_HEADS, None,
+     {"causal": True}),
+    ("gemma3 offset chunk", 1, 300, 470, GEMMA_HEADS, None,
+     {"causal": True, "q_offset": 170}),
+    ("deepseek-v2-236b MLA", TRAIN_B, TRAIN_S, TRAIN_S, MLA_HEADS, MLA_DV,
+     {"causal": True, "scale": MLA_SCALE}),
+    ("MLA S = 37", 2, 37, 37, MLA_HEADS, MLA_DV,
+     {"causal": True, "scale": MLA_SCALE}),
+)
+
+
+def bwd_case_inputs(device, dtype, B, Sq, Skv, heads, Dv, kw, seed=5):
+    """q, k, v, dO of a backward case drawn from ``seed``, and the
+    forward kernel's (o, lse) on them."""
     import torch
     from repro_torch.kernels import flash_attention as fa
+    H, KV, D = heads
+    Dv = Dv or D
+    g = _gen(seed)
+    q = torch.randn((B, Sq, H, D), generator=g).to(device, dtype)
+    k = torch.randn((B, Skv, KV, D), generator=g).to(device, dtype)
+    v = torch.randn((B, Skv, KV, Dv), generator=g).to(device, dtype)
+    do = torch.randn((B, Sq, H, Dv), generator=g).to(device, dtype)
+    o, lse = fa._forward(q, k, v, kw.get("causal", True), kw.get("window"),
+                         kw.get("q_offset", 0), kw.get("scale"), True)
+    return q, k, v, do, o, lse
+
+
+def _check_bwd_case(device, dtype, label, B, Sq, Skv, heads, Dv,
+                    kw) -> float:
+    """One flash backward call on its route against the plain formulas on
+    the same (o, lse) and autograd of the plain forward, within BWD_RTOL of
+    the largest gradient; the forward's lse against the plain one within
+    1e-4. Returns the largest absolute difference from the formulas."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    name = str(dtype).split(".")[1]
+    q, k, v, do, o, lse = bwd_case_inputs(device, dtype, B, Sq, Skv, heads,
+                                          Dv, kw)
+    Dv = v.shape[-1]
+    route = fa._bwd_route(dtype, q.shape[-1], Dv)
+    e_lse = (lse - fa.flash_attention_lse_plain(q, k, v, **kw)
+             ).abs().max().item()
+    n = fa.flash_attention_bwd.launches_by_route[route]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    require(fa.flash_attention_bwd.launches_by_route[route] == n + 1,
+            f"flash_attention_bwd: the {route} route did not launch")
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(
+        fa.flash_attention_plain(*leaves, **kw), leaves, do.float())
+    errs, worst = [], 0.0
+    for gname, a, b, c in zip("QKV", got, want, auto):
+        top = c.abs().max().item()
+        e_plain = (a.float() - b.float()).abs().max().item()
+        e_auto = (a.float() - c).abs().max().item()
+        errs.append(f"d{gname} {e_plain:.3e} / {e_auto:.3e} of {top:.3e}")
+        worst = max(worst, e_plain)
+        require(bool(torch.isfinite(a.float()).all())
+                and e_plain <= BWD_RTOL[name] * top
+                and e_auto <= BWD_RTOL[name] * top,
+                f"flash_attention_bwd {name} {label} d{gname}: "
+                f"{e_plain:.3e} (formulas), {e_auto:.3e} (autograd) "
+                f"against the largest gradient {top:.3e}")
+    print(f"check flash_attention_bwd {name} ({route} route) {label} "
+          f"q{tuple(q.shape)} kv{tuple(k.shape)}|{Dv} {kw}: max_abs_err vs "
+          f"formulas / vs autograd of the plain forward: {'; '.join(errs)} "
+          f"(tolerance {BWD_RTOL[name]} of the largest); forward lse "
+          f"max_abs_err {e_lse:.3e}")
+    require(e_lse <= 1e-4, f"flash lse {name} {label}: {e_lse}")
+    del q, k, v, do, o, lse, got, want, leaves, auto
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_flash_bwd(device) -> dict[str, float]:
+    """The flash backward kernel at llama3-8b's training shape (causal) and
+    whisper's encoder (non-causal), bf16 and fp32, plus a window, an offset
+    chunk and a ragged width; the split route (bf16) at BWD_SPLIT_CASES:
+    dQ, dK, dV against the plain formulas on the same (o, lse) and against
+    autograd of the plain forward, within BWD_RTOL of the largest gradient;
+    the forward's lse against the plain one; then the split route's
+    CUDA-graph replays (:func:`check_split_bwd_replay`). Returns the
+    largest absolute difference from the plain formulas of the first
+    three routes and of the split one."""
+    import torch
     worst = 0.0
     # (label, B, S, heads, causal, Dv, kwargs): in bf16 D = Dv = 64 or 128
     # take the wgmma route, other multiples of 16 the mma.sync one, and
@@ -1027,53 +1143,51 @@ def check_flash_bwd(device) -> float:
              ("D = 40, Dv = 24", 1, 77, (4, 2, 40), True, 24, {}))
     cases = [(*c, None, {}) for c in BWD_SHAPES] + list(extra)
     for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[1]
         for label, B, S, heads, causal, Dv, kw in cases:
             kw = {"causal": causal, **kw}
-            H, KV, D = heads
-            Dv = Dv or D
-            route = fa._bwd_route(dtype, D, Dv)
-            Skv = S + kw.get("q_offset", 0)
-            g = _gen(5)
-            q = torch.randn((B, S, H, D), generator=g).to(device, dtype)
-            k = torch.randn((B, Skv, KV, D), generator=g).to(device, dtype)
-            v = torch.randn((B, Skv, KV, Dv), generator=g).to(device, dtype)
-            do = torch.randn((B, S, H, Dv), generator=g).to(device, dtype)
-            o, lse = fa._forward(q, k, v, kw["causal"], kw.get("window"),
-                                 kw.get("q_offset", 0), None, True)
-            e_lse = (lse - fa.flash_attention_lse_plain(q, k, v, **kw)
-                     ).abs().max().item()
-            n = fa.flash_attention_bwd.launches_by_route[route]
-            got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-            require(fa.flash_attention_bwd.launches_by_route[route] == n + 1,
-                    f"flash_attention_bwd: the {route} route did not launch")
-            want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
-            leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
-            auto = torch.autograd.grad(
-                fa.flash_attention_plain(*leaves, **kw), leaves, do.float())
-            errs = []
-            for gname, a, b, c in zip("QKV", got, want, auto):
-                top = c.abs().max().item()
-                e_plain = (a.float() - b.float()).abs().max().item()
-                e_auto = (a.float() - c).abs().max().item()
-                errs.append(f"d{gname} {e_plain:.3e} / {e_auto:.3e} of "
-                            f"{top:.3e}")
-                worst = max(worst, e_plain)
-                require(e_plain <= BWD_RTOL[name] * top
-                        and e_auto <= BWD_RTOL[name] * top,
-                        f"flash_attention_bwd {name} {label} d{gname}: "
-                        f"{e_plain:.3e} (formulas), {e_auto:.3e} (autograd) "
-                        f"against the largest gradient {top:.3e}")
-            print(f"check flash_attention_bwd {name} ({route} route) {label} "
-                  f"q{tuple(q.shape)}"
-                  f" kv{tuple(k.shape)} {kw}: max_abs_err vs formulas / vs "
-                  f"autograd of the plain forward: {'; '.join(errs)} "
-                  f"(tolerance {BWD_RTOL[name]} of the largest); forward lse "
-                  f"max_abs_err {e_lse:.3e}")
-            require(e_lse <= 1e-4, f"flash lse {name} {label}: {e_lse}")
-            del q, k, v, do, o, lse, got, want, leaves, auto
-            torch.cuda.empty_cache()
-    return worst
+            worst = max(worst, _check_bwd_case(
+                device, dtype, label, B, S, S + kw.get("q_offset", 0), heads,
+                Dv, kw))
+    split = 0.0
+    for label, B, Sq, Skv, heads, Dv, kw in BWD_SPLIT_CASES:
+        split = max(split, _check_bwd_case(device, torch.bfloat16, label, B,
+                                           Sq, Skv, heads, Dv, kw))
+    check_split_bwd_replay(device)
+    return {"flash_attention_bwd": worst, "flash_attention_bwd_split": split}
+
+
+def check_split_bwd_replay(device) -> None:
+    """The split backward at gemma3's and MLA's widths in CUDA graphs: with
+    one key tile (Skv <= 64, each dQ element one bulk add into the zeroed
+    buffer) every output bit-equal to the eager call across replays with
+    dO's sign flipped in between; at the training shapes dK and dV (summed
+    in registers) bit-equal, dQ's fp32 adds of several key tiles landing
+    in no fixed order."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    for label, B, S, heads, Dv, kw in (
+            ("gemma3 S = 60", 2, 60, GEMMA_HEADS, None, {"causal": True}),
+            ("MLA S = 50", 2, 50, MLA_HEADS, MLA_DV,
+             {"causal": True, "scale": MLA_SCALE}),
+            ("gemma3-12b training, dK and dV", TRAIN_B, TRAIN_S,
+             GEMMA_HEADS, None, {"causal": True, "window": GEMMA_W}),
+            ("deepseek-v2-236b training, dK and dV", TRAIN_B, TRAIN_S,
+             MLA_HEADS, MLA_DV, {"causal": True, "scale": MLA_SCALE})):
+        q, k, v, do, o, lse = bwd_case_inputs(device, torch.bfloat16, B, S,
+                                              S, heads, Dv, kw, seed=9)
+        first = 0 if S <= 64 else 1          # dQ in the bits only at one tile
+
+        def call():
+            return torch.cat([t.reshape(-1) for t in fa.flash_attention_bwd(
+                q, k, v, o, lse, do, **kw)[first:]])
+        same = replays_equal(call, lambda: do.mul_(-1.0))
+        print(f"check flash_attention_bwd bf16 (wgmma_split route) {label} "
+              f"q{tuple(q.shape)} kv{tuple(k.shape)}|{v.shape[-1]}, 3 "
+              f"CUDA-graph replays: bit-equal to the eager calls: {same}")
+        require(same, f"flash_attention_bwd {label}: a CUDA-graph replay "
+                "differs")
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
 
 
 def hard_decays(w, seed: int):
@@ -2194,15 +2308,72 @@ def sdpa_call(q, k, v, *, causal: bool, mask=None):
                                                   is_causal=causal)
 
 
-def sdpa_backward_call(q, k, v, do, *, causal: bool):
+def sdpa_backward_call(q, k, v, do, *, causal: bool, mask=None):
     """PyTorch's fused attention's backward through autograd, on the
-    kernels' inputs, as a timing yardstick only: the forward runs once
-    here, and the returned call takes the gradients of its kept graph."""
+    kernels' inputs (with ``mask``, an explicit boolean mask in place of
+    ``causal``), as a timing yardstick only: the forward runs once here,
+    and the returned call takes the gradients of its kept graph."""
     import torch
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    out = sdpa_call(*leaves, causal=causal)()
+    out = sdpa_call(*leaves, causal=causal and mask is None, mask=mask)()
     grad = do.transpose(1, 2)
     return lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+
+def bwd_work(q, k, v, kw: dict) -> tuple[int, int]:
+    """(bytes, operations) of one flash backward call: each input read once
+    (q, k, v, o, dO in their dtype, lse in float32) and each output written
+    once (dQ, dK, dV), against 2 (3 D + 2 Dv) FLOP (S, dP, dV, dK, dQ) for
+    every visible (query, key) pair of every head, counted from the mask of
+    this call (causal, window, q_offset)."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, H, D = q.shape
+    Skv, Dv = v.shape[1], v.shape[3]
+    visible = int(fa._mask(Sq, Skv, kw.get("causal", True), kw.get("window"),
+                           kw.get("q_offset", 0), q.device).sum().item())
+    es = q.element_size()
+    nbytes = (es * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                    + 2 * B * Sq * H * Dv) + 4 * B * H * Sq)
+    return nbytes, 2 * (3 * D + 2 * Dv) * B * H * visible
+
+
+# the split backward's timed rows, of BWD_SPLIT_CASES: gemma3-12b's and
+# deepseek-v2-236b's training shapes, and gemma3 at S = 2,048 past its
+# window (SDPA given the window's explicit mask)
+BWD_SPLIT_TIMED = tuple(BWD_SPLIT_CASES[i] for i in (0, 1, 5))
+
+
+def time_split_bwd(device) -> dict:
+    """The split backward (bf16) at BWD_SPLIT_TIMED: kernel, plain formulas
+    and SDPA's eager backward (autograd) beside the bound (bwd_work).
+    Returns {"flash_attention_bwd_split": the first row's times}."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    out = {}
+    for label, B, Sq, Skv, heads, Dv, kw in BWD_SPLIT_TIMED:
+        q, k, v, do, o, lse = bwd_case_inputs(device, torch.bfloat16, B, Sq,
+                                              Skv, heads, Dv, kw, seed=3)
+        nbytes, flops = bwd_work(q, k, v, kw)
+        t = _timed("flash_attention_bwd",
+                   f"{label} bf16 q{tuple(q.shape)} k{tuple(k.shape)} "
+                   f"v{tuple(v.shape)} {kw} "
+                   f"({fa._bwd_route(q.dtype, q.shape[-1], v.shape[-1])} route)",
+                   lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                   lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                        **kw),
+                   None, nbytes, flops, iters=3,
+                   peak_flop_s=PEAK_BF16_FLOP_S)
+        mask = (fa._mask(Sq, Skv, True, kw["window"], 0, device)
+                if kw.get("window") else None)
+        t["library_ms"] = eager_time_ms(
+            sdpa_backward_call(q, k, v, do, causal=True, mask=mask), iters=5)
+        print(f"time flash_attention_bwd yardstick SDPA backward (autograd, "
+              f"eager{', explicit window mask' if mask is not None else ''}) "
+              f"{label} bf16: {t['library_ms']:.6f} ms")
+        out.setdefault("flash_attention_bwd_split", t)
+        del q, k, v, do, o, lse, mask
+        torch.cuda.empty_cache()
+    return out
 
 
 def tap_work(n_planes: int, taps_y, taps_x, out_rows: int, out_cols: int,
@@ -2433,19 +2604,17 @@ def time_kernels(device) -> dict[str, dict]:
 
     # the flash backward at llama3-8b's training shape (causal) and
     # whisper's encoder, bf16 and fp32 (the first row goes into the kernels
-    # line); bound: 2 (3 D + 2 Dv) FLOP a visible (q, k) pair and head on
-    # the input type's peak, against one read of q, k, v, o, dO and lse and
-    # one write of dQ, dK, dV; the yardstick is SDPA's backward (autograd)
+    # line); bound (bwd_work): 2 (3 D + 2 Dv) FLOP a visible (q, k) pair
+    # and head on the input type's peak, against one read of q, k, v, o,
+    # dO and lse and one write of dQ, dK, dV; the yardstick is SDPA's
+    # backward (autograd)
     for dtype, peak in ((torch.bfloat16, PEAK_BF16_FLOP_S),
                         (torch.float32, PEAK_FP32_FLOP_S)):
         for label, B, S, heads, causal in BWD_SHAPES:
             H, KV, D = heads
             q, k, v, o, lse, do = bwd_inputs(B, S, heads, causal, dtype,
                                              device)
-            pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
-            nbytes = (q.element_size() * (3 * q.numel() + 2 * k.numel()
-                                          + 2 * v.numel() + 2 * o.numel())
-                      + 4 * lse.numel())
+            nbytes, flops = bwd_work(q, k, v, {"causal": causal})
             t = _timed("flash_attention_bwd",
                        f"{label} {str(dtype).split('.')[1]} q{tuple(q.shape)}"
                        f" kv{tuple(k.shape)} {'causal' if causal else 'non-causal'}"
@@ -2454,8 +2623,7 @@ def time_kernels(device) -> dict[str, dict]:
                                                       causal=causal),
                        lambda: fa.flash_attention_bwd_plain(
                            q, k, v, o, lse, do, causal=causal),
-                       None, nbytes, 2 * (3 * D + 2 * D) * pairs, iters=3,
-                       peak_flop_s=peak)
+                       None, nbytes, flops, iters=3, peak_flop_s=peak)
             t["library_ms"] = eager_time_ms(
                 sdpa_backward_call(q, k, v, do, causal=causal), iters=5)
             print(f"time flash_attention_bwd yardstick SDPA backward "
@@ -2472,6 +2640,7 @@ def time_kernels(device) -> dict[str, dict]:
             out.setdefault("flash_attention_bwd", t)
             del q, k, v, o, lse, do
             torch.cuda.empty_cache()
+    out.update(time_split_bwd(device))
 
     # decode with a cold L2 too: the engine's cache (67 MB a layer at full
     # length) exceeds the 50 MB L2, so a tick finds it in device memory
@@ -3318,18 +3487,45 @@ def train_loader(cfg, device):
                        device=device)
 
 
-def train_depth_first_try(cfg, free: int) -> int:
-    """The most layers of ``cfg`` (of :func:`train_depths`) whose 16 bytes a
-    parameter (float32 param, grad, m, v) fit in ``free`` bytes less
-    TRAIN_MARGIN_BYTES, from the shapes alone: where
-    :func:`fit_train_depth` starts."""
+def train_fits(cfg, free: int) -> bool:
+    """Whether 16 bytes a parameter of ``cfg`` (float32 param, grad, m, v)
+    fit in ``free`` bytes less TRAIN_MARGIN_BYTES, from the shapes alone."""
     from repro_torch.models.model import Model
+    return (16 * Model(cfg, device="cpu").n_params() + TRAIN_MARGIN_BYTES
+            <= free)
+
+
+def train_depth_first_try(cfg, free: int) -> int:
+    """The most layers of ``cfg`` (of :func:`train_depths`) that
+    :func:`train_fits` ``free`` bytes: where :func:`fit_train_depth`
+    starts."""
     depths = train_depths(cfg)
-    for n in depths:
-        if (16 * Model(train_cfg(cfg, n), device="cpu").n_params()
-                + TRAIN_MARGIN_BYTES <= free):
-            return n
-    return depths[-1]
+    return next((n for n in depths if train_fits(train_cfg(cfg, n), free)),
+                depths[-1])
+
+
+def with_experts(cfg, n: int):
+    """``cfg`` with ``n`` routed experts, every other width as it is."""
+    import dataclasses
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, n_experts=n))
+
+
+def train_cuts(cfg, free: int) -> list:
+    """The configurations :func:`fit_train_depth` tries, largest first:
+    the depths of :func:`train_depths` from the first try down; or, where
+    ``cfg`` has routed experts and not one layer with all of them fits
+    (:func:`train_fits`), one layer with the most experts that fit, then
+    TRAIN_EXPERT_STEP fewer at a time down to top_k."""
+    depths = train_depths(cfg)
+    one = train_cfg(cfg, depths[-1])
+    if cfg.moe is None or train_fits(one, free):
+        n = train_depth_first_try(cfg, free)
+        return [train_cfg(cfg, d) for d in depths if d <= n]
+    top_k = cfg.moe.top_k
+    most = next((e for e in range(cfg.moe.n_experts - 1, top_k - 1, -1)
+                 if train_fits(with_experts(one, e), free)), top_k)
+    return [with_experts(one, e)
+            for e in range(most, top_k - 1, -TRAIN_EXPERT_STEP)]
 
 
 def fit_train_depth(device, cfg):
@@ -3338,45 +3534,71 @@ def fit_train_depth(device, cfg):
     param, grad, m, v) fit in the free memory less TRAIN_MARGIN_BYTES,
     down, draw the float32 masters and run one training step (loss,
     gradients, AdamW) on a TokenLoader batch; a count that runs out of
-    memory is freed and the next one tried (:func:`train_depths`: whole
-    repeats of the block pattern, or a prefix of one). Returns the model."""
+    memory, or whose step leaves less than TRAIN_PEAK_HEADROOM_BYTES of the
+    card unallocated, is freed and the next one tried
+    (:func:`train_depths`: whole repeats of the block pattern, or a prefix
+    of one). Where not one layer
+    fits with all of a MoE arch's routed experts, one layer with fewer,
+    fitted the same way (:func:`train_cuts`; every width, top_k, the
+    shared experts and the router as the config has them). Returns the
+    model."""
     import torch
     from repro_torch.models.model import Model
     from repro_torch.train.optimizer import init_opt_state
     from repro_torch.train.train_step import make_train_step
     free, total = torch.cuda.mem_get_info(device)
-
-    def model_at(n):
-        return Model(train_cfg(cfg, n), device=device)
-
-    n = train_depth_first_try(cfg, free)
+    cuts = train_cuts(cfg, free)
+    first = cuts[0]
     print(f"depth train {cfg.name}: {cfg.n_layers} layers need "
-          f"{16 * model_at(cfg.n_layers).n_params() / 1e9:.2f} GB at 16 bytes "
-          f"a parameter; {free / 1e9:.3f} GB free of {total / 1e9:.3f} GB; "
-          f"first try {n} layers")
+          f"{16 * Model(cfg, device='cpu').n_params() / 1e9:.2f} GB at 16 "
+          f"bytes a parameter; {free / 1e9:.3f} GB free of {total / 1e9:.3f} "
+          f"GB; first try {first.n_layers} layers"
+          + (f", {first.moe.n_experts} routed experts"
+             if first.moe is not None else "")
+          + f" ({16 * Model(first, device='cpu').n_params() / 1e9:.2f} GB)")
     batch = train_loader(cfg, device).next_batch()
-    for n in [d for d in train_depths(cfg) if d <= n]:
-        model = model_at(n)
+    for cut in cuts:
+        model = Model(cut, device=device)
+        n = cut.n_layers
+        experts = "" if cut.moe is None else f", {cut.moe.n_experts} experts"
         torch.cuda.reset_peak_memory_stats(device)
+        params = opt = None
         try:
             params = model.init(seed=0, masters=True)
             opt = init_opt_state(params)
             make_train_step(model, train_hp())(params, opt, batch)
             torch.cuda.synchronize()
         except torch.cuda.OutOfMemoryError as err:
-            print(f"depth train {cfg.name}: {n} layers ran out of memory "
-                  f"({str(err).splitlines()[0]})")
+            print(f"depth train {cfg.name}: {n} layers{experts} ran out of "
+                  f"memory ({str(err).splitlines()[0]})")
             params = opt = None
+        if params is None:
+            # out of the handler, whose traceback held the failed step's
+            # tensors: the next try starts from an emptied cache
             torch.cuda.empty_cache()
             continue
         peak = torch.cuda.max_memory_allocated(device)
         del params, opt
         torch.cuda.empty_cache()
-        print(f"depth train {cfg.name}: {n} layers, {model.n_params():,} "
-              f"parameters; one training step peaks at {peak / 1e9:.3f} GB "
-              f"allocated of {total / 1e9:.3f} GB")
+        if total - peak < TRAIN_PEAK_HEADROOM_BYTES:
+            print(f"depth train {cfg.name}: {n} layers{experts}: one step "
+                  f"peaks at {peak / 1e9:.3f} GB, less than "
+                  f"TRAIN_PEAK_HEADROOM_BYTES ({TRAIN_PEAK_HEADROOM_BYTES / 1e9:.2f}"
+                  f" GB) under the card's {total / 1e9:.3f} GB")
+            continue
+        print(f"depth train {cfg.name}: {n} layers{experts}, "
+              f"{model.n_params():,} parameters ({16 * model.n_params() / 1e9:.2f}"
+              f" GB at 16 bytes a parameter); one training step peaks at "
+              f"{peak / 1e9:.3f} GB allocated of {total / 1e9:.3f} GB")
         print(f"reduced: train n_layers {cfg.n_layers} → {n} (one card "
               f"holds {peak / 1e9:.2f} GB of {total / 1e9:.2f} in a step)")
+        if cut.moe is not None and cut.moe.n_experts != cfg.moe.n_experts:
+            print(f"reduced: train n_experts {cfg.moe.n_experts} → "
+                  f"{cut.moe.n_experts} (one layer with all of them holds "
+                  f"{16 * Model(train_cfg(cfg, 1), device='cpu').n_params() / 1e9:.2f}"
+                  f" GB at 16 bytes a parameter; top_k {cut.moe.top_k}, "
+                  f"d_expert {cut.moe.d_expert}, {cut.moe.n_shared} shared "
+                  "experts and every width as the config has them)")
         return model
     raise SmokeFailure(f"{cfg.name}: not one layer trains on the card")
 
@@ -3573,21 +3795,27 @@ def run_train(device, kernels) -> dict:
     (:func:`train_arch`), after the checks that what has no backward still
     refuses; then llama3-8b's checkpoint cycle at TRAIN_CKPT_LAYERS
     (:func:`check_train_restart`). Returns llama3-8b's run ({"launches",
-    "step_ms", "n_layers"}) with every arch's launches under
-    ``"launches_by_arch"``."""
+    "routes", "step_ms", "n_layers"}) with every arch's launches under
+    ``"launches_by_arch"`` and by route under ``"routes_by_arch"``."""
     from repro_torch.configs import get_config
     check_train_refusals(device)
-    runs = {arch: train_arch(device, kernels, arch) for arch in TRAIN_ARCHS}
+    runs = {}
+    for arch in TRAIN_ARCHS:
+        with phase(f"train {arch}"):
+            runs[arch] = train_arch(device, kernels, arch)
     check_train_restart(device, get_config(TRAIN_ARCH).replace(
         n_layers=TRAIN_CKPT_LAYERS))
     return {**runs[TRAIN_ARCH],
-            "launches_by_arch": {a: r["launches"] for a, r in runs.items()}}
+            "launches_by_arch": {a: r["launches"] for a, r in runs.items()},
+            "routes_by_arch": {a: r["routes"] for a, r in runs.items()}}
 
 
 def check_train_refusals(device) -> None:
     """What has no backward kernel refuses a call autograd would have to
     differentiate: the scans' decode steps (RuntimeError) and the flash
-    backward at gemma3's D = 256 (ValueError, from the backward's shape
+    backward in float32 at D = 256, at a bf16 (D, Dv) above 128 that the
+    split route does not take (192 | 192) and at a bf16 width above the
+    split route's (ValueError, from the backward's or the forward's shape
     check)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -3612,10 +3840,14 @@ def check_train_refusals(device) -> None:
     A = -torch.rand((Di, N), device=device, generator=g)
     bc = torch.randn((B, N), device=device, generator=g)
     hm = torch.zeros((B, Di, N), device=device)
-    q = torch.randn((1, 64, 2, 256), device=device, generator=g,
-                    dtype=torch.bfloat16, requires_grad=True)
-    kv = torch.randn((1, 64, 1, 256), device=device, generator=g,
-                     dtype=torch.bfloat16)
+    def flash_grad(dtype, D, Dv):
+        q = torch.randn((1, 64, 2, D), device=device, generator=g,
+                        dtype=dtype, requires_grad=True)
+        k = torch.randn((1, 64, 1, D), device=device, generator=g, dtype=dtype)
+        v = torch.randn((1, 64, 1, Dv), device=device, generator=g,
+                        dtype=dtype)
+        return lambda: fa.flash_attention(q, k, v).float().sum().backward()
+
     for name, fn, kind, want in (
             ("rwkv_decode_step",
              lambda: ls.rwkv_decode_step(r, w, r.detach(), r.detach(), u,
@@ -3623,9 +3855,12 @@ def check_train_refusals(device) -> None:
             ("mamba_decode_step",
              lambda: ls.mamba_decode_step(delta, A, bc, bc, delta.detach(),
                                           hm), RuntimeError, "no backward"),
-            ("flash_attention backward at D = 256",
-             lambda: fa.flash_attention(q, kv, kv).float().sum().backward(),
-             ValueError, "")):
+            ("flash_attention backward in float32 at D = 256",
+             flash_grad(torch.float32, 256, 256), ValueError, ""),
+            ("flash_attention backward in bf16 at D = Dv = 192",
+             flash_grad(torch.bfloat16, 192, 192), ValueError, ""),
+            ("flash_attention in bf16 at D = Dv = 288",
+             flash_grad(torch.bfloat16, 288, 288), ValueError, "")):
         text = raised(fn, kind)
         print(f"check train: {name} on the card under grad raises "
               f"{kind.__name__}: {bool(text)} ({text})")
@@ -3664,9 +3899,13 @@ def train_want(cfg) -> dict:
          for kind in ("attn", "rwkv", "mamba")}
     want = {}
     if n["attn"]:
+        import torch
+        from repro_torch.kernels import flash_attention as fa
+        bwd = fa._bwd_route(torch.bfloat16, *attn_widths(cfg))
         want["flash_attention"] = {"wgmma": 2 * n["attn"], "simt": 0}
-        want["flash_attention_bwd"] = {"wgmma": n["attn"], "mma": 0,
-                                       "simt": 0}
+        want["flash_attention_bwd"] = {
+            r: n["attn"] if r == bwd else 0
+            for r in fa.flash_attention_bwd.launches_by_route}
     if n["rwkv"]:
         want["rwkv_scan"] = {"chunk": 2 * n["rwkv"], "serial": 0}
         want["rwkv_scan_bwd"] = {None: n["rwkv"]}
@@ -3677,22 +3916,35 @@ def train_want(cfg) -> dict:
     return want
 
 
+def attn_widths(cfg) -> tuple[int, int]:
+    """(D, Dv) of ``cfg``'s attention heads: MLA's qk_nope + qk_rope and
+    v_head, else head_dim twice."""
+    if cfg.mla is not None:
+        return cfg.mla.qk_nope + cfg.mla.qk_rope, cfg.mla.v_head
+    return cfg.head_dim, cfg.head_dim
+
+
 def train_flops(model) -> float:
     """Model FLOPs of one step: 6 a token per active parameter of a
-    product (the token embedding is a gather; of a MoE layer's experts the
-    top k), and causal attention's 6 S d a layer a token (QK^T and PV,
-    forward and backward, halved by the mask). The scans' own work is left
-    out (~0.3% of rwkv6-3b's)."""
+    product (the token embedding is a gather, but a tied one is also the
+    head's product; of a MoE layer's experts the top k), and causal
+    attention's 3 S H (D + Dv) a layer a token (QK^T and PV, forward and
+    backward, halved by the mask; 6 S d_model where H D = d_model, as for
+    llama3-8b and jamba; a window of at least S masks nothing more, as
+    gemma3's 1,024 at TRAIN_S). The scans' own work is left out (~0.3% of
+    rwkv6-3b's)."""
     cfg = model.cfg
-    n_mat = model.n_params() - cfg.vocab_size * cfg.d_model
+    n_mat = model.n_params() - (0 if cfg.tie_embeddings
+                                else cfg.vocab_size * cfg.d_model)
     specs = list(cfg.block_pattern) * cfg.n_repeats
     if cfg.moe is not None:
         idle = cfg.moe.n_experts - cfg.moe.top_k
         n_mat -= sum(s.moe for s in specs) * idle * 3 * cfg.d_model \
             * cfg.moe.d_expert
     n_attn = sum(s.kind == "attn" for s in specs)
+    D, Dv = attn_widths(cfg)
     tokens = TRAIN_B * TRAIN_S
-    return tokens * (6 * n_mat + 6 * n_attn * TRAIN_S * cfg.d_model)
+    return tokens * (6 * n_mat + 3 * n_attn * TRAIN_S * cfg.n_heads * (D + Dv))
 
 
 def check_step1_at_fitting_depth(device, model) -> None:
@@ -3751,7 +4003,8 @@ def train_arch(device, kernels, arch: str) -> dict:
     count set to 0 just before it and read just after (:func:`train_want`),
     the loss required to fall by 0.1; its ms a step, tokens/s, model FLOP/s,
     peak memory and the device's busy share over two profiled steps.
-    Returns {"launches": {kernel: n}, "step_ms", "n_layers"}."""
+    Returns {"launches": {kernel: n}, "routes": {kernel: {route: n}},
+    "step_ms", "n_layers"}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3835,7 +4088,7 @@ def train_arch(device, kernels, arch: str) -> dict:
               f"{e.key[:90]}")
     del model
     torch.cuda.empty_cache()
-    return {"launches": launches, "step_ms": step_s * 1e3,
+    return {"launches": launches, "routes": routes, "step_ms": step_s * 1e3,
             "n_layers": cfg.n_layers}
 
 
@@ -4295,6 +4548,14 @@ def kernel_table():
          "source": csrc + "flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:115",
          "path": "train"},
+        # the same wrapper's split route (gemma3's 256 and MLA's 192 | 128),
+        # a kernel of its own in the same source; its launches are the
+        # wgmma_split route's over every arch phase 11 trains
+        {"name": "flash_attention_bwd_split",
+         "wrapper": fa.flash_attention_bwd,
+         "source": csrc + "flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:115",
+         "path": "train"},
         {"name": "rwkv_scan", "wrapper": ls.rwkv_scan,
          "source": csrc + "linear_scan.cu",
          "replaces": "src/repro/kernels/linear_scan.py:147",
@@ -4533,8 +4794,11 @@ def main() -> int:
     with phase("train"):
         train = run_train(device, kernels)
     launches["flash_attention_bwd"] = train["launches"]["flash_attention_bwd"]
+    launches["flash_attention_bwd_split"] = sum(
+        r.get("flash_attention_bwd", {}).get("wgmma_split", 0)
+        for r in train["routes_by_arch"].values())
     for k in kernels:
-        if k["path"] == "train" and k["name"] != "flash_attention_bwd":
+        if k["path"] == "train" and "arch" in k:
             launches[k["name"]] = train["launches_by_arch"][k["arch"]][
                 k["name"]]
     torch.cuda.empty_cache()

@@ -9,7 +9,9 @@
 // (B, H, Sq) fp32 its rows' log-sum-exp of the scaled scores (natural log),
 // all bf16 or fp32 but lse, contiguous; causal and sliding-window masks,
 // q_offset, GQA by kv head = h / (H / KV): dK and dV sum over the G query
-// heads of a kv head. D, Dv <= 128. The forward's formulas, fp32 sums:
+// heads of a kv head. D, Dv <= 128, and bf16 at (D, Dv) = (256, 256)
+// (gemma3) and (192, 128) (deepseek-v2's MLA). The forward's formulas,
+// fp32 sums:
 //   P = exp(scale * q.k - lse) on the visible (q, k) pairs, 0 elsewhere
 //   Delta = rowsum(dO o O)
 //   dV = P^T dO,  dS = P o (dO V^T - Delta),  dK = scale dS^T Q,
@@ -19,10 +21,12 @@
 // dP, dV, dK, dQ) against one read of q, k, v, o, do and one write of
 // dq, dk, dv; at llama3-8b's (4, 1024, 32 | 8, 128) causal that is 86 GFLOP
 // against 0.1 GB in bf16, 0.087 ms at 989 TFLOP/s; at whisper's encoder
-// (8, 1500, 20, 64), non-causal, 230 GFLOP, 0.233 ms.
+// (8, 1500, 20, 64), non-causal, 230 GFLOP, 0.233 ms; at gemma3's
+// (4, 1024, 16 | 8, 256) causal 86 GFLOP, 0.087 ms; at MLA's
+// (4, 1024, 128, 192 | 128) causal 447 GFLOP, 0.452 ms.
 //
 // Every route launches three kernels on the caller's stream: a row pass
-// (one warp a row of (b, i, h): Delta, and on the wgmma route lse log2 e
+// (one warp a row of (b, i, h): Delta, and on the wgmma routes lse log2 e
 // too), the route's kernel, and, for bf16, a cast (the fp32 dQ buffer
 // rounded into dq). Each kernel is one block per (key tile, kv head, batch
 // row), low key tiles first (in a causal run they see the most q tiles): it
@@ -31,7 +35,7 @@
 // its keys, and adds dS K into an fp32 dQ buffer (a q tile's rows are shared
 // by every key tile, so dQ is the one sum that crosses blocks; its order
 // across blocks is not fixed). Rows past Sq and keys past Skv are masked
-// (P = 0) and not stored. Three routes, chosen by shape in the Python
+// (P = 0) and not stored. Four routes, chosen by shape in the Python
 // wrapper (`_bwd_route`):
 //
 // flash_attention_bwd_wgmma (bf16, D = Dv in {64, 128}: whisper's and the
@@ -40,7 +44,12 @@
 // TMA ring, the five products on wgmma, dQ added a 64 x 64 fp32 tile at a
 // time by one bulk reduce-add (its note below).
 //
-// flash_attention_bwd_mma (bf16, other D and Dv multiples of 16): tc::
+// flash_attention_bwd_split (bf16, (D, Dv) = (256, 256) or (192, 128)):
+// split_route::flash_bwd_split_kernel below, the wgmma route's ring and dQ
+// adds, but both warpgroups on the same 64 keys, one keeping dV and adding
+// dQ, the other computing dS and keeping dK (its note below).
+//
+// flash_attention_bwd_mma (bf16, other D and Dv multiples of 16 to 128): tc::
 // flash_bwd_mma_kernel below, 4 warps of 16 keys, mma.sync m16n8k16 for the
 // five products (P and dS rounded to bf16, as the forward rounds P), dQ by
 // per-element atomicAdd; ~72 KB of shared memory at 128.
@@ -678,6 +687,101 @@ struct Smem {
   static constexpr int BYTES = 1024 + ROWS_OFF + STAGES * ROWS;   // + alignment
 };
 
+// S^T = K Q^T for a warpgroup's 64 keys from k0 (K at ks) x the q tile's
+// 64 rows (Q at qs; wgmma, both operands K-major, k steps of 16 walking 32
+// bytes along a 128-byte box row) and P^T = exp2(S^T scale log2 e - lse
+// log2 e) from it, 0 on the masked pairs, as bf16 A fragments: entry e of
+// block n is key kpos + 8 (e / 2), q row 8 n + col + e % 2 of the tile.
+// Only a tile that crosses Sq, Skv, the diagonal or the window's edge
+// tests the mask. acc is left holding S^T, for the caller to reuse as the
+// next product's accumulators.
+template <int D>
+__device__ __forceinline__ void probs_t(uint32_t (&pa)[4][4], float (&acc)[32],
+                                        uint32_t ks, uint32_t qs, const float* lse2,
+                                        int k0, int q0, int kpos, int col, int Sq,
+                                        int Skv, float scale_log2, int causal,
+                                        int window, int q_offset) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * TILE + (kk % 4) * 32;
+    wgmma_ss(acc, wgmma_desc(ks + off, 16, 1024), wgmma_desc(qs + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int e = 0; e < 32; ++e) reg_fence(acc[e]);
+  const int qp0 = q0 + q_offset;
+  const bool edge = q0 + BQ > Sq || k0 + 64 > Skv || (causal && k0 + 63 > qp0) ||
+                    (window > 0 && k0 <= qp0 + BQ - 1 - window);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 8 * n + col + (e & 1);
+      p[e] = exp2f(fmaf(acc[n * 4 + e], scale_log2, -lse2[r]));
+      if (edge) {
+        const int kp = kpos + 8 * (e >> 1), qp = qp0 + r;
+        bool ok = q0 + r < Sq && kp < Skv;
+        if (causal) ok = ok && kp <= qp;
+        if (window > 0) ok = ok && kp > qp - window;
+        if (!ok) p[e] = 0.f;
+      }
+    }
+    pa[n / 2][(n % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
+    pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+  }
+}
+
+// dS^T = P^T o (dP^T - Delta) from P^T as rounded to bf16 (0 where masked)
+// and dP^T in acc, as bf16 A fragments and into a [key][q] dS^T tile with
+// the 128-byte swizzle (16-byte chunk n of row r at chunk n ^ (r % 8); rows
+// row and row + 8 share r % 8); the caller fences it for the async proxy
+__device__ __forceinline__ void ds_t(uint32_t (&da)[4][4], const uint32_t (&pa)[4][4],
+                                     const float (&acc)[32], const float* dlt,
+                                     uint32_t tile, int row, int col) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint32_t pp = pa[n / 2][(n % 2) * 2 + i];
+      const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pp));
+      const int r = 8 * n + col;
+      da[n / 2][(n % 2) * 2 + i] = pack_bf16(p.x * (acc[n * 4 + 2 * i] - dlt[r]),
+                                             p.y * (acc[n * 4 + 2 * i + 1] - dlt[r + 1]));
+    }
+    const uint32_t at = tile + row * ROW + ((n ^ (row & 7)) << 4) + 2 * col;
+    asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(at), "r"(da[n / 2][(n % 2) * 2]));
+    asm volatile("st.shared.b32 [%0], %1;\n"
+                 :: "r"(at + 8 * ROW), "r"(da[n / 2][(n % 2) * 2 + 1]));
+  }
+}
+
+// a warpgroup's 64 x 64 fp32 dQ chunk (dqa times scale) through its fp32
+// chunk in shared memory (dq_s, at dq_a) into the tiled dQ buffer at dst by
+// one bulk reduce-add issued by the warpgroup's first thread (leader);
+// named barrier bar of its 128 threads keeps the chunk from being written
+// before the last add has read it
+__device__ __forceinline__ void add_dq_chunk(const float (&dqa)[32], float scale,
+                                             float* dq_s, uint32_t dq_a, float* dst,
+                                             int row, int col, bool leader, int bar) {
+  if (leader) bulk_wait_read();
+  named_barrier(bar, 128);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    *reinterpret_cast<float2*>(dq_s + row * 64 + 8 * n + col) =
+        make_float2(dqa[n * 4] * scale, dqa[n * 4 + 1] * scale);
+    *reinterpret_cast<float2*>(dq_s + (row + 8) * 64 + 8 * n + col) =
+        make_float2(dqa[n * 4 + 2] * scale, dqa[n * 4 + 3] * scale);
+  }
+  fence_proxy_async();
+  named_barrier(bar, 128);
+  if (leader) bulk_reduce_add_f32(dst, dq_a, DQ_TILE);
+}
+
 // One block per (key tile, kv head, batch row), the key tiles slowest so
 // that a causal run's heaviest blocks (the low key tiles see the most q
 // tiles) start first; a key tile is 64 keys a warpgroup, with two
@@ -826,49 +930,10 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_wait(smem_addr(&full[s]), (j / STAGES) & 1);
 
     if (live(wg, q0)) {
-      // S^T = K Q^T: k steps of 16 walk 32 bytes along a 128-byte box row
-      float acc[32];
-#pragma unroll
-      for (int e = 0; e < 32; ++e) acc[e] = 0.f;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * TILE + (kk % 4) * 32;
-        wgmma_ss(acc, wgmma_desc(kw + off, 16, 1024), wgmma_desc(qs + off, 16, 1024),
-                 kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-#pragma unroll
-      for (int e = 0; e < 32; ++e) reg_fence(acc[e]);
-
-      // P^T as bf16 A fragments: entry e of block n is key kpos + 8 (e / 2),
-      // q row 8 n + col + e % 2 of the tile; 0 where the pair is masked,
-      // which only a tile that crosses Sq, Skv, the diagonal or the
-      // window's edge has to test
-      const int qp0 = q0 + q_offset;             // the tile's first position
-      const bool edge = q0 + BQ > Sq || kw0 + 64 > Skv ||
-                        (causal && kw0 + 63 > qp0) ||
-                        (window > 0 && kw0 <= qp0 + BQ - 1 - window);
       uint32_t pa[4][4];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        float p[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = 8 * n + col + (e & 1);
-          p[e] = exp2f(fmaf(acc[n * 4 + e], scale_log2, -lse2[r]));
-          if (edge) {
-            const int kp = kpos + 8 * (e >> 1), qp = qp0 + r;
-            bool ok = q0 + r < Sq && kp < Skv;
-            if (causal) ok = ok && kp <= qp;
-            if (window > 0) ok = ok && kp > qp - window;
-            if (!ok) p[e] = 0.f;
-          }
-        }
-        pa[n / 2][(n % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
-        pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-      }
+      float acc[32];
+      probs_t<D>(pa, acc, kw, qs, lse2, kw0, q0, kpos, col, Sq, Skv, scale_log2,
+                 causal, window, q_offset);
 
       // dP^T = V dO^T into the same accumulators, and dV += P^T dO (16 q
       // rows a k step, 2048 bytes down a box), one group
@@ -898,28 +963,9 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
         for (int e = 0; e < 4; ++e) reg_fence(pa[kb][e]);
 
-      // dS^T = P^T o (dP^T - Delta), from P^T as rounded to bf16 (0 where
-      // masked), as bf16 A fragments and into this warpgroup's dS^T tile,
-      // [key][q] with the 128-byte swizzle (16-byte chunk n of row r at
-      // chunk n ^ (r % 8); rows row and row + 8 share r % 8)
+      // dS^T, as A fragments and into this warpgroup's dS^T tile
       uint32_t da[4][4];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const uint32_t pp = pa[n / 2][(n % 2) * 2 + i];
-          const float2 p = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&pp));
-          const int r = 8 * n + col;
-          da[n / 2][(n % 2) * 2 + i] =
-              pack_bf16(p.x * (acc[n * 4 + 2 * i] - dlt[r]),
-                        p.y * (acc[n * 4 + 2 * i + 1] - dlt[r + 1]));
-        }
-        const uint32_t at = ds_own + row * ROW + ((n ^ (row & 7)) << 4) + 2 * col;
-        asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(at), "r"(da[n / 2][(n % 2) * 2]));
-        asm volatile("st.shared.b32 [%0], %1;\n"
-                     :: "r"(at + 8 * ROW), "r"(da[n / 2][(n % 2) * 2 + 1]));
-      }
+      ds_t(da, pa, acc, dlt, ds_own, row, col);
       fence_proxy_async();
 
       // dK += dS^T Q
@@ -970,21 +1016,9 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int e = 0; e < 32; ++e) reg_fence(dqa[e]);
       if (!any) continue;
-      if (tw == 0) bulk_wait_read();           // the last chunk's add has read it
-      named_barrier(2 + wg, 128);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        *reinterpret_cast<float2*>(dq_s + row * 64 + 8 * n + col) =
-            make_float2(dqa[n * 4] * scale, dqa[n * 4 + 1] * scale);
-        *reinterpret_cast<float2*>(dq_s + (row + 8) * 64 + 8 * n + col) =
-            make_float2(dqa[n * 4 + 2] * scale, dqa[n * 4 + 3] * scale);
-      }
-      fence_proxy_async();
-      named_barrier(2 + wg, 128);
-      if (tw == 0)
-        bulk_reduce_add_f32(
-            dq + ((((long long)b * H + h) * (Sp / BQ) + qt) * HALVES + c) * (BQ * 64),
-            dq_a, DQ_TILE);
+      add_dq_chunk(dqa, scale, dq_s, dq_a,
+                   dq + ((((long long)b * H + h) * (Sp / BQ) + qt) * HALVES + c) * (BQ * 64),
+                   row, col, tw == 0, 2 + wg);
     }
   }
   if (tw == 0) bulk_wait();                    // the adds are done with shared memory
@@ -1022,39 +1056,41 @@ __global__ void flash_bwd_cast_tiles(const float* __restrict__ acc,
   *reinterpret_cast<__nv_bfloat162*>(dq + e) = __floats2bfloat162_rn(t[0], t[1]);
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* dq_acc, float* rows, void* dq,
-           void* dk, void* dv, int B, int Sq, int Skv, int H, int KV, float scale,
-           int causal, int window, int q_offset, cudaStream_t stream) {
+// A wgmma route's launches: the four tensor maps (64-column boxes of BQ q
+// rows or 64 keys), the zeroed tiled dQ buffer (B, H, Sp / 64, D / 64, 64,
+// 64), the row pass (rows (2, B, H, Sp): lse log2 e, Delta), `kernel` on a
+// grid of (KV * B, key tiles of block_keys) with `threads` threads and
+// `smem` bytes of shared memory (opted into once, through opted_in), and
+// dQ's cast
+template <int D, int DV, typename Kernel>
+int launch_tiled(Kernel kernel, int threads, int block_keys, int smem, bool& opted_in,
+                 const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* dq_acc, float* rows, void* dq,
+                 void* dk, void* dv, int B, int Sq, int Skv, int H, int KV, float scale,
+                 int causal, int window, int q_offset, cudaStream_t stream) {
   using T = __nv_bfloat16;
   const int Sp = (Sq + BQ - 1) / BQ * BQ;
   CUtensorMap qm, km, vm, dom;
   int rc = encode(&qm, q, D, H, Sq, B, BQ);
   if (rc == 0) rc = encode(&km, k, D, KV, Skv, B, 64);
-  if (rc == 0) rc = encode(&vm, v, D, KV, Skv, B, 64);
-  if (rc == 0) rc = encode(&dom, dout, D, H, Sq, B, BQ);
+  if (rc == 0) rc = encode(&vm, v, DV, KV, Skv, B, 64);
+  if (rc == 0) rc = encode(&dom, dout, DV, H, Sq, B, BQ);
   if (rc != 0) return rc;
   cudaError_t err = cudaMemsetAsync(dq_acc, 0, sizeof(float) * B * H * Sp * D, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the row statistics the kernel reads, (2, B, H, Sp): lse log2 e, Delta
   const long long n_rows = (long long)B * H * Sp;
   flash_bwd_delta<T><<<(unsigned)((n_rows + 7) / 8), 256, 0, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout), lse, rows, rows + n_rows,
-      Sq, Sp, H, D, n_rows);
+      Sq, Sp, H, DV, n_rows);
   rc = launch_status();
   if (rc != 0) return rc;
-  static bool opted_in = false;                // shared-memory opt-in, once
   if (!opted_in) {
-    err = cudaFuncSetAttribute(flash_bwd_wgmma_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Smem<D>::BYTES);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
-  constexpr int BK = 64 * Smem<D>::CONSUMERS;
-  const dim3 grid(KV * B, (Skv + BK - 1) / BK);
-  flash_bwd_wgmma_kernel<D><<<grid, 128 * Smem<D>::CONSUMERS, Smem<D>::BYTES, stream>>>(
+  const dim3 grid(KV * B, (Skv + block_keys - 1) / block_keys);
+  kernel<<<grid, threads, smem, stream>>>(
       qm, km, vm, dom, rows, dq_acc, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sp,
       Skv, H, KV, scale, causal, window, q_offset);
   rc = launch_status();
@@ -1065,7 +1101,315 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return launch_status();
 }
 
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* dq_acc, float* rows, void* dq,
+           void* dk, void* dv, int B, int Sq, int Skv, int H, int KV, float scale,
+           int causal, int window, int q_offset, cudaStream_t stream) {
+  static bool opted_in = false;                // shared-memory opt-in, once
+  constexpr int N = Smem<D>::CONSUMERS;
+  return launch_tiled<D, D>(flash_bwd_wgmma_kernel<D>, 128 * N, 64 * N, Smem<D>::BYTES,
+                            opted_in, q, k, v, o, dout, lse, dq_acc, rows, dq, dk, dv, B,
+                            Sq, Skv, H, KV, scale, causal, window, q_offset, stream);
+}
+
 }  // namespace tma_route
+
+// ---- wgmma split route: bf16, (D, Dv) in {(256, 256), (192, 128)} ----------
+
+namespace split_route {
+
+using namespace tensor_core;
+using tma_route::add_dq_chunk;
+using tma_route::BQ;
+using tma_route::DQ_TILE;
+using tma_route::ds_t;
+using tma_route::probs_t;
+using tma_route::ROW;
+using tma_route::STAGES;
+using tma_route::TILE;
+
+// Shared memory, every bf16 tile 1024-aligned: K and V of the block's 64
+// keys (DB and VB boxes of 64 columns), the ring's stages (Q in DB boxes,
+// then dO in VB), dS^T of the last two q tiles, the dV warpgroup's one fp32
+// dQ chunk and the ring's row statistics. At (256, 256): 32 + 32 KB of K
+// and V, two 64 KB stages, 16 KB of dS^T, 16 KB of dQ, 1 KB of statistics
+// and 1 KB of alignment, 226 KB of the 227 a block may have.
+template <int D, int DV>
+struct Smem {
+  static constexpr int DB = D / 64, VB = DV / 64;
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = K_OFF + DB * TILE;
+  static constexpr int Q_OFF = V_OFF + VB * TILE;
+  static constexpr int STAGE = (DB + VB) * TILE;         // Q and dO
+  static constexpr int DS_OFF = Q_OFF + STAGES * STAGE;
+  static constexpr int DQ_OFF = DS_OFF + 2 * TILE;
+  static constexpr int ROWS_OFF = DQ_OFF + DQ_TILE;
+  static constexpr int ROWS = 2 * BQ * 4;                // a stage's statistics
+  static constexpr int BYTES = 1024 + ROWS_OFF + STAGES * ROWS;   // + alignment
+  static_assert(BYTES + 64 <= 232448, "a block has 227 KB of shared memory");
+};
+
+// One block of two warpgroups per (64-key tile, kv head, batch row), the key
+// tiles slowest (as the wgmma route's). At these widths one thread cannot
+// hold both dK and dV of its keys (at D = Dv = 256 they alone would take
+// 256 registers, and a block of two warpgroups has 255 a thread), so the
+// two warpgroups take the same 64 keys and split the accumulators: per
+// (G head, q tile) iteration
+//   warpgroup 0 (dV): S^T = K Q^T -> P^T, dV += P^T dO; after the block's
+//   barrier, dQ = dS K from warpgroup 1's dS^T, a 64-column chunk at a
+//   time through one fp32 chunk in shared memory, each added to the
+//   tiled (B, H, Sp / 64, D / 64, 64, 64) fp32 dQ buffer by one bulk
+//   reduce-add;
+//   warpgroup 1 (dK): S^T -> P^T, dP^T = V dO^T, dS^T = P^T o (dP^T -
+//   Delta) rounded to bf16 into shared memory, dK += dS^T Q.
+// Each warpgroup keeps one accumulator (64 x Dv or 64 x D fp32, 128
+// registers at 256) and recomputes S (about a fifth more FLOPs); in
+// m64n64k16 steps a q tile costs warpgroup 0 D/16 + Dv/16 + D/16 and
+// warpgroup 1 D/16 + Dv/16 + D/16, so the two stay balanced between
+// barriers. Thread 0 loads K and V once and keeps Q, dO, lse and Delta in
+// the 2-stage TMA ring, refilling a stage after the iteration's barrier
+// (both warpgroups are then done with it). dS^T is double buffered: the
+// dK warpgroup writes iteration j + 2's into the buffer warpgroup 0 read
+// for dQ of iteration j only after the barrier of j + 1, which warpgroup 0
+// reaches once that product has completed. P and dS are rounded to bf16
+// for the products, dS from the rounded P, as on the wgmma route, so both
+// warpgroups' P^T are the same bits.
+template <int D, int DV>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_split_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __grid_constant__ CUtensorMap domap,
+                       const float* __restrict__ rows, float* __restrict__ dq,
+                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                       int Sq, int Sp, int Skv, int H, int KV, float scale,
+                       int causal, int window, int q_offset) {
+  using S = Smem<D, DV>;
+  constexpr int DB = S::DB, VB = S::VB;
+  extern __shared__ uint8_t smem_raw[];
+  // full[s]: stage s loaded (TMA and bulk bytes); kvbar: K and V loaded
+  __shared__ uint64_t full[STAGES], kvbar_mem;
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);    // the same bytes, generic
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int kvh = blockIdx.x % KV, b = blockIdx.x / KV, kt = blockIdx.y;
+  const int B = gridDim.x / KV, G = H / KV;
+  const int k0 = kt * 64;
+  const int k_last = min(k0 + 64, Skv) - 1;
+
+  // the q rows that see a key of this tile (as the other routes'); every q
+  // tile in the range sees one of the block's keys
+  int i_begin = 0, i_end = Sq;
+  if (causal) i_begin = max(0, k0 - q_offset);
+  if (window > 0) i_end = min(Sq, k_last + window - q_offset);
+  const int qt_begin = i_begin / BQ;
+  const int n_qt = i_end > i_begin ? (i_end + BQ - 1) / BQ - qt_begin : 0;
+  const int n_iter = G * n_qt;
+
+  // iteration jj's Q, dO, lse and Delta tiles into its stage (thread 0)
+  auto load_stage = [&](int jj) {
+    const int s = jj % STAGES;
+    const int h = kvh * G + jj / n_qt, q0 = (qt_begin + jj % n_qt) * BQ;
+    const uint32_t bar = smem_addr(&full[s]);
+    const uint32_t st = base + S::Q_OFF + s * S::STAGE;
+    const uint32_t rs = base + S::ROWS_OFF + s * S::ROWS;
+    const long long at = ((long long)b * H + h) * Sp + q0;
+    mbar_arrive_expect_tx(bar, S::STAGE + S::ROWS);
+    for (int hf = 0; hf < DB; ++hf) tma_load_4d(st + hf * TILE, &qmap, bar, hf * 64, h, q0, b);
+    for (int hf = 0; hf < VB; ++hf)
+      tma_load_4d(st + (DB + hf) * TILE, &domap, bar, hf * 64, h, q0, b);
+    bulk_load(rs, rows + at, BQ * 4, bar);
+    bulk_load(rs + BQ * 4, rows + (long long)B * H * Sp + at, BQ * 4, bar);
+  };
+
+  const uint32_t kvbar = smem_addr(&kvbar_mem);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(smem_addr(&full[s]), 1);
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(kvbar, (DB + VB) * TILE);
+    for (int hf = 0; hf < DB; ++hf)
+      tma_load_4d(base + S::K_OFF + hf * TILE, &kmap, kvbar, hf * 64, kvh, k0, b);
+    for (int hf = 0; hf < VB; ++hf)
+      tma_load_4d(base + S::V_OFF + hf * TILE, &vmap, kvbar, hf * 64, kvh, k0, b);
+    for (int jj = 0; jj < min(STAGES, n_iter); ++jj) load_stage(jj);
+  }
+
+  // this lane's keys: row (accumulator entries 4 n + {0, 1}) and row + 8
+  // (4 n + {2, 3}) of the block's 64; columns 8 n + col + {0, 1}
+  const int row = warp * 16 + lane / 4, col = 2 * (lane % 4);
+  const int kpos = k0 + row;
+  const uint32_t ks = base + S::K_OFF, vs = base + S::V_OFF;
+  const float scale_log2 = scale * LOG2E;
+  mbar_wait(kvbar, 0);
+
+  if (wg == 0) {
+    // ---- dV, then dQ ----
+    float* const dq_s = reinterpret_cast<float*>(gbase + S::DQ_OFF);
+    const uint32_t dq_a = base + S::DQ_OFF;
+    float dva[VB][32];
+#pragma unroll
+    for (int hf = 0; hf < VB; ++hf)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dva[hf][e] = 0.f;
+    for (int j = 0; j < n_iter; ++j) {
+      const int s = j % STAGES;
+      const int h = kvh * G + j / n_qt, qt = qt_begin + j % n_qt, q0 = qt * BQ;
+      const uint32_t qs = base + S::Q_OFF + s * S::STAGE, dos = qs + DB * TILE;
+      const float* lse2 =
+          reinterpret_cast<const float*>(gbase + S::ROWS_OFF + s * S::ROWS);
+      mbar_wait(smem_addr(&full[s]), (j / STAGES) & 1);
+      uint32_t pa[4][4];
+      float acc[32];
+      probs_t<D>(pa, acc, ks, qs, lse2, k0, q0, kpos, col, Sq, Skv, scale_log2, causal,
+                 window, q_offset);
+      // dV += P^T dO (16 q rows a k step, 2048 bytes down a box)
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < BQ / 16; ++kb)
+#pragma unroll
+        for (int hf = 0; hf < VB; ++hf)
+          wgmma_rs_mn(dva[hf], pa[kb],
+                      wgmma_desc(dos + hf * TILE + kb * 16 * ROW, 1024, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int hf = 0; hf < VB; ++hf)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) reg_fence(dva[hf][e]);
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) reg_fence(pa[kb][e]);
+      // warpgroup 1's dS^T of iteration j is in place, and both are done
+      // with stage s: thread 0 refills it with iteration j + STAGES
+      named_barrier(1, 256);
+      if (tid == 0 && j + STAGES < n_iter) load_stage(j + STAGES);
+
+      // dQ chunk c = dS K[:, 64 c : 64 c + 64], dS^T and K both MN-major
+      const uint32_t dst = base + S::DS_OFF + (j & 1) * TILE;
+      for (int c = 0; c < DB; ++c) {
+        float dqa[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dqa[e] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kb = 0; kb < 4; ++kb)
+          wgmma_ss_mn(dqa, wgmma_desc(dst + kb * 16 * ROW, 1024, 1024),
+                      wgmma_desc(ks + c * TILE + kb * 16 * ROW, 1024, 1024), kb > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int e = 0; e < 32; ++e) reg_fence(dqa[e]);
+        add_dq_chunk(dqa, scale, dq_s, dq_a,
+                     dq + ((((long long)b * H + h) * (Sp / BQ) + qt) * DB + c) * (BQ * 64),
+                     row, col, tid == 0, 2);
+      }
+    }
+    if (tid == 0) bulk_wait();                   // the adds are done with shared memory
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = kpos + 8 * i;
+      if (key >= Skv) continue;
+      __nv_bfloat16* vrw = dv + ((long long)(b * Skv + key) * KV + kvh) * DV + col;
+#pragma unroll
+      for (int hf = 0; hf < VB; ++hf)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(vrw + hf * 64 + n * 8) =
+              __floats2bfloat162_rn(dva[hf][n * 4 + 2 * i], dva[hf][n * 4 + 2 * i + 1]);
+    }
+  } else {
+    // ---- dS^T and dK ----
+    float dka[DB][32];
+#pragma unroll
+    for (int hf = 0; hf < DB; ++hf)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dka[hf][e] = 0.f;
+    for (int j = 0; j < n_iter; ++j) {
+      const int s = j % STAGES;
+      const int q0 = (qt_begin + j % n_qt) * BQ;
+      const uint32_t qs = base + S::Q_OFF + s * S::STAGE, dos = qs + DB * TILE;
+      const float* lse2 =
+          reinterpret_cast<const float*>(gbase + S::ROWS_OFF + s * S::ROWS);
+      const float* dlt = lse2 + BQ;
+      const uint32_t ds_own = base + S::DS_OFF + (j & 1) * TILE;
+      mbar_wait(smem_addr(&full[s]), (j / STAGES) & 1);
+      uint32_t pa[4][4];
+      float acc[32];
+      probs_t<D>(pa, acc, ks, qs, lse2, k0, q0, kpos, col, Sq, Skv, scale_log2, causal,
+                 window, q_offset);
+      // dP^T = V dO^T into the same accumulators
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk) {
+        const uint32_t off = (kk / 4) * TILE + (kk % 4) * 32;
+        wgmma_ss(acc, wgmma_desc(vs + off, 16, 1024), wgmma_desc(dos + off, 16, 1024),
+                 kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) reg_fence(acc[e]);
+      // dS^T, as A fragments and into this iteration's dS^T tile
+      uint32_t da[4][4];
+      ds_t(da, pa, acc, dlt, ds_own, row, col);
+      fence_proxy_async();
+      // dK += dS^T Q
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < BQ / 16; ++kb)
+#pragma unroll
+        for (int hf = 0; hf < DB; ++hf)
+          wgmma_rs_mn(dka[hf], da[kb],
+                      wgmma_desc(qs + hf * TILE + kb * 16 * ROW, 1024, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int hf = 0; hf < DB; ++hf)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) reg_fence(dka[hf][e]);
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) reg_fence(da[kb][e]);
+      named_barrier(1, 256);                     // dS^T in place, stage s spent
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = kpos + 8 * i;
+      if (key >= Skv) continue;
+      __nv_bfloat16* krw = dk + ((long long)(b * Skv + key) * KV + kvh) * D + col;
+#pragma unroll
+      for (int hf = 0; hf < DB; ++hf)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(krw + hf * 64 + n * 8) = __floats2bfloat162_rn(
+              dka[hf][n * 4 + 2 * i] * scale, dka[hf][n * 4 + 2 * i + 1] * scale);
+    }
+  }
+}
+
+template <int D, int DV>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* dq_acc, float* rows, void* dq,
+           void* dk, void* dv, int B, int Sq, int Skv, int H, int KV, float scale,
+           int causal, int window, int q_offset, cudaStream_t stream) {
+  static bool opted_in = false;                // shared-memory opt-in, once
+  return tma_route::launch_tiled<D, DV>(
+      flash_bwd_split_kernel<D, DV>, 256, 64, Smem<D, DV>::BYTES, opted_in, q, k, v, o,
+      dout, lse, dq_acc, rows, dq, dk, dv, B, Sq, Skv, H, KV, scale, causal, window,
+      q_offset, stream);
+}
+
+}  // namespace split_route
 }  // namespace
 
 // dtype 0: fp32, 1: bf16. H % KV == 0, 0 < D, Dv <= 128, B * Sq > 0, Skv > 0;
@@ -1137,5 +1481,31 @@ extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const voi
   if (D == 128)
     return tma_route::launch<128>(q, k, v, o, dout, l, acc, rs, dq, dk, dv, B, Sq, Skv, H, KV,
                            scale, causal, window, q_offset, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bf16 only: (D, Dv) in {(256, 256), (192, 128)}; 16-byte aligned contiguous
+// q, k, v, o, dout, dk, dv; dq_acc (B, H, Sp, D) and rows (2, B, H, Sp)
+// fp32 workspaces, Sp = Sq rounded up to 64; otherwise as
+// flash_attention_bwd (dq is the bf16 output). Returns a cudaError_t
+// (cudaErrorNotSupported: no cuTensorMapEncodeTiled entry point).
+extern "C" int flash_attention_bwd_split(const void* q, const void* k, const void* v,
+                                         const void* o, const void* dout,
+                                         const void* lse, void* dq_acc, void* rows,
+                                         void* dq, void* dk, void* dv, int B, int Sq,
+                                         int Skv, int H, int KV, int D, int Dv,
+                                         float scale, int causal, int window,
+                                         int q_offset, void* stream) {
+  if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* acc = static_cast<float*>(dq_acc);
+  float* rs = static_cast<float*>(rows);
+  if (D == 256 && Dv == 256)
+    return split_route::launch<256, 256>(q, k, v, o, dout, l, acc, rs, dq, dk, dv, B, Sq,
+                                         Skv, H, KV, scale, causal, window, q_offset, s);
+  if (D == 192 && Dv == 128)
+    return split_route::launch<192, 128>(q, k, v, o, dout, l, acc, rs, dq, dk, dv, B, Sq,
+                                         Skv, H, KV, scale, causal, window, q_offset, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

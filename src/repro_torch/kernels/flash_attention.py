@@ -16,7 +16,10 @@ also for each row's log-sum-exp, and whose backward is the hand-written
 kernel of ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`:
 dQ, dK, dV for D, Dv <= :data:`BWD_MAX_D`, on wgmma in bf16 at D = Dv in
 :data:`BWD_TC_WIDTHS`, on ``mma.sync`` at other bf16 multiples of 16, on
-the CUDA cores otherwise).
+the CUDA cores otherwise; and in bf16 at the wider (D, Dv) of
+:data:`BWD_SPLIT_WIDTHS`, gemma3's 256 and MLA's (192, 128), on wgmma
+with the two warpgroups of a block splitting dK and dV of the same keys;
+float32 and other widths above :data:`BWD_MAX_D` raise).
 :func:`flash_attention_bwd_plain` computes the same formulas in plain
 PyTorch. The JAX package has no backward kernel: its gradient is XLA's
 autodiff of its XLA attention, which autograd of
@@ -36,10 +39,13 @@ MAX_D, MAX_DV = 256, 256          # head widths the CUDA-core kernel takes
 # (D, Dv) the tensor-core kernel is built for: granite's 64, 128 (llama3-8b
 # and the other GQA archs), gemma3's 256, and deepseek-v2's MLA (192 | 128)
 TC_WIDTHS = frozenset({(64, 64), (128, 128), (256, 256), (192, 128)})
-BWD_MAX_D = 128                   # widest D, Dv the backward kernel takes
+BWD_MAX_D = 128       # widest D, Dv of the backward's wgmma, mma and simt routes
 # D = Dv the backward's wgmma kernel is built for: whisper's 64, the llama
 # family's 128
 BWD_TC_WIDTHS = frozenset({64, 128})
+# (D, Dv) above BWD_MAX_D the backward's split wgmma kernel is built for, in
+# bf16 only: gemma3's 256 and deepseek-v2's MLA (192 | 128)
+BWD_SPLIT_WIDTHS = frozenset({(256, 256), (192, 128)})
 BWD_TILE = 64                     # q rows a tile of the wgmma backward
 Q_CHUNK = 1024                    # query rows a chunk of the plain version
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -53,6 +59,8 @@ _BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 11 + [_I] * 8
                    "flash_attention_bwd_mma": [_P] * 11 + [_I] * 7
                    + [_F, _I, _I, _I, _P],
                    "flash_attention_bwd_wgmma": [_P] * 11 + [_I] * 6
+                   + [_F, _I, _I, _I, _P],
+                   "flash_attention_bwd_split": [_P] * 11 + [_I] * 7
                    + [_F, _I, _I, _I, _P]}
 
 
@@ -110,15 +118,21 @@ def _plain_scores(q, k, v, causal, window, q_offset, scale):
 
 
 def _bwd_route(dtype: torch.dtype, D: int, Dv: int) -> str:
-    """The backward kernel that takes a CUDA call: ``"wgmma"`` (tensor
-    cores, warpgroup products fed by TMA) for bfloat16 at D = Dv in
-    :data:`BWD_TC_WIDTHS`, ``"mma"`` (tensor cores, ``mma.sync``) for other
-    bfloat16 widths that are multiples of 16, ``"simt"`` (CUDA cores) for
-    float32 and the remaining bfloat16 widths; all for D, Dv up to
-    :data:`BWD_MAX_D`. What none takes raises ValueError."""
+    """The backward kernel that takes a CUDA call: ``"wgmma_split"``
+    (tensor cores, the two warpgroups of a block splitting dK and dV of the
+    same keys) for bfloat16 at (D, Dv) in :data:`BWD_SPLIT_WIDTHS`;
+    ``"wgmma"`` (tensor cores, warpgroup products fed by TMA) for bfloat16
+    at D = Dv in :data:`BWD_TC_WIDTHS`, ``"mma"`` (tensor cores,
+    ``mma.sync``) for other bfloat16 widths that are multiples of 16,
+    ``"simt"`` (CUDA cores) for float32 and the remaining bfloat16 widths;
+    these three for D, Dv up to :data:`BWD_MAX_D`. What none takes raises
+    ValueError."""
+    if dtype == torch.bfloat16 and (D, Dv) in BWD_SPLIT_WIDTHS:
+        return "wgmma_split"
     if dtype not in _DTYPES or not (0 < D <= BWD_MAX_D and 0 < Dv <= BWD_MAX_D):
         raise ValueError(f"flash backward kernel takes bfloat16 or float32 "
-                         f"with D, Dv <= {BWD_MAX_D}; got {dtype}, D={D}, "
+                         f"with D, Dv <= {BWD_MAX_D}, or bfloat16 at (D, Dv) "
+                         f"in {sorted(BWD_SPLIT_WIDTHS)}; got {dtype}, D={D}, "
                          f"Dv={Dv}")
     if dtype == torch.bfloat16 and D == Dv and D in BWD_TC_WIDTHS:
         return "wgmma"
@@ -369,10 +383,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the kernel of its route (:func:`_bwd_route`) in
     ``csrc/flash_attention_bwd.cu``, which takes contiguous q, k, v, o, do
     of one dtype (16-byte aligned on the tensor-core routes) and raises
-    ValueError on anything else (gemma3's D = 256 and MLA's D = 192 among
-    them). ``launches`` counts its calls, ``launches_by_route`` each
-    route's (each call launches the row-statistics pass, the kernel and,
-    in bf16, dQ's cast).
+    ValueError on anything else (float32 above D, Dv = 128 among it).
+    ``launches`` counts its calls, ``launches_by_route`` each route's (each
+    call launches the row-statistics pass, the kernel and, in bf16, dQ's
+    cast).
     """
     B, Sq, H, D, Skv, KV, Dv = _check_shapes(q, k, v)
     if tuple(o.shape) != (B, Sq, H, Dv) or tuple(do.shape) != (B, Sq, H, Dv) \
@@ -395,13 +409,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("lse must be a contiguous float32 tensor on q's device")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    # the wgmma route's dQ buffer is tiled (B, H, Sp / 64, D / 64, 64, 64)
-    # and its row statistics (lse log2 e, Delta) padded to Sp, Sq rounded
+    # the wgmma routes' dQ buffer is tiled (B, H, Sp / 64, D / 64, 64, 64)
+    # and their row statistics (lse log2 e, Delta) padded to Sp, Sq rounded
     # up to its 64-row tile
-    Sp = -(-Sq // BWD_TILE) * BWD_TILE if route == "wgmma" else Sq
+    tiled = route in ("wgmma", "wgmma_split")
+    Sp = -(-Sq // BWD_TILE) * BWD_TILE if tiled else Sq
     dq_acc = torch.empty((B, Sp, H, D), dtype=torch.float32, device=q.device)
     dq = dq_acc if q.dtype == torch.float32 else torch.empty_like(q)
-    delta = torch.empty((2 if route == "wgmma" else 1, B, H, Sp),
+    delta = torch.empty((2 if tiled else 1, B, H, Sp),
                         dtype=torch.float32, device=q.device)
     if B * Sq == 0 or Skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
@@ -414,7 +429,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
         opts = (float(scale), int(causal), window, int(q_offset),
                 build.stream_ptr(q.device))
-        if route == "wgmma":
+        if route == "wgmma_split":
+            rc = lib.flash_attention_bwd_split(*ptrs, B, Sq, Skv, H, KV, D,
+                                               Dv, *opts)
+        elif route == "wgmma":
             rc = lib.flash_attention_bwd_wgmma(*ptrs, B, Sq, Skv, H, KV, D,
                                                *opts)
         elif route == "mma":
@@ -429,4 +447,5 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_by_route = {"wgmma": 0, "mma": 0, "simt": 0}
+flash_attention_bwd.launches_by_route = {"wgmma_split": 0, "wgmma": 0,
+                                         "mma": 0, "simt": 0}

@@ -226,7 +226,10 @@ def test_flash_plain_non_causal_with_sq_unlike_skv(dtype, Sq, Skv, pallas):
 
 
 # (B, Sq, Skv, H, KV, D, kwargs) of the backward's checks: causal, non-causal
-# with Sq != Skv, sliding window, GQA, an offset chunk, a custom scale
+# with Sq != Skv, sliding window, GQA, an offset chunk, a custom scale; Dv
+# != D with a custom scale, as MLA's (192 | 128) at 192 ** -0.5 (``"Dv"`` in
+# kwargs is v's width, not an attention option); a window past one query
+# chunk of the plain version (Q_CHUNK = 1,024)
 FLASH_BWD = [
     (2, 16, 16, 4, 2, 16, {"causal": True}),
     (2, 7, 12, 4, 4, 16, {"causal": False}),
@@ -234,6 +237,8 @@ FLASH_BWD = [
     (1, 24, 24, 8, 2, 16, {"causal": True, "window": 5}),
     (1, 9, 20, 4, 1, 8, {"causal": True, "q_offset": 11}),
     (1, 16, 16, 4, 2, 16, {"causal": True, "scale": 0.3}),
+    (1, 20, 20, 4, 4, 24, {"causal": True, "scale": 0.2, "Dv": 16}),
+    (1, 1100, 1100, 2, 1, 16, {"causal": True, "window": 300}),
 ]
 
 
@@ -245,8 +250,10 @@ def test_flash_bwd_plain_vs_autograd_and_jax_vjp(B, Sq, Skv, H, KV, D, kw):
     (the gradient the JAX package trains with: it has no backward
     kernel). Tolerance 1e-5 of the largest gradient."""
     import jax
-    q, k, v = _qkv(B, Sq, Skv, H, KV, D, seed=8)
-    do = np.random.default_rng(9).normal(size=(B, Sq, H, D)).astype(
+    kw = dict(kw)
+    Dv = kw.pop("Dv", D)
+    q, k, v = _qkv(B, Sq, Skv, H, KV, D, seed=8, Dv=Dv)
+    do = np.random.default_rng(9).normal(size=(B, Sq, H, Dv)).astype(
         np.float32)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     o = fa.flash_attention_plain(tq, tk, tv, **kw)
@@ -281,17 +288,22 @@ def test_flash_bwd_plain_vs_autograd_and_jax_vjp(B, Sq, Skv, H, KV, D, kw):
     (torch.bfloat16, 96, 112, "mma"),
     (torch.bfloat16, 40, 24, "simt"),        # not multiples of 16
     (torch.float32, 128, 128, "simt"),
-    (torch.float32, 64, 64, "simt")])
+    (torch.float32, 64, 64, "simt"),
+    (torch.bfloat16, 256, 256, "wgmma_split"),   # gemma3-12b
+    (torch.bfloat16, 192, 128, "wgmma_split")])  # deepseek-v2's MLA
 def test_flash_bwd_route_by_dtype_and_width(dtype, D, Dv, route):
     assert fa._bwd_route(dtype, D, Dv) == route
 
 
-@pytest.mark.parametrize("dtype,D,Dv", [(torch.bfloat16, 256, 256),
-                                        (torch.bfloat16, 192, 128),
+@pytest.mark.parametrize("dtype,D,Dv", [(torch.float32, 256, 256),
+                                        (torch.float32, 192, 128),
                                         (torch.float32, 144, 128),
-                                        (torch.float16, 64, 64)])
+                                        (torch.float16, 64, 64),
+                                        (torch.bfloat16, 288, 288)])
 def test_flash_bwd_route_raises_where_no_kernel_takes_the_shape(dtype, D, Dv):
-    """gemma3's D = 256 and MLA's 192 | 128 have no backward kernel yet."""
+    """float32 above D, Dv = 128 (gemma3's and MLA's widths among it), a
+    bf16 width above the split route's, and float16 have no backward
+    kernel."""
     with pytest.raises(ValueError):
         fa._bwd_route(dtype, D, Dv)
 

@@ -587,11 +587,117 @@ def test_mla_and_backward_routes_replay_in_a_cuda_graph(cuda):
             assert torch.equal(got, want), i
 
 
+# (B, Sq, Skv, H, KV, D, Dv, kwargs) of the split wgmma backward (bf16 at
+# gemma3's 256 and MLA's 192 | 128): gemma3's training shape, S = 2,048
+# past its window of 1,024 and a small window, so that tiles cross the
+# window's edge, a ragged Sq, an offset chunk with Skv > Sq, G = 2
+# throughout; MLA's training shape at its scale 192 ** -0.5 (the default
+# D ** -0.5), a ragged S = 37 and a window
+FLASH_BWD_SPLIT_CASES = [
+    (4, 1024, 1024, 16, 8, 256, 256, {"causal": True}),
+    (1, 2048, 2048, 16, 8, 256, 256, {"causal": True, "window": 1024}),
+    (1, 2048, 2048, 16, 8, 256, 256, {"causal": True, "window": 100}),
+    (1, 1000, 1000, 16, 8, 256, 256, {"causal": True}),
+    (1, 300, 470, 16, 8, 256, 256, {"causal": True, "q_offset": 170}),
+    (2, 130, 130, 4, 2, 256, 256, {"causal": False}),
+    (4, 1024, 1024, 128, 128, 192, 128, {"causal": True}),
+    (2, 37, 37, 128, 128, 192, 128, {"causal": True}),
+    (1, 300, 300, 16, 16, 192, 128, {"causal": True, "window": 100}),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,Dv,kw", FLASH_BWD_SPLIT_CASES)
+def test_flash_backward_split_kernel_vs_plain_and_autograd(cuda, B, Sq, Skv,
+                                                           H, KV, D, Dv, kw):
+    """The split wgmma backward (bf16 only) against the plain formulas on
+    the same (o, lse) and autograd of the plain forward, and through
+    FlashAttentionFn as a training step calls it, within 2e-2 of the
+    largest gradient; the forward's lse at these widths against the plain
+    one."""
+    g = _gen(23)
+    dtype = torch.bfloat16
+    q = torch.randn((B, Sq, H, D), generator=g).to(cuda, dtype)
+    k = torch.randn((B, Skv, KV, D), generator=g).to(cuda, dtype)
+    v = torch.randn((B, Skv, KV, Dv), generator=g).to(cuda, dtype)
+    do = torch.randn((B, Sq, H, Dv), generator=g).to(cuda, dtype)
+    opts = (kw["causal"], kw.get("window"), kw.get("q_offset", 0), None)
+    o, lse = fa._forward(q, k, v, *opts, True)
+    torch.testing.assert_close(lse, fa.flash_attention_lse_plain(q, k, v, **kw),
+                               atol=1e-4, rtol=1e-5)
+    assert fa._bwd_route(dtype, D, Dv) == "wgmma_split"
+    n = fa.flash_attention_bwd.launches_by_route["wgmma_split"]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert fa.flash_attention_bwd.launches_by_route["wgmma_split"] == n + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(fa.flash_attention_plain(*leaves, **kw),
+                               leaves, do.float())
+    qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    through = torch.autograd.grad(fa.flash_attention(qq, kk, vv, **kw),
+                                  (qq, kk, vv), do)
+    for a, b, c, d in zip(got, want, auto, through):
+        scale = c.abs().max().item()
+        assert bool(torch.isfinite(a.float()).all())
+        assert (a.float() - b.float()).abs().max().item() <= BWD_RTOL[dtype] * scale
+        assert (a.float() - c).abs().max().item() <= BWD_RTOL[dtype] * scale
+        assert (d.float() - c).abs().max().item() <= BWD_RTOL[dtype] * scale
+
+
+def test_split_backward_route_replays_in_a_cuda_graph(cuda):
+    """The split backward at both widths captured in one CUDA graph gives,
+    replayed, the bits of an eager call in dK and dV (summed in registers)
+    and in dQ with one key tile (Skv <= 64: one bulk add an element into
+    the zeroed buffer); with several key tiles dQ's fp32 adds land in no
+    fixed order, so an element may round to the neighbouring bf16 value
+    (held to one bf16 step of itself)."""
+    g = _gen(17)
+    cases = []
+    for B, Sq, Skv, H, KV, D, Dv, kw in (
+            (2, 60, 60, 16, 8, 256, 256, {"causal": True}),
+            (1, 700, 700, 16, 8, 256, 256, {"causal": True, "window": 300}),
+            (1, 500, 500, 32, 32, 192, 128, {"causal": True})):
+        q = torch.randn((B, Sq, H, D), generator=g).to(cuda, torch.bfloat16)
+        k = torch.randn((B, Skv, KV, D), generator=g).to(cuda, torch.bfloat16)
+        v = torch.randn((B, Skv, KV, Dv), generator=g).to(cuda, torch.bfloat16)
+        do = torch.randn((B, Sq, H, Dv), generator=g).to(cuda, torch.bfloat16)
+        o, lse = fa._forward(q, k, v, kw["causal"], kw.get("window"), 0, None,
+                             True)
+        cases.append((q, k, v, o, lse, do, kw))
+
+    def calls():
+        out = []
+        for q, k, v, o, lse, do, kw in cases:
+            out.extend(fa.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+        return out
+
+    eager = calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n = fa.flash_attention_bwd.launches_by_route["wgmma_split"]
+    with torch.cuda.graph(graph):
+        captured = calls()
+    assert fa.flash_attention_bwd.launches_by_route["wgmma_split"] == n + 3
+    graph.replay()
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(zip(captured, eager)):
+        if i in (3, 6):                # dQ of the cases with several key tiles
+            step = want.float().abs() * 2.0 ** -7
+            assert bool(((got.float() - want.float()).abs() <= step).all())
+        else:
+            assert torch.equal(got, want), i
+
+
 def test_flash_backward_kernel_rejects_what_it_does_not_take(cuda):
-    """D = 256 (gemma3) and MLA's 192 | 128 have no backward kernel yet."""
-    for D, Dv in ((256, 256), (192, 128)):
-        q = torch.zeros((1, 4, 2, D), device=cuda, dtype=torch.bfloat16)
-        v = torch.zeros((1, 4, 2, Dv), device=cuda, dtype=torch.bfloat16)
+    """float32 above D, Dv = 128 (gemma3's 256 and MLA's 192 | 128 among
+    it) and a bf16 width above the split route's have no backward kernel."""
+    for dtype, D, Dv in ((torch.float32, 256, 256), (torch.float32, 192, 128),
+                         (torch.bfloat16, 288, 288)):
+        q = torch.zeros((1, 4, 2, D), device=cuda, dtype=dtype)
+        v = torch.zeros((1, 4, 2, Dv), device=cuda, dtype=dtype)
         lse = torch.zeros((1, 2, 4), device=cuda)
         with pytest.raises(ValueError):
             fa.flash_attention_bwd(q, q, v, v, lse, v)

@@ -344,7 +344,8 @@ def _batch(cfg, seed):
 
 
 @pytest.mark.parametrize("arch", ["whisper-large-v3", "granite-moe-3b-a800m",
-                                  "rwkv6-3b", "jamba-v0.1-52b"])
+                                  "rwkv6-3b", "jamba-v0.1-52b", "gemma3-12b",
+                                  "deepseek-v2-236b"])
 def test_one_step_loss_and_grads_match_the_reference(arch):
     jm, jp, cfg, pm, pp = _jax_pair(arch)
     batch = _batch(cfg, seed=11)
