@@ -31,14 +31,16 @@ Phases, each fatal on failure:
      whisper's encoder, and its split route at gemma3-12b's and
      deepseek-v2-236b's training shapes, past gemma3's window at S = 2,048,
      ragged and offset, each a CUDA-graph replay bit-equal; decode at
-     G = 1); the two scan backward kernels
-     (``csrc/linear_scan_bwd.cu``) under autograd of the forward wrappers
+     G = 1); the two scan backwards (``csrc/linear_scan_bwd.cu``), on
+     each route that takes a case (the chunk-parallel one training takes,
+     the serial one), under autograd of the forward wrappers and forced,
      against their plain formulas and autograd of the plain forward, bf16
      and fp32, at rwkv6-3b's and jamba's training shapes (4 x 1,024), a
      ragged S, each forward route, a non-zero h0 with a final-state
      gradient, hard decays and the smoke widths (2e-2 of the largest
-     gradient in bf16, 1e-4 in fp32), and a CUDA-graph replay of each
-     bit-equal; RMSNorm and LayerNorm bit-equal to the expressions they
+     gradient in bf16, 1e-4 in fp32), and on each route a CUDA-graph
+     replay and a second call bit-equal to the first; RMSNorm and
+     LayerNorm bit-equal to the expressions they
      replace;
   3. run the face-recognition StreamingPipeline on the card at the paper's
      1080p source, fused and unfused identify, with every launch counter
@@ -89,7 +91,8 @@ Phases, each fatal on failure:
      call with CUDA events, beside the least time the card could take
      (decode attention, matmul, the YUV decode, the IoU and the Mamba scan
      also with a cold L2; each two-route scan's kernels side by side by
-     S; the scan backwards at the training shapes), and profile the
+     S; the scan backwards at the training shapes, each route that takes
+     them in the same run), and profile the
      device's busy share of a pipeline run (which must launch no second
      matmul pass) and of each arch's serve run; the matmul also at the
      cluster's replica batches (16, 32, 64 rows: the tile route);
@@ -148,7 +151,8 @@ Phases, each fatal on failure:
      must fall by 0.1, the forward and backward
      launches counted (each attention or scan layer's forward twice a step,
      on flash's wgmma, the chunked RWKV6 or the segmented Mamba route, and
-     its backward once, flash's on the route of the arch's head widths),
+     its backward once, flash's on the route of the arch's head widths,
+     the scans' on their chunked routes),
      ms a step, tokens/s, model FLOP/s (attention counted by head widths),
      peak memory and the device's busy share over two profiled steps; then
      llama3-8b's checkpoint at step 10 restored bit-exactly and a restarted
@@ -1353,13 +1357,13 @@ def check_mamba_kernel(device) -> dict[str, float]:
 RWKV_BWD_CASES = (
     ("rwkv6-3b training", TRAIN_B, TRAIN_S, (RWKV_H, RWKV_K), False, False),
     ("ragged", 2, 37, (RWKV_H, RWKV_K), True, False),
-    ("serial-route length", 2, 32, (RWKV_H, RWKV_K), True, False),
+    ("short (serial forward)", 2, 32, (RWKV_H, RWKV_K), True, False),
     ("w with 0, denormals, 1", 1, 130, (RWKV_H, RWKV_K), True, True),
     ("smoke width", 2, 45, (4, 16), True, False))
 MAMBA_BWD_CASES = (
     ("jamba training", TRAIN_B, TRAIN_S, (MAMBA_DI, MAMBA_N), False, False),
     ("ragged", 2, 37, (MAMBA_DI, MAMBA_N), True, False),
-    ("serial-route length", 2, 5, (MAMBA_DI, MAMBA_N), True, False),
+    ("short (serial forward)", 2, 5, (MAMBA_DI, MAMBA_N), True, False),
     ("one step", 2, 1, (MAMBA_DI, MAMBA_N), True, False),
     ("delta |A| ~100 in 5%", 1, 130, (MAMBA_DI, MAMBA_N), True, True),
     ("smoke width", 2, 45, (128, 4), True, False))
@@ -1387,14 +1391,18 @@ def scan_bwd_inputs(kind: str, B, S, dims, dtype, device, with_h0, hard):
 
 
 def check_scan_bwd(device) -> dict[str, float]:
-    """The two scan backward kernels, bf16 and fp32, at RWKV_BWD_CASES and
-    MAMBA_BWD_CASES: the forward wrapper under grad (its route, with
-    checkpoints) and autograd through its Function, whose backward launches
-    the kernel, against the plain formulas (``*_bwd_plain``) on the same
-    inputs and against autograd of the plain forward with float32 leaves,
-    each gradient within BWD_RTOL of its largest; then a CUDA-graph replay
-    of each backward bit-equal to the eager call. Returns each kernel's
-    largest absolute difference from the plain formulas."""
+    """The two scan backwards, bf16 and fp32, at RWKV_BWD_CASES and
+    MAMBA_BWD_CASES, on every route that takes each case: the forward
+    wrapper under grad (its route, with checkpoints) and autograd through
+    its Function, whose backward launches the route the shape takes
+    (``linear_scan._rwkv_bwd_route``, ``_mamba_bwd_route``), then the
+    serial route forced on the same checkpoints where the shape takes the
+    chunked one (:func:`scan_bwd_routes`), against the plain formulas
+    (``*_bwd_plain``) on the same inputs and against autograd of the plain forward with float32 leaves,
+    each gradient within BWD_RTOL of its largest; then, on every route, a
+    CUDA-graph replay of each backward and a second eager call bit-equal to
+    the first. Returns each kernel's largest absolute difference from the
+    plain formulas over its routes."""
     import torch
     from repro_torch.kernels import linear_scan as ls
     worst = {"rwkv_scan_bwd": 0.0, "mamba_scan_bwd": 0.0}
@@ -1410,9 +1418,11 @@ def check_scan_bwd(device) -> dict[str, float]:
             for label, B, S, dims, with_h0, hard in cases:
                 ins, fwd, route = scan_bwd_inputs(kind, B, S, dims, dtype,
                                                   device, with_h0, hard)
+                routes = scan_bwd_routes(kind, dtype, dims)
                 leaves = [None if t is None else t.detach().requires_grad_()
                           for t in ins]
-                n_f, n_b = fwd.launches_by_route[route], bwd.launches
+                n_f = fwd.launches_by_route[route]
+                n_b = bwd.launches_by_route[routes[0]]
                 y, h = fwd(*leaves)
                 g = _gen(S + 7)
                 dy = torch.randn(y.shape, generator=g).to(device, dtype)
@@ -1423,9 +1433,9 @@ def check_scan_bwd(device) -> dict[str, float]:
                 outs, gouts = ((y, h), (dy, dh)) if with_h0 else ((y,), (dy,))
                 got = torch.autograd.grad(outs, [t for _, t in live], gouts)
                 require(fwd.launches_by_route[route] == n_f + 1
-                        and bwd.launches == n_b + 1,
+                        and bwd.launches_by_route[routes[0]] == n_b + 1,
                         f"{kind}_scan_bwd {name} {label}: the {route} "
-                        "forward or the backward kernel did not launch")
+                        f"forward or the {routes[0]} backward did not launch")
                 want = [t for t in plain[kind][1](*ins, dy, dh)
                         if t is not None]
                 l32 = [None if t is None else t.detach().float()
@@ -1435,78 +1445,123 @@ def check_scan_bwd(device) -> dict[str, float]:
                     (y32, h32) if with_h0 else (y32,),
                     [t for t in l32 if t is not None],
                     (dy.float(), dh) if with_h0 else (dy.float(),))
-                errs = []
-                for (gname, _), a, b, c in zip(live, got, want, auto):
-                    top = c.abs().max().item()
-                    e_plain = (a.float() - b.float()).abs().max().item()
-                    e_auto = (a.float() - c).abs().max().item()
-                    finite = bool(torch.isfinite(a.float()).all())
-                    errs.append(f"d{gname} {e_plain:.3e} / {e_auto:.3e} of "
-                                f"{top:.3e}")
-                    worst[f"{kind}_scan_bwd"] = max(
-                        worst[f"{kind}_scan_bwd"], e_plain)
-                    require(finite and e_plain <= BWD_RTOL[name] * top
-                            and e_auto <= BWD_RTOL[name] * top,
-                            f"{kind}_scan_bwd {name} {label} d{gname}: "
-                            f"{e_plain:.3e} (formulas), {e_auto:.3e} "
-                            f"(autograd) against the largest gradient "
-                            f"{top:.3e}; finite: {finite}")
-                print(f"check {kind}_scan_bwd {name} ({route} forward) "
-                      f"{label} {tuple(ins[0].shape)} dims {dims}"
-                      f"{', h0 and dh' if with_h0 else ''}: max_abs_err vs "
-                      f"formulas / vs autograd of the plain forward: "
-                      f"{'; '.join(errs)} (tolerance {BWD_RTOL[name]} of "
-                      "the largest)")
+                for bwd_route in routes:
+                    if bwd_route != routes[0]:
+                        # each gradient in its input's dtype, as autograd
+                        # narrows u's through the caller's widening
+                        got = [t.to(leaf.dtype) for t, (_, leaf) in zip(
+                            [t for t in scan_bwd_thunk(
+                                kind, ins, dy, dh, bwd_route)()
+                             if t is not None], live)]
+                    errs = []
+                    for (gname, _), a, b, c in zip(live, got, want, auto):
+                        top = c.abs().max().item()
+                        e_plain = (a.float() - b.float()).abs().max().item()
+                        e_auto = (a.float() - c).abs().max().item()
+                        finite = bool(torch.isfinite(a.float()).all())
+                        errs.append(f"d{gname} {e_plain:.3e} / {e_auto:.3e} "
+                                    f"of {top:.3e}")
+                        worst[f"{kind}_scan_bwd"] = max(
+                            worst[f"{kind}_scan_bwd"], e_plain)
+                        require(finite and e_plain <= BWD_RTOL[name] * top
+                                and e_auto <= BWD_RTOL[name] * top,
+                                f"{kind}_scan_bwd {name} {label} ({bwd_route} "
+                                f"route) d{gname}: {e_plain:.3e} (formulas), "
+                                f"{e_auto:.3e} (autograd) against the "
+                                f"largest gradient {top:.3e}; finite: "
+                                f"{finite}")
+                    print(f"check {kind}_scan_bwd {name} ({route} forward, "
+                          f"{bwd_route} backward"
+                          f"{'' if bwd_route != routes[0] else ' by autograd'}"
+                          f") {label} {tuple(ins[0].shape)} dims {dims}"
+                          f"{', h0 and dh' if with_h0 else ''}: max_abs_err "
+                          f"vs formulas / vs autograd of the plain forward: "
+                          f"{'; '.join(errs)} (tolerance {BWD_RTOL[name]} of "
+                          "the largest)")
                 del ins, leaves, y, h, got, want, l32, y32, h32, auto
                 torch.cuda.empty_cache()
-    # each backward replayed in a CUDA graph: the same bits (no atomics)
+    # each backward route replayed in a CUDA graph and called twice: the
+    # same bits (no atomics, sums in a fixed order)
     for kind, (label, B, S, dims, _, hard) in (("rwkv", RWKV_BWD_CASES[1]),
                                                 ("mamba", MAMBA_BWD_CASES[1])):
         ins, fwd, route = scan_bwd_inputs(kind, B, S, dims, torch.bfloat16,
                                           device, True, hard)
-        call = scan_bwd_call(kind, ins, route)
-        # flip the sign of r or x (a flipped delta would grow the state
-        # past float32's range, and NaN equals nothing)
-        same = replays_equal(call, lambda: ins[0 if kind == "rwkv" else 4]
-                             .mul_(-1.0))
-        print(f"check {kind}_scan_bwd bf16 {label} {tuple(ins[0].shape)}, 3 "
-              f"CUDA-graph replays: bit-equal to the eager calls: {same}")
-        require(same, f"{kind}_scan_bwd: a CUDA-graph replay differs")
+        for bwd_route in scan_bwd_routes(kind, torch.bfloat16, dims):
+            call = scan_bwd_call(kind, ins, bwd_route)
+            twice = bool(torch.equal(call(), call()))
+            # flip the sign of r or x (a flipped delta would grow the state
+            # past float32's range, and NaN equals nothing)
+            same = replays_equal(call, lambda: ins[0 if kind == "rwkv" else 4]
+                                 .mul_(-1.0))
+            print(f"check {kind}_scan_bwd bf16 ({bwd_route} route) {label} "
+                  f"{tuple(ins[0].shape)}: a second call bit-equal to the "
+                  f"first: {twice}; 3 CUDA-graph replays bit-equal to the "
+                  f"eager calls: {same}")
+            require(twice and same, f"{kind}_scan_bwd ({bwd_route} route): "
+                    "a second call or a CUDA-graph replay differs")
     torch.cuda.synchronize()
     return worst
 
 
-def scan_bwd_call(kind: str, ins: list, route: str):
-    """A thunk of the ``kind`` scan's backward kernel on ``ins`` (h0 given):
-    the forward of ``route`` is launched once for its checkpoints, dO and
-    the final state's gradient drawn; the thunk returns every gradient
-    flattened into one float32 tensor."""
+def scan_bwd_routes(kind: str, dtype, dims) -> list[str]:
+    """The backward routes that take a case: the one the shape takes
+    (``linear_scan._rwkv_bwd_route``/``_mamba_bwd_route``) first, then the
+    serial route, which takes every built shape, where it is another."""
+    from repro_torch.kernels import linear_scan as ls
+    route = (ls._rwkv_bwd_route(dtype, dims[1], dims[1]) if kind == "rwkv"
+             else ls._mamba_bwd_route(dtype, dims[1]))
+    return [route] + (["serial"] if route != "serial" else [])
+
+
+def scan_bwd_thunk(kind: str, ins: list, dy, dh, route: str):
+    """A thunk of the ``kind`` scan's backward on ``route`` at ``ins`` (the
+    model's inputs, h0 possibly None), ``dy`` and the final state's ``dh``
+    (or None): the forward route the shape takes is launched once, here,
+    for its checkpoints; the thunk returns the wrapper's gradients, with
+    the wrapper's route chooser answering ``route`` for the length of the
+    call (:func:`forced_route`)."""
     import torch
     from repro_torch.kernels import linear_scan as ls
-    g = _gen(11)
     if kind == "rwkv":
         r, w, k, v, u, h0 = ins
+        B, S, H, K = r.shape
         uf = u.float().contiguous()
-        state = torch.empty_like(h0)
-        o, ckpt = ls._launch(route, r, w, k, v, uf, h0, state, True)
-        do = torch.randn(o.shape, generator=g).to(o.device, o.dtype)
-        dh = torch.randn(state.shape, generator=g).to(o.device)
-
-        def call():
-            return ls.rwkv_scan_bwd(r, w, k, v, uf, h0, do, dh, ckpt=ckpt)
+        state = torch.empty((B, H, K, v.shape[-1]), device=r.device)
+        _, ckpt = ls._launch(ls._route(r.dtype, K, v.shape[-1], S), r, w, k,
+                             v, uf, h0, state, True)
+        call = lambda: ls.rwkv_scan_bwd(r, w, k, v, uf, h0, dy, dh,
+                                        ckpt=ckpt)
     else:
         delta, A, Bt, Ct, x, h0 = ins
         B, S, Di = delta.shape
-        state = torch.empty_like(h0)
-        ckpt = torch.empty((B, -(-S // ls.CHUNK), Di, A.shape[1]),
-                           dtype=torch.float32, device=x.device)
-        y = ls._launch_mamba(route, delta, x, A, Bt, Ct, h0, state, ckpt)
-        dy = torch.randn(y.shape, generator=g).to(y.device, y.dtype)
-        dh = torch.randn(state.shape, generator=g).to(y.device)
+        N = A.shape[1]
+        Af = A.float().contiguous()
+        state = torch.empty((B, Di, N), device=x.device)
+        ckpt = torch.empty((B, -(-S // ls.CHUNK), Di, N), device=x.device)
+        ls._launch_mamba(ls._mamba_route(x.dtype, N, S), delta, x, Af, Bt,
+                         Ct, h0, state, ckpt)
+        call = lambda: ls.mamba_scan_bwd(delta, Af, Bt, Ct, x, h0, dy, dh,
+                                         ckpt=ckpt)
+    chooser = f"_{kind}_bwd_route"
 
-        def call():
-            return ls.mamba_scan_bwd(delta, A, Bt, Ct, x, h0, dy, dh,
-                                     ckpt=ckpt)
+    def forced():
+        with forced_route(ls, chooser, route):
+            return call()
+    return forced
+
+
+def scan_bwd_call(kind: str, ins: list, route: str):
+    """A thunk of the ``kind`` scan's backward on ``route`` at ``ins`` (h0
+    given) with dO and the final state's gradient drawn
+    (:func:`scan_bwd_thunk`); it returns every gradient flattened into one
+    float32 tensor."""
+    import torch
+    g = _gen(11)
+    h0 = ins[5]
+    out_shape = (ins[3].shape if kind == "rwkv" else ins[4].shape)
+    dy = torch.randn(out_shape, generator=g).to(h0.device, ins[0].dtype)
+    dh = torch.randn(h0.shape, generator=g).to(h0.device)
+    call = scan_bwd_thunk(kind, ins, dy, dh, route)
     return lambda: torch.cat([t.float().reshape(-1) for t in call()
                               if t is not None])
 
@@ -2280,16 +2335,21 @@ def profile_serve(model, params, cfg) -> None:
 # Phase 7: times
 # --------------------------------------------------------------------------
 
+def forced_route(module, chooser: str, route: str):
+    """A context in which ``module``'s route chooser (flash's ``"_route"``,
+    the scans' ``"_rwkv_bwd_route"``...) answers ``route`` whatever the
+    shape: a shape's other route, run beside the one it takes on the same
+    card and inputs."""
+    from unittest import mock
+    return mock.patch.object(module, chooser, lambda *args: route)
+
+
 def forced_route_ms(fa, chooser: str, route: str, call, iters: int) -> float:
     """Device ms of ``call`` with flash's route chooser (``"_route"`` or
     ``"_bwd_route"``) answering ``route`` whatever the shape: a shape's
     earlier route, timed beside its new one on the same card."""
-    old = getattr(fa, chooser)
-    setattr(fa, chooser, lambda *args: route)
-    try:
+    with forced_route(fa, chooser, route):
         return cuda_time_ms(call, iters=iters)
-    finally:
-        setattr(fa, chooser, old)
 
 
 def sdpa_call(q, k, v, *, causal: bool, mask=None):
@@ -2796,12 +2856,15 @@ def time_scan_bwd(device) -> dict:
     rwkv6-3b's 40 heads of 64, the chunked forward's checkpoints; jamba's
     Di 8,192, N 16, the segmented forward's), zero initial state and no
     final-state gradient, as the training step calls them; and in fp32.
-    Bound: the function's bytes (each input, the checkpoints included,
-    read once, each gradient written once) against its operations: RWKV6
-    12 FLOP a state element a step (S_{t-1} do, G v, G o S_{t-1}, G^T k,
-    the adjoint's fma and the state's), Mamba 18 and one exponential (the
-    state, the adjoint and the five gradients' terms); no library call
-    computes either. Returns each kernel's bf16 times."""
+    Every route that takes the shape is timed in the same run (the chunked
+    routes beside the serial kernels they replace on the training path);
+    the row's times are those of the route the shape takes. Bound: the
+    function's bytes (each input, the checkpoints included, read once, each
+    gradient written once) against its operations: RWKV6 12 FLOP a state
+    element a step (S_{t-1} do, G v, G o S_{t-1}, G^T k, the adjoint's fma
+    and the state's), Mamba 18 and one exponential (the state, the adjoint
+    and the five gradients' terms); no library call computes either.
+    Returns each kernel's bf16 times."""
     import torch
     from repro_torch.kernels import linear_scan as ls
     out = {}
@@ -2812,53 +2875,50 @@ def time_scan_bwd(device) -> dict:
             label, B, S, dims, _, _ = cases[0]
             ins, fwd, route = scan_bwd_inputs(kind, B, S, dims, dtype,
                                               device, False, False)
+            routes = scan_bwd_routes(kind, dtype, dims)
             size = dtype.itemsize
             g = _gen(17)
             if kind == "rwkv":
                 r, w, k, v, u, _ = ins
                 uf = u.float().contiguous()
-                state = torch.empty((B, RWKV_H, RWKV_K, RWKV_K),
-                                    dtype=torch.float32, device=device)
-                o, ckpt = ls._launch(route, r, w, k, v, uf, None, state, True)
-                do = torch.randn(o.shape, generator=g).to(device, dtype)
-                kernel = lambda: ls.rwkv_scan_bwd(r, w, k, v, uf, None, do,
-                                                  ckpt=ckpt)
+                do = torch.randn(v.shape, generator=g).to(device, dtype)
                 plain = lambda: ls.rwkv_scan_bwd_plain(r, w, k, v, uf, None,
                                                        do)
                 n = r.numel()
                 nbytes = (7 * n * size + 8 * n + 8 * uf.numel()
-                          + 4 * ckpt.numel())
+                          + 4 * n * RWKV_K // ls.CHUNK)
                 elems = n * RWKV_K
                 flops, exps = 12 * elems, 0
+                kernels = {rt: scan_bwd_thunk(kind, ins, do, None, rt)
+                           for rt in routes}
             else:
                 delta, A, Bt, Ct, x, _ = ins
-                state = torch.empty((B, MAMBA_DI, MAMBA_N),
-                                    dtype=torch.float32, device=device)
-                ckpt = torch.empty((B, -(-S // ls.CHUNK), MAMBA_DI, MAMBA_N),
-                                   dtype=torch.float32, device=device)
-                y = ls._launch_mamba(route, delta, x, A, Bt, Ct, None, state,
-                                     ckpt)
-                dy = torch.randn(y.shape, generator=g).to(device, dtype)
-                kernel = lambda: ls.mamba_scan_bwd(delta, A, Bt, Ct, x, None,
-                                                   dy, ckpt=ckpt)
+                dy = torch.randn(x.shape, generator=g).to(device, dtype)
                 plain = lambda: ls.mamba_scan_bwd_plain(delta, A, Bt, Ct, x,
                                                         None, dy)
                 n = delta.numel()
                 nbytes = (5 * n * size + 4 * Bt.numel() * size
-                          + 8 * A.numel() + 4 * ckpt.numel())
+                          + 8 * A.numel()
+                          + 4 * n * MAMBA_N * -(-S // ls.CHUNK) // S)
                 elems = n * MAMBA_N
                 flops, exps = 18 * elems, elems
-            t = {"ms": cuda_time_ms(kernel, iters=5),
+                kernels = {rt: scan_bwd_thunk(kind, ins, dy, None, rt)
+                           for rt in routes}
+            route_ms = {rt: cuda_time_ms(fn, iters=5)
+                        for rt, fn in kernels.items()}
+            t = {"ms": route_ms[routes[0]],
                  "plain_ms": cuda_time_ms(plain, iters=1),
                  "library_ms": None}
             t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops,
                                                     exps=exps)
-            t["eager_ms"] = eager_time_ms(kernel, iters=20)
+            t["eager_ms"] = eager_time_ms(kernels[routes[0]], iters=20)
+            t["route_ms"] = route_ms
             print(f"time {kind}_scan_bwd {label} {name} "
                   f"{tuple(ins[0].shape)} dims {dims} ({route} forward's "
-                  f"checkpoints): " + json.dumps(t))
+                  f"checkpoints, {routes[0]} backward route): "
+                  + json.dumps(t))
             out.setdefault(f"{kind}_scan_bwd", t)
-            del ins, ckpt, kernel, plain
+            del ins, kernels, plain
             torch.cuda.empty_cache()
     return out
 
@@ -3893,7 +3953,8 @@ def train_want(cfg) -> dict:
     each scan and attention layer's forward twice a step (the layer is
     rematerialised in the backward), on the chunked RWKV6 route, the
     segmented Mamba route and flash's wgmma route at 4 x 1,024 tokens, and
-    its backward once a step."""
+    its backward once a step (the scans' on their chunked routes, none on
+    the serial kernels)."""
     kinds = [s.kind for s in cfg.block_pattern] * cfg.n_repeats
     n = {kind: kinds.count(kind) * TRAIN_STEPS
          for kind in ("attn", "rwkv", "mamba")}
@@ -3908,11 +3969,11 @@ def train_want(cfg) -> dict:
             for r in fa.flash_attention_bwd.launches_by_route}
     if n["rwkv"]:
         want["rwkv_scan"] = {"chunk": 2 * n["rwkv"], "serial": 0}
-        want["rwkv_scan_bwd"] = {None: n["rwkv"]}
+        want["rwkv_scan_bwd"] = {"chunk": n["rwkv"], "serial": 0}
     if n["mamba"]:
         want["mamba_scan"] = {"segmented": 2 * n["mamba"], "step": 0,
                               "serial": 0}
-        want["mamba_scan_bwd"] = {None: n["mamba"]}
+        want["mamba_scan_bwd"] = {"chunk": n["mamba"], "serial": 0}
     return want
 
 
@@ -4566,15 +4627,19 @@ def kernel_table():
          "path": "serve", "arch": "jamba-v0.1-52b"},
         # the scans' gradients: the TPU package has no backward kernel (XLA
         # differentiates its scans), so each stands beside its forward's
-        # pallas_call; their launches are the training runs' of their arch
+        # pallas_call; their launches are the training runs' of their arch.
+        # Each has two routes, the chunk-parallel one that training
+        # takes and the serial kernel (float32 RWKV6, the smoke widths),
+        # both in the same source
         {"name": "rwkv_scan_bwd", "wrapper": ls.rwkv_scan_bwd,
          "source": csrc + "linear_scan_bwd.cu",
          "replaces": "src/repro/kernels/linear_scan.py:147",
-         "path": "train", "arch": "rwkv6-3b"},
+         "path": "train", "arch": "rwkv6-3b", "routes": ("chunk", "serial")},
         {"name": "mamba_scan_bwd", "wrapper": ls.mamba_scan_bwd,
          "source": csrc + "linear_scan_bwd.cu",
          "replaces": "src/repro/kernels/linear_scan.py:74",
-         "path": "train", "arch": "jamba-v0.1-52b"},
+         "path": "train", "arch": "jamba-v0.1-52b",
+         "routes": ("chunk", "serial")},
     ]
 
 
@@ -4817,6 +4882,12 @@ def main() -> int:
                      "max_abs_err": errors[k["name"]], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if "routes" in k:
+            # the wrapper's routes: its launches on the path by route, and
+            # each route's ms at the row's shape in the same run
+            rows[-1]["launches_by_route"] = train["routes_by_arch"][
+                k["arch"]][k["name"]]
+            rows[-1]["route_ms"] = t["route_ms"]
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(card)        # as nvidia-smi reports it: name, power limit
     print(json.dumps({"kernels": rows}))

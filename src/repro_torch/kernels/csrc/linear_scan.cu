@@ -171,6 +171,7 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include "common.cuh"
+#include "scan_common.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -180,23 +181,12 @@ namespace tc = tensor_core;
 constexpr int COLS = 32;   // state columns (threads) a block
 constexpr int TILE = 32;   // time steps staged at a time
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
 // ---- Mamba --------------------------------------------------------------------
 
 constexpr int MCOLS = 32;  // channels (threads) a block
 constexpr int MTILE = 64;  // time steps staged at a time
 constexpr int CK = 64;     // steps between checkpoints (linear_scan.py CHUNK)
 static_assert(MTILE == CK && TILE * 2 == CK, "a checkpoint opens a tile");
-
-// x rounded to the type that the tag pointer points to
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 template <typename T, int N>
 __global__ void __launch_bounds__(MCOLS)
@@ -320,14 +310,6 @@ struct SegTile<float> {
   __device__ const float* crow(int j) const { return c[j]; }
 };
 
-// 2^x on the SFU, one instruction and its subnormal handling: results below
-// 2^-126 stay denormals, as expf gives them (ex2.approx.ftz would flush them)
-__device__ __forceinline__ float exp2_sfu(float x) {
-  float y;
-  asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // the scan and replay phases' double buffers share their bytes with the carry's
 // arrays; rows of SN + 4 floats keep a quarter-warp's float4 accesses free of
 // bank conflicts
@@ -339,24 +321,6 @@ union SegSmem {
     float h[SEGS][SCH][SN + 4];         // its end state, then its incoming state
   } carry;
 };
-
-// 8 consecutive staged values (16-byte aligned) as fp32
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 u = reinterpret_cast<const float4*>(p)[0];
-  const float4 v = reinterpret_cast<const float4*>(p)[1];
-  out[0] = u.x; out[1] = u.y; out[2] = u.z; out[3] = u.w;
-  out[4] = v.x; out[5] = v.y; out[6] = v.z; out[7] = v.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 f = __bfloat1622float2(pair[k]);
-    out[2 * k] = f.x;
-    out[2 * k + 1] = f.y;
-  }
-}
 
 // One warp stages steps [t0, t0 + n) of batch row b (row0 = b S) for the
 // block's channels [c0, c0 + SCH): 16-byte cp.async, zero-filled past the
@@ -736,11 +700,6 @@ constexpr int CTHREADS = 256;   // eight warps: a sub-chunk's rows x half the co
 constexpr int LDH = CW + 8;     // bf16 rows: 144 bytes, 16-byte aligned
 constexpr int LDA = CW + 4;     // fp32 rows read as [row l / 4][col l % 4]
 constexpr int LDB = CW + 8;     // fp32 rows read as [row l % 4][col l / 4]
-
-__device__ __forceinline__ float bf(const __nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ uint32_t bf_tf32(const __nv_bfloat16 x) {
-  return __float_as_uint(__bfloat162float(x));   // a bf16 value is exact in tf32
-}
 
 // Rows t0 .. t0 + CH - 1 of one (b, h) of a (B, S, H, CW) bf16 tensor into
 // dst[CH][LDH] by 16-byte asynchronous copies; rows past S are zero.

@@ -23,7 +23,10 @@ Training: where grad is enabled and an input requires it, a CUDA call goes
 through :class:`MambaScanFn` or :class:`RwkvScanFn`, whose forward is the
 same route asked also for checkpoints of the state every :data:`CHUNK`
 steps, and whose backward is the hand-written kernel of
-``csrc/linear_scan_bwd.cu`` (:func:`mamba_scan_bwd`, :func:`rwkv_scan_bwd`).
+``csrc/linear_scan_bwd.cu`` (:func:`mamba_scan_bwd`, :func:`rwkv_scan_bwd`)
+of its route: bfloat16 RWKV6 at K = 64 and Mamba at N = 16 on the
+chunk-parallel backward (:func:`_rwkv_bwd_route`, :func:`_mamba_bwd_route`),
+float32 RWKV6 and the smoke configs' widths on the serial one.
 :func:`mamba_scan_bwd_plain` and :func:`rwkv_scan_bwd_plain` compute the
 same formulas in plain PyTorch; on the CPU autograd differentiates the
 plain forwards, as XLA's autodiff differentiates the reference's scans. The
@@ -69,7 +72,12 @@ _SIGNATURES = {"rwkv_scan": [_P] * 8 + [_I] * 6 + [_P, _P],
                **{entry: [_P] * 8 + [_I] * 5 + [_P, _P]
                   for entry in _MAMBA_ENTRIES.values()}}
 _BWD_SIGNATURES = {"mamba_scan_bwd": [_P] * 17 + [_I] * 5 + [_P],
-                   "rwkv_scan_bwd": [_P] * 16 + [_I] * 5 + [_P]}
+                   "rwkv_scan_bwd": [_P] * 16 + [_I] * 5 + [_P],
+                   "mamba_scan_bwd_chunk": [_P] * 18 + [_I] * 5 + [_P],
+                   "rwkv_scan_bwd_chunk": [_P] * 17 + [_I] * 3 + [_P]}
+# channels a block of the chunked Mamba backward sums dB and dC over before
+# it writes a partial (csrc/linear_scan_bwd.cu MCH)
+MAMBA_BWD_CHANNELS = 64
 
 
 # --------------------------------------------------------------------------
@@ -248,6 +256,18 @@ def _mamba_route(dtype: torch.dtype, N: int, S: int) -> str:
     return "serial"
 
 
+def _mamba_bwd_route(dtype: torch.dtype, N: int) -> str:
+    """The backward kernel that takes a CUDA Mamba call: ``"chunk"`` (the
+    chunk-parallel backward: each chunk's adjoint from zero, a reverse
+    carry across chunks, then every chunk's gradients from its checkpoint
+    and its true adjoint) at N = :data:`MAMBA_SEG_WIDTH`, bfloat16 and
+    float32, at any S: it reads only the checkpoints, which every forward
+    route writes; ``"serial"`` (a block walks every chunk in turn) at the
+    other built state size. What neither takes raises ValueError."""
+    _mamba_route(dtype, N, 1)            # raises where no kernel takes it
+    return "chunk" if N == MAMBA_SEG_WIDTH else "serial"
+
+
 def _wants_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
@@ -380,13 +400,17 @@ def mamba_scan_bwd(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
     final state's ``dh`` (B, Di, N) or None: (d delta, dA, dBt, dCt, dx,
     dh0), each in its input's dtype (dh0 float32, None where h0 is).
 
-    A CPU tensor goes to :func:`mamba_scan_bwd_plain`; a CUDA tensor to
-    ``mamba_scan_bwd`` of ``csrc/linear_scan_bwd.cu``, which recomputes the
-    states from ``ckpt`` (B, ceil(S / CHUNK), Di, N) float32, the forward
-    kernel's checkpoints, and takes what the forward takes, float32 A, dh
-    and ckpt, contiguous dy in x's dtype, and raises ValueError on anything
-    else. ``launches`` counts its calls (each launches the kernel and three
-    passes that add the partial sums of dBt, dCt and dA in a fixed order).
+    A CPU tensor goes to :func:`mamba_scan_bwd_plain`; a CUDA tensor to the
+    kernel of its route (:func:`_mamba_bwd_route`) in
+    ``csrc/linear_scan_bwd.cu``, which recomputes the states from ``ckpt``
+    (B, ceil(S / CHUNK), Di, N) float32, the forward kernel's checkpoints,
+    and takes what the forward takes, float32 A, dh and ckpt, contiguous dy in x's dtype (the chunked
+    route Di a multiple of 8 and 16-byte aligned tensors), and raises
+    ValueError on anything else. ``launches`` counts its calls,
+    ``launches_by_route`` each route's (the serial route launches its
+    kernel and three passes that add the partial sums of dBt, dCt and dA
+    in a fixed order; the chunked route its three steps and the same
+    three passes).
     """
     B, S, Di, N = _check_mamba_shapes(delta, A, Bt, Ct, x, h0)
     if tuple(dy.shape) != (B, S, Di) or (
@@ -396,7 +420,7 @@ def mamba_scan_bwd(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
                          f"fit delta {tuple(delta.shape)}")
     if delta.device.type == "cpu":
         return mamba_scan_bwd_plain(delta, A, Bt, Ct, x, h0, dy, dh)
-    _mamba_route(x.dtype, N, S)
+    route = _mamba_bwd_route(x.dtype, N)
     NC = -(-S // CHUNK)
     if ckpt is None or tuple(ckpt.shape) != (B, NC, Di, N):
         raise ValueError(f"the backward kernel needs the forward's "
@@ -405,37 +429,55 @@ def mamba_scan_bwd(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
         raise ValueError("mamba backward kernel takes delta, x, Bt, Ct, dy "
                          "of one dtype")
     f32 = [A, ckpt] + ([] if dh is None else [dh])
-    for t in [delta, x, Bt, Ct, dy] + f32:
+    tensors = [delta, x, Bt, Ct, dy] + f32
+    for t in tensors:
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("mamba backward kernel takes contiguous tensors "
                              "on one device")
     if any(t.dtype != torch.float32 for t in f32):
         raise ValueError("mamba backward kernel takes float32 A, ckpt, dh")
-    nw = -(-Di // 32)
+    if route == "chunk" and (Di % 8 or any(t.data_ptr() % 16
+                                           for t in tensors)):
+        raise ValueError("the chunked mamba backward route takes Di a "
+                         "multiple of 8 and 16-byte aligned tensors")
     f = dict(dtype=torch.float32, device=x.device)
     d_delta, d_x = torch.empty_like(delta), torch.empty_like(x)
     dB, dC = torch.empty_like(Bt), torch.empty_like(Ct)
     dA = torch.empty((Di, N), **f)
     dh0 = torch.empty((B, Di, N), **f)
-    hist = torch.empty((B, nw, CHUNK, N, 32), **f)
-    dbc_part = torch.empty((nw, 2, B, S, N), **f)
-    dA_part = torch.empty((B, Di, N), **f)
-    lib = build.library("linear_scan_bwd", _BWD_SIGNATURES)
-    with torch.cuda.device(x.device):
-        rc = lib.mamba_scan_bwd(
-            delta.data_ptr(), x.data_ptr(), A.data_ptr(), Bt.data_ptr(),
+    ptrs = (delta.data_ptr(), x.data_ptr(), A.data_ptr(), Bt.data_ptr(),
             Ct.data_ptr(), ckpt.data_ptr(), dy.data_ptr(),
             None if dh is None else dh.data_ptr(), d_delta.data_ptr(),
             d_x.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-            dh0.data_ptr(), hist.data_ptr(), dbc_part.data_ptr(),
-            dA_part.data_ptr(), _DTYPES[x.dtype], B, S, Di, N,
-            build.stream_ptr(x.device))
-    build.check(lib, rc, "mamba_scan_bwd")
-    build.count_launch(mamba_scan_bwd)
+            dh0.data_ptr())
+    lib = build.library("linear_scan_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(x.device):
+        if route == "chunk":
+            parts = -(-Di // MAMBA_BWD_CHANNELS)
+            L = torch.empty((B, NC, Di, N), **f)
+            sumd = torch.empty((B, NC, Di), **f)
+            dbc_part = torch.empty((parts, 2, B, S, N), **f)
+            dA_part = torch.empty((B, NC, Di, N), **f)
+            rc = lib.mamba_scan_bwd_chunk(
+                *ptrs, L.data_ptr(), sumd.data_ptr(), dbc_part.data_ptr(),
+                dA_part.data_ptr(), _DTYPES[x.dtype], B, S, Di, N,
+                build.stream_ptr(x.device))
+        else:
+            nw = -(-Di // 32)
+            hist = torch.empty((B, nw, CHUNK, N, 32), **f)
+            dbc_part = torch.empty((nw, 2, B, S, N), **f)
+            dA_part = torch.empty((B, Di, N), **f)
+            rc = lib.mamba_scan_bwd(
+                *ptrs, hist.data_ptr(), dbc_part.data_ptr(),
+                dA_part.data_ptr(), _DTYPES[x.dtype], B, S, Di, N,
+                build.stream_ptr(x.device))
+    build.check(lib, rc, f"mamba_scan_bwd ({route})")
+    build.count_launch(mamba_scan_bwd, route)
     return d_delta, dA, dB, dC, d_x, None if h0 is None else dh0
 
 
 mamba_scan_bwd.launches = 0
+mamba_scan_bwd.launches_by_route = {"chunk": 0, "serial": 0}
 
 
 def mamba_decode_step(delta: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor,
@@ -492,6 +534,20 @@ def _route(dtype: torch.dtype, K: int, V: int, S: int) -> str:
     if dtype == torch.bfloat16 and K == CHUNK_WIDTH and S >= CHUNK_MIN_S:
         return "chunk"
     return "serial"
+
+
+def _rwkv_bwd_route(dtype: torch.dtype, K: int, V: int) -> str:
+    """The backward kernel that takes a CUDA RWKV6 call: ``"chunk"`` (the
+    chunk-parallel backward: each chunk's adjoint contribution on the
+    tensor cores, a reverse carry across chunks, then every chunk's
+    gradients from its checkpoint and its true adjoint) for bfloat16 at K =
+    V = :data:`CHUNK_WIDTH`, at any S: it reads only the checkpoints, which
+    every forward route writes; ``"serial"`` (a block walks every chunk in
+    turn) for float32 and the other built width. What neither takes raises
+    ValueError."""
+    _route(dtype, K, V, 1)               # raises where no kernel takes it
+    return ("chunk" if dtype == torch.bfloat16 and K == CHUNK_WIDTH
+            else "serial")
 
 
 def rwkv_scan_plain(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,
@@ -710,14 +766,17 @@ def rwkv_scan_bwd(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,
     final state's ``dh`` (B, H, K, V) or None: (dr, dw, dk, dv, du, dh0),
     each in its input's dtype (dh0 float32, None where h0 is).
 
-    A CPU tensor goes to :func:`rwkv_scan_bwd_plain`; a CUDA tensor to
-    ``rwkv_scan_bwd`` of ``csrc/linear_scan_bwd.cu``, which recomputes the
-    states from ``ckpt`` (B, H, ceil(S / CHUNK), K, V) float32, the forward
-    kernel's checkpoints, and takes what the serial forward takes (K = V in
-    :data:`WIDTHS`), float32 u, dh and ckpt, contiguous do in v's dtype,
-    and raises ValueError on anything else. ``launches`` counts its calls
-    (each launches the kernel and one pass that adds du's per-row sums in a
-    fixed order)."""
+    A CPU tensor goes to :func:`rwkv_scan_bwd_plain`; a CUDA tensor to the
+    kernel of its route (:func:`_rwkv_bwd_route`) in
+    ``csrc/linear_scan_bwd.cu``, which recomputes the states from ``ckpt``
+    (B, H, ceil(S / CHUNK), K, V) float32, the forward kernel's
+    checkpoints, and takes what the serial forward takes (K = V in :data:`WIDTHS`), float32 u, dh and ckpt,
+    contiguous do in v's dtype, 16-byte aligned ckpt (the chunked route
+    every tensor 16-byte aligned), and raises ValueError on anything else.
+    ``launches`` counts its calls, ``launches_by_route`` each route's (the
+    serial route launches its kernel and one pass that adds du's per-row
+    sums in a fixed order; the chunked route its three steps and that
+    pass)."""
     B, S, H, K, V = _check_shapes(r, w, k, v, u, h0)
     if tuple(do.shape) != (B, S, H, V) or (
             dh is not None and tuple(dh.shape) != (B, H, K, V)):
@@ -726,7 +785,7 @@ def rwkv_scan_bwd(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,
                          f"fit r {tuple(r.shape)}")
     if r.device.type == "cpu":
         return rwkv_scan_bwd_plain(r, w, k, v, u, h0, do, dh)
-    _route(r.dtype, K, V, S)
+    route = _rwkv_bwd_route(r.dtype, K, V)
     NC = -(-S // CHUNK)
     if ckpt is None or tuple(ckpt.shape) != (B, H, NC, K, V):
         raise ValueError(f"the backward kernel needs the forward's "
@@ -735,36 +794,49 @@ def rwkv_scan_bwd(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,
         raise ValueError("rwkv backward kernel takes r, k, v, do of one "
                          "dtype")
     f32 = [w, u, ckpt] + ([] if dh is None else [dh])
-    for t in [r, k, v, do] + f32:
+    tensors = [r, k, v, do] + f32
+    for t in tensors:
         if t.device != r.device or not t.is_contiguous():
             raise ValueError("rwkv backward kernel takes contiguous tensors "
                              "on one device")
     if any(t.dtype != torch.float32 for t in f32):
         raise ValueError("rwkv backward kernel takes float32 w, u, ckpt, dh")
-    if ckpt.data_ptr() % 16:
-        raise ValueError("rwkv backward kernel takes 16-byte aligned ckpt")
+    aligned = tensors if route == "chunk" else [ckpt]
+    if any(t.data_ptr() % 16 for t in aligned):
+        raise ValueError(f"the {route} rwkv backward route takes 16-byte "
+                         f"aligned {'tensors' if route == 'chunk' else 'ckpt'}")
     f = dict(dtype=torch.float32, device=r.device)
     dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
     dw = torch.empty_like(w)
     du = torch.empty((H, K), **f)
     dh0 = torch.empty((B, H, K, V), **f)
-    hist = torch.empty((B, H, CHUNK, K, V), **f)
-    du_part = torch.empty((B, H, K), **f)
-    lib = build.library("linear_scan_bwd", _BWD_SIGNATURES)
-    with torch.cuda.device(r.device):
-        rc = lib.rwkv_scan_bwd(
-            r.data_ptr(), w.data_ptr(), k.data_ptr(), v.data_ptr(),
+    ptrs = (r.data_ptr(), w.data_ptr(), k.data_ptr(), v.data_ptr(),
             u.data_ptr(), ckpt.data_ptr(), do.data_ptr(),
             None if dh is None else dh.data_ptr(), dr.data_ptr(),
             dw.data_ptr(), dk.data_ptr(), dv.data_ptr(), du.data_ptr(),
-            dh0.data_ptr(), hist.data_ptr(), du_part.data_ptr(),
-            _DTYPES[r.dtype], B, S, H, K, build.stream_ptr(r.device))
-    build.check(lib, rc, "rwkv_scan_bwd")
-    build.count_launch(rwkv_scan_bwd)
+            dh0.data_ptr())
+    lib = build.library("linear_scan_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(r.device):
+        if route == "chunk":
+            R = torch.empty((B, H, NC, K, V), **f)
+            P = torch.empty((B, H, NC, K), **f)
+            du_part = torch.empty((B, NC, H, K), **f)
+            rc = lib.rwkv_scan_bwd_chunk(
+                *ptrs, R.data_ptr(), P.data_ptr(), du_part.data_ptr(), B, S,
+                H, build.stream_ptr(r.device))
+        else:
+            hist = torch.empty((B, H, CHUNK, K, V), **f)
+            du_part = torch.empty((B, H, K), **f)
+            rc = lib.rwkv_scan_bwd(
+                *ptrs, hist.data_ptr(), du_part.data_ptr(), _DTYPES[r.dtype],
+                B, S, H, K, build.stream_ptr(r.device))
+    build.check(lib, rc, f"rwkv_scan_bwd ({route})")
+    build.count_launch(rwkv_scan_bwd, route)
     return dr, dw, dk, dv, du, None if h0 is None else dh0
 
 
 rwkv_scan_bwd.launches = 0
+rwkv_scan_bwd.launches_by_route = {"chunk": 0, "serial": 0}
 
 
 def rwkv_decode_step(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor,

@@ -112,3 +112,26 @@ def test_train_want_puts_each_backward_on_its_route(arch, route):
     assert want["flash_attention_bwd"] == {
         r: n if r == route else 0
         for r in fa.flash_attention_bwd.launches_by_route}
+
+
+@pytest.mark.parametrize("arch,kind", [("rwkv6-3b", "rwkv"),
+                                       ("jamba-v0.1-52b", "mamba")])
+def test_train_want_puts_each_scan_backward_on_its_chunked_route(arch, kind):
+    """Each scan layer's backward once a step on the chunked route that
+    training's widths take (``linear_scan._rwkv_bwd_route`` /
+    ``_mamba_bwd_route`` in bf16), none on the serial
+    kernel; the routes are the wrapper's own."""
+    from repro_torch.kernels import linear_scan as ls
+    cfg = cs.train_cfg(get_config(arch), 2 if kind == "rwkv" else 3)
+    want = cs.train_want(cfg)
+    n = sum(s.kind == kind for s in cfg.block_pattern) * cfg.n_repeats \
+        * cs.TRAIN_STEPS
+    if kind == "rwkv":
+        taken = ls._rwkv_bwd_route(torch.bfloat16, cfg.head_dim,
+                                   cfg.head_dim)
+    else:
+        taken = ls._mamba_bwd_route(torch.bfloat16, cs.MAMBA_N)
+    wrapper = getattr(ls, f"{kind}_scan_bwd")
+    assert taken == "chunk"
+    assert want[f"{kind}_scan_bwd"] == {
+        r: n if r == taken else 0 for r in wrapper.launches_by_route}

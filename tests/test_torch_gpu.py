@@ -9,6 +9,8 @@ conftest imports the JAX package):
 
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -1063,16 +1065,35 @@ def test_mamba_scan_kernel_rejects_what_it_does_not_take(cuda):
 
 
 # the scan backward kernels: (kind, B, S, (H, K) or (Di, N), dtype, the
-# forward route whose checkpoints they read)
+# forward route whose checkpoints they read); the chunked backwards take
+# their widths at any S, behind any forward route
 SCAN_BWD_CASES = [("rwkv", 1, 130, (40, 64), torch.bfloat16, "chunk"),
+                  ("rwkv", 2, 65, (8, 64), torch.bfloat16, "chunk"),
+                  ("rwkv", 2, 20, (8, 64), torch.bfloat16, "serial"),
+                  ("rwkv", 3, 1, (8, 64), torch.bfloat16, "serial"),
                   ("rwkv", 2, 37, (4, 16), torch.bfloat16, "serial"),
                   ("rwkv", 2, 70, (8, 64), torch.float32, "serial"),
                   ("mamba", 2, 130, (256, 16), torch.bfloat16, "segmented"),
+                  ("mamba", 2, 70, (256, 16), torch.float32, "segmented"),
                   ("mamba", 2, 5, (256, 16), torch.float32, "serial"),
                   ("mamba", 3, 1, (256, 16), torch.bfloat16, "step"),
                   ("mamba", 2, 45, (128, 4), torch.float32, "serial")]
 # relative to the largest gradient, as flash's backward is held
 BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _bwd_routes(kind, dims, dtype):
+    """The backward routes that take a case: the one its shape takes (a
+    pure function of the shape) first, then the serial route, which takes
+    every built shape, where it is another."""
+    route = (ls._rwkv_bwd_route(dtype, dims[1], dims[1]) if kind == "rwkv"
+             else ls._mamba_bwd_route(dtype, dims[1]))
+    return [route] + (["serial"] if route != "serial" else [])
+
+
+# each case on every backward route that takes it
+SCAN_BWD_ROUTE_CASES = [case + (bwd,) for case in SCAN_BWD_CASES
+                        for bwd in _bwd_routes(case[0], case[3], case[4])]
 
 
 def _scan_bwd_inputs(kind, B, S, dims, dtype, device):
@@ -1081,27 +1102,69 @@ def _scan_bwd_inputs(kind, B, S, dims, dtype, device):
     return list(_mamba_inputs(B, S, *dims, dtype, device))
 
 
-@pytest.mark.parametrize("kind,B,S,dims,dtype,route", SCAN_BWD_CASES)
+def _scan_bwd_thunk(kind, ins, dy, dh, bwd_route):
+    """The ``kind`` backward wrapper on ``bwd_route`` at ``ins``, ``dy`` and
+    ``dh``, from the checkpoints of the forward route the shape takes
+    (launched once, here): the wrapper's route chooser answers
+    ``bwd_route`` for the length of each call."""
+    if kind == "rwkv":
+        r, w, k, v, u, h0 = ins
+        uf, state = u.float(), torch.empty_like(h0)
+        _, ckpt = ls._launch(ls._route(r.dtype, r.shape[3], v.shape[3],
+                                       r.shape[1]), r, w, k, v, uf, h0,
+                             state, True)
+        call = lambda: ls.rwkv_scan_bwd(r, w, k, v, uf, h0, dy, dh,
+                                        ckpt=ckpt)
+    else:
+        delta, A, Bt, Ct, x, h0 = ins
+        B, S, Di = delta.shape
+        state = torch.empty_like(h0)
+        ckpt = torch.empty((B, -(-S // ls.CHUNK), Di, A.shape[1]),
+                           device=x.device)
+        ls._launch_mamba(ls._mamba_route(x.dtype, A.shape[1], S), delta, x,
+                         A, Bt, Ct, h0, state, ckpt)
+        call = lambda: ls.mamba_scan_bwd(delta, A, Bt, Ct, x, h0, dy, dh,
+                                         ckpt=ckpt)
+
+    def forced():
+        with mock.patch.object(ls, f"_{kind}_bwd_route",
+                               lambda *args: bwd_route):
+            return call()
+    return forced
+
+
+@pytest.mark.parametrize("kind,B,S,dims,dtype,route,bwd_route",
+                         SCAN_BWD_ROUTE_CASES)
 def test_scan_backward_kernels_vs_plain_formulas(cuda, kind, B, S, dims,
-                                                 dtype, route):
+                                                 dtype, route, bwd_route):
     """Autograd through the forward wrapper (its route, asked for the
-    checkpoints) launches the backward kernel once; its gradients, with a
-    non-zero h0 and a final-state gradient, within BWD_RTOL of the plain
-    formulas' on the same inputs."""
+    checkpoints) launches the backward route the shape takes once; the
+    serial route, where it is another, is forced on the same checkpoints
+    by the wrapper's route chooser; the
+    gradients, with a non-zero h0 and a final-state gradient, within
+    BWD_RTOL of the plain formulas' on the same inputs."""
     ins = _scan_bwd_inputs(kind, B, S, dims, dtype, cuda)
     fwd, bwd = ((ls.rwkv_scan, ls.rwkv_scan_bwd) if kind == "rwkv"
                 else (ls.mamba_scan, ls.mamba_scan_bwd))
     plain = (ls.rwkv_scan_bwd_plain if kind == "rwkv"
              else ls.mamba_scan_bwd_plain)
-    leaves = [t.detach().requires_grad_() for t in ins]
-    n_f, n_b = fwd.launches_by_route[route], bwd.launches
-    y, h = fwd(*leaves)
     g = _gen(5)
-    dy = torch.randn(y.shape, generator=g).to(cuda, dtype)
-    dh = torch.randn(h.shape, generator=g).to(cuda)
-    got = torch.autograd.grad((y, h), leaves, (dy, dh))
-    assert fwd.launches_by_route[route] == n_f + 1
-    assert bwd.launches == n_b + 1
+    out_shape = ins[3].shape if kind == "rwkv" else ins[4].shape
+    dy = torch.randn(out_shape, generator=g).to(cuda, dtype)
+    dh = torch.randn(ins[5].shape, generator=g).to(cuda)
+    n_f, n_b = fwd.launches_by_route[route], bwd.launches_by_route[bwd_route]
+    if bwd_route == _bwd_routes(kind, dims, dtype)[0]:
+        leaves = [t.detach().requires_grad_() for t in ins]
+        y, h = fwd(*leaves)
+        got = torch.autograd.grad((y, h), leaves, (dy, dh))
+        assert fwd.launches_by_route[route] == n_f + 1
+    else:
+        got = list(_scan_bwd_thunk(kind, ins, dy, dh, bwd_route)())
+        # the wrapper takes u (A) widened to float32; autograd narrows its
+        # gradient back through the widening
+        got[4 if kind == "rwkv" else 1] = got[4 if kind == "rwkv" else 1] \
+            .to(ins[4 if kind == "rwkv" else 1].dtype)
+    assert bwd.launches_by_route[bwd_route] == n_b + 1
     want = plain(*ins, dy, dh)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.isfinite(a.float()).all()
@@ -1110,32 +1173,29 @@ def test_scan_backward_kernels_vs_plain_formulas(cuda, kind, B, S, dims,
             <= BWD_RTOL[dtype] * top
 
 
-@pytest.mark.parametrize("kind", ["rwkv", "mamba"])
-def test_scan_backwards_replay_in_a_cuda_graph_bit_exactly(cuda, kind):
-    """Each backward captured in a CUDA graph (workspaces made at capture)
-    gives, replayed, the bits of the eager call: its sums over blocks are
-    partials added in a fixed order, no atomics."""
+@pytest.mark.parametrize("kind,bwd_route", [("rwkv", "chunk"),
+                                            ("rwkv", "serial"),
+                                            ("mamba", "chunk"),
+                                            ("mamba", "serial")])
+def test_scan_backwards_replay_in_a_cuda_graph_bit_exactly(cuda, kind,
+                                                           bwd_route):
+    """Each backward route captured in a CUDA graph (workspaces made at
+    capture) gives, replayed, the bits of the eager call, and a second
+    eager call the bits of the first: its sums over blocks are partials
+    added in a fixed order, no atomics."""
     if kind == "rwkv":
-        r, w, k, v, u, h0 = _scan_inputs(2, 100, 40, 64, torch.bfloat16, cuda)
-        uf, state = u.float(), torch.empty_like(h0)
-        o, ckpt = ls._launch("chunk", r, w, k, v, uf, h0, state, True)
-        do = torch.randn(o.shape, generator=_gen(3)).to(cuda, o.dtype)
-
-        def call():
-            return ls.rwkv_scan_bwd(r, w, k, v, uf, h0, do, state, ckpt=ckpt)
+        ins = list(_scan_inputs(2, 100, 40, 64, torch.bfloat16, cuda))
+        dy = torch.randn(ins[3].shape, generator=_gen(3)).to(cuda,
+                                                             torch.bfloat16)
     else:
-        delta, A, Bt, Ct, x, h0 = _mamba_inputs(2, 100, 512, 16,
-                                                torch.bfloat16, cuda)
-        state = torch.empty_like(h0)
-        ckpt = torch.empty((2, 2, 512, 16), device=cuda)
-        y = ls._launch_mamba("segmented", delta, x, A, Bt, Ct, h0, state,
-                             ckpt)
-        dy = torch.randn(y.shape, generator=_gen(3)).to(cuda, y.dtype)
-
-        def call():
-            return ls.mamba_scan_bwd(delta, A, Bt, Ct, x, h0, dy, state,
-                                     ckpt=ckpt)
+        ins = list(_mamba_inputs(2, 100, 512, 16, torch.bfloat16, cuda))
+        dy = torch.randn(ins[4].shape, generator=_gen(3)).to(cuda,
+                                                             torch.bfloat16)
+    dh = torch.randn(ins[5].shape, generator=_gen(4)).to(cuda)
+    call = _scan_bwd_thunk(kind, ins, dy, dh, bwd_route)
     eager = call()
+    again = call()
+    assert all(torch.equal(a, e) for a, e in zip(again, eager))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -1150,14 +1210,28 @@ def test_scan_backwards_replay_in_a_cuda_graph_bit_exactly(cuda, kind):
 
 
 def test_scan_backwards_reject_what_they_do_not_take(cuda):
-    """The backward kernels need the forward's checkpoints; a scan under
-    grad takes no state_out."""
+    """The backward kernels need the forward's checkpoints; a width no
+    route takes raises (the route functions); the chunked Mamba route takes
+    Di a multiple of 8; a scan under grad takes no state_out."""
     r, w, k, v, u, h0 = _scan_inputs(1, 8, 2, 64, torch.float32, cuda)
     with pytest.raises(ValueError, match="checkpoints"):
         ls.rwkv_scan_bwd(r, w, k, v, u.float(), h0, v)
+    r, w, k, v, u, h0 = _scan_inputs(1, 8, 2, 32, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="K = V in"):      # K = 32: not built
+        ls.rwkv_scan_bwd(r, w, k, v, u.float(), h0, v,
+                         ckpt=torch.zeros((1, 2, 1, 32, 32), device=cuda))
     delta, A, Bt, Ct, x, h0 = _mamba_inputs(1, 8, 64, 4, torch.float32, cuda)
     with pytest.raises(ValueError, match="checkpoints"):
         ls.mamba_scan_bwd(delta, A, Bt, Ct, x, h0, x)
+    d8, A8, B8, C8, x8, h8 = _mamba_inputs(1, 8, 64, 8, torch.float32, cuda)
+    with pytest.raises(ValueError, match="N in"):          # N = 8: not built
+        ls.mamba_scan_bwd(d8, A8, B8, C8, x8, h8, x8,
+                          ckpt=torch.zeros((1, 1, 64, 8), device=cuda))
+    d16, A16, B16, C16, x16, h16 = _mamba_inputs(1, 8, 100, 16,
+                                                 torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):  # Di = 100
+        ls.mamba_scan_bwd(d16, A16, B16, C16, x16, h16, x16,
+                          ckpt=torch.zeros((1, 1, 100, 16), device=cuda))
     with pytest.raises(ValueError, match="state_out"):
         ls.mamba_scan(delta, A, Bt, Ct, x.requires_grad_(), h0,
                       state_out=torch.empty_like(h0))
