@@ -18,9 +18,10 @@ Phases, each fatal on failure:
      at 1080p, vec4 and scalar on ragged frames and offset inputs, strided
      views through the wrapper's copy; the IoU equal to its transpose, on
      boxes with ties and on boxes that all overlap; both bit-equal across CUDA-graph
-     replays); both routes of each kernel that has two (matmul: the one-launch
-     skinny kernel for M <= 8, bit-equal on a repeat and a CUDA-graph
-     replay, and the tiled one; attention: tensor cores for bf16 at the
+     replays); the routes of each kernel that has more than one (matmul:
+     the one-launch skinny kernel for M <= 8 and the rows kernel for 9 to
+     64 rows (the serving cluster's batches), each bit-equal on a repeat
+     and a CUDA-graph replay, and the tiled one; attention: tensor cores for bf16 at the
      built widths, CUDA cores for fp32 and other widths; the RWKV6 scan:
      the chunked scan for bf16 prefills from linear_scan.CHUNK_MIN_S
      steps on, the serial one for the rest; the Mamba scan: the
@@ -28,9 +29,10 @@ Phases, each fatal on failure:
      steps on and the lane-split step for S = 1 at N = 16, with steps
      that drive exp(delta A) to 0 and denormals, the serial kernel for
      the rest; the flash backward at llama3-8b's training shape and
-     whisper's encoder, and its split route at gemma3-12b's and
-     deepseek-v2-236b's training shapes, past gemma3's window at S = 2,048,
-     ragged and offset, each a CUDA-graph replay bit-equal; decode at
+     whisper's encoder, its split route at gemma3-12b's training shape,
+     past gemma3's window at S = 2,048, ragged and offset, and its kv128
+     route at deepseek-v2-236b's (MLA) and S = 37, with the split route
+     forced there too, each a CUDA-graph replay bit-equal; decode at
      G = 1); the two scan backwards (``csrc/linear_scan_bwd.cu``), on
      each route that takes a case (the chunk-parallel one training takes,
      the serial one), under autograd of the forward wrappers and forced,
@@ -95,7 +97,9 @@ Phases, each fatal on failure:
      them in the same run), and profile the
      device's busy share of a pipeline run (which must launch no second
      matmul pass) and of each arch's serve run; the matmul also at the
-     cluster's replica batches (16, 32, 64 rows: the tile route);
+     cluster's replica batches (16, 32, 64 rows: the rows route, in turns
+     with the tile route it replaced, forced); MLA's backward on its kv128
+     route in turns with the split route it replaced, forced;
   8. run the serving cluster's default deployment (8 replicas, 4
      producers, 3 brokers, 1 drive) with real-service replicas on the card
      at S = 4 under each placement, matmul and YUV counters set to 0 after
@@ -162,7 +166,8 @@ Phases, each fatal on failure:
      at bf16 widths no route takes (``--train`` runs the phase alone, after
      the attention and scan-backward checks). The flash backward kernel
      (wgmma for bf16 at D = Dv in {64, 128}, the split wgmma kernel for
-     bf16 at (256, 256) and (192, 128), mma.sync at other multiples of 16
+     bf16 at (256, 256), the kv128 wgmma kernel for bf16 at (192, 128),
+     mma.sync at other multiples of 16
      up to 128, the CUDA cores otherwise) is held against its plain
      formulas and autograd of the plain forward in phase 2 (2e-2 of the
      largest gradient in bf16, 1e-4 in fp32) and timed in phase 7 beside
@@ -376,12 +381,14 @@ TC_GATES = {"flash_attention": ("wgmma", "prefills"),
 MLA_GATES = {"flash_attention": ("wgmma", "prefills"),
              "decode_attention": (None, "ticks")}
 # kernel instantiations whose ptxas report must show no spill: the MLA
-# forward at (192, 128), the wgmma backward at both widths and the split
-# backward at gemma3's and MLA's
+# forward at (192, 128), the wgmma backward at both widths, the split
+# backward at gemma3's and MLA's, MLA's kv128 backward and the matmul's
+# rows kernel
 NO_SPILL = ("flash_wgmma_kernelILi192ELi128E", "flash_bwd_wgmma_kernelILi64E",
             "flash_bwd_wgmma_kernelILi128E",
             "flash_bwd_split_kernelILi256ELi256E",
-            "flash_bwd_split_kernelILi192ELi128E")
+            "flash_bwd_split_kernelILi192ELi128E", "flash_bwd_kv128_kernel",
+            "matmul_rows_kernel")
 SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_MAX_TOKENS = 8, 2048, 16, 32
 # bytes read between calls to time a kernel with a cold (50 MB) L2
 L2_FLUSH_BYTES = 128 << 20
@@ -441,6 +448,9 @@ CLUSTER_BRACKET = (0.65, 1.4)
 CLUSTER_KNEE_COMPRESSION = 1.0
 # the argument that runs phase 8 alone, and the seconds its process may take
 CLUSTER_ONLY, CLUSTER_TIMEOUT_S = "--cluster", 600
+# where phase 8's process leaves the matmul's launches by route over its
+# two S = 4 runs, for the kernels line of the process that started it
+CLUSTER_LAUNCHES = ROOT / "build" / "cluster_launches.json"
 # the arguments that run phase 10 (whisper) or phase 11 (training) alone,
 # after the build and the kernel checks of their kernels
 WHISPER_ONLY, TRAIN_ONLY, COST_ONLY = "--whisper", "--train", "--cost"
@@ -719,13 +729,19 @@ def check_kernels(device) -> dict[str, float]:
     from repro_torch.kernels import preproc, resize
     err = {}
 
-    worst = 0.0
+    worst = rows_worst = 0.0
     # the skinny route at the path's three products, a ragged one with bias
-    # and tanh; the tile route ragged with its K split and unsplit
+    # and tanh; the rows route at the cluster's two products and batches,
+    # ragged (M, K and N off its tiles: its scalar copies) and with bias;
+    # the tile route ragged with its K split and unsplit
     cases = [(M, K, N, epi, False) for K, N, epi in MATMUL_SHAPES
              for M in SKINNY_CHECK_M]
-    cases += [(5, 200, 37, "tanh", True), (8, 48 * 48 * 3, 256, "tanh", True),
-              (13, 200, 37, "tanh", True), (2048, 256, 256, "tanh", True)]
+    cases += [(5, 200, 37, "tanh", True), (8, 48 * 48 * 3, 256, "tanh", True)]
+    cases += [(M, K, N, epi, False) for K, N, epi in MATMUL_SHAPES[:2]
+              for M in CLUSTER_BATCHES]
+    cases += [(13, 200, 37, "tanh", True), (33, 3072, 256, "none", True),
+              (64, 48 * 48 * 3, 256, "tanh", True),
+              (100, 200, 37, "tanh", True), (2048, 256, 256, "tanh", True)]
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     for M, K, N, epi, bias in cases:
         a, b, c = matmul_inputs(M, K, N, bias, device)
@@ -735,9 +751,7 @@ def check_kernels(device) -> dict[str, float]:
         again = mm.matmul(a, b, bias=c, epilogue=epi)
         want = mm.matmul_plain(a, b, bias=c, epilogue=epi)
         e = (got - want).abs().max().item()
-        plan = (f"cluster, k_chunk={mm.skinny_plan(N, K, n_sm)}"
-                if route == "skinny" else
-                f"splits={mm.split_k(M, N, K, n_sm)[0]}")
+        plan = f"plan {mm.matmul.last_plan}"
         same = bool(torch.equal(got, again))
         print(f"check matmul ({route} route) ({M},{K})@({K},{N}) bias={bias} "
               f"{epi} {plan}: max_abs_err={e:.3e}; repeat bit-equal: {same}")
@@ -746,18 +760,25 @@ def check_kernels(device) -> dict[str, float]:
         require(torch.allclose(got, want, atol=MATMUL_ATOL, rtol=MATMUL_RTOL),
                 f"matmul ({M},{K},{N}) disagrees: {e}")
         require(same, f"matmul ({M},{K},{N}): a repeat differs")
-        worst = max(worst, e)
-    require(mm.split_k(13, 37, 200, n_sm)[0] > 1
+        if route == "rows":
+            rows_worst = max(rows_worst, e)
+        else:
+            worst = max(worst, e)
+    require(mm.split_k(100, 37, 200, n_sm)[0] > 1
             and mm.split_k(2048, 256, 256, n_sm)[0] == 1,
             "the tile route's checks must cover a split and an unsplit K")
-    # the skinny route replayed in a CUDA graph: the same bits
-    a, b, c = matmul_inputs(8, 48 * 48 * 3, 256, True, device, seed=1)
-    same = replays_equal(lambda: mm.matmul(a, b, bias=c, epilogue="tanh"),
-                         lambda: a.mul_(-1.0))
-    print(f"check matmul (skinny route) (8,6912)@(6912,256) tanh, 3 CUDA-graph "
-          f"replays: bit-equal to the eager calls: {same}")
-    require(same, "matmul: a CUDA-graph replay of the skinny route differs")
+    # the skinny and rows routes replayed in a CUDA graph: the same bits
+    for M in (8, 64):
+        a, b, c = matmul_inputs(M, 48 * 48 * 3, 256, True, device, seed=1)
+        same = replays_equal(lambda: mm.matmul(a, b, bias=c, epilogue="tanh"),
+                             lambda: a.mul_(-1.0))
+        print(f"check matmul ({mm._route(M)} route) ({M},6912)@(6912,256) "
+              f"tanh, 3 CUDA-graph replays: bit-equal to the eager calls: "
+              f"{same}")
+        require(same, f"matmul: a CUDA-graph replay of the {mm._route(M)} "
+                "route differs")
     err["matmul"] = worst
+    err["matmul_rows"] = rows_worst
 
     err["yuv_to_rgb"] = check_yuv(device)
 
@@ -1078,22 +1099,25 @@ def bwd_case_inputs(device, dtype, B, Sq, Skv, heads, Dv, kw, seed=5):
 
 
 def _check_bwd_case(device, dtype, label, B, Sq, Skv, heads, Dv,
-                    kw) -> float:
-    """One flash backward call on its route against the plain formulas on
-    the same (o, lse) and autograd of the plain forward, within BWD_RTOL of
-    the largest gradient; the forward's lse against the plain one within
-    1e-4. Returns the largest absolute difference from the formulas."""
+                    kw, route=None) -> float:
+    """One flash backward call on its route (or on ``route``, forced)
+    against the plain formulas on the same (o, lse) and autograd of the
+    plain forward, within BWD_RTOL of the largest gradient; the forward's
+    lse against the plain one within 1e-4. Returns the largest absolute
+    difference from the formulas."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     name = str(dtype).split(".")[1]
     q, k, v, do, o, lse = bwd_case_inputs(device, dtype, B, Sq, Skv, heads,
                                           Dv, kw)
     Dv = v.shape[-1]
-    route = fa._bwd_route(dtype, q.shape[-1], Dv)
+    natural = fa._bwd_route(dtype, q.shape[-1], Dv)
+    route = route or natural
     e_lse = (lse - fa.flash_attention_lse_plain(q, k, v, **kw)
              ).abs().max().item()
     n = fa.flash_attention_bwd.launches_by_route[route]
-    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    with forced_route(fa, "_bwd_route", route):
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     require(fa.flash_attention_bwd.launches_by_route[route] == n + 1,
             f"flash_attention_bwd: the {route} route did not launch")
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
@@ -1113,7 +1137,8 @@ def _check_bwd_case(device, dtype, label, B, Sq, Skv, heads, Dv,
                 f"flash_attention_bwd {name} {label} d{gname}: "
                 f"{e_plain:.3e} (formulas), {e_auto:.3e} (autograd) "
                 f"against the largest gradient {top:.3e}")
-    print(f"check flash_attention_bwd {name} ({route} route) {label} "
+    print(f"check flash_attention_bwd {name} ({route} route"
+          f"{'' if route == natural else ', forced'}) {label} "
           f"q{tuple(q.shape)} kv{tuple(k.shape)}|{Dv} {kw}: max_abs_err vs "
           f"formulas / vs autograd of the plain forward: {'; '.join(errs)} "
           f"(tolerance {BWD_RTOL[name]} of the largest); forward lse "
@@ -1127,13 +1152,15 @@ def _check_bwd_case(device, dtype, label, B, Sq, Skv, heads, Dv,
 def check_flash_bwd(device) -> dict[str, float]:
     """The flash backward kernel at llama3-8b's training shape (causal) and
     whisper's encoder (non-causal), bf16 and fp32, plus a window, an offset
-    chunk and a ragged width; the split route (bf16) at BWD_SPLIT_CASES:
-    dQ, dK, dV against the plain formulas on the same (o, lse) and against
-    autograd of the plain forward, within BWD_RTOL of the largest gradient;
-    the forward's lse against the plain one; then the split route's
-    CUDA-graph replays (:func:`check_split_bwd_replay`). Returns the
-    largest absolute difference from the plain formulas of the first
-    three routes and of the split one."""
+    chunk and a ragged width; the wide routes (bf16) at BWD_SPLIT_CASES,
+    gemma3's on the split route, MLA's on the kv128 route and on the split
+    route forced (its earlier route): dQ, dK, dV against the plain formulas
+    on the same (o, lse) and against autograd of the plain forward, within
+    BWD_RTOL of the largest gradient; the forward's lse against the plain
+    one; then the wide routes' CUDA-graph replays
+    (:func:`check_split_bwd_replay`). Returns the largest absolute
+    difference from the plain formulas of the first three routes, of the
+    split one and of the kv128 one."""
     import torch
     worst = 0.0
     # (label, B, S, heads, causal, Dv, kwargs): in bf16 D = Dv = 64 or 128
@@ -1152,21 +1179,30 @@ def check_flash_bwd(device) -> dict[str, float]:
             worst = max(worst, _check_bwd_case(
                 device, dtype, label, B, S, S + kw.get("q_offset", 0), heads,
                 Dv, kw))
-    split = 0.0
+    from repro_torch.kernels import flash_attention as fa
+    wide = {"wgmma_split": 0.0, "wgmma_kv128": 0.0}
     for label, B, Sq, Skv, heads, Dv, kw in BWD_SPLIT_CASES:
-        split = max(split, _check_bwd_case(device, torch.bfloat16, label, B,
-                                           Sq, Skv, heads, Dv, kw))
+        route = fa._bwd_route(torch.bfloat16, heads[2], Dv or heads[2])
+        wide[route] = max(wide[route], _check_bwd_case(
+            device, torch.bfloat16, label, B, Sq, Skv, heads, Dv, kw))
+        if route == "wgmma_kv128":
+            wide["wgmma_split"] = max(wide["wgmma_split"], _check_bwd_case(
+                device, torch.bfloat16, label, B, Sq, Skv, heads, Dv, kw,
+                route="wgmma_split"))
     check_split_bwd_replay(device)
-    return {"flash_attention_bwd": worst, "flash_attention_bwd_split": split}
+    return {"flash_attention_bwd": worst,
+            "flash_attention_bwd_split": wide["wgmma_split"],
+            "flash_attention_bwd_kv128": wide["wgmma_kv128"]}
 
 
 def check_split_bwd_replay(device) -> None:
-    """The split backward at gemma3's and MLA's widths in CUDA graphs: with
-    one key tile (Skv <= 64, each dQ element one bulk add into the zeroed
-    buffer) every output bit-equal to the eager call across replays with
-    dO's sign flipped in between; at the training shapes dK and dV (summed
-    in registers) bit-equal, dQ's fp32 adds of several key tiles landing
-    in no fixed order."""
+    """The wide backward routes in CUDA graphs, gemma3's on the split
+    route and MLA's on the kv128 route: with one key tile (Skv <= 64 | 128,
+    each dQ element one bulk add into the zeroed buffer) every output
+    bit-equal to the eager call across replays with dO's sign flipped in
+    between; at the training shapes dK and dV (summed in registers)
+    bit-equal, dQ's fp32 adds of several key tiles landing in no fixed
+    order."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     for label, B, S, heads, Dv, kw in (
@@ -1185,7 +1221,8 @@ def check_split_bwd_replay(device) -> None:
             return torch.cat([t.reshape(-1) for t in fa.flash_attention_bwd(
                 q, k, v, o, lse, do, **kw)[first:]])
         same = replays_equal(call, lambda: do.mul_(-1.0))
-        print(f"check flash_attention_bwd bf16 (wgmma_split route) {label} "
+        route = fa._bwd_route(torch.bfloat16, heads[2], Dv or heads[2])
+        print(f"check flash_attention_bwd bf16 ({route} route) {label} "
               f"q{tuple(q.shape)} kv{tuple(k.shape)}|{v.shape[-1]}, 3 "
               f"CUDA-graph replays: bit-equal to the eager calls: {same}")
         require(same, f"flash_attention_bwd {label}: a CUDA-graph replay "
@@ -2397,16 +2434,21 @@ def bwd_work(q, k, v, kw: dict) -> tuple[int, int]:
     return nbytes, 2 * (3 * D + 2 * Dv) * B * H * visible
 
 
-# the split backward's timed rows, of BWD_SPLIT_CASES: gemma3-12b's and
-# deepseek-v2-236b's training shapes, and gemma3 at S = 2,048 past its
+# the wide backward routes' timed rows, of BWD_SPLIT_CASES: gemma3-12b's
+# and deepseek-v2-236b's training shapes, and gemma3 at S = 2,048 past its
 # window (SDPA given the window's explicit mask)
 BWD_SPLIT_TIMED = tuple(BWD_SPLIT_CASES[i] for i in (0, 1, 5))
 
 
 def time_split_bwd(device) -> dict:
-    """The split backward (bf16) at BWD_SPLIT_TIMED: kernel, plain formulas
-    and SDPA's eager backward (autograd) beside the bound (bwd_work).
-    Returns {"flash_attention_bwd_split": the first row's times}."""
+    """The wide backward routes (bf16) at BWD_SPLIT_TIMED: kernel on its
+    route (gemma3's split, MLA's kv128), plain formulas and SDPA's eager
+    backward (autograd) beside the bound (bwd_work); at MLA's shape also
+    the split route forced (its earlier route), timed in turns with the
+    kv128 one (kv128, split, kv128, split: ``ms`` and ``split_ms`` the
+    first of each, ``ms_again`` and ``split_ms_again`` the second).
+    Returns {"flash_attention_bwd_split": gemma3's training row,
+    "flash_attention_bwd_kv128": MLA's}."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     out = {}
@@ -2430,7 +2472,21 @@ def time_split_bwd(device) -> dict:
         print(f"time flash_attention_bwd yardstick SDPA backward (autograd, "
               f"eager{', explicit window mask' if mask is not None else ''}) "
               f"{label} bf16: {t['library_ms']:.6f} ms")
-        out.setdefault("flash_attention_bwd_split", t)
+        route = fa._bwd_route(q.dtype, q.shape[-1], v.shape[-1])
+        if route == "wgmma_kv128":
+            call = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            t["split_ms"] = forced_route_ms(fa, "_bwd_route", "wgmma_split",
+                                            call, iters=3)
+            t["ms_again"] = cuda_time_ms(call, iters=3)
+            t["split_ms_again"] = forced_route_ms(
+                fa, "_bwd_route", "wgmma_split", call, iters=3)
+            print(f"time flash_attention_bwd yardstick {label} bf16 on the "
+                  f"wgmma_split route (its earlier route), in turns with "
+                  f"wgmma_kv128: kv128 {t['ms']:.6f} | {t['ms_again']:.6f} "
+                  f"ms, split {t['split_ms']:.6f} | {t['split_ms_again']:.6f} "
+                  f"ms")
+        out.setdefault("flash_attention_bwd_"
+                       + ("kv128" if route == "wgmma_kv128" else "split"), t)
         del q, k, v, do, o, lse, mask
         torch.cuda.empty_cache()
     return out
@@ -2544,7 +2600,7 @@ def time_kernels(device) -> dict[str, dict]:
                   f"before each call) ({M},{K})@({K},{N}) {epi}: "
                   + json.dumps(cold))
             out.setdefault("matmul", t)
-    time_cluster_matmul(device, scratch)
+    out.update(time_cluster_matmul(device, scratch))
 
     out["yuv_to_rgb"] = time_yuv(device, scratch)
 
@@ -2828,27 +2884,61 @@ def time_kernels(device) -> dict[str, dict]:
     return out
 
 
-def time_cluster_matmul(device, scratch) -> None:
+def tile_plan(M: int, K: int, N: int, n_sm: int) -> dict:
+    """The tile route's launch plan at (M, K, N): the analytic pick among
+    its candidates, as the committed seed held it while the cluster's
+    batches took that route, tuned into a scratch cache."""
+    import tempfile
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import matmul as mm
+    with forced_route(mm, "_route", "tile"), \
+            tempfile.TemporaryDirectory() as tmp:
+        cache = at.AutotuneCache(path=Path(tmp) / "tile.json", seed_path=None)
+        return at.matmul_plan(M, K, N, n_sm, cache=cache)
+
+
+def time_cluster_matmul(device, scratch) -> dict:
     """The cluster's replica batches: the fused identify's two products at
-    the padded row counts above 8, which take the tile route, warm and
-    with a cold L2."""
+    the padded row counts above 8, on the rows route, beside the tile route
+    they took before (forced, at :func:`tile_plan`) and the library call,
+    warm and with a cold L2; the two routes in turns (rows, tile, rows,
+    tile: ``ms`` and ``tile_ms`` the first of each, ``ms_again`` and
+    ``tile_ms_again`` the second). Returns {"matmul_rows": the (64, 6912)
+    row's times}."""
     import torch
     from repro_torch.kernels import matmul as mm
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    out = {}
     for K, N, epi in MATMUL_SHAPES[:2]:
-        for M in CLUSTER_BATCHES:
+        for M in CLUSTER_BATCHES[::-1]:
             a, b, _ = matmul_inputs(M, K, N, False, device)
             kernel = lambda: mm.matmul(a, b, epilogue=epi)
             library = ((lambda: torch.tanh(torch.matmul(a, b)))
                        if epi == "tanh" else (lambda: torch.matmul(a, b)))
-            _timed("matmul", f"cluster batch ({M},{K})@({K},{N}) {epi} "
-                   f"({mm._route(M)} route)", kernel,
-                   lambda: mm.matmul_plain(a, b, epilogue=epi), library,
-                   4 * (M * K + K * N + M * N), 2 * M * N * K, iters=50)
-            cold = {"ms": cold_time_ms(kernel, scratch),
+            t = _timed("matmul", f"cluster batch ({M},{K})@({K},{N}) {epi} "
+                       f"({mm._route(M)} route)", kernel,
+                       lambda: mm.matmul_plain(a, b, epilogue=epi), library,
+                       4 * (M * K + K * N + M * N), 2 * M * N * K, iters=50)
+            plan = tile_plan(M, K, N, n_sm)
+            tile = lambda: mm.matmul(a, b, epilogue=epi, plan=plan)
+            with forced_route(mm, "_route", "tile"):
+                t["tile_ms"] = cuda_time_ms(tile, iters=50)
+            t["ms_again"] = cuda_time_ms(kernel, iters=50)
+            with forced_route(mm, "_route", "tile"):
+                t["tile_ms_again"] = cuda_time_ms(tile, iters=50)
+                cold_tile = cold_time_ms(tile, scratch)
+            print(f"time matmul yardstick cluster batch ({M},{K})@({K},{N}) "
+                  f"{epi} on the tile route (its earlier route, plan {plan}), "
+                  f"in turns with the rows route: rows {t['ms']:.6f} | "
+                  f"{t['ms_again']:.6f} ms, tile {t['tile_ms']:.6f} | "
+                  f"{t['tile_ms_again']:.6f} ms")
+            cold = {"ms": cold_time_ms(kernel, scratch), "tile_ms": cold_tile,
                     "library_ms": cold_time_ms(library, scratch)}
             print(f"time matmul L2-cold ({L2_FLUSH_BYTES >> 20} MiB read "
                   f"before each call) cluster batch ({M},{K})@({K},{N}) "
                   f"{epi}: " + json.dumps(cold))
+            out.setdefault("matmul_rows", t)
+    return out
 
 
 def time_scan_bwd(device) -> dict:
@@ -3102,7 +3192,7 @@ def check_cluster_launches(label: str, placement: str, res, launches,
     from_log = round(sum(c / b for b, c in sizes.items()))
     require(n == from_log and n > 0,
             f"cluster {label}: {n} batch spans, {from_log} in the event log")
-    want_mm = {"skinny": 0, "tile": 0}
+    want_mm = dict.fromkeys(mm.matmul.launches_by_route, 0)
     for b, _ in res.batch_spans:
         want_mm[mm._route(facerec._pad_pow2(b))] += 2
     want_yuv = n if placement == "device" else 0
@@ -3210,9 +3300,11 @@ def run_cluster_phase(device) -> None:
           f" at S = {CLUSTER_S} and a knee of "
           f"{modelled.closed_form_knee():.6f}, but the messages carry the "
           "6,912-byte crop: the gates use the closed form at that payload")
+    mm_routes = collections.Counter()
     for placement in CLUSTER_PLACEMENTS:
         spec = cluster_spec(device, placement, speedup=CLUSTER_S)
         res, launches, routes = run_cluster(spec)
+        mm_routes.update(routes["matmul"])
         label = f"placement {placement}"
         ai = report_cluster_run(label, spec, res)["ai_fraction"]
         rho = res.predicted_rho["broker_storage_write"]
@@ -3225,6 +3317,8 @@ def run_cluster_phase(device) -> None:
                 f"cluster {label}: broker storage write {util} against "
                 f"predicted rho {rho}")
         check_cluster_launches(label, placement, res, launches, routes)
+    CLUSTER_LAUNCHES.parent.mkdir(parents=True, exist_ok=True)
+    CLUSTER_LAUNCHES.write_text(json.dumps({"matmul": dict(mm_routes)}))
     check_cluster_identities(device)
     time_replica_batches(device)
 
@@ -3262,14 +3356,17 @@ def run_cluster_phase(device) -> None:
           "(printed, not gated)")
 
 
-def run_cluster_process() -> None:
+def run_cluster_process() -> dict:
     """Phase 8 in a fresh process (``CLUSTER_ONLY``), its output on this
     one's: the threads, Python objects and card memory the serve phases
-    leave behind are not the deployment's."""
+    leave behind are not the deployment's. Returns its S = 4 runs'
+    launches by route ({"matmul": {route: launches}})."""
     sys.stdout.flush()
+    CLUSTER_LAUNCHES.unlink(missing_ok=True)
     rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                          CLUSTER_ONLY], timeout=CLUSTER_TIMEOUT_S).returncode
     require(rc == 0, f"cluster phase: its process exited {rc}")
+    return json.loads(CLUSTER_LAUNCHES.read_text())
 
 
 # --------------------------------------------------------------------------
@@ -4578,6 +4675,12 @@ def kernel_table():
     return [
         {"name": "matmul", "wrapper": mm.matmul, "source": csrc + "matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:106", "path": "pipeline"},
+        # the same wrapper's rows route (9 to 64 rows), a kernel of its own
+        # in the same source; its launches are the cluster phase's two
+        # S = 4 runs' (every replica batch's two products)
+        {"name": "matmul_rows", "wrapper": mm.matmul,
+         "source": csrc + "matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:106", "path": "cluster"},
         {"name": "yuv_to_rgb", "wrapper": preproc.yuv_to_rgb,
          "source": csrc + "preproc.cu",
          "replaces": "src/repro/kernels/preproc.py:56", "path": "pipeline"},
@@ -4613,6 +4716,13 @@ def kernel_table():
         # a kernel of its own in the same source; its launches are the
         # wgmma_split route's over every arch phase 11 trains
         {"name": "flash_attention_bwd_split",
+         "wrapper": fa.flash_attention_bwd,
+         "source": csrc + "flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:115",
+         "path": "train"},
+        # its kv128 route (MLA's 192 | 128), likewise: the wgmma_kv128
+        # route's launches over every arch phase 11 trains
+        {"name": "flash_attention_bwd_kv128",
          "wrapper": fa.flash_attention_bwd,
          "source": csrc + "flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:115",
@@ -4847,7 +4957,8 @@ def main() -> int:
         times = time_kernels(device)
         profile_pipeline(device, n_frames=16, src_hw=(SRC_H, SRC_W))
     with phase("cluster"):
-        run_cluster_process()
+        cluster = run_cluster_process()
+    launches["matmul_rows"] = cluster["matmul"].get("rows", 0)
     with phase("taxed step"):
         run_taxed_identify(device)
     torch.cuda.empty_cache()
@@ -4859,9 +4970,11 @@ def main() -> int:
     with phase("train"):
         train = run_train(device, kernels)
     launches["flash_attention_bwd"] = train["launches"]["flash_attention_bwd"]
-    launches["flash_attention_bwd_split"] = sum(
-        r.get("flash_attention_bwd", {}).get("wgmma_split", 0)
-        for r in train["routes_by_arch"].values())
+    for name, route in (("flash_attention_bwd_split", "wgmma_split"),
+                        ("flash_attention_bwd_kv128", "wgmma_kv128")):
+        launches[name] = sum(
+            r.get("flash_attention_bwd", {}).get(route, 0)
+            for r in train["routes_by_arch"].values())
     for k in kernels:
         if k["path"] == "train" and "arch" in k:
             launches[k["name"]] = train["launches_by_arch"][k["arch"]][
@@ -4888,6 +5001,12 @@ def main() -> int:
             rows[-1]["launches_by_route"] = train["routes_by_arch"][
                 k["arch"]][k["name"]]
             rows[-1]["route_ms"] = t["route_ms"]
+        for earlier in ("tile_ms", "split_ms"):
+            # a redesigned route's predecessor, forced at the row's shape
+            if earlier in t:
+                rows[-1][earlier] = t[earlier]
+    idle = [r["name"] for r in rows if not r["launches"]]
+    require(not idle, f"kernels launched no time on their path: {idle}")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(card)        # as nvidia-smi reports it: name, power limit
     print(json.dumps({"kernels": rows}))

@@ -8,7 +8,9 @@ arguments of the C entries:
 
   * the matmul's skinny route (M <= 8): ``(cluster, k_chunk)``, K split
     over a thread-block cluster (``matmul.skinny_plan`` is the formula);
-  * its tile route (M > 8): ``(splits, k_chunk)``, the split-K grid
+  * its rows route (9 <= M <= 64): ``(cluster, k_chunk)`` likewise
+    (``matmul.rows_plan``);
+  * its tile route (M > 64): ``(splits, k_chunk)``, the split-K grid
     (``matmul.split_k``);
   * decode attention's ``n_split``, blocks along the cache
     (``decode_attention.split_l``).
@@ -16,7 +18,8 @@ arguments of the C entries:
 The formulas stay as the anchors of the candidate spaces (each is always a
 candidate). Routes and their thresholds (``matmul.SKINNY_M``,
 ``linear_scan.CHUNK_MIN_S``, ``linear_scan.MAMBA_SEG_MIN_S``) are not
-tuned: ``chip_smoke.py``'s route gates depend on them.
+tuned: ``chip_smoke.py``'s route gates depend on them (``matmul.ROWS_M``
+too).
 
 Two scoring modes:
 
@@ -62,7 +65,7 @@ SEED_PATH = pathlib.Path(__file__).resolve().parent / "tilings.json"
 # incompatibly: entries stamped with an older version are ignored at load,
 # so a stale overlay can never shadow a refreshed seed with plans the
 # current kernels would reject.
-SCHEMA_VERSION = 1
+SCHEMA_VERSION = 2
 
 # The analytic model's constants, fitted to the H100's sweep of
 # chip_smoke.py's phase 12 (every candidate plan of the battery, NVIDIA H100
@@ -78,6 +81,16 @@ _SKINNY_US = 3.92
 _SKINNY_ROW_US = (6.54e-4, 3.02e-4)
 _SKINNY_BPS = 4.30e12
 _SKINNY_ODD_US = 0.280
+# rows route (fitted by scripts/fit_plan_model.py to the H100's sweep,
+# scripts/plan_sweep_h100.json):
+# launch + the rows of K a rank walks in its whole passes (per row, and per
+# row and row of A) + the
+# cluster's ranks (per rank, and per rank and row of A: the cluster's
+# launch and its sum through distributed shared memory), which makes a
+# smaller cluster faster at the cluster batches' rows
+_ROWS_US = 3.508
+_ROWS_ROW_US = (4.436e-3, 1.380e-4)
+_ROWS_RANK_US = (0.0, 4.526e-3)
 # tile route: launch + k_chunk x per row x the SM's share of blocks beyond
 # the ones it runs at full speed; the reduce pass: a launch and its bytes
 _TILE_US = 0.926
@@ -275,10 +288,13 @@ def matmul_key(M: int, K: int, N: int, n_sm: int) -> str:
 
 
 def matmul_formula(M: int, K: int, N: int, n_sm: int) -> dict[str, int]:
-    """The plan of ``matmul.skinny_plan`` / ``matmul.split_k``."""
+    """The plan of ``matmul.skinny_plan`` / ``rows_plan`` / ``split_k``."""
     from repro_torch.kernels import matmul as mm
-    if mm._route(M) == "skinny":
+    route = mm._route(M)
+    if route == "skinny":
         return dict(zip(("cluster", "k_chunk"), mm.skinny_plan(N, K, n_sm)))
+    if route == "rows":
+        return dict(zip(("cluster", "k_chunk"), mm.rows_plan(N, K, n_sm)))
     return dict(zip(("splits", "k_chunk"), mm.split_k(M, N, K, n_sm)))
 
 
@@ -286,17 +302,22 @@ def matmul_candidates(M: int, K: int, N: int,
                       n_sm: int) -> list[dict[str, int]]:
     """The plans ``matmul.check_plan`` takes for the route of M, K split
     as evenly as the chunk allows, with the formula's plan among them:
-    skinny ``cluster`` 1 to MAX_CLUSTER and to ceil(K / _SKINNY_MIN_ROWS);
-    tile ``splits`` 1 to twice the formula's (at least 8, at most 64),
-    ``k_chunk`` a multiple of the tile's K step; no empty rank or split."""
+    skinny and rows ``cluster`` 1 to MAX_CLUSTER (rows: ROWS_MAX_CLUSTER)
+    and to ceil(K / _SKINNY_MIN_ROWS) (rows' ``k_chunk`` a multiple of 4);
+    tile ``splits``
+    1 to twice the formula's (at least 8, at most 64), ``k_chunk`` a
+    multiple of the tile's K step; no empty rank or split."""
     from repro_torch.kernels import matmul as mm
     formula = matmul_formula(M, K, N, n_sm)
     plans = {tuple(formula.values())}
-    if mm._route(M) == "skinny":
+    route = mm._route(M)
+    if route != "tile":
         names = ("cluster", "k_chunk")
-        for c in range(1, min(mm.MAX_CLUSTER,
-                              -(-K // mm._SKINNY_MIN_ROWS)) + 1):
+        most = mm.MAX_CLUSTER if route == "skinny" else mm.ROWS_MAX_CLUSTER
+        for c in range(1, min(most, -(-K // mm._SKINNY_MIN_ROWS)) + 1):
             chunk = -(-K // c)
+            if route == "rows":
+                chunk += -chunk % 4
             plans.add((-(-K // chunk), chunk))
     else:
         names = ("splits", "k_chunk")
@@ -310,10 +331,16 @@ def matmul_candidates(M: int, K: int, N: int,
 def matmul_cost_us(M: int, K: int, N: int, n_sm: int,
                    plan: dict[str, int]) -> float:
     """Analytic time of one matmul launch plan on ``n_sm`` SMs, in µs; the
-    tile route's at least its bytes over HBM (B read once per 16-row
-    block, the partial sums written and read back)."""
+    skinny and tile routes' at least their bytes (the tile route's over HBM:
+    B read once per 16-row block, the partial sums written and read back)."""
     from repro_torch.kernels import matmul as mm
-    if mm._route(M) == "skinny":
+    route = mm._route(M)
+    if route == "rows":
+        cluster, chunk = plan["cluster"], plan["k_chunk"]
+        walked = mm.ROWS_PASS * -(-chunk // mm.ROWS_PASS)
+        return (_ROWS_US + walked * (_ROWS_ROW_US[0] + M * _ROWS_ROW_US[1])
+                + cluster * (_ROWS_RANK_US[0] + M * _ROWS_RANK_US[1]))
+    if route == "skinny":
         cluster, chunk = plan["cluster"], plan["k_chunk"]
         rows_us = chunk * (_SKINNY_ROW_US[0] + M * _SKINNY_ROW_US[1])
         bytes_us = (M * K + K * N + M * N) * _F32 / _SKINNY_BPS * 1e6
@@ -345,9 +372,9 @@ def _measure_matmul(M: int, K: int, N: int, plan: dict[str, int]) -> float:
 def matmul_plan(M: int, K: int, N: int, n_sm: int, *,
                 cache: AutotuneCache | None = None,
                 mode: str = "analytic") -> dict[str, int]:
-    """The launch plan for an (M, K) @ (K, N) on ``n_sm`` SMs: skinny
-    ``{"cluster", "k_chunk"}`` for M <= 8, tile ``{"splits", "k_chunk"}``
-    above; tunes on a cache miss (at M's bucket)."""
+    """The launch plan for an (M, K) @ (K, N) on ``n_sm`` SMs: skinny and
+    rows ``{"cluster", "k_chunk"}`` for M <= 64, tile ``{"splits",
+    "k_chunk"}`` above; tunes on a cache miss (at M's bucket)."""
     Mb = _bucket_m(M)
     if mode == "measured":
         def score(c):

@@ -29,7 +29,8 @@
 // (one warp a row of (b, i, h): Delta, and on the wgmma routes lse log2 e
 // too), the route's kernel, and, for bf16, a cast (the fp32 dQ buffer
 // rounded into dq). Each kernel is one block per (key tile, kv head, batch
-// row), low key tiles first (in a causal run they see the most q tiles): it
+// row), low key tiles first (in a causal run they see the most q tiles; the
+// kv128 route: within groups of (kv head, batch row) slices): it
 // keeps the tile's dK, dV in registers over the G query heads of its kv head
 // (GQA sums without atomics) and every q tile of 64 rows that sees one of
 // its keys, and adds dS K into an fp32 dQ buffer (a q tile's rows are shared
@@ -47,7 +48,14 @@
 // flash_attention_bwd_split (bf16, (D, Dv) = (256, 256) or (192, 128)):
 // split_route::flash_bwd_split_kernel below, the wgmma route's ring and dQ
 // adds, but both warpgroups on the same 64 keys, one keeping dV and adding
-// dQ, the other computing dS and keeping dK (its note below).
+// dQ, the other computing dS and keeping dK (its note below). The wrapper
+// sends it gemma3's (256, 256); MLA's (192, 128) only when forced.
+//
+// flash_attention_bwd_kv128 (bf16, (D, Dv) = (192, 128): deepseek-v2's
+// MLA): kv128_route::flash_bwd_kv128_kernel below, 128 keys a block, each
+// warpgroup keeping dK and dV of its 64 keys, dQ split between them by
+// columns and added 96 columns a warpgroup by one bulk reduce-add (its note
+// below).
 //
 // flash_attention_bwd_mma (bf16, other D and Dv multiples of 16 to 128): tc::
 // flash_bwd_mma_kernel below, 4 warps of 16 keys, mma.sync m16n8k16 for the
@@ -62,6 +70,7 @@
 // columns tx + 16 j, as the forward's CUDA-core kernel), P and dS into shared
 // memory, then P^T dO, dS^T Q and dS K. Shared memory: (2 D + 2 Dv) x 65 +
 // 2 x 64 x 65 floats, 167 KB at D = Dv = 128, one block an SM; 100 KB at 64.
+#include <cstdint>
 #include <cuda_bf16.h>
 #include "common.cuh"
 #include "tensor_core.cuh"
@@ -82,11 +91,23 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
+// four adjacent elements as floats: one 16-byte load in fp32, 8 in bf16
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
 // Delta[b, h, i] = sum_e dO[b, i, h, e] O[b, i, h, e] into delta (B, H, Sp),
 // one warp a row, zeros for the rows i in [Sq, Sp) (Sp >= Sq rounds Sq up to
 // a tile where a route reads whole tiles of rows); with a non-null lse2 also
 // lse2[b, h, i] = lse[b, h, i] log2 e (zeros past Sq), the exp2 form the
-// wgmma route reads
+// wgmma routes read. Where Dv % 4 == 0 and both tensors are aligned to four
+// elements, a lane reads four adjacent columns a load; else one
 template <typename T>
 __global__ void flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
                                 const float* __restrict__ lse, float* __restrict__ lse2,
@@ -99,7 +120,20 @@ __global__ void flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ d
   float s = 0.f;
   if (i < Sq) {
     const long long at = ((b * Sq + i) * H + h) * Dv;
-    for (int e = lane; e < Dv; e += 32) s = fmaf(to_f(o[at + e]), to_f(dout[at + e]), s);
+    const bool vec = Dv % 4 == 0 && ((reinterpret_cast<uintptr_t>(o) |
+                                      reinterpret_cast<uintptr_t>(dout)) %
+                                     (4 * sizeof(T))) == 0;
+    if (vec) {
+      for (int e = 4 * lane; e < Dv; e += 128) {
+        const float4 x = load4(o + at + e), g = load4(dout + at + e);
+        s = fmaf(x.x, g.x, s);
+        s = fmaf(x.y, g.y, s);
+        s = fmaf(x.z, g.z, s);
+        s = fmaf(x.w, g.w, s);
+      }
+    } else {
+      for (int e = lane; e < Dv; e += 32) s = fmaf(to_f(o[at + e]), to_f(dout[at + e]), s);
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -1410,6 +1444,543 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }
 
 }  // namespace split_route
+
+// ---- wgmma kv128 route: bf16, (D, Dv) = (192, 128) ---------------------------
+
+namespace kv128_route {
+
+using namespace tensor_core;
+using tma_route::BQ;
+using tma_route::ROW;
+using tma_route::STAGES;
+using tma_route::TILE;
+
+constexpr int D = 192, DV = 128;
+constexpr int DB = D / 64, VB = DV / 64;   // 64-column boxes of K and Q, of V and dO
+constexpr int CW = D / 2;                  // dQ columns a warpgroup
+constexpr int DQ_CHUNK = BQ * CW * 4;      // a warpgroup's [64 q][96] fp32 dQ chunk
+// the dQ rows (fp32) the blocks in flight together add into, at most: the
+// L2 keeps them, where a block order with the key tiles slowest over every
+// slice sends each bulk reduce-add to device memory (the whole buffer,
+// 403 MB at MLA's training shape, is 8x the L2)
+constexpr int DQ_L2_BYTES = 8 << 20;
+
+// Shared memory, every bf16 tile 1024-aligned: K and V of the block's 128
+// keys (a warpgroup's 64 keys as DB and VB boxes), the ring's stages (Q in
+// DB boxes, then dO in VB), a [64 keys][64 q] bf16 tile a warpgroup (P^T,
+// then dS^T of the current q tile; single-buffered: a barrier keeps the
+// next iteration's from overwriting them before every dQ product has read
+// them), one fp32 dQ
+// chunk a warpgroup, and the ring's row statistics: 48 + 32 KB of K and V,
+// two 40 KB stages, 16 KB of dS^T, 48 KB of dQ, 1 KB of statistics and
+// 1 KB of alignment, 226 KB of the 227 a block may have.
+struct Smem {
+  static constexpr int K_W = DB * TILE, V_W = VB * TILE;  // a warpgroup's K, V
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = K_OFF + 2 * K_W;
+  static constexpr int Q_OFF = V_OFF + 2 * V_W;
+  static constexpr int STAGE = (DB + VB) * TILE;          // Q and dO
+  static constexpr int DS_OFF = Q_OFF + STAGES * STAGE;
+  static constexpr int DQ_OFF = DS_OFF + 2 * TILE;
+  static constexpr int ROWS_OFF = DQ_OFF + 2 * DQ_CHUNK;
+  static constexpr int ROWS = 2 * BQ * 4;                 // a stage's statistics
+  static constexpr int BYTES = 1024 + ROWS_OFF + STAGES * ROWS;   // + alignment
+  static_assert(BYTES + 64 <= 232448, "a block has 227 KB of shared memory");
+};
+
+// A (64 keys x W) x B (64 q rows x W)^T into acc, both K-major 64-column
+// boxes at a and b (as tma_route::issue_kt), its first k step writing acc
+// without reading it: S^T = K Q^T at W = D, dP^T = V dO^T at W = Dv
+template <int W>
+__device__ __forceinline__ void issue_kt_fresh(float (&acc)[32], uint32_t a, uint32_t b) {
+  wgmma_ss_first(acc, wgmma_desc(a, 16, 1024), wgmma_desc(b, 16, 1024));
+#pragma unroll
+  for (int kk = 1; kk < W / 16; ++kk) {
+    const uint32_t off = (kk / 4) * TILE + (kk % 4) * 32;
+    wgmma_ss(acc, wgmma_desc(a + off, 16, 1024), wgmma_desc(b + off, 16, 1024), 1);
+  }
+}
+
+// Shared memory through 32-bit addresses: the kernel reads the rows'
+// statistics and stages dQ with these rather than through generic
+// pointers, whose 64-bit addresses (one for each of the iteration's 24
+// staged pairs and 32 statistics) the compiler kept in registers across
+// the loop
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(addr));
+  return x;
+}
+__device__ __forceinline__ void sts_f32x2(uint32_t addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" :: "r"(addr), "f"(x), "f"(y));
+}
+
+// P^T = exp2(S^T scale log2 e - lse log2 e) from S^T in acc, 0 on the
+// masked pairs, as tma_route::probs_from_s computes it (lse log2 e of q row
+// r at lse2 + 4 r in shared memory), rounded to bf16 into a [key][q] tile
+// with the 128-byte swizzle (16-byte chunk n of row r at chunk n ^ (r % 8);
+// rows row and row + 8 share r % 8)
+__device__ __forceinline__ void p_t_store(const float (&acc)[32], uint32_t lse2, int k0,
+                                          int q0, int kpos, int col, int Sq, int Skv,
+                                          float scale_log2, int causal, int window,
+                                          int q_offset, uint32_t tile, int row) {
+  const int qp0 = q0 + q_offset;
+  const bool edge = q0 + BQ > Sq || k0 + 64 > Skv || (causal && k0 + 63 > qp0) ||
+                    (window > 0 && k0 <= qp0 + BQ - 1 - window);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 8 * n + col + (e & 1);
+      p[e] = exp2f(fmaf(acc[n * 4 + e], scale_log2, -lds_f32(lse2 + 4 * r)));
+      if (edge) {
+        const int kp = kpos + 8 * (e >> 1), qp = qp0 + r;
+        bool ok = q0 + r < Sq && kp < Skv;
+        if (causal) ok = ok && kp <= qp;
+        if (window > 0) ok = ok && kp > qp - window;
+        if (!ok) p[e] = 0.f;
+      }
+    }
+    const uint32_t at = tile + row * ROW + ((n ^ (row & 7)) << 4) + 2 * col;
+    asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(at), "r"(pack_bf16(p[0], p[1])));
+    asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(at + 8 * ROW), "r"(pack_bf16(p[2], p[3])));
+  }
+}
+
+// dS^T = P^T o (dP^T - Delta) as tma_route::ds_t computes it, from P^T as
+// p_t_store left it in the tile (each thread reads back what it wrote),
+// dP^T in acc and Delta of q row r at dlt + 4 r, rounded to bf16 over P^T
+// in the tile
+__device__ __forceinline__ void ds_t_in_place(const float (&acc)[32], uint32_t dlt,
+                                              uint32_t tile, int row, int col) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const uint32_t at = tile + row * ROW + ((n ^ (row & 7)) << 4) + 2 * col;
+    const int r = 8 * n + col;
+    const float d0 = lds_f32(dlt + 4 * r), d1 = lds_f32(dlt + 4 * r + 4);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      uint32_t pp;
+      asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(pp) : "r"(at + i * 8 * ROW));
+      const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pp));
+      const uint32_t d = pack_bf16(p.x * (acc[n * 4 + 2 * i] - d0),
+                                   p.y * (acc[n * 4 + 2 * i + 1] - d1));
+      asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(at + i * 8 * ROW), "r"(d));
+    }
+  }
+}
+
+// Column c of row r of a warpgroup's dQ chunk sits at (c + 8 (r % 8)) % 96
+// of the row: the eight rows a warp's lanes stage at once then fall on
+// distinct banks
+__device__ __forceinline__ int dq_slot(int r, int c) { return (c + 8 * (r & 7)) % CW; }
+
+// One block of two warpgroups per (128-key tile, kv head, batch row), the
+// key tiles slowest within a group of slices (above). At (192, 128) a thread
+// can hold both dK (64 x 192 fp32 over a warpgroup: 96 registers) and dV
+// (64) of its keys, so, as on the wgmma route, warpgroup w owns keys
+// 64 w .. 64 w + 63 of the tile and S^T is computed once. Per (G head, q
+// tile) iteration each warpgroup, on its 64 keys x 64 q rows:
+//   S^T = K Q^T, then P^T from it, rounded to bf16 into the warpgroup's
+//   tile in shared memory;
+//   dP^T = V dO^T into the same accumulators and dV += P^T dO (P^T from
+//   the tile), one group;
+//   dS^T = P^T o (dP^T - Delta) rounded to bf16 over P^T in the tile;
+//   dK += dS^T Q issued from shared memory (dS^T K-major, Q MN-major) and
+//   left running;
+//   after a barrier of both warpgroups (both dS^T tiles in place), dQ for
+//   the q tile's 64 rows over the block's 128 keys, split by columns:
+//   warpgroup 0 columns 0-95 (m64n64 on K's first box, then m64n32 on the
+//   first half of its second), warpgroup 1 columns 96-191 (m64n64 on the
+//   third box, then m64n32 on the second half of the second), dS^T and K
+//   both MN-major, each product scaled into the warpgroup's 64 x 96 fp32
+//   chunk in shared memory once it is done;
+//   a second barrier (stage s and both dS^T tiles free: thread 0 refills
+//   the stage with iteration j + 2), then the chunk into the (B, H, Sp /
+//   64, 2, 64, 96) fp32 dQ buffer by one bulk reduce-add, which runs under
+//   the next iteration's products (the chunk is written again one
+//   iteration later, after a wait for the add to have read it).
+// Registers set the order: dK and dV take 160 a thread. With S^T and
+// dP^T in flight together (two accumulator tiles) ptxas took the kernel to
+// 255 registers, 148 bytes of spill and serialized its wgmma; with one
+// tile and P^T and dS^T as A fragments in registers (as on the wgmma
+// route) it still spilled 404 bytes and serialized them for want of
+// registers. So P^T and dS^T pass through the warpgroup's tile in shared
+// memory (P^T first, dS^T written over it once dV has read it) and dV and
+// dK read them from there: a thread holds dK, dV and one accumulator tile.
+// A persistent grid (a block an SM walking the items round-robin, loading
+// the next item's K, V and first stages under the current one's last
+// iterations) ran slower on the H100 at MLA's training shape (2.356 ms
+// against 2.204 in another call): a static walk balances the causal
+// items' 2 to 16 iterations worse than the block scheduler does.
+// The order of every fp32 sum in a block is fixed; only dQ's adds across
+// key tiles land in no fixed order. A warpgroup whose keys no row of the q
+// tile sees skips its products, and dQ skips its dS^T tile. P and dS are
+// rounded to bf16 for the products, dS from the rounded P, as on the
+// other wgmma routes.
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_kv128_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __grid_constant__ CUtensorMap domap,
+                       const float* __restrict__ rows, float* __restrict__ dq,
+                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                       int Sq, int Sp, int Skv, int H, int KV, float scale,
+                       int causal, int window, int q_offset) {
+  using S = Smem;
+  extern __shared__ uint8_t smem_raw[];
+  // full[s]: stage s loaded (TMA and bulk bytes); kvbar: K and V loaded
+  __shared__ uint64_t full[STAGES], kvbar_mem;
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int B = gridDim.x / KV, G = H / KV;
+  // the block's (key tile, kv head, batch row): slices (kv head, batch
+  // row) in groups whose dQ rows fit DQ_L2_BYTES, the key tiles slowest
+  // within a group (a causal run's heaviest first), so that the blocks in
+  // flight together add into few slices' dQ, which then stays in the L2
+  const int n_sl = gridDim.x, n_kt = gridDim.y;
+  const int group = max(1, min(n_sl, DQ_L2_BYTES / (G * Sp * D * 4)));
+  const int lin = blockIdx.x + blockIdx.y * n_sl;
+  const int g0 = lin / (group * n_kt) * group, gs = min(group, n_sl - g0);
+  const int kt = (lin - g0 * n_kt) / gs, sl = g0 + (lin - g0 * n_kt) % gs;
+  const int kvh = sl % KV, b = sl / KV;
+  const int k0 = kt * 128;
+  const int k_last = min(k0 + 128, Skv) - 1;
+
+  // the q rows that see a key of this tile (as the other routes'); every q
+  // tile in the range sees one of the block's keys
+  int i_begin = 0, i_end = Sq;
+  if (causal) i_begin = max(0, k0 - q_offset);
+  if (window > 0) i_end = min(Sq, k_last + window - q_offset);
+  const int qt_begin = i_begin / BQ;
+  const int n_qt = i_end > i_begin ? (i_end + BQ - 1) / BQ - qt_begin : 0;
+  const int n_iter = G * n_qt;
+
+  // iteration jj's Q, dO, lse and Delta tiles into its stage (thread 0)
+  auto load_stage = [&](int jj) {
+    const int s = jj % STAGES;
+    const int h = kvh * G + jj / n_qt, q0 = (qt_begin + jj % n_qt) * BQ;
+    const uint32_t bar = smem_addr(&full[s]);
+    const uint32_t st = base + S::Q_OFF + s * S::STAGE;
+    const uint32_t rs = base + S::ROWS_OFF + s * S::ROWS;
+    const long long at = ((long long)b * H + h) * Sp + q0;
+    mbar_arrive_expect_tx(bar, S::STAGE + S::ROWS);
+    for (int hf = 0; hf < DB; ++hf) tma_load_4d(st + hf * TILE, &qmap, bar, hf * 64, h, q0, b);
+    for (int hf = 0; hf < VB; ++hf)
+      tma_load_4d(st + (DB + hf) * TILE, &domap, bar, hf * 64, h, q0, b);
+    bulk_load(rs, rows + at, BQ * 4, bar);
+    bulk_load(rs + BQ * 4, rows + (long long)B * H * Sp + at, BQ * 4, bar);
+  };
+
+  const uint32_t kvbar = smem_addr(&kvbar_mem);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(smem_addr(&full[s]), 1);
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(kvbar, 2 * (DB + VB) * TILE);
+    for (int w = 0; w < 2; ++w) {
+      for (int hf = 0; hf < DB; ++hf)
+        tma_load_4d(base + S::K_OFF + w * S::K_W + hf * TILE, &kmap, kvbar, hf * 64, kvh,
+                    k0 + 64 * w, b);
+      for (int hf = 0; hf < VB; ++hf)
+        tma_load_4d(base + S::V_OFF + w * S::V_W + hf * TILE, &vmap, kvbar, hf * 64, kvh,
+                    k0 + 64 * w, b);
+    }
+    for (int jj = 0; jj < min(STAGES, n_iter); ++jj) load_stage(jj);
+  }
+
+  // this lane's keys: row (accumulator entries 4 n + {0, 1}) and row + 8
+  // (4 n + {2, 3}) of the warpgroup's 64; columns 8 n + col + {0, 1}
+  const int row = warp * 16 + lane / 4, col = 2 * (lane % 4);
+  const int kw0 = k0 + 64 * wg;                // the warpgroup's first key
+  const int kpos = kw0 + row;
+  const int tw = tid % 128;                    // thread within the warpgroup
+  const float scale_log2 = scale * LOG2E;
+  // the warpgroup's dQ columns: an n64 and an n32 product, at these columns
+  // of its chunk
+  const int c64 = wg == 0 ? 0 : 32, c32 = wg == 0 ? 64 : 0;
+
+  // does any row of the q tile at q0 see a key of warpgroup t's 64?
+  auto live = [&](int t, int q0) {
+    const int first = k0 + 64 * t, last = min(first + 63, Skv - 1);
+    const int qp0 = q0 + q_offset, qp1 = min(q0 + BQ, Sq) - 1 + q_offset;
+    bool ok = first < Skv;
+    if (causal) ok = ok && first <= qp1;
+    if (window > 0) ok = ok && last > qp0 - window;
+    return ok;
+  };
+
+  float dka[DB][32], dva[VB][32];
+#pragma unroll
+  for (int hf = 0; hf < DB; ++hf)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dka[hf][e] = 0.f;
+#pragma unroll
+  for (int hf = 0; hf < VB; ++hf)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dva[hf][e] = 0.f;
+
+  mbar_wait(kvbar, 0);
+  for (int j = 0; j < n_iter; ++j) {
+    // the iteration's shared-memory addresses from an opaque copy of base,
+    // so that the compiler builds the wgmma descriptors where they are
+    // used instead of hoisting the loop-invariant ones (some 40 of them, 2
+    // registers each) out of the loop, which took it past 255 registers
+    uint32_t bj = base;
+    asm volatile("" : "+r"(bj));
+    const uint32_t kw = bj + S::K_OFF + wg * S::K_W;
+    const uint32_t vw = bj + S::V_OFF + wg * S::V_W;
+    const uint32_t ds_own = bj + S::DS_OFF + wg * TILE;
+    const uint32_t dq_a = bj + S::DQ_OFF + wg * DQ_CHUNK;
+    // the warpgroup's n64 and n32 dQ products at these byte offsets into a
+    // warpgroup's K
+    const uint32_t k64 = wg == 0 ? 0 : 2 * TILE, k32 = wg == 0 ? TILE : TILE + 64;
+    const int s = j % STAGES;
+    const int h = kvh * G + j / n_qt, qt = qt_begin + j % n_qt, q0 = qt * BQ;
+    const uint32_t qs = bj + S::Q_OFF + s * S::STAGE, dos = qs + DB * TILE;
+    const uint32_t lse2 = bj + S::ROWS_OFF + s * S::ROWS, dlt = lse2 + BQ * 4;
+    mbar_wait(smem_addr(&full[s]), (j / STAGES) & 1);
+
+    const bool mine = live(wg, q0);
+    if (mine) {
+      // S^T = K Q^T (its first k step writes acc without reading it: no
+      // accumulator is written by other instructions while a product is in
+      // flight, and acc is live only from here)
+      float acc[32];
+      wgmma_fence();
+      issue_kt_fresh<D>(acc, kw, qs);
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) reg_fence(acc[e]);
+      // P^T, rounded to bf16, into the warpgroup's tile (which holds its
+      // dS^T later in the iteration), for dV to read as a K-major A
+      p_t_store(acc, lse2, kw0, q0, kpos, col, Sq, Skv, scale_log2, causal, window,
+                q_offset, ds_own, row);
+      fence_proxy_async();
+      named_barrier(2 + wg, 128);              // the warpgroup's P^T in place
+      // dP^T = V dO^T into the same accumulators, and dV += P^T dO (P^T
+      // K-major from the tile, dO MN-major: 16 q rows a k step), one group
+      wgmma_fence();
+      issue_kt_fresh<DV>(acc, vw, dos);
+#pragma unroll
+      for (int kb = 0; kb < BQ / 16; ++kb)
+#pragma unroll
+        for (int hf = 0; hf < VB; ++hf)
+          wgmma_ss_kmn(dva[hf], wgmma_desc(ds_own + kb * 32, 16, 1024),
+                       wgmma_desc(dos + hf * TILE + kb * 16 * ROW, 1024, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) reg_fence(acc[e]);
+#pragma unroll
+      for (int hf = 0; hf < VB; ++hf)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) reg_fence(dva[hf][e]);
+      // dS^T over P^T in the tile, each thread on the entries it wrote
+      ds_t_in_place(acc, dlt, ds_own, row, col);
+      fence_proxy_async();
+      named_barrier(2 + wg, 128);              // the warpgroup's dS^T in place
+      // dK += dS^T Q, dS^T K-major from the tile and Q MN-major, left
+      // running under the block's barrier and dQ's products
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < BQ / 16; ++kb)
+#pragma unroll
+        for (int hf = 0; hf < DB; ++hf)
+          wgmma_ss_kmn(dka[hf], wgmma_desc(ds_own + kb * 32, 16, 1024),
+                       wgmma_desc(qs + hf * TILE + kb * 16 * ROW, 1024, 1024));
+      wgmma_commit();
+    }
+    named_barrier(1, 256);                     // both warpgroups' dS^T in place
+
+    // dQ, this warpgroup's 96 columns over the live warpgroups' keys, in
+    // two products (the n64 columns, then the n32 ones: one accumulator
+    // tile at a time), each scaled into the warpgroup's fp32 chunk in
+    // shared memory once its product is done; the chunk is free once the
+    // last iteration's add has read it
+    // (t0 the first live warpgroup: any row that sees a block key sees one
+    // of warpgroup 0's unless causality or Skv leaves it warpgroup 1's only)
+    const bool any = live(0, q0) || live(1, q0);
+    if (any) {
+      const int t0 = live(0, q0) ? 0 : 1;
+      const bool both = t0 == 0 && live(1, q0);
+      const uint32_t ds0 = bj + S::DS_OFF + t0 * TILE, k_0 = bj + S::K_OFF + t0 * S::K_W;
+      const uint32_t ds1 = bj + S::DS_OFF + TILE, k_1 = bj + S::K_OFF + S::K_W;
+      if (tw == 0) bulk_wait_read();
+      named_barrier(2 + wg, 128);
+      {
+        float dq64[32];
+        wgmma_fence();
+        wgmma_ss_mn_first(dq64, wgmma_desc(ds0, 1024, 1024), wgmma_desc(k_0 + k64, 1024, 1024));
+#pragma unroll
+        for (int kb = 1; kb < 4; ++kb)
+          wgmma_ss_mn(dq64, wgmma_desc(ds0 + kb * 16 * ROW, 1024, 1024),
+                      wgmma_desc(k_0 + k64 + kb * 16 * ROW, 1024, 1024), 1);
+        if (both) {
+#pragma unroll
+          for (int kb = 0; kb < 4; ++kb)
+            wgmma_ss_mn(dq64, wgmma_desc(ds1 + kb * 16 * ROW, 1024, 1024),
+                        wgmma_desc(k_1 + k64 + kb * 16 * ROW, 1024, 1024), 1);
+        }
+        wgmma_commit();
+        wgmma_wait_all();                      // dK and these columns done
+#pragma unroll
+        for (int e = 0; e < 32; ++e) reg_fence(dq64[e]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = row + 8 * i;
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            sts_f32x2(dq_a + 4 * (r * CW + dq_slot(r, c64 + 8 * n + col)),
+                      dq64[n * 4 + 2 * i] * scale, dq64[n * 4 + 2 * i + 1] * scale);
+        }
+      }
+      {
+        float dq32[16];
+        wgmma_fence();
+        wgmma_ss_mn_n32<true>(dq32, wgmma_desc(ds0, 1024, 1024),
+                              wgmma_desc(k_0 + k32, 1024, 1024));
+#pragma unroll
+        for (int kb = 1; kb < 4; ++kb)
+          wgmma_ss_mn_n32(dq32, wgmma_desc(ds0 + kb * 16 * ROW, 1024, 1024),
+                          wgmma_desc(k_0 + k32 + kb * 16 * ROW, 1024, 1024));
+        if (both) {
+#pragma unroll
+          for (int kb = 0; kb < 4; ++kb)
+            wgmma_ss_mn_n32(dq32, wgmma_desc(ds1 + kb * 16 * ROW, 1024, 1024),
+                            wgmma_desc(k_1 + k32 + kb * 16 * ROW, 1024, 1024));
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int e = 0; e < 16; ++e) reg_fence(dq32[e]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = row + 8 * i;
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            sts_f32x2(dq_a + 4 * (r * CW + dq_slot(r, c32 + 8 * n + col)),
+                      dq32[n * 4 + 2 * i] * scale, dq32[n * 4 + 2 * i + 1] * scale);
+        }
+      }
+      fence_proxy_async();
+    }
+    if (mine) {
+#pragma unroll
+      for (int hf = 0; hf < DB; ++hf)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) reg_fence(dka[hf][e]);
+    }
+    // every product of iteration j is done and both warpgroups' chunks are
+    // staged: stage s and both dS^T tiles are free (thread 0 refills the
+    // stage with iteration j + STAGES), and each warpgroup's first thread
+    // adds its chunk into the dQ buffer, to run under the next iteration
+    named_barrier(1, 256);
+    if (tid == 0 && j + STAGES < n_iter) load_stage(j + STAGES);
+    if (any && tw == 0)
+      bulk_reduce_add_f32(dq + ((((long long)b * H + h) * (Sp / BQ) + qt) * 2 + wg) * (BQ * CW),
+                          dq_a, DQ_CHUNK);
+  }
+  if (tw == 0) bulk_wait();                    // the adds are done with shared memory
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kpos + 8 * i;
+    if (key >= Skv) continue;
+    __nv_bfloat16* krw = dk + ((long long)(b * Skv + key) * KV + kvh) * D + col;
+    __nv_bfloat16* vrw = dv + ((long long)(b * Skv + key) * KV + kvh) * DV + col;
+#pragma unroll
+    for (int hf = 0; hf < DB; ++hf)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(krw + hf * 64 + n * 8) = __floats2bfloat162_rn(
+            dka[hf][n * 4 + 2 * i] * scale, dka[hf][n * 4 + 2 * i + 1] * scale);
+#pragma unroll
+    for (int hf = 0; hf < VB; ++hf)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(vrw + hf * 64 + n * 8) =
+            __floats2bfloat162_rn(dva[hf][n * 4 + 2 * i], dva[hf][n * 4 + 2 * i + 1]);
+  }
+}
+
+// dq (B, Sq, H, 192) bf16 from the kernel's fp32 buffer (B, H, Sp / 64, 2,
+// 64, 96), each chunk's rows rotated as dq_slot says; one thread eight
+// adjacent columns (two 16-byte reads: eight columns never straddle a
+// chunk or a rotation's wrap), one 16-byte write
+__global__ void flash_bwd_cast_kv128(const float* __restrict__ acc,
+                                     __nv_bfloat16* __restrict__ dq, int Sq, int Sp,
+                                     int H, long long n_groups) {
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= n_groups) return;
+  const long long e = 8 * g;                   // e = ((b * Sq + i) * H + h) * D + d
+  const int d = e % D;
+  const long long bih = e / D, h = bih % H, bi = bih / H, i = bi % Sq, b = bi / Sq;
+  const int r = i % BQ;
+  const float* t = acc + ((((b * H + h) * (Sp / BQ) + i / BQ) * 2 + d / CW) * BQ + r) * CW
+                   + dq_slot(r, d % CW);
+  const float4 x = *reinterpret_cast<const float4*>(t);
+  const float4 y = *reinterpret_cast<const float4*>(t + 4);
+  uint4 out;
+  out.x = pack_bf16(x.x, x.y);
+  out.y = pack_bf16(x.z, x.w);
+  out.z = pack_bf16(y.x, y.y);
+  out.w = pack_bf16(y.z, y.w);
+  *reinterpret_cast<uint4*>(dq + e) = out;
+}
+
+// The route's launches, as tma_route::launch_tiled's but with this
+// route's dQ layout and cast: the four tensor maps, the zeroed dQ buffer,
+// the shared row pass, the kernel on (KV * B, 128-key tiles) blocks, and
+// dQ's cast
+int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+           const float* lse, float* dq_acc, float* rows, void* dq, void* dk, void* dv,
+           int B, int Sq, int Skv, int H, int KV, float scale, int causal, int window,
+           int q_offset, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  static bool opted_in = false;                // shared-memory opt-in, once
+  const int Sp = (Sq + BQ - 1) / BQ * BQ;
+  CUtensorMap qm, km, vm, dom;
+  int rc = encode(&qm, q, D, H, Sq, B, BQ);
+  if (rc == 0) rc = encode(&km, k, D, KV, Skv, B, 64);
+  if (rc == 0) rc = encode(&vm, v, DV, KV, Skv, B, 64);
+  if (rc == 0) rc = encode(&dom, dout, DV, H, Sq, B, BQ);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaMemsetAsync(dq_acc, 0, sizeof(float) * B * H * Sp * D, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_rows = (long long)B * H * Sp;
+  flash_bwd_delta<T><<<(unsigned)((n_rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, rows, rows + n_rows,
+      Sq, Sp, H, DV, n_rows);
+  rc = launch_status();
+  if (rc != 0) return rc;
+  if (!opted_in) {
+    err = cudaFuncSetAttribute(flash_bwd_kv128_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  const dim3 grid(KV * B, (Skv + 127) / 128);
+  flash_bwd_kv128_kernel<<<grid, 256, Smem::BYTES, stream>>>(
+      qm, km, vm, dom, rows, dq_acc, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sp, Skv,
+      H, KV, scale, causal, window, q_offset);
+  rc = launch_status();
+  if (rc != 0) return rc;
+  const long long n_groups = (long long)B * Sq * H * D / 8;
+  flash_bwd_cast_kv128<<<(unsigned)((n_groups + 255) / 256), 256, 0, stream>>>(
+      dq_acc, static_cast<T*>(dq), Sq, Sp, H, n_groups);
+  return launch_status();
+}
+
+}  // namespace kv128_route
 }  // namespace
 
 // dtype 0: fp32, 1: bf16. H % KV == 0, 0 < D, Dv <= 128, B * Sq > 0, Skv > 0;
@@ -1508,4 +2079,24 @@ extern "C" int flash_attention_bwd_split(const void* q, const void* k, const voi
     return split_route::launch<192, 128>(q, k, v, o, dout, l, acc, rs, dq, dk, dv, B, Sq,
                                          Skv, H, KV, scale, causal, window, q_offset, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bf16 only: (D, Dv) = (192, 128) (deepseek-v2's MLA); 16-byte aligned
+// contiguous q, k, v, o, dout, dk, dv; dq_acc (B, H, Sp, D) and rows (2, B,
+// H, Sp) fp32 workspaces, Sp = Sq rounded up to 64; otherwise as
+// flash_attention_bwd (dq is the bf16 output). Returns a cudaError_t
+// (cudaErrorNotSupported: no cuTensorMapEncodeTiled entry point).
+extern "C" int flash_attention_bwd_kv128(const void* q, const void* k, const void* v,
+                                         const void* o, const void* dout,
+                                         const void* lse, void* dq_acc, void* rows,
+                                         void* dq, void* dk, void* dv, int B, int Sq,
+                                         int Skv, int H, int KV, int D, int Dv,
+                                         float scale, int causal, int window,
+                                         int q_offset, void* stream) {
+  if (KV <= 0 || H % KV != 0 || D != kv128_route::D || Dv != kv128_route::DV)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return kv128_route::launch(q, k, v, o, dout, static_cast<const float*>(lse),
+                             static_cast<float*>(dq_acc), static_cast<float*>(rows), dq, dk,
+                             dv, B, Sq, Skv, H, KV, scale, causal, window, q_offset,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -6,7 +6,8 @@
 //    4-byte form in matmul.cu);
 //  * mma.sync m16n8k8 tf32 -> fp32, the fp32 -> tf32 rounding and its
 //    hi + lo split (linear_scan.cu's chunked RWKV6 scan);
-//  * wgmma m64n64k16 bf16 -> fp32 with shared-memory descriptors, mbarriers,
+//  * wgmma m64n64k16 (and m64n32k16) bf16 -> fp32 with shared-memory
+//    descriptors, mbarriers,
 //    TMA tile loads, setmaxnreg and the rank-4 tensor maps they read
 //    (flash_attention.cu, flash_attention_bwd.cu); bulk copies, the bulk
 //    fp32 reduce-add into device memory, proxy fences and named barriers
@@ -257,6 +258,13 @@ __device__ __forceinline__ void reg_fence(uint32_t& x) { asm volatile("" : "+r"(
   "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),             \
   "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),             \
   "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define TC_OUT32(d)                                                            \
+  "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),      \
+  "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),    \
+  "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]),             \
+  "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]),             \
+  "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]),             \
+  "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
 #define TC_REGS32                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "     \
@@ -298,7 +306,74 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d (64x64 fp32) += A (64x16, shared, K-major) @ B (16x64, shared,
+// MN-major: read through the transpose bit)
+__device__ __forceinline__ void wgmma_ss_kmn(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_REGS32
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : TC_ACC32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64x32 fp32, 16 a thread) += A (64x16, shared, MN-major) @ B (16x32,
+// shared, MN-major); B may start 64 bytes into a 128-byte row. With
+// first, d = A @ B, d written only (as wgmma_ss_first)
+template <bool first = false>
+__device__ __forceinline__ void wgmma_ss_mn_n32(float (&d)[16], uint64_t desc_a,
+                                                uint64_t desc_b) {
+  if (first) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+        ", %16, %17, p, 1, 1, 1, 1;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+          "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+          "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(0));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+        ", %16, %17, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+  }
+}
+
+// The first k step of a product: d (64x64 fp32) = A (64x16, shared,
+// K-major) @ B (16x64, shared, K-major), d written only: its registers
+// need no value before the product, so the compiler keeps them live from
+// here on and not from the function's entry, as it must for an input
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t desc_a,
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : TC_OUT32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+// the same, both operands MN-major (as wgmma_ss_mn)
+__device__ __forceinline__ void wgmma_ss_mn_first(float (&d)[32], uint64_t desc_a,
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_REGS32
+      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : TC_OUT32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
 #undef TC_ACC32
+#undef TC_OUT32
 #undef TC_REGS32
 
 // ---- tensor maps -------------------------------------------------------

@@ -16,10 +16,12 @@ also for each row's log-sum-exp, and whose backward is the hand-written
 kernel of ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`:
 dQ, dK, dV for D, Dv <= :data:`BWD_MAX_D`, on wgmma in bf16 at D = Dv in
 :data:`BWD_TC_WIDTHS`, on ``mma.sync`` at other bf16 multiples of 16, on
-the CUDA cores otherwise; and in bf16 at the wider (D, Dv) of
-:data:`BWD_SPLIT_WIDTHS`, gemma3's 256 and MLA's (192, 128), on wgmma
-with the two warpgroups of a block splitting dK and dV of the same keys;
-float32 and other widths above :data:`BWD_MAX_D` raise).
+the CUDA cores otherwise; in bf16 at MLA's (192, 128)
+(:data:`BWD_KV128_WIDTHS`) on wgmma with 128 keys a block, each
+warpgroup keeping dK and dV of its 64; and in bf16 at gemma3's 256 of
+:data:`BWD_SPLIT_WIDTHS` on wgmma with the two warpgroups of a block
+splitting dK and dV of the same keys; float32 and other widths above
+:data:`BWD_MAX_D` raise).
 :func:`flash_attention_bwd_plain` computes the same formulas in plain
 PyTorch. The JAX package has no backward kernel: its gradient is XLA's
 autodiff of its XLA attention, which autograd of
@@ -46,6 +48,11 @@ BWD_TC_WIDTHS = frozenset({64, 128})
 # (D, Dv) above BWD_MAX_D the backward's split wgmma kernel is built for, in
 # bf16 only: gemma3's 256 and deepseek-v2's MLA (192 | 128)
 BWD_SPLIT_WIDTHS = frozenset({(256, 256), (192, 128)})
+# the (D, Dv) of BWD_SPLIT_WIDTHS that the backward's kv128 wgmma kernel
+# takes instead (128 keys a block, dK and dV of a warpgroup's 64 keys in
+# its registers): deepseek-v2's MLA; the split kernel still takes it when
+# forced (as chip_smoke.py times it)
+BWD_KV128_WIDTHS = frozenset({(192, 128)})
 BWD_TILE = 64                     # q rows a tile of the wgmma backward
 Q_CHUNK = 1024                    # query rows a chunk of the plain version
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,6 +68,8 @@ _BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 11 + [_I] * 8
                    "flash_attention_bwd_wgmma": [_P] * 11 + [_I] * 6
                    + [_F, _I, _I, _I, _P],
                    "flash_attention_bwd_split": [_P] * 11 + [_I] * 7
+                   + [_F, _I, _I, _I, _P],
+                   "flash_attention_bwd_kv128": [_P] * 11 + [_I] * 7
                    + [_F, _I, _I, _I, _P]}
 
 
@@ -118,15 +127,20 @@ def _plain_scores(q, k, v, causal, window, q_offset, scale):
 
 
 def _bwd_route(dtype: torch.dtype, D: int, Dv: int) -> str:
-    """The backward kernel that takes a CUDA call: ``"wgmma_split"``
-    (tensor cores, the two warpgroups of a block splitting dK and dV of the
-    same keys) for bfloat16 at (D, Dv) in :data:`BWD_SPLIT_WIDTHS`;
+    """The backward kernel that takes a CUDA call: ``"wgmma_kv128"``
+    (tensor cores, 128 keys a block, each warpgroup keeping dK and dV of
+    its 64) for bfloat16 at (D, Dv) in :data:`BWD_KV128_WIDTHS`;
+    ``"wgmma_split"`` (tensor cores, the two warpgroups of a block
+    splitting dK and dV of the same keys) for bfloat16 at the other (D, Dv)
+    of :data:`BWD_SPLIT_WIDTHS`;
     ``"wgmma"`` (tensor cores, warpgroup products fed by TMA) for bfloat16
     at D = Dv in :data:`BWD_TC_WIDTHS`, ``"mma"`` (tensor cores,
     ``mma.sync``) for other bfloat16 widths that are multiples of 16,
     ``"simt"`` (CUDA cores) for float32 and the remaining bfloat16 widths;
     these three for D, Dv up to :data:`BWD_MAX_D`. What none takes raises
     ValueError."""
+    if dtype == torch.bfloat16 and (D, Dv) in BWD_KV128_WIDTHS:
+        return "wgmma_kv128"
     if dtype == torch.bfloat16 and (D, Dv) in BWD_SPLIT_WIDTHS:
         return "wgmma_split"
     if dtype not in _DTYPES or not (0 < D <= BWD_MAX_D and 0 < Dv <= BWD_MAX_D):
@@ -409,10 +423,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("lse must be a contiguous float32 tensor on q's device")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    # the wgmma routes' dQ buffer is tiled (B, H, Sp / 64, D / 64, 64, 64)
-    # and their row statistics (lse log2 e, Delta) padded to Sp, Sq rounded
-    # up to its 64-row tile
-    tiled = route in ("wgmma", "wgmma_split")
+    # the wgmma routes' dQ buffer is tiled ((B, H, Sp / 64, D / 64, 64, 64);
+    # kv128's (B, H, Sp / 64, 2, 64, D / 2)) and their row statistics (lse
+    # log2 e, Delta) padded to Sp, Sq rounded up to its 64-row tile
+    tiled = route in ("wgmma", "wgmma_split", "wgmma_kv128")
     Sp = -(-Sq // BWD_TILE) * BWD_TILE if tiled else Sq
     dq_acc = torch.empty((B, Sp, H, D), dtype=torch.float32, device=q.device)
     dq = dq_acc if q.dtype == torch.float32 else torch.empty_like(q)
@@ -429,7 +443,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
         opts = (float(scale), int(causal), window, int(q_offset),
                 build.stream_ptr(q.device))
-        if route == "wgmma_split":
+        if route == "wgmma_kv128":
+            rc = lib.flash_attention_bwd_kv128(*ptrs, B, Sq, Skv, H, KV, D,
+                                               Dv, *opts)
+        elif route == "wgmma_split":
             rc = lib.flash_attention_bwd_split(*ptrs, B, Sq, Skv, H, KV, D,
                                                Dv, *opts)
         elif route == "wgmma":
@@ -447,5 +464,5 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_by_route = {"wgmma_split": 0, "wgmma": 0,
-                                         "mma": 0, "simt": 0}
+flash_attention_bwd.launches_by_route = {"wgmma_kv128": 0, "wgmma_split": 0,
+                                         "wgmma": 0, "mma": 0, "simt": 0}

@@ -3,11 +3,13 @@ version.
 
 Counterpart of ``repro.kernels.matmul`` (the Pallas TPU kernel). The
 kernels are in ``csrc/matmul.cu``; its source note says what bounds them
-on an H100. Two routes, chosen by the row count (:func:`_route`): the face
-batches (M <= 8) take the skinny kernel, one launch that splits K over a
-thread-block cluster (:func:`skinny_plan`) and sums the splits through
-distributed shared memory; larger M takes the tiled kernel, whose K split
-(:func:`split_k`) sums in a second launch. How K is split is the launch
+on an H100. Three routes, chosen by the row count (:func:`_route`): the
+face batches (M <= 8) take the skinny kernel, one launch that splits K over
+a thread-block cluster (:func:`skinny_plan`) and sums the splits through
+distributed shared memory; the serving cluster's replica batches (9 to 64
+rows) the rows kernel, the same structure with a register tile of rows x 4
+columns a thread (:func:`rows_plan`); larger M takes the tiled kernel,
+whose K split (:func:`split_k`) sums in a second launch. How K is split is the launch
 plan: a CUDA call takes it from :mod:`repro_torch.kernels.autotune`'s cache
 (the formulas are its candidates' anchors), or from the caller, and
 :func:`check_plan` refuses one the kernel would not take. :func:`matmul`
@@ -29,10 +31,19 @@ SKINNY_M = 8                      # the most rows the skinny route takes
 _SN = 16                          # the skinny route's columns a block
 MAX_CLUSTER = 8                   # blocks a cluster: the portable limit
 _SKINNY_MIN_ROWS = 32             # K rows a cluster rank reads at least
+ROWS_M = 64                       # the most rows the rows route takes
+_RN = 16                          # the rows route's columns a block
+# the rows route's largest cluster: at the cluster batches' K of 3,072 and
+# 6,912 clusters of 7 and 8 ranks ran slower than 6 on the H100 at every M
+# (fewer of them fit the card at once: phase 12's sweep of chip_smoke.py)
+ROWS_MAX_CLUSTER = 6
+ROWS_PASS = 64                    # K rows a pass of the rows route's ring
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                "matmul_skinny_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                     _P]}
+                                     _P],
+               "matmul_rows_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _P]}
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -50,8 +61,11 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
 
 def _route(M: int) -> str:
     """The kernel that takes a CUDA call with M rows: ``"skinny"`` for
-    M <= 8 (the face batches), ``"tile"`` above."""
-    return "skinny" if M <= SKINNY_M else "tile"
+    M <= 8 (the face batches), ``"rows"`` for 9 to 64 (the serving
+    cluster's replica batches), ``"tile"`` above."""
+    if M <= SKINNY_M:
+        return "skinny"
+    return "rows" if M <= ROWS_M else "tile"
 
 
 def skinny_plan(N: int, K: int, n_sm: int) -> tuple[int, int]:
@@ -69,6 +83,21 @@ def skinny_plan(N: int, K: int, n_sm: int) -> tuple[int, int]:
     return -(-K // chunk), chunk
 
 
+def rows_plan(N: int, K: int, n_sm: int) -> tuple[int, int]:
+    """(cluster, k_chunk) of the rows route: as :func:`skinny_plan` over
+    ceil(N / 16) column slabs, up to ROWS_MAX_CLUSTER ranks, with k_chunk
+    a multiple of 4 (a rank's K range starts on a 16-byte boundary of A's
+    rows)."""
+    if K == 0:
+        return 1, 0
+    slabs = -(-N // _RN)
+    want = max(1, min(ROWS_MAX_CLUSTER, -(-n_sm // slabs),
+                      -(-K // _SKINNY_MIN_ROWS)))
+    chunk = -(-K // want)
+    chunk += -chunk % 4
+    return -(-K // chunk), chunk
+
+
 def split_k(M: int, N: int, K: int, n_sm: int) -> tuple[int, int]:
     """(splits, k_chunk) of the tile route: enough K splits to give every
     SM about two blocks when the output has few tiles, with no empty
@@ -81,24 +110,29 @@ def split_k(M: int, N: int, K: int, n_sm: int) -> tuple[int, int]:
 
 
 def check_plan(M: int, K: int, plan: dict) -> tuple[int, int]:
-    """``plan`` as the route of M launches it: skinny (cluster, k_chunk),
-    cluster 1..MAX_CLUSTER and at most ceil(K / 32), no empty rank ((1, 0)
-    at K = 0); tile (splits, k_chunk), k_chunk a multiple of the tile's K
-    step, no empty split. Anything else raises ValueError."""
-    names = ("cluster", "k_chunk") if _route(M) == "skinny" \
-        else ("splits", "k_chunk")
+    """``plan`` as the route of M launches it: skinny and rows (cluster,
+    k_chunk), cluster 1..MAX_CLUSTER (rows: ROWS_MAX_CLUSTER) and at most
+    ceil(K / 32), no empty rank ((1, 0) at K = 0), rows' k_chunk a
+    multiple of 4; tile (splits,
+    k_chunk), k_chunk a multiple of the tile's K step, no empty split.
+    Anything else raises ValueError."""
+    route = _route(M)
+    names = ("splits", "k_chunk") if route == "tile" \
+        else ("cluster", "k_chunk")
     if set(plan) != set(names):
-        raise ValueError(f"a {_route(M)} plan has keys {names}, got {plan}")
+        raise ValueError(f"a {route} plan has keys {names}, got {plan}")
     n, chunk = (int(plan[k]) for k in names)
-    if _route(M) == "skinny":
-        most = min(MAX_CLUSTER, max(1, -(-K // _SKINNY_MIN_ROWS)))
+    if route != "tile":
+        most = min(MAX_CLUSTER if route == "skinny" else ROWS_MAX_CLUSTER,
+                   max(1, -(-K // _SKINNY_MIN_ROWS)))
         ok = (n, chunk) == (1, 0) if K == 0 else (
-            1 <= n <= most and (n - 1) * chunk < K <= n * chunk)
+            1 <= n <= most and (n - 1) * chunk < K <= n * chunk
+            and (route == "skinny" or chunk % 4 == 0))
     else:
         ok = (n >= 1 and chunk > 0 and chunk % _BK == 0
               and (n - 1) * chunk < max(K, 1) and K <= n * chunk)
     if not ok:
-        raise ValueError(f"matmul plan {plan} is not one the {_route(M)} "
+        raise ValueError(f"matmul plan {plan} is not one the {route} "
                          f"kernel takes at K = {K}")
     return n, chunk
 
@@ -156,6 +190,10 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
             rc = lib.matmul_skinny_f32(a.data_ptr(), b.data_ptr(), bias_ptr,
                                        out.data_ptr(), M, N, K, n,
                                        k_chunk, tanh, stream)
+        elif route == "rows":
+            rc = lib.matmul_rows_f32(a.data_ptr(), b.data_ptr(), bias_ptr,
+                                     out.data_ptr(), M, N, K, n, k_chunk,
+                                     tanh, stream)
         else:
             partial = (torch.empty((n, M, N), dtype=torch.float32,
                                    device=a.device) if n > 1 else None)
@@ -171,4 +209,4 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
 
 matmul.last_plan = None
 matmul.launches = 0
-matmul.launches_by_route = {"skinny": 0, "tile": 0}
+matmul.launches_by_route = {"skinny": 0, "rows": 0, "tile": 0}

@@ -290,7 +290,7 @@ def test_flash_bwd_plain_vs_autograd_and_jax_vjp(B, Sq, Skv, H, KV, D, kw):
     (torch.float32, 128, 128, "simt"),
     (torch.float32, 64, 64, "simt"),
     (torch.bfloat16, 256, 256, "wgmma_split"),   # gemma3-12b
-    (torch.bfloat16, 192, 128, "wgmma_split")])  # deepseek-v2's MLA
+    (torch.bfloat16, 192, 128, "wgmma_kv128")])  # deepseek-v2's MLA
 def test_flash_bwd_route_by_dtype_and_width(dtype, D, Dv, route):
     assert fa._bwd_route(dtype, D, Dv) == route
 

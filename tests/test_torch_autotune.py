@@ -19,7 +19,7 @@ from repro_torch.kernels import matmul as mm
 N_SM = 132
 MM_SHAPES = [(1, 6912, 256), (8, 256, 128), (5, 3072, 256), (3, 100, 37),
              (1, 7, 16), (16, 6912, 256), (64, 256, 128), (512, 3072, 256),
-             (13, 200, 37), (9, 1, 5)]
+             (13, 200, 37), (9, 1, 5), (65, 200, 37), (33, 517, 130)]
 
 
 @pytest.fixture
@@ -44,6 +44,8 @@ def test_matmul_candidates_are_plans_the_kernel_takes(M, K, N):
         mm.check_plan(M, K, c)                   # raises on a bad plan
     if M <= mm.SKINNY_M:
         formula = dict(zip(("cluster", "k_chunk"), mm.skinny_plan(N, K, N_SM)))
+    elif M <= mm.ROWS_M:
+        formula = dict(zip(("cluster", "k_chunk"), mm.rows_plan(N, K, N_SM)))
     else:
         formula = dict(zip(("splits", "k_chunk"), mm.split_k(M, N, K, N_SM)))
     assert formula in cands
@@ -54,8 +56,9 @@ def test_matmul_candidates_are_plans_the_kernel_takes(M, K, N):
     ({"cluster": 9, "k_chunk": 768}, 1, 6912),     # past MAX_CLUSTER
     ({"cluster": 8, "k_chunk": 1000}, 1, 6912),    # an empty rank
     ({"cluster": 5, "k_chunk": 20}, 1, 100),       # over ceil(K / 32) ranks
-    ({"splits": 2, "k_chunk": 100}, 16, 200),      # not a multiple of 32
-    ({"splits": 8, "k_chunk": 32}, 16, 200),       # an empty split
+    ({"splits": 2, "k_chunk": 100}, 65, 200),      # not a multiple of 32
+    ({"splits": 8, "k_chunk": 32}, 65, 200),       # an empty split
+    ({"cluster": 2, "k_chunk": 102}, 16, 200),     # rows: not a multiple of 4
     ({"splits": 2, "k_chunk": 64}, 4, 128),        # the other route's keys
 ])
 def test_a_plan_the_kernel_rejects_raises(plan, M, K):
@@ -71,7 +74,7 @@ def test_a_plan_the_kernel_rejects_raises(plan, M, K):
 
 def test_matmul_plan_miss_then_hit(cache, monkeypatch):
     p1 = autotune.matmul_plan(64, 6912, 256, N_SM, cache=cache)
-    assert set(p1) == {"splits", "k_chunk"}
+    assert set(p1) == {"cluster", "k_chunk"}          # the rows route's
     assert cache.path.is_file()
     # a hit must not re-run the sweep: poison the scorer
     monkeypatch.setattr(autotune, "matmul_cost_us", lambda *a, **k: 1 / 0)
@@ -97,12 +100,14 @@ def test_matmul_plan_deterministic(tmp_path):
 
 def test_m_bucketing_shares_keys():
     """Ragged batch rows land in the pow2 bucket of the padded call the
-    face path makes, so one tuning serves the whole bucket; the skinny and
-    tile routes never share one (SKINNY_M is a power of two)."""
+    face path makes, so one tuning serves the whole bucket; no two routes
+    ever share one (SKINNY_M and ROWS_M are powers of two)."""
     assert autotune.matmul_key(5, 3072, 256, N_SM) == \
         autotune.matmul_key(8, 3072, 256, N_SM)
     assert autotune.matmul_key(8, 3072, 256, N_SM) != \
         autotune.matmul_key(9, 3072, 256, N_SM)
+    assert autotune.matmul_key(64, 3072, 256, N_SM) != \
+        autotune.matmul_key(65, 3072, 256, N_SM)
     assert autotune.matmul_key(8, 3072, 256, N_SM) != \
         autotune.matmul_key(8, 3072, 256, 114)          # another card
 
@@ -113,7 +118,7 @@ def test_corrupt_cache_is_empty_cache(tmp_path):
     c = autotune.AutotuneCache(path=p, seed_path=None)
     assert c.lookup("anything") is None
     plan = autotune.matmul_plan(64, 256, 128, N_SM, cache=c)
-    assert set(plan) == {"splits", "k_chunk"}
+    assert set(plan) == {"cluster", "k_chunk"}        # the rows route's
     assert json.loads(p.read_text())   # rewritten valid
 
 

@@ -98,7 +98,7 @@ def test_train_cuts_walk_depths_where_one_layer_fits(arch, first):
 
 @pytest.mark.parametrize("arch,route", [("llama3-8b", "wgmma"),
                                         ("gemma3-12b", "wgmma_split"),
-                                        ("deepseek-v2-236b", "wgmma_split")])
+                                        ("deepseek-v2-236b", "wgmma_kv128")])
 def test_train_want_puts_each_backward_on_its_route(arch, route):
     """Each attention layer's forward twice a step on wgmma (the
     rematerialised one included) and its backward once on the route of its

@@ -74,14 +74,23 @@ def test_matmul_kernel_vs_plain(cuda, M, K, N, bias, epi):
 
 
 # (M, K, N, bias, epilogue, route): the skinny route at every face batch
-# size with ragged N and K, the tile route above 8 rows
+# size with ragged N and K, the rows route from 9 to 64 rows (the serving
+# cluster's replica batches at both products, ragged M, K and N: its
+# scalar copies), the tile route above 64
 MM_ROUTE_CASES = [(M, 6912, 256, False, "tanh", "skinny") for M in (1, 2, 4, 8)]
 MM_ROUTE_CASES += [(3, 3072, 256, False, "none", "skinny"),
                    (5, 200, 37, True, "tanh", "skinny"),
                    (7, 33, 5, True, "none", "skinny"),
                    (2, 3000, 2000, True, "tanh", "skinny"),
-                   (9, 200, 37, True, "tanh", "tile"),
-                   (64, 517, 130, False, "none", "tile")]
+                   (9, 200, 37, True, "tanh", "rows"),
+                   (64, 517, 130, False, "none", "rows"),
+                   (65, 200, 37, True, "tanh", "tile"),
+                   (512, 517, 130, False, "none", "tile")]
+MM_ROUTE_CASES += [(M, K, N, False, epi, "rows") for M in (16, 32, 64)
+                   for K, N, epi in ((6912, 256, "tanh"), (256, 128, "none"))]
+MM_ROUTE_CASES += [(33, 3072, 256, True, "tanh", "rows"),
+                   (17, 6912, 256, True, "none", "rows"),
+                   (49, 1000, 300, True, "tanh", "rows")]
 
 
 @pytest.mark.parametrize("M,K,N,bias,epi,route", MM_ROUTE_CASES)
@@ -120,6 +129,50 @@ def test_matmul_skinny_route_replays_in_a_cuda_graph_bit_exactly(cuda):
         graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(captured, eager)
+
+
+def test_matmul_rows_route_replays_in_a_cuda_graph_bit_exactly(cuda):
+    """The cluster's two products at 64 and 16 rows captured in one CUDA
+    graph give, replayed, the eager call's bits: the cluster's K split is
+    summed in a fixed order."""
+    g = _gen(3)
+    ops = []
+    for M, K, N, epi in ((64, 6912, 256, "tanh"), (16, 256, 128, "none")):
+        a = torch.randn((M, K), generator=g).to(cuda)
+        b = (torch.randn((K, N), generator=g) / K**0.5).to(cuda)
+        c = torch.randn((N,), generator=g).to(cuda)
+        ops.append((a, b, c, epi))
+
+    def calls():
+        return [mm.matmul(a, b, bias=c, epilogue=epi) for a, b, c, epi in ops]
+
+    eager = calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n = mm.matmul.launches_by_route["rows"]
+    with torch.cuda.graph(graph):
+        captured = calls()
+    assert mm.matmul.launches_by_route["rows"] == n + 2
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(c, e) for c, e in zip(captured, eager))
+
+
+def test_matmul_rows_entry_rejects_more_than_64_rows(cuda):
+    """Forced past its 64 rows, or given a K chunk that is no multiple of
+    4, the rows kernel's entry refuses the launch and the wrapper raises."""
+    a = torch.ones((65, 64), device=cuda)
+    b = torch.ones((64, 16), device=cuda)
+    with mock.patch.object(mm, "_route", lambda M: "rows"):
+        with pytest.raises(RuntimeError, match="rows"):
+            mm.matmul(a, b, plan={"cluster": 1, "k_chunk": 64})
+    with pytest.raises(ValueError):
+        mm.matmul(a[:16], b, plan={"cluster": 2, "k_chunk": 34})
 
 
 def test_matmul_kernel_rejects_what_it_does_not_take(cuda):
@@ -611,11 +664,12 @@ FLASH_BWD_SPLIT_CASES = [
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,D,Dv,kw", FLASH_BWD_SPLIT_CASES)
 def test_flash_backward_split_kernel_vs_plain_and_autograd(cuda, B, Sq, Skv,
                                                            H, KV, D, Dv, kw):
-    """The split wgmma backward (bf16 only) against the plain formulas on
-    the same (o, lse) and autograd of the plain forward, and through
-    FlashAttentionFn as a training step calls it, within 2e-2 of the
-    largest gradient; the forward's lse at these widths against the plain
-    one."""
+    """The split wgmma backward (bf16 only; forced at MLA's widths, which
+    take the kv128 route) against the plain formulas on the same (o, lse)
+    and autograd of the plain forward, and through FlashAttentionFn as a
+    training step calls it (on the route of the widths), within 2e-2 of
+    the largest gradient; the forward's lse at these widths against the
+    plain one."""
     g = _gen(23)
     dtype = torch.bfloat16
     q = torch.randn((B, Sq, H, D), generator=g).to(cuda, dtype)
@@ -626,9 +680,13 @@ def test_flash_backward_split_kernel_vs_plain_and_autograd(cuda, B, Sq, Skv,
     o, lse = fa._forward(q, k, v, *opts, True)
     torch.testing.assert_close(lse, fa.flash_attention_lse_plain(q, k, v, **kw),
                                atol=1e-4, rtol=1e-5)
-    assert fa._bwd_route(dtype, D, Dv) == "wgmma_split"
+    # MLA's widths take the kv128 route; the split kernel, still built for
+    # them, is forced there
+    assert fa._bwd_route(dtype, D, Dv) == ("wgmma_split" if D == 256
+                                           else "wgmma_kv128")
     n = fa.flash_attention_bwd.launches_by_route["wgmma_split"]
-    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    with mock.patch.object(fa, "_bwd_route", lambda *a: "wgmma_split"):
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     assert fa.flash_attention_bwd.launches_by_route["wgmma_split"] == n + 1
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
@@ -672,16 +730,17 @@ def test_split_backward_route_replays_in_a_cuda_graph(cuda):
             out.extend(fa.flash_attention_bwd(q, k, v, o, lse, do, **kw))
         return out
 
-    eager = calls()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        calls()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    n = fa.flash_attention_bwd.launches_by_route["wgmma_split"]
-    with torch.cuda.graph(graph):
-        captured = calls()
+    with mock.patch.object(fa, "_bwd_route", lambda *a: "wgmma_split"):
+        eager = calls()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            calls()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        n = fa.flash_attention_bwd.launches_by_route["wgmma_split"]
+        with torch.cuda.graph(graph):
+            captured = calls()
     assert fa.flash_attention_bwd.launches_by_route["wgmma_split"] == n + 3
     graph.replay()
     torch.cuda.synchronize()
@@ -691,6 +750,119 @@ def test_split_backward_route_replays_in_a_cuda_graph(cuda):
             assert bool(((got.float() - want.float()).abs() <= step).all())
         else:
             assert torch.equal(got, want), i
+
+
+# (B, Sq, Skv, H, KV, D, Dv, kwargs) of the kv128 wgmma backward (bf16 at
+# MLA's 192 | 128): deepseek-v2's training shape at its scale, a ragged
+# S = 37 (one key tile, its second warpgroup's keys all past Skv), S = 130
+# (a tile of two keys), a window cutting tiles, an offset chunk with
+# Skv > Sq, non-causal, and G = 2
+FLASH_BWD_KV128_CASES = [
+    (4, 1024, 1024, 128, 128, 192, 128,
+     {"causal": True, "scale": 192 ** -0.5}),
+    (2, 37, 37, 128, 128, 192, 128, {"causal": True, "scale": 192 ** -0.5}),
+    (1, 130, 130, 16, 16, 192, 128, {"causal": True}),
+    (1, 300, 300, 16, 16, 192, 128, {"causal": True, "window": 100}),
+    (1, 300, 470, 16, 16, 192, 128, {"causal": True, "q_offset": 170}),
+    (2, 200, 200, 8, 8, 192, 128, {"causal": False}),
+    (1, 333, 333, 16, 8, 192, 128, {"causal": True}),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,Dv,kw", FLASH_BWD_KV128_CASES)
+def test_flash_backward_kv128_kernel_vs_plain_and_autograd(cuda, B, Sq, Skv,
+                                                           H, KV, D, Dv, kw):
+    """The kv128 wgmma backward (bf16 at MLA's widths) against the plain
+    formulas on the same (o, lse) and autograd of the plain forward, and
+    through FlashAttentionFn as a training step calls it, within 2e-2 of
+    the largest gradient."""
+    g = _gen(29)
+    dtype = torch.bfloat16
+    q = torch.randn((B, Sq, H, D), generator=g).to(cuda, dtype)
+    k = torch.randn((B, Skv, KV, D), generator=g).to(cuda, dtype)
+    v = torch.randn((B, Skv, KV, Dv), generator=g).to(cuda, dtype)
+    do = torch.randn((B, Sq, H, Dv), generator=g).to(cuda, dtype)
+    opts = (kw["causal"], kw.get("window"), kw.get("q_offset", 0),
+            kw.get("scale"))
+    o, lse = fa._forward(q, k, v, *opts, True)
+    assert fa._bwd_route(dtype, D, Dv) == "wgmma_kv128"
+    n = fa.flash_attention_bwd.launches_by_route["wgmma_kv128"]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert fa.flash_attention_bwd.launches_by_route["wgmma_kv128"] == n + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(fa.flash_attention_plain(*leaves, **kw),
+                               leaves, do.float())
+    qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    through = torch.autograd.grad(fa.flash_attention(qq, kk, vv, **kw),
+                                  (qq, kk, vv), do)
+    assert fa.flash_attention_bwd.launches_by_route["wgmma_kv128"] == n + 2
+    for a, b, c, d in zip(got, want, auto, through):
+        scale = c.abs().max().item()
+        assert bool(torch.isfinite(a.float()).all())
+        assert (a.float() - b.float()).abs().max().item() <= BWD_RTOL[dtype] * scale
+        assert (a.float() - c).abs().max().item() <= BWD_RTOL[dtype] * scale
+        assert (d.float() - c).abs().max().item() <= BWD_RTOL[dtype] * scale
+
+
+def test_kv128_backward_route_replays_in_a_cuda_graph(cuda):
+    """The kv128 backward captured in one CUDA graph gives, replayed, the
+    bits of an eager call in dK and dV (summed in registers) and in dQ with
+    one key tile (Skv <= 128: one bulk add an element into the zeroed
+    buffer); with several key tiles dQ's fp32 adds land in no fixed order
+    (held to one bf16 step of itself); a second eager call equals the
+    first in dK and dV."""
+    g = _gen(31)
+    cases = []
+    for B, Sq, Skv, H, KV, kw in (
+            (2, 100, 100, 32, 32, {"causal": True}),
+            (1, 500, 500, 32, 32, {"causal": True}),
+            (1, 300, 300, 16, 16, {"causal": True, "window": 100})):
+        q = torch.randn((B, Sq, H, 192), generator=g).to(cuda, torch.bfloat16)
+        k = torch.randn((B, Skv, KV, 192), generator=g).to(cuda, torch.bfloat16)
+        v = torch.randn((B, Skv, KV, 128), generator=g).to(cuda, torch.bfloat16)
+        do = torch.randn((B, Sq, H, 128), generator=g).to(cuda, torch.bfloat16)
+        o, lse = fa._forward(q, k, v, kw["causal"], kw.get("window"), 0, None,
+                             True)
+        cases.append((q, k, v, o, lse, do, kw))
+
+    def calls():
+        out = []
+        for q, k, v, o, lse, do, kw in cases:
+            out.extend(fa.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+        return out
+
+    eager = calls()
+    again = calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n = fa.flash_attention_bwd.launches_by_route["wgmma_kv128"]
+    with torch.cuda.graph(graph):
+        captured = calls()
+    assert fa.flash_attention_bwd.launches_by_route["wgmma_kv128"] == n + 3
+    graph.replay()
+    torch.cuda.synchronize()
+    for i, (got, rep, want) in enumerate(zip(captured, again, eager)):
+        if i in (3, 6):                # dQ of the cases with several key tiles
+            step = want.float().abs() * 2.0 ** -7
+            assert bool(((got.float() - want.float()).abs() <= step).all())
+        else:
+            assert torch.equal(got, want), i
+            assert torch.equal(rep, want), i
+
+
+def test_flash_backward_kv128_entry_rejects_other_widths(cuda):
+    """The kv128 entry takes (192, 128) only: forced at other widths it
+    returns an error the wrapper raises."""
+    q = torch.zeros((1, 64, 2, 256), device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    with mock.patch.object(fa, "_bwd_route", lambda *a: "wgmma_kv128"):
+        with pytest.raises(RuntimeError, match="wgmma_kv128"):
+            fa.flash_attention_bwd(q, q, q, q, lse, q)
 
 
 def test_flash_backward_kernel_rejects_what_it_does_not_take(cuda):
@@ -1240,8 +1412,9 @@ def test_scan_backwards_reject_what_they_do_not_take(cuda):
 def test_real_service_cluster_serves_on_the_card(cuda):
     """``ServingCluster(service="real")`` on the card with the device
     placement: stable at S = 4, and over the timed run every identify
-    batch launched the matmul kernel twice and the YUV kernel once (the
-    warm-up's launches counted apart)."""
+    batch launched the matmul kernel twice, on the route of its padded row
+    count, and the YUV kernel once (the warm-up's launches counted
+    apart)."""
     import collections
 
     from repro_torch.cluster import ClusterSpec, ServingCluster
@@ -1262,8 +1435,12 @@ def test_real_service_cluster_serves_on_the_card(cuda):
     assert n_batches == round(sum(c / n for n, c in sizes.items())) > 0
     assert mm.matmul.launches == 2 * n_batches
     assert preproc.yuv_to_rgb.launches == n_batches
-    tile = sum(1 for n, _ in res.batch_spans if (1 << (n - 1).bit_length()) > 8)
-    assert mm.matmul.launches_by_route["tile"] == 2 * tile
+    # each batch's two products on the route of its padded row count (the
+    # replica batches above 8 rows take the rows kernel)
+    want = dict.fromkeys(mm.matmul.launches_by_route, 0)
+    for n, _ in res.batch_spans:
+        want[mm._route(1 << (n - 1).bit_length())] += 2
+    assert mm.matmul.launches_by_route == want
 
 
 # battery shapes of kernels.autotune: skinny and tile matmuls, decode on

@@ -100,8 +100,45 @@ def test_split_k_fills_the_card_on_face_shapes():
 
 
 def test_matmul_route_sends_face_batches_to_the_skinny_kernel():
+    """The face batches (M <= 8) to the skinny kernel, the serving
+    cluster's replica batches (9 to 64 rows) to the rows kernel, larger M
+    (the autotune battery's 512) to the tile kernel."""
     assert [mm._route(M) for M in (1, 2, 3, 4, 5, 8)] == ["skinny"] * 6
-    assert [mm._route(M) for M in (9, 13, 16, 2048)] == ["tile"] * 4
+    assert [mm._route(M) for M in (9, 13, 16, 32, 33, 64)] == ["rows"] * 6
+    assert [mm._route(M) for M in (65, 512, 2048)] == ["tile"] * 3
+
+
+@pytest.mark.parametrize("N,K", [(256, 6912), (128, 256), (256, 3072),
+                                 (37, 200), (9, 0), (16, 1), (16, 33),
+                                 (130, 517), (5000, 100000)])
+def test_rows_plan_covers_k_without_empty_splits(N, K):
+    """The rows route's formula: a cluster of 1 to ROWS_MAX_CLUSTER ranks
+    whose K chunk is a multiple of 4, no rank empty, and a plan check_plan
+    takes."""
+    cluster, chunk = mm.rows_plan(N, K, n_sm=132)
+    assert 1 <= cluster <= mm.ROWS_MAX_CLUSTER
+    mm.check_plan(16, K, {"cluster": cluster, "k_chunk": chunk})
+    if K == 0:
+        assert (cluster, chunk) == (1, 0)
+        return
+    assert chunk % 4 == 0
+    assert cluster * chunk >= K                        # every K row covered
+    assert (cluster - 1) * chunk < K                   # no rank left empty
+
+
+@pytest.mark.parametrize("M,K,plan", [
+    (16, 6912, {"splits": 8, "k_chunk": 864}),         # a tile plan's keys
+    (16, 6912, {"cluster": 9, "k_chunk": 768}),        # past the cluster
+    (16, 6912, {"cluster": 7, "k_chunk": 988}),        # past the rows' 6
+    (64, 6912, {"cluster": 6, "k_chunk": 1154}),       # chunk not 4-aligned
+    (33, 6912, {"cluster": 6, "k_chunk": 1148}),       # K not covered
+    (33, 6912, {"cluster": 6, "k_chunk": 1400}),       # a rank left empty
+    (9, 64, {"cluster": 3, "k_chunk": 32}),            # more than K / 32
+    (65, 256, {"cluster": 8, "k_chunk": 32}),          # the tile route's M
+    (8, 256, {"splits": 1, "k_chunk": 256})])          # the skinny route's M
+def test_check_plan_refuses_what_the_route_does_not_take(M, K, plan):
+    with pytest.raises(ValueError):
+        mm.check_plan(M, K, plan)
 
 
 @pytest.mark.parametrize("N,K", [(256, 6912), (128, 256), (256, 3072),
@@ -156,6 +193,57 @@ def _skinny_sum(a, b, bias, epi, n_sm=132):
 def test_skinny_split_sum_emulation_vs_jax(M, K, N, bias, epi):
     a, b, c = _mm_inputs(M, K, N, bias, seed=3)
     got = _skinny_sum(a, b, c, epi)
+    xla = np.asarray(jax_ops.matmul(
+        jnp.asarray(a), jnp.asarray(b), bias=None if c is None
+        else jnp.asarray(c), epilogue=epi, impl="xla"))
+    ref = np.asarray(jax_matmul._apply_epilogue(
+        jax_ref.matmul(jnp.asarray(a), jnp.asarray(b)),
+        None if c is None else jnp.asarray(c), epi))
+    np.testing.assert_allclose(got, xla, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
+
+
+def _rows_sum(a, b, bias, epi, n_sm=132):
+    """csrc/matmul.cu's rows kernel in NumPy float32, in its order: each K
+    lane's fma chain over rows 4 lane .. 4 lane + 3 of every 64-row pass of
+    its rank's range, a shuffle tree over the 8 lanes of a warp, the row
+    group's two warps in order, the cluster's ranks in order from 0, then
+    bias and tanh once."""
+    M, K = a.shape
+    N = b.shape[1]
+    cluster, chunk = mm.rows_plan(N, K, n_sm)
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    total = np.zeros((M, N), np.float32)
+    for rank in range(cluster):
+        k0, k1 = rank * chunk, min(K, (rank + 1) * chunk)
+        lanes = np.zeros((16, M, N), np.float32)
+        for kk in range(k0, k1):
+            lane = (kk - k0) % 64 // 4
+            lanes[lane] = (a64[:, kk, None] * b64[None, kk]
+                           + lanes[lane]).astype(np.float32)
+        warps = []
+        for w in range(2):
+            x = lanes[8 * w:8 * w + 8]
+            x = x[0::2] + x[1::2]                      # shuffle xor 4
+            x = x[0::2] + x[1::2]                      # xor 8
+            warps.append(x[0] + x[1])                  # xor 16
+        total = total + (warps[0] + warps[1])
+    if bias is not None:
+        total = total + bias
+    return np.tanh(total) if epi == "tanh" else total
+
+
+@pytest.mark.parametrize("M", [9, 16, 33, 64])
+@pytest.mark.parametrize("K,N,bias,epi", [(6912, 256, False, "tanh"),
+                                          (256, 128, False, "none"),
+                                          (200, 37, True, "tanh")])
+def test_rows_split_sum_emulation_vs_jax(M, K, N, bias, epi):
+    """The rows kernel's summation order (the cluster's fixed-order sum)
+    within 1e-5 of the reference's XLA matmul and its ref, at the cluster's
+    row counts and both of its products."""
+    assert mm._route(M) == "rows"
+    a, b, c = _mm_inputs(M, K, N, bias, seed=4)
+    got = _rows_sum(a, b, c, epi)
     xla = np.asarray(jax_ops.matmul(
         jnp.asarray(a), jnp.asarray(b), bias=None if c is None
         else jnp.asarray(c), epilogue=epi, impl="xla"))
