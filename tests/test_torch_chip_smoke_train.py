@@ -135,3 +135,192 @@ def test_train_want_puts_each_scan_backward_on_its_chunked_route(arch, kind):
     assert taken == "chunk"
     assert want[f"{kind}_scan_bwd"] == {
         r: n if r == taken else 0 for r in wrapper.launches_by_route}
+
+
+WHISPER = "whisper-large-v3"
+GRANITE = "granite-moe-3b-a800m"
+
+
+def test_train_want_counts_whispers_encoder_decoder_and_cross_launches():
+    """whisper-large-v3 launches 32 encoder (non-causal self), 32 decoder
+    (causal self) and 32 cross attention calls a step, each forward twice
+    (every layer rematerialised) and each backward once, all of them at
+    D = 64 on the wgmma routes; 0 on every other route, no scan."""
+    from repro_torch.kernels import flash_attention as fa
+    cfg = get_config(WHISPER)
+    assert (cfg.n_enc_layers, cfg.n_layers) == (32, 32)
+    want = cs.train_want(cfg)
+    calls = (32 + 32 + 32) * cs.TRAIN_STEPS
+    assert set(want) == {"flash_attention", "flash_attention_bwd"}
+    assert want["flash_attention"] == {"wgmma": 2 * calls, "simt": 0}
+    assert fa._bwd_route(torch.bfloat16, *cs.attn_widths(cfg)) == "wgmma"
+    assert want["flash_attention_bwd"] == {
+        r: calls if r == "wgmma" else 0
+        for r in fa.flash_attention_bwd.launches_by_route}
+    # a cut keeps three calls a decoder layer and one an encoder layer
+    cut = cs.train_want(cs.train_cfg(cfg, 2))
+    assert cut["flash_attention"]["wgmma"] == 2 * 6 * cs.TRAIN_STEPS
+
+
+def test_train_want_for_granite():
+    """granite-moe-3b-a800m's 32 attention layers (GQA 24 | 8, D = 64):
+    forward twice a step on wgmma, backward once on wgmma, no scan."""
+    from repro_torch.kernels import flash_attention as fa
+    cfg = get_config(GRANITE)
+    want = cs.train_want(cfg)
+    n = 32 * cs.TRAIN_STEPS
+    assert set(want) == {"flash_attention", "flash_attention_bwd"}
+    assert want["flash_attention"] == {"wgmma": 2 * n, "simt": 0}
+    assert want["flash_attention_bwd"] == {
+        r: n if r == "wgmma" else 0
+        for r in fa.flash_attention_bwd.launches_by_route}
+
+
+def test_train_flops_for_whisper_at_its_own_token_counts():
+    """The count written out from whisper-large-v3's widths: the encoder's
+    products on 4 x 1,500 frames, the decoder's on 4 x 187 tokens, but each
+    decoder layer's cross K and V projections on the 1,500 encoder states;
+    the token embedding a gather (the head is its own matrix); attention
+    6 H (D + Dv) a visible pair, the encoder's and the cross attention's
+    every pair, the decoder's causal self attention half of S_dec^2."""
+    cfg = get_config(WHISPER)
+    d, f, V, H, D = (cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_heads,
+                     cfg.head_dim)
+    HD = H * D
+    B, Se, Sd = 4, 1500, 187
+    assert cs.train_lengths(cfg) == (Se, Sd) and cs.TRAIN_B == B
+    ln = 2 * d                                       # LayerNorm: w, b
+    attn = 4 * d * HD + 3 * HD                       # wq wk wv wo, bq bk bv
+    mlp = 2 * d * f + f + d                          # wi, bi, wo, bo
+    enc = d * d + 32 * (2 * ln + attn + mlp) + ln    # enc_in, layers, ln_enc
+    cross_kv = 32 * 2 * d * HD
+    dec = 32 * (3 * ln + attn + 2 * d * HD + mlp) + ln + d * V  # + ln_f, head
+    model = Model(cfg, device="cpu")
+    assert model.n_params() == enc + dec + cross_kv + V * d
+    products = 6 * B * ((enc + cross_kv) * Se + dec * Sd)
+    attention = 6 * H * 2 * D * B * (32 * Se * Se + 32 * Sd * Se
+                                     + 32 * Sd * Sd / 2)
+    assert cs.train_flops(model) == pytest.approx(products + attention,
+                                                  rel=1e-12)
+
+
+def test_train_flops_for_granite():
+    """granite-moe-3b-a800m: 32 layers of GQA attention and 40 experts of
+    which 8 are active, the tied embedding counted as the head's product,
+    attention 3 S H (D + Dv) a layer a token."""
+    cfg = get_config(GRANITE)
+    d, V, H, KV, D = (cfg.d_model, cfg.vocab_size, cfg.n_heads,
+                      cfg.n_kv_heads, cfg.head_dim)
+    E, K, f = cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_expert
+    # the two norms, attention's wq, wo, wk, wv and the router
+    layer = 2 * d + d * H * D * 2 + 2 * d * KV * D + d * E
+    model = Model(cfg, device="cpu")
+    assert model.n_params() == V * d + 32 * (layer + E * 3 * d * f) + d
+    tokens = cs.TRAIN_B * cs.TRAIN_S
+    active = V * d + 32 * (layer + K * 3 * d * f) + d
+    want = tokens * (6 * active + 3 * 32 * cs.TRAIN_S * H * 2 * D)
+    assert cs.train_flops(model) == pytest.approx(want, rel=1e-12)
+
+
+def test_frames_batch_has_the_references_train_geometry():
+    """whisper-large-v3's train batch: (4, 1,500, 1,280) stub frames in the
+    compute dtype and (4, 187) tokens and labels (the reference's
+    input_specs for a train shape of 1,500 frames), equal for equal seeds;
+    a decoder-only arch's loader has no frames."""
+    from repro_torch.configs.base import ShapeConfig
+    cfg = get_config(WHISPER)
+    loader = cs.train_loader(cfg, "cpu")
+    assert isinstance(loader, cs.FramesLoader)
+    batch = loader.next_batch()
+    assert tuple(batch["frames"].shape) == (4, 1500, 1280)
+    assert batch["frames"].dtype == torch.bfloat16
+    assert tuple(batch["tokens"].shape) == tuple(batch["labels"].shape) \
+        == (4, 187)
+    specs = Model(cfg, device="cpu").input_specs(
+        ShapeConfig("t", "train", 1500, 4))
+    assert {k: tuple(t.shape) for k, t in specs.items()} == {
+        k: tuple(t.shape) for k, t in batch.items()}
+    again = cs.FramesLoader(cfg, "cpu").next_batch()
+    for name in batch:
+        assert torch.equal(batch[name], again[name]), name
+    other = cs.FramesLoader(cfg, "cpu", seed=1).next_batch()
+    assert not torch.equal(batch["frames"], other["frames"])
+    second = loader.next_batch()
+    assert torch.equal(second["frames"], batch["frames"])
+    assert not torch.equal(second["tokens"], batch["tokens"])
+    assert "frames" not in cs.train_loader(get_config(GRANITE),
+                                           "cpu").next_batch()
+
+
+def test_whisper_loss_without_frames_raises():
+    """An encoder-decoder's loss on a batch without frames raises; it never
+    runs the decoder alone."""
+    from repro_torch.configs import whisper_large_v3
+    from repro_torch.data.tokens import TokenLoader
+    cfg = whisper_large_v3.smoke_config()
+    model = Model(cfg, device="cpu")
+    params = model.init(seed=0, masters=True)
+    batch = TokenLoader(cfg.vocab_size, batch=2, seq_len=8,
+                        device="cpu").next_batch()
+    with pytest.raises(KeyError, match="frames"):
+        model.loss(params, batch)
+
+
+@pytest.mark.parametrize("arch", [WHISPER, GRANITE])
+def test_train_cuts_for_whisper_and_granite(arch):
+    """Both fit whole on an 80 GB card by their shapes (whisper 25.7 GB,
+    granite 52.8 GB at 16 bytes a parameter): the first try is every layer;
+    whisper's cuts take encoder and decoder layers together, granite's keep
+    its 40 experts."""
+    cfg = get_config(arch)
+    cuts = cs.train_cuts(cfg, FREE)
+    assert [c.n_layers for c in cuts] == list(range(32, 0, -1))
+    assert cs.train_fits(cuts[0], FREE)
+    if cfg.encdec:
+        assert all(c.n_enc_layers == c.n_layers for c in cuts)
+    else:
+        assert all(c.moe == cfg.moe for c in cuts)
+
+
+def test_check_grad_leaves_exempts_only_key_biases_from_not_all_zero():
+    """A ``*/bk`` leaf of zeros passes (its gradient is zero in exact
+    arithmetic), held instead to 2e-2 of the largest gradient; any other
+    zero leaf fails, and so does a non-finite key bias."""
+    g = torch.Generator().manual_seed(0)
+
+    def tree(**over):
+        t = {"embed": {"tok": torch.randn((8, 4), generator=g)},
+             "enc": [{"attn": {"wq": torch.randn((4, 4), generator=g),
+                               "bq": torch.randn((4,), generator=g),
+                               "bk": torch.zeros(4)}}]}
+        for path, value in over.items():
+            *head, last = path.split("__")
+            node = t
+            for key in head:
+                node = node[int(key)] if key.isdigit() else node[key]
+            node[last] = value
+        return t
+
+    cs.check_grad_leaves("toy", tree())
+    cs.check_grad_leaves("toy", tree(enc__0__attn__bk=torch.full(
+        (4,), 1e-3)))
+    for bad in ({"enc__0__attn__wq": torch.zeros((4, 4))},
+                {"enc__0__attn__bq": torch.zeros(4)},
+                {"embed__tok": torch.zeros((8, 4))},
+                {"enc__0__attn__bk": torch.full((4,), float("nan"))},
+                {"enc__0__attn__bk": torch.full((4,), 100.0)}):
+        with pytest.raises(cs.SmokeFailure):
+            cs.check_grad_leaves("toy", tree(**bad))
+
+
+def test_step1_depth_caps_are_depths_the_fit_can_take():
+    """TRAIN_STEP1_LAYERS cuts only the step-1 check: each cap is a depth
+    ``train_cfg`` can cut its arch to, shallower than the arch, and no
+    shallower than its grad-norm depth (TRAIN_GNORM_LAYERS), so that the
+    grad-norm check still runs at or below it."""
+    for arch, n in cs.TRAIN_STEP1_LAYERS.items():
+        cfg = get_config(arch)
+        assert arch in cs.TRAIN_ARCHS
+        assert n in cs.train_depths(cfg) and n < cfg.n_layers
+        assert cs.TRAIN_GNORM_LAYERS.get(arch, n) <= n
+        assert cs.train_cfg(cfg, n).n_layers == n

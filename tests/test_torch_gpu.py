@@ -550,6 +550,20 @@ FLASH_BWD_CASES = [
 BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
+# the zoo's other training head shapes, bf16 on the wgmma route: granite's
+# GQA 24 | 8 at D = 64 (G = 3), whisper-large-v3's decoder self attention
+# (187 rows, padded to the 192-row tile) and its cross attention (187
+# queries against 1,500 encoder states), qwen2.5-14b's 40 | 8 (G = 5) and
+# chameleon-34b's and qwen1.5-110b's 64 | 8 (G = 8) at D = 128
+FLASH_BWD_TRAIN_CASES = [
+    (4, 1024, 1024, 24, 8, 64, 64, {"causal": True}),
+    (4, 187, 187, 20, 20, 64, 64, {"causal": True}),
+    (4, 187, 1500, 20, 20, 64, 64, {"causal": False}),
+    (4, 1024, 1024, 40, 8, 128, 128, {"causal": True}),
+    (4, 1024, 1024, 64, 8, 128, 128, {"causal": True}),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,D,Dv,kw", FLASH_BWD_CASES)
 def test_flash_backward_kernel_vs_plain_and_autograd(cuda, dtype, B, Sq, Skv,
@@ -560,6 +574,20 @@ def test_flash_backward_kernel_vs_plain_and_autograd(cuda, dtype, B, Sq, Skv,
     same (o, lse) and against autograd of the plain forward, through
     FlashAttentionFn as a training step calls it; the forward's lse
     against the plain one."""
+    _check_flash_backward(cuda, dtype, B, Sq, Skv, H, KV, D, Dv, kw)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,Dv,kw", FLASH_BWD_TRAIN_CASES)
+def test_flash_backward_kernel_at_the_zoos_training_shapes(cuda, B, Sq, Skv,
+                                                           H, KV, D, Dv, kw):
+    """The bf16 backward on the wgmma route at every other attention shape
+    the zoo's training steps launch, held as
+    test_flash_backward_kernel_vs_plain_and_autograd holds its cases."""
+    assert fa._bwd_route(torch.bfloat16, D, Dv) == "wgmma"
+    _check_flash_backward(cuda, torch.bfloat16, B, Sq, Skv, H, KV, D, Dv, kw)
+
+
+def _check_flash_backward(cuda, dtype, B, Sq, Skv, H, KV, D, Dv, kw):
     g = _gen(21)
     q = torch.randn((B, Sq, H, D), generator=g).to(cuda, dtype)
     k = torch.randn((B, Skv, KV, D), generator=g).to(cuda, dtype)
@@ -750,6 +778,51 @@ def test_split_backward_route_replays_in_a_cuda_graph(cuda):
             assert bool(((got.float() - want.float()).abs() <= step).all())
         else:
             assert torch.equal(got, want), i
+
+
+def test_wgmma_backward_replays_in_a_cuda_graph_at_granites_shape(cuda):
+    """The wgmma backward at granite-moe-3b-a800m's training shape (4 x
+    1,024, GQA 24 | 8, D = 64, causal) captured in a CUDA graph gives,
+    replayed, the bits of an eager call in dK and dV (summed in registers
+    over the G = 3 query heads of a kv head); dQ's fp32 adds of up to six
+    192-key tiles land in no fixed order, so an element may round to the
+    neighbouring bf16 value, and one whose partial sums cancel keeps
+    their reordering error: held to one bf16 step of itself plus 2^-20 of
+    the largest dQ (six fp32 adds' reordering error is below 2^-21 of
+    their terms)."""
+    g = _gen(19)
+    q = torch.randn((4, 1024, 24, 64), generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn((4, 1024, 8, 64), generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn((4, 1024, 8, 64), generator=g).to(cuda, torch.bfloat16)
+    do = torch.randn((4, 1024, 24, 64), generator=g).to(cuda, torch.bfloat16)
+    o, lse = fa._forward(q, k, v, True, None, 0, None, True)
+    assert fa._bwd_route(torch.bfloat16, 64, 64) == "wgmma"
+
+    def call():
+        return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n = fa.flash_attention_bwd.launches_by_route["wgmma"]
+    with torch.cuda.graph(graph):
+        captured = call()
+    assert fa.flash_attention_bwd.launches_by_route["wgmma"] == n + 1
+    for sign in (-1.0, -1.0):
+        do.mul_(sign)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = call()
+        dq, dk, dv = captured
+        want = eager[0].float()
+        slack = want.abs() * 2.0 ** -7 + want.abs().max() * 2.0 ** -20
+        excess = ((dq.float() - want).abs() - slack).max().item()
+        assert excess <= 0, (excess, want.abs().max().item())
+        assert torch.equal(dk, eager[1]) and torch.equal(dv, eager[2])
 
 
 # (B, Sq, Skv, H, KV, D, Dv, kwargs) of the kv128 wgmma backward (bf16 at
