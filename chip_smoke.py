@@ -145,7 +145,8 @@ Phases, each fatal on failure:
      weights and caches over 3.35 TB/s), peak memory and the device busy
      share (``--whisper`` runs it alone);
  11. train llama3-8b, rwkv6-3b, jamba-v0.1-52b, gemma3-12b,
-     deepseek-v2-236b, whisper-large-v3 and granite-moe-3b-a800m at full
+     deepseek-v2-236b, whisper-large-v3, granite-moe-3b-a800m,
+     qwen2.5-14b, chameleon-34b and qwen1.5-110b (all ten archs) at full
      width on the card (bf16 compute on float32 masters, 4 x 1,024-token
      TokenLoader batches, whisper's 4 x 1,500 stub frames from a seed and
      4 x 187 tokens, the reference's train geometry; AdamW as
@@ -160,8 +161,10 @@ Phases, each fatal on failure:
      formulas, and the grad norm held at TRAIN_GNORM_LAYERS where that is
      shallower, once the plain step is shown conditioned there,
      ``check_step1_at_fitting_depth``),
-     every gradient leaf finite and non-zero (a key bias's, zero in exact
-     arithmetic, finite and at most 2e-2 of the largest gradient instead),
+     every gradient leaf finite and non-zero (the key bias of an arch
+     without RoPE, whisper's, zero in exact arithmetic, finite and at most
+     2e-2 of the largest gradient instead; under RoPE, qwen's, as any
+     leaf),
      20 Trainer steps whose loss
      must fall by 0.1, the forward and backward
      launches counted (each attention or scan layer's forward twice a step,
@@ -345,9 +348,12 @@ TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT = (
 # (an encoder-decoder: frames batches, FramesLoader; its encoder, decoder
 # and cross attention on the wgmma backward at D = 64) and
 # granite-moe-3b-a800m (GQA 24 | 8 at D = 64, 40 experts top-8, a tied
-# embedding)
+# embedding), qwen2.5-14b (q/k/v biases under RoPE, GQA 40 | 8),
+# chameleon-34b (q/k norm scales, 64 | 8) and qwen1.5-110b (q/k/v biases,
+# 64 | 8, 8,192 wide, a 152,064-token untied vocabulary: one layer)
 TRAIN_ARCHS = (TRAIN_ARCH, "rwkv6-3b", "jamba-v0.1-52b", "gemma3-12b",
-               "deepseek-v2-236b", WHISPER, "granite-moe-3b-a800m")
+               "deepseek-v2-236b", WHISPER, "granite-moe-3b-a800m",
+               "qwen2.5-14b", "chameleon-34b", "qwen1.5-110b")
 # routed experts fit_train_depth steps down by where not one layer with all
 # of them trains on the card (deepseek-v2-236b's 160 at 23.6 M parameters
 # each: one layer holds 5.02 B, 80.3 GB at 16 bytes a parameter)
@@ -356,17 +362,32 @@ TRAIN_EXPERT_STEP = 16
 # run: at 135 of deepseek-v2-236b's experts one step peaked at 83.70 GB of
 # 85.02 and the Trainer's next step ran out of memory at an AdamW
 # temporary of one expert stack (4.25 GB) with 1.5 GB reserved but
-# unallocated; llama3-8b's and jamba's fitted steps leave 9.3-9.5 GB
+# unallocated. AdamW's temporaries of a whole leaf did the same to
+# qwen1.5-110b's one layer, whose step peaked at 77.70 GB, inside the
+# headroom (4.64 GiB asked, 6.57 GiB reserved in pieces): AdamW updates a
+# large leaf in slices of 256 MiB (train/optimizer.py, UPDATE_CHUNK)
 TRAIN_PEAK_HEADROOM_BYTES = 6 << 30
 TRAIN_CKPT_LAYERS = 1
 # card memory a training depth needs beyond 16 bytes a parameter (float32
 # param, grad, m, v): the chunked loss's float32 logits (4 x 512 x 128,256,
 # 1.05 GB, and their softmax), the bf16 embedding and head (1.05 GB each),
-# one layer's rematerialised activations and AdamW's temporaries on the
-# 2.1 GB embedding leaves (llama3-8b's 15 layers peak 7.5 GB above their
-# 16 bytes a parameter; gemma3-12b's 262,144-row tied embedding makes its
-# logits chunk 2.1 GB, and its 12 layers peak 9.4 GB above)
+# one layer's rematerialised activations and AdamW's temporaries of one
+# slice of a leaf (llama3-8b's 15 layers peak 3.2 GB above their 16 bytes
+# a parameter; gemma3-12b's 262,144-row tied embedding makes its logits
+# chunk 2.1 GB, and its 12 layers peak 7.3 GB above)
 TRAIN_MARGIN_BYTES = 12 << 30
+# AdamW's learning rate in phase 11: launch/train.py's default (its
+# --lr), and for the archs 8,192 wide that default scaled by llama3-8b's
+# width over theirs (3e-3 x 4,096 / 8,192). AdamW moves every element of a
+# matrix by about lr a step, so a logit, a sum over d_model of them, by
+# about lr x d_model: at 3e-3 chameleon-34b's loss rose from 11.57 to
+# 27.4 by step 11 and qwen1.5-110b's from 12.44 to 20.7, through the
+# kernels and through the plain versions alike (the two curves within
+# 1.8e-2 of each other), and neither fell by 0.1 in 20 steps; at 1.5e-3
+# they fell from 11.47 to 8.59 and from 13.30 to 8.76
+# (scripts/train_curves.py, PERF.md section 6)
+TRAIN_LR_DEFAULT = 3e-3
+TRAIN_LR = {"chameleon-34b": 1.5e-3, "qwen1.5-110b": 1.5e-3}
 # step 1 through the kernels against the same step with the plain versions
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-3, 1e-2
 # the relative change of the token embedding that probes whether a scan
@@ -521,6 +542,27 @@ def phase(name: str):
     t0 = time.perf_counter()
     yield
     print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+
+
+DeviceTime = collections.namedtuple(
+    "DeviceTime", "key self_device_time_total count")
+
+
+def device_times(prof) -> list:
+    """A finished ``torch.profiler.profile``'s device activity (kernels,
+    copies, sets) by name, as ``key_averages()``'s CUDA entries give it:
+    :class:`DeviceTime` (name, µs, count), each event's duration summed.
+    Read from the profiler's raw events: key_averages() first builds a
+    Python event for every record, tens of µs apiece, and over the tens of
+    thousands of launches of a host-bound serve or training run that took
+    most of each profile's 10-35 s."""
+    from torch.autograd import DeviceType
+    us, n = collections.Counter(), collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_async():
+            us[e.name()] += e.duration_ns() / 1e3
+            n[e.name()] += 1
+    return [DeviceTime(k, us[k], n[k]) for k in us]
 
 
 def card_line() -> str:
@@ -2393,7 +2435,6 @@ def serve_full_width(device, arch: str, wrappers) -> dict:
 def profile_serve(model, params, cfg) -> None:
     """Where a (shorter) full-width serve run's time goes: device busy
     share of the wall time, kernel time by name (torch.profiler)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     prompts = serve_requests(cfg, SERVE_SLOTS, seed=3)
     # CUDA activity alone: only the kernels' device times are read, and
@@ -2401,8 +2442,7 @@ def profile_serve(model, params, cfg) -> None:
     # summary take most of each arch's serve phase
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng, done, secs, _, _ = run_serve(model, params, prompts, 16)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_times(prof)
     busy_us = sum(e.self_device_time_total for e in kernels)
     decode_s = sum(ev.duration for ev in eng.log.events
                    if ev.stage == "decode")
@@ -3136,7 +3176,6 @@ def profile_pipeline(device, *, n_frames: int, src_hw) -> None:
     frame on the host, and the device's busy share of the run's wall time
     (kernel time summed by torch.profiler)."""
     import numpy as np
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.video import VideoStream
     from repro_torch.preprocess import host
@@ -3148,8 +3187,7 @@ def profile_pipeline(device, *, n_frames: int, src_hw) -> None:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _res, secs, _, _ = run_pipeline(device, True, n_frames=n_frames,
                                         src_hw=src_hw)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_times(prof)
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)
     print(f"profile fused pipeline: camera frame + encode {camera_ms:.1f} ms "
@@ -3561,7 +3599,6 @@ def run_whisper(device, kernels) -> dict:
     from repro_torch.models import encdec as ed
     from repro_torch.models.layers import map_tree
     from repro_torch.models.model import Model
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cfg = get_config(WHISPER)
     model = Model(cfg, device=device)
@@ -3671,8 +3708,7 @@ def run_whisper(device, kernels) -> dict:
         t0 = time.perf_counter()
         lock_step()
         wall = time.perf_counter() - t0
-    kerns = [e for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA]
+    kerns = device_times(prof)
     busy_us = sum(e.self_device_time_total for e in kerns)
     print(f"profile {WHISPER} lock step (prefill + {WHISPER_STEPS} steps): "
           f"wall {wall:.3f} s; device busy {busy_us / 1e3:.3f} ms = "
@@ -3687,10 +3723,12 @@ def run_whisper(device, kernels) -> dict:
 # Phase 11: training llama3-8b at full width
 # --------------------------------------------------------------------------
 
-def train_hp():
-    """AdamW as launch/train.py sets it for TRAIN_STEPS steps."""
+def train_hp(cfg):
+    """AdamW as launch/train.py sets it for TRAIN_STEPS steps, at
+    ``cfg``'s TRAIN_LR (launch/train.py's ``--lr``), else its default."""
     from repro_torch.train.optimizer import AdamWConfig
-    return AdamWConfig(lr=3e-3, warmup_steps=max(TRAIN_STEPS // 10, 1),
+    return AdamWConfig(lr=TRAIN_LR.get(cfg.name, TRAIN_LR_DEFAULT),
+                       warmup_steps=max(TRAIN_STEPS // 10, 1),
                        total_steps=TRAIN_STEPS)
 
 
@@ -3821,7 +3859,7 @@ def fit_train_depth(device, cfg):
         try:
             params = model.init(seed=0, masters=True)
             opt = init_opt_state(params)
-            make_train_step(model, train_hp())(params, opt, batch)
+            make_train_step(model, train_hp(model.cfg))(params, opt, batch)
             torch.cuda.synchronize()
         except torch.cuda.OutOfMemoryError as err:
             print(f"depth train {cfg.name}: {n} layers{experts} ran out of "
@@ -3865,7 +3903,8 @@ def check_train_step1(model, batch, scan_layers: bool = False,
     """Step 1's loss and gradient norm through the kernels against the same
     step with the plain versions (to TRAIN_LOSS_RTOL and, with
     ``gate_gnorm``, TRAIN_GNORM_RTOL relative), and every gradient leaf
-    finite and not all zero but the key biases' (:func:`check_grad_leaves`).
+    finite and not all zero but a sincos arch's key biases'
+    (:func:`check_grad_leaves`).
     With ``scan_layers``, each scan layer's backward kernel is
     also held against the plain formulas on that layer's own inputs and
     incoming gradient, recorded during the kernel step
@@ -3873,14 +3912,14 @@ def check_train_step1(model, batch, scan_layers: bool = False,
     import torch
     from repro_torch.train.optimizer import global_norm
     from repro_torch.train.train_step import make_train_step
-    step = make_train_step(model, train_hp())
+    step = make_train_step(model, train_hp(model.cfg))
     params = model.init(seed=0, masters=True)
     calls = []
     with (recorded_scan_calls(calls) if scan_layers
           else contextlib.nullcontext()):
         loss, grads = step.grads(params, batch)
     gnorm = float(global_norm(grads))
-    check_grad_leaves(model.cfg.name, grads)
+    check_grad_leaves(model.cfg, grads)
     del grads
     if scan_layers:
         check_recorded_scan_bwd(model.cfg.name, calls)
@@ -3903,32 +3942,39 @@ def check_train_step1(model, batch, scan_layers: bool = False,
             "train step 1: kernels and plain versions differ")
 
 
-def check_grad_leaves(name: str, grads) -> None:
-    """Every leaf of a gradient tree finite and not all zero (a cut graph
-    leaves a leaf without a gradient), but the key biases' (leaves named
-    ``*/bk``, whisper's): theirs is zero in exact arithmetic (a constant
-    added to a row's scores leaves its softmax as it is), rounding noise
-    through the kernels, so each is held instead to at most
-    BWD_RTOL["bfloat16"] of the largest gradient of the tree, finite."""
+def check_grad_leaves(cfg, grads) -> None:
+    """Every leaf of ``cfg``'s gradient tree finite and not all zero (a cut
+    graph leaves a leaf without a gradient), but, where ``cfg.pos`` is not
+    ``"rope"`` (whisper's sincos), the key biases' (leaves named ``*/bk``).
+    There a key bias reaches the scores unrotated: it adds q . bk, one
+    constant, to each row's scores, which leaves the row's softmax as it
+    is, so its gradient is zero in exact arithmetic, rounding noise through
+    the kernels; each is held instead to at most BWD_RTOL["bfloat16"] of
+    the largest gradient of the tree, finite. Under RoPE the bias is added
+    before the rotation, so each key's bias is turned by that key's
+    position, moves the scores unequally and has a real gradient (qwen's):
+    it is held as any other leaf."""
     import torch
     named = _named_leaves(grads)
+    excused = {n for n, _ in named
+               if cfg.pos != "rope" and n.endswith("/bk")}
     bad = [n for n, g in named
            if not bool(torch.isfinite(g).all())
-           or not (n.endswith("/bk") or bool((g != 0).any()))]
-    n_bk = sum(n.endswith("/bk") for n, _ in named)
-    print(f"check train {name}: {len(named)} gradient leaves, "
-          f"{len(named) - len(bad)} finite and non-zero (the {n_bk} key "
-          "biases' finite)")
+           or not (n in excused or bool((g != 0).any()))]
+    print(f"check train {cfg.name}: {len(named)} gradient leaves, "
+          f"{len(named) - len(bad)} finite and non-zero" + (
+              f" (the {len(excused)} key biases, pos {cfg.pos!r}, finite "
+              "only)" if excused else ""))
     require(not bad, f"train: gradient leaves zero or not finite: {bad[:5]}")
-    if not n_bk:
+    if not excused:
         return
     top = max(float(g.abs().max()) for _, g in named)
-    bias = max(float(g.abs().max()) for n, g in named if n.endswith("/bk"))
+    bias = max(float(g.abs().max()) for n, g in named if n in excused)
     tol = BWD_RTOL["bfloat16"]
-    print(f"check train {name}: the key biases' largest gradient {bias:.3e} "
-          f"= {bias / top:.3e} of the largest gradient {top:.3e} (zero in "
-          f"exact arithmetic; at most {tol})")
-    require(bias <= tol * top, f"train {name}: a key bias's gradient "
+    print(f"check train {cfg.name}: the key biases' largest gradient "
+          f"{bias:.3e} = {bias / top:.3e} of the largest gradient {top:.3e} "
+          f"(zero in exact arithmetic with pos {cfg.pos!r}; at most {tol})")
+    require(bias <= tol * top, f"train {cfg.name}: a key bias's gradient "
             f"{bias:.3e} above {tol} of the largest gradient {top:.3e}")
 
 
@@ -3941,7 +3987,7 @@ def grad_norm_moves(model, batch) -> float:
     import torch
     from repro_torch.train.optimizer import global_norm
     from repro_torch.train.train_step import make_train_step
-    step = make_train_step(model, train_hp())
+    step = make_train_step(model, train_hp(model.cfg))
     params = model.init(seed=0, masters=True)
     norms = []
     for scale in (1.0, 1 + TRAIN_PROBE_EPS):
@@ -4338,7 +4384,6 @@ def train_arch(device, kernels, arch: str) -> dict:
     Returns {"launches": {kernel: n}, "routes": {kernel: {route: n}},
     "step_ms", "n_layers"}."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
@@ -4354,7 +4399,7 @@ def train_arch(device, kernels, arch: str) -> dict:
     wrappers = {k["name"]: k["wrapper"] for k in kernels
                 if k["name"] in want}
     tc = TrainerConfig(steps=TRAIN_STEPS, ckpt_dir=None, log_every=5)
-    step = make_train_step(model, train_hp())
+    step = make_train_step(model, train_hp(model.cfg))
     trainer = Trainer(model, step, train_loader(cfg, device), tc)
     torch.cuda.reset_peak_memory_stats(device)
     for wr in wrappers.values():
@@ -4369,17 +4414,17 @@ def train_arch(device, kernels, arch: str) -> dict:
     peak = torch.cuda.max_memory_allocated(device)
     count = opt.count
     # where the time goes: the device's busy share of two more steps
-    batch = train_loader(cfg, device).next_batch()
-    step(params, opt, batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        for _ in range(2):
-            step(params, opt, batch)
+    with phase(f"train {arch} profile"):
+        batch = train_loader(cfg, device).next_batch()
+        step(params, opt, batch)
         torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t1
-    kerns = [e for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(2):
+                step(params, opt, batch)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t1
+        kerns = device_times(prof)
     busy_us = sum(e.self_device_time_total for e in kerns)
     del params, opt, trainer, step
     torch.cuda.empty_cache()
@@ -4462,7 +4507,7 @@ def check_train_restart(device, cfg) -> None:
     def trainer(steps):
         tc = TrainerConfig(steps=steps, ckpt_every=TRAIN_CKPT, keep=1,
                            ckpt_dir=str(TRAIN_CKPT_DIR), log_every=5)
-        return CheckedTrainer(model, make_train_step(model, train_hp()),
+        return CheckedTrainer(model, make_train_step(model, train_hp(cfg)),
                               train_loader(cfg, device), tc)
 
     t0 = time.perf_counter()
@@ -4795,13 +4840,14 @@ def shard_train(device, mesh) -> dict:
     model = Model(cfg, device=device)
     params = model.init(seed=0, masters=True)
     batch = train_loader(cfg, device).next_batch()
-    loss_u, grads = ts.make_train_step(model, train_hp()).grads(params, batch)
+    loss_u, grads = ts.make_train_step(model, train_hp(cfg)).grads(params,
+                                                                  batch)
     loss_u = float(loss_u)
     del grads
     sh = ts.make_train_shardings(model, mesh)
     build.zero_launches(fa.flash_attention_bwd)
     t0 = time.perf_counter()
-    params, opt, metrics = ts.make_train_step(model, train_hp(), sh)(
+    params, opt, metrics = ts.make_train_step(model, train_hp(cfg), sh)(
         params, init_opt_state(params), batch)
     loss = float(metrics["loss"])
     ms = (time.perf_counter() - t0) * 1e3

@@ -95,11 +95,13 @@ def init_params(tree, generator: torch.Generator, dtype: torch.dtype, *,
 
     A normal leaf whose float32 draw would exceed
     :data:`WHOLE_DRAW_BYTES` (jamba's (16, 4096, 14336) expert stacks, 3.76
-    GB in float32) is drawn in slices of its leading axis, in order from
-    the same generator, each slice cast into the leaf as it is drawn: the
-    float32 copy of the whole leaf never exists beside the cast one. The
-    draws are as deterministic as whole ones, though not the same
-    numbers."""
+    GB in float32; qwen1.5-110b's (152064, 8192) embedding) is drawn in
+    slices of its leading axis, as many rows a draw as fit in
+    WHOLE_DRAW_BYTES (a draw a row costs seconds of launches at 152,064
+    rows), in order from the same generator, each slice cast into the leaf
+    as it is drawn: the float32 copy of the whole leaf never exists beside
+    the cast one. The draws are as deterministic as whole ones,
+    though not the same numbers."""
     device = generator.device
 
     def draw(shape, scale):
@@ -116,11 +118,14 @@ def init_params(tree, generator: torch.Generator, dtype: torch.dtype, *,
             scale = p.scale if p.scale is not None else fan_in ** -0.5
             if 4 * math.prod(p.shape) <= WHOLE_DRAW_BYTES:
                 t = draw(p.shape, scale)
-            else:                 # a matrix stack: cast_leaf casts it
+            else:                 # a matrix stack or a long table
                 assert len(p.shape) > 1, p.shape
                 t = torch.empty(p.shape, dtype=dtype, device=device)
-                for i in range(p.shape[0]):
-                    t[i] = draw(p.shape[1:], scale)
+                row = tuple(p.shape[1:])
+                rows = max(1, WHOLE_DRAW_BYTES // (4 * math.prod(row)))
+                for i in range(0, p.shape[0], rows):
+                    t[i:i + rows] = draw((min(rows, p.shape[0] - i),) + row,
+                                         scale)
                 return t
         return cast_leaf(t, dtype, stacked)
 

@@ -12,7 +12,10 @@ weight decay applies to the leaves of ``ndim >= 2`` only, as the
 reference's tree has them: it stacks each per-layer leaf over the layers,
 so there every leaf of a model's per-layer parts (``blocks``, ``enc``,
 ``dec``: norm scales and biases too) has ``ndim >= 2`` and decays
-(:func:`decayed`).
+(:func:`decayed`). A leaf of more than :data:`UPDATE_CHUNK` elements is
+updated a slice at a time (:func:`pieces`): the update is elementwise, so
+each element comes out bit for bit as the whole leaf's would, and its
+float32 temporaries are a slice's, not the leaf's.
 """
 from __future__ import annotations
 
@@ -24,6 +27,13 @@ import torch
 
 from repro_torch.models.layers import map_tree, tree_leaves
 from repro_torch.models.model import STACKED
+
+
+# the elements of a leaf that AdamW updates at a time: a slice's float32
+# temporaries (m / b1c, v / b2c, the update) are 256 MiB each, where
+# qwen1.5-110b's embedding and head of 1.25 B elements each made 4.98 GB
+# temporaries, and a one-layer step ran out of memory on an 80 GB card
+UPDATE_CHUNK = 1 << 26
 
 
 @dataclass(frozen=True)
@@ -104,14 +114,31 @@ def adamw_update(grads, opt: OptState, params, hp: AdamWConfig,
     lr = schedule(hp, count)
     b1c = float(f32(1) - f32(hp.b1) ** f32(count))
     b2c = float(f32(1) - f32(hp.b2) ** f32(count))
-    for p, g, m, v, decay in zip(tree_leaves(params), tree_leaves(grads),
-                                 tree_leaves(opt.m), tree_leaves(opt.v),
-                                 decayed(params)):
-        g = g.float().mul_(scale)
-        m.mul_(hp.b1).add_(g, alpha=1 - hp.b1)
-        v.mul_(hp.b2).addcmul_(g, g, value=1 - hp.b2)
-        upd = (m / b1c).div_((v / b2c).sqrt_().add_(hp.eps))
-        if decay:                # decoupled weight decay on matrices only
-            upd.add_(p.float(), alpha=hp.weight_decay)
-        p.sub_(upd.mul_(lr))
+    for leaves, decay in zip(zip(tree_leaves(params), tree_leaves(grads),
+                                 tree_leaves(opt.m), tree_leaves(opt.v)),
+                             decayed(params)):
+        for p, g, m, v in pieces(*leaves):
+            g = g.float().mul_(scale)
+            m.mul_(hp.b1).add_(g, alpha=1 - hp.b1)
+            v.mul_(hp.b2).addcmul_(g, g, value=1 - hp.b2)
+            upd = (m / b1c).div_((v / b2c).sqrt_().add_(hp.eps))
+            if decay:            # decoupled weight decay on matrices only
+                upd.add_(p.float(), alpha=hp.weight_decay)
+            p.sub_(upd.mul_(lr))
     return params, OptState(opt.m, opt.v, count), gnorm
+
+
+def pieces(*leaves) -> list[tuple]:
+    """``leaves`` (a parameter, its gradient and moments) as slices of
+    :data:`UPDATE_CHUNK` elements of each, views in place, where they are
+    plain contiguous tensors of more elements than that; else the leaves
+    whole, in one piece (a DTensor's or a fake tensor's update is not
+    sliced). Every slice starts at a multiple of UPDATE_CHUNK elements, so
+    a kernel meets each element at the same alignment as in the whole."""
+    n = leaves[0].numel()
+    if n <= UPDATE_CHUNK or not all(
+            type(t) is torch.Tensor and t.is_contiguous() for t in leaves):
+        return [leaves]
+    flat = [t.view(-1) for t in leaves]
+    return [tuple(f[i:i + UPDATE_CHUNK] for f in flat)
+            for i in range(0, n, UPDATE_CHUNK)]

@@ -1,7 +1,10 @@
 """``chip_smoke.py``'s training phase (phase 11) helpers on the CPU, from
 the configs' shapes alone: its model-FLOP count, the cuts its fit tries
 (depth, or for a MoE arch whose one layer does not fit, its routed
-experts), and the launches by route it requires of each arch's run."""
+experts), the launches by route it requires of each arch's run, its
+learning rate by arch and its step-1 depth caps; and its gradient-leaf
+rule, on toy trees and on a qwen2.5-14b smoke step's gradients (a key
+bias is exempt from "not all zero" only without RoPE)."""
 import sys
 from pathlib import Path
 
@@ -84,11 +87,18 @@ def test_train_cuts_fit_deepseeks_experts_at_one_layer():
 
 
 @pytest.mark.parametrize("arch,first", [("gemma3-12b", 12), ("llama3-8b", 15),
-                                        ("jamba-v0.1-52b", 3)])
+                                        ("jamba-v0.1-52b", 3),
+                                        ("qwen2.5-14b", 10),
+                                        ("chameleon-34b", 4),
+                                        ("qwen1.5-110b", 1)])
 def test_train_cuts_walk_depths_where_one_layer_fits(arch, first):
     """gemma3-12b's first try is two repeats of its 6-layer pattern (59.1 GB
     at 16 bytes a parameter; 18 layers would be 80.7), then whole repeats
-    or a prefix of one; the experts of a MoE arch whose layer fits stay."""
+    or a prefix of one; the experts of a MoE arch whose layer fits stay.
+    qwen2.5-14b's first try is 10 of 48 layers (68.96 GB), chameleon-34b's
+    4 of 48 (61.47 GB), qwen1.5-110b's 1 of 80 (61.61 GB: its embedding
+    and untied head are 2.49 B of its 3.85 B parameters), so its fit has
+    no cut below the first try."""
     cfg = get_config(arch)
     cuts = cs.train_cuts(cfg, FREE)
     assert [c.n_layers for c in cuts] == [
@@ -97,6 +107,8 @@ def test_train_cuts_walk_depths_where_one_layer_fits(arch, first):
 
 
 @pytest.mark.parametrize("arch,route", [("llama3-8b", "wgmma"),
+                                        ("qwen2.5-14b", "wgmma"),
+                                        ("chameleon-34b", "wgmma"),
                                         ("gemma3-12b", "wgmma_split"),
                                         ("deepseek-v2-236b", "wgmma_kv128")])
 def test_train_want_puts_each_backward_on_its_route(arch, route):
@@ -283,10 +295,15 @@ def test_train_cuts_for_whisper_and_granite(arch):
 
 
 def test_check_grad_leaves_exempts_only_key_biases_from_not_all_zero():
-    """A ``*/bk`` leaf of zeros passes (its gradient is zero in exact
-    arithmetic), held instead to 2e-2 of the largest gradient; any other
-    zero leaf fails, and so does a non-finite key bias."""
+    """Under a sincos config (whisper's) a ``*/bk`` leaf of zeros passes
+    (its gradient is zero in exact arithmetic), held instead to 2e-2 of the
+    largest gradient; any other zero leaf fails, and so does a non-finite
+    key bias. Under a RoPE config (qwen's) the key bias is a leaf as any
+    other: all zero, it fails."""
     g = torch.Generator().manual_seed(0)
+    sincos = get_config(WHISPER, smoke=True)
+    rope = get_config("qwen2.5-14b", smoke=True)
+    assert (sincos.pos, rope.pos) == ("sincos", "rope")
 
     def tree(**over):
         t = {"embed": {"tok": torch.randn((8, 4), generator=g)},
@@ -301,26 +318,113 @@ def test_check_grad_leaves_exempts_only_key_biases_from_not_all_zero():
             node[last] = value
         return t
 
-    cs.check_grad_leaves("toy", tree())
-    cs.check_grad_leaves("toy", tree(enc__0__attn__bk=torch.full(
+    cs.check_grad_leaves(sincos, tree())
+    cs.check_grad_leaves(sincos, tree(enc__0__attn__bk=torch.full(
         (4,), 1e-3)))
-    for bad in ({"enc__0__attn__wq": torch.zeros((4, 4))},
-                {"enc__0__attn__bq": torch.zeros(4)},
-                {"embed__tok": torch.zeros((8, 4))},
-                {"enc__0__attn__bk": torch.full((4,), float("nan"))},
-                {"enc__0__attn__bk": torch.full((4,), 100.0)}):
+    cs.check_grad_leaves(rope, tree(enc__0__attn__bk=torch.full((4,), 100.0)))
+    for cfg, bad in ((sincos, {"enc__0__attn__wq": torch.zeros((4, 4))}),
+                     (sincos, {"enc__0__attn__bq": torch.zeros(4)}),
+                     (sincos, {"embed__tok": torch.zeros((8, 4))}),
+                     (sincos, {"enc__0__attn__bk": torch.full(
+                         (4,), float("nan"))}),
+                     (sincos, {"enc__0__attn__bk": torch.full((4,), 100.0)}),
+                     (rope, {}),
+                     (rope, {"enc__0__attn__bk": torch.full(
+                         (4,), float("nan"))})):
         with pytest.raises(cs.SmokeFailure):
-            cs.check_grad_leaves("toy", tree(**bad))
+            cs.check_grad_leaves(cfg, tree(**bad))
+
+
+def _leaf_kinds(cfg) -> set:
+    """The names of ``cfg``'s parameter leaves with the layer indices taken
+    out: the kinds of leaf a step at ``cfg``'s depth has gradients of."""
+    import re
+    meta = Model(cfg, device="cpu").param_meta()
+    return {re.sub(r"/\d+", "", n) for n, _ in cs._named_leaves(meta)}
 
 
 def test_step1_depth_caps_are_depths_the_fit_can_take():
     """TRAIN_STEP1_LAYERS cuts only the step-1 check: each cap is a depth
     ``train_cfg`` can cut its arch to, shallower than the arch, and no
     shallower than its grad-norm depth (TRAIN_GNORM_LAYERS), so that the
-    grad-norm check still runs at or below it."""
+    grad-norm check still runs at or below it; and the cut keeps every
+    kind of leaf the whole arch has, so that no leaf goes unchecked."""
     for arch, n in cs.TRAIN_STEP1_LAYERS.items():
         cfg = get_config(arch)
         assert arch in cs.TRAIN_ARCHS
         assert n in cs.train_depths(cfg) and n < cfg.n_layers
         assert cs.TRAIN_GNORM_LAYERS.get(arch, n) <= n
         assert cs.train_cfg(cfg, n).n_layers == n
+        assert _leaf_kinds(cs.train_cfg(cfg, n)) == _leaf_kinds(cfg)
+
+
+def test_train_lr_scales_the_default_by_width_for_the_8192_wide_archs():
+    """Phase 11 trains at launch/train.py's default learning rate but for
+    chameleon-34b and qwen1.5-110b, 8,192 wide, at the default scaled by
+    llama3-8b's 4,096 over their width; the warmup and the schedule are
+    the same for every arch."""
+    assert cs.TRAIN_LR_DEFAULT == 3e-3
+    llama = get_config("llama3-8b")
+    for arch in cs.TRAIN_ARCHS:
+        cfg = get_config(arch)
+        hp = cs.train_hp(cfg)
+        want = (cs.TRAIN_LR_DEFAULT * llama.d_model / cfg.d_model
+                if arch in ("chameleon-34b", "qwen1.5-110b")
+                else cs.TRAIN_LR_DEFAULT)
+        assert hp.lr == pytest.approx(want, rel=1e-12)
+        assert (hp.warmup_steps, hp.total_steps) == (2, cs.TRAIN_STEPS)
+    assert set(cs.TRAIN_LR) <= set(cs.TRAIN_ARCHS)
+
+
+def test_device_times_sum_each_names_device_events():
+    """``device_times`` groups a profile's raw events as key_averages()
+    groups its CUDA entries: the device events' durations summed by name
+    and counted, host events and asynchronous ones left out."""
+    from types import SimpleNamespace
+    from torch.autograd import DeviceType
+
+    def event(name, device, ns, is_async=False):
+        return SimpleNamespace(name=lambda: name, device_type=lambda: device,
+                               duration_ns=lambda: ns,
+                               is_async=lambda: is_async)
+    events = [event("gemm", DeviceType.CUDA, 3000),
+              event("add", DeviceType.CUDA, 500),
+              event("gemm", DeviceType.CUDA, 1500),
+              event("cudaLaunchKernel", DeviceType.CPU, 9000),
+              event("gemm", DeviceType.CUDA, 7000, is_async=True)]
+    prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: events)))
+    got = sorted(cs.device_times(prof))
+    assert got == [("add", 0.5, 1), ("gemm", 4.5, 2)]
+    assert got[1].self_device_time_total == 4.5 and got[1].count == 2
+
+
+def _smoke_grads(arch):
+    """One float32 smoke step's gradients of ``arch`` on the CPU, from
+    ``Model.init(seed=0)``: (cfg, gradient tree)."""
+    from repro_torch.data.tokens import TokenLoader
+    from repro_torch.train.train_step import make_train_step
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    model = Model(cfg, device="cpu")
+    params = model.init(seed=0, masters=True)
+    batch = TokenLoader(cfg.vocab_size, batch=2, seq_len=16,
+                        device="cpu").next_batch()
+    _, grads = make_train_step(model, cs.train_hp(cfg)).grads(params, batch)
+    return cfg, grads
+
+
+def test_check_grad_leaves_holds_a_rope_key_bias_as_any_leaf():
+    """Under RoPE a key bias is rotated by its key's position before it
+    reaches the scores, so it moves them and its gradient is a real one:
+    qwen2.5-14b's smoke step gives its ``bk`` leaves gradients of 0.07 and
+    0.13 of the largest, above the 2e-2 to which a sincos arch's key bias
+    (zero in exact arithmetic) is held. The check passes them as it passes
+    any leaf, and they are not all zero."""
+    cfg, grads = _smoke_grads("qwen2.5-14b")
+    assert cfg.pos == "rope" and cfg.qkv_bias
+    named = cs._named_leaves(grads)
+    top = max(float(g.abs().max()) for _, g in named)
+    biases = [float(g.abs().max()) for n, g in named if n.endswith("/bk")]
+    assert len(biases) == cfg.n_layers
+    assert min(biases) > cs.BWD_RTOL["bfloat16"] * top
+    cs.check_grad_leaves(cfg, grads)

@@ -515,6 +515,32 @@ def test_bf16_cache_leaves_keep_the_states_in_float32():
                                         cfg.head_dim)
 
 
+def test_init_draws_as_many_rows_at_once_as_the_limit_holds(monkeypatch):
+    """A long table over the whole-draw limit is drawn in as few slices of
+    its leading axis as the limit allows, not a row a draw: a (250, 64)
+    float32 table under a 4 KiB limit in 15 draws of 16 rows and one of
+    10; deterministic, at its scale."""
+    monkeypatch.setattr(layers, "WHOLE_DRAW_BYTES", 1 << 12)
+    shapes = []
+    randn = torch.randn
+
+    def counted(shape, **kw):
+        shapes.append(tuple(shape))
+        return randn(shape, **kw)
+
+    monkeypatch.setattr(torch, "randn", counted)
+    meta = {"tok": layers.P((250, 64), ("vocab", "embed"), scale=1.0)}
+
+    def tok():
+        g = torch.Generator().manual_seed(3)
+        return layers.init_params(meta, g, torch.float32)["tok"]
+    t = tok()
+    assert shapes == [(16, 64)] * 15 + [(10, 64)]
+    assert t.dtype == torch.float32 and tuple(t.shape) == (250, 64)
+    assert torch.equal(tok(), t)
+    assert abs(t.std().item() - 1.0) < 0.05
+
+
 def test_init_draws_a_large_stack_slice_by_slice(monkeypatch):
     """A leaf over the whole-draw limit is drawn slice by slice from the
     same generator: deterministic, at the reference's scale, in the cast
